@@ -1,0 +1,106 @@
+"""Build and bind the port's CUDA kernels.
+
+Each source under ``csrc/`` is compiled by ``nvcc`` for ``sm_90a`` into a
+shared library with a plain C interface, at first use, under
+``build/repro_torch/`` at the repository root.  The library's file name
+carries a hash of the source and the flags, so an edited source is rebuilt
+and a stale library is never loaded.  It is loaded with ``ctypes``; every
+pointer and the stream travel as ``c_void_p``.
+
+Nothing here runs at import: the CPU tests import every module, and the
+build happens inside the first call that launches a kernel.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+__all__ = ["SOURCES", "NVCC_FLAGS", "build_dir", "library_path",
+           "find_nvcc", "build", "load_library", "BUILD_LOG"]
+
+_CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCES = {"espim_spmv": _CSRC / "espim_spmv.cu"}
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# per-library build record: {name: {"path", "seconds", "cached", "log"}}
+BUILD_LOG: dict = {}
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# C signatures of the entry points (csrc/espim_spmv.cu)
+_SIGNATURES = {
+    "espim_spmv": {
+        "espim_spmv_batched_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                   _P],
+        "espim_spmv_batched_quant": [_P, _I, _I, _P, _P, _I, _P, _P, _I, _I,
+                                     _I, _I, _I, _I, _P],
+        "espim_spmv_batched_glu_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                       _I, _I, _P],
+        "espim_spmv_batched_quant_glu": [_P, _I, _I, _P, _P, _P, _P, _I, _I,
+                                         _I, _I, _I, _I, _I, _P],
+    },
+}
+_LIBS: dict = {}
+
+
+def build_dir() -> Path:
+    """``build/repro_torch`` under the repository root (src/..)."""
+    return Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+
+
+def library_path(name: str) -> Path:
+    h = hashlib.sha256(SOURCES[name].read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return build_dir() / f"lib{name}_{h.hexdigest()[:16]}.so"
+
+
+def find_nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    for cand in (Path(home) / "bin" / "nvcc", shutil.which("nvcc")):
+        if cand and Path(cand).is_file():
+            return str(cand)
+    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH); "
+                       "the port's CUDA kernels are built at first use")
+
+
+def build(name: str) -> Path:
+    """Compile one source unless its hashed library already exists.
+    Writes to a temporary name and renames, so concurrent processes never
+    load a half-written library.  Raises with nvcc's output on failure."""
+    out = library_path(name)
+    if out.exists():
+        BUILD_LOG.setdefault(name, {"path": str(out), "seconds": 0.0,
+                                    "cached": True, "log": ""})
+        return out
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    dt = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {SOURCES[name]} "
+                           f"(rc {proc.returncode}):\n{proc.stdout}\n"
+                           f"{proc.stderr}")
+    os.replace(tmp, out)
+    BUILD_LOG[name] = {"path": str(out), "seconds": dt, "cached": False,
+                       "log": proc.stdout + proc.stderr}
+    return out
+
+
+def load_library(name: str = "espim_spmv") -> ctypes.CDLL:
+    """The built library with every entry point's argtypes set."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        lib = ctypes.CDLL(str(build(name)))
+        for fn, argtypes in _SIGNATURES[name].items():
+            f = getattr(lib, fn)
+            f.argtypes = argtypes
+            f.restype = ctypes.c_int
+        _LIBS[name] = lib
+    return lib

@@ -1,0 +1,170 @@
+"""Plain PyTorch versions of the ESPIM kernels.
+
+Each function mirrors its namesake in the JAX package's
+``repro/kernels/ref.py`` op for op: the CPU tests hold them against that
+module and against the Pallas kernels (interpret mode), and
+``chip_smoke.py`` holds the hand-written CUDA kernels
+(``kernels/espim_spmv.py``) against them on the card.  ``kernels/ops.py``
+runs them for tensors that lie on the CPU.
+
+Layout: column-chunked ELL — values/cols ``(R_pad, K, Lc)`` with
+chunk-local column ids into one ``chunk_cols``-wide slab of ``x (M, B)``;
+pad slots carry value 0 and column 0, and ``x`` is zero-padded to
+``K * chunk_cols``.  Every function accumulates in float32.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+__all__ = [
+    "espim_spmv_batched_chunked_ref",
+    "espim_spmv_batched_chunked_quant_ref",
+    "nibble_unpack_ref",
+    "scatter_rows_ref",
+    "epilogue_act",
+    "glu_epilogue_ref",
+    "espim_spmv_batched_chunked_glu_ref",
+    "espim_spmv_batched_chunked_quant_glu_ref",
+    "MULRED_MAX_BLOCK",
+]
+
+
+def _relu2(v: torch.Tensor) -> torch.Tensor:
+    return torch.square(F.relu(v))
+
+
+def _gelu_tanh(v: torch.Tensor) -> torch.Tensor:
+    return F.gelu(v, approximate="tanh")
+
+
+_ACTS = {"silu": F.silu, "gelu": _gelu_tanh, "relu": F.relu,
+         "relu2": _relu2}
+
+
+def epilogue_act(name: str):
+    """Activation of the fused GLU epilogue; ``gelu`` is the tanh form,
+    as in the reference (``jax.nn.gelu(approximate=True)``)."""
+    try:
+        return _ACTS[name]
+    except KeyError:
+        raise ValueError(f"unknown epilogue activation {name!r}") from None
+
+
+def glu_epilogue_ref(acc: torch.Tensor, act: str) -> torch.Tensor:
+    """act(gate) * up over a half-major (2*Rg, ...) packed accumulator —
+    gate rows first, up rows second, both halves in one packed order."""
+    rg = acc.shape[0] // 2
+    return epilogue_act(act)(acc[:rg]) * acc[rg:]
+
+
+def _pad_x_to_chunks(x: torch.Tensor, n_chunks: int, chunk_cols: int
+                     ) -> torch.Tensor:
+    pad = n_chunks * chunk_cols - x.shape[0]
+    if pad:
+        x = F.pad(x, (0, 0, 0, pad))
+    return x
+
+
+def _gather_chunk(xp: torch.Tensor, cols_k: torch.Tensor, i: int,
+                  chunk_cols: int) -> torch.Tensor:
+    """Rows of chunk ``i``'s (chunk_cols, B) slab at the local ids
+    ``cols_k`` (R, Lc) -> (R, Lc, B) float32."""
+    xk = xp[i * chunk_cols:(i + 1) * chunk_cols]
+    g = torch.index_select(xk, 0, cols_k.reshape(-1))
+    return g.reshape(*cols_k.shape, xp.shape[1]).float()
+
+
+def espim_spmv_batched_chunked_ref(values: torch.Tensor, cols: torch.Tensor,
+                                   x: torch.Tensor, chunk_cols: int
+                                   ) -> torch.Tensor:
+    """Batched chunked-ELL MV: x (M, B) -> (R_pad, B) float32, one chunk's
+    gather-accumulate at a time (the reference's schedule)."""
+    r_pad, k, _lc = values.shape
+    xp = _pad_x_to_chunks(x, k, chunk_cols)
+    acc = torch.zeros((r_pad, x.shape[1]), dtype=torch.float32,
+                      device=x.device)
+    for i in range(k):
+        g = _gather_chunk(xp, cols[:, i], i, chunk_cols)
+        acc = acc + torch.einsum("rl,rlb->rb", values[:, i].float(), g)
+    return acc
+
+
+def nibble_unpack_ref(packed: torch.Tensor) -> torch.Tensor:
+    """uint8 (..., P) -> int4 codes in an int8 container (..., 2P); slot 2j
+    is the low nibble of byte j.  Sign extension is two arithmetic shifts
+    on the int8 bit pattern."""
+    b = packed.view(torch.int8)
+    lo = torch.bitwise_right_shift(torch.bitwise_left_shift(b, 4), 4)
+    hi = torch.bitwise_right_shift(b, 4)
+    inter = torch.stack([lo, hi], dim=-1)              # (..., P, 2)
+    return inter.reshape(*packed.shape[:-1], 2 * packed.shape[-1])
+
+
+# Lc * B at or under this -> fused multiply-reduce, else einsum: the same
+# formulation switch as the reference's quantized lowering
+MULRED_MAX_BLOCK = 256
+
+
+def espim_spmv_batched_chunked_quant_ref(codes: torch.Tensor,
+                                         cols: torch.Tensor,
+                                         scales: torch.Tensor | None,
+                                         x: torch.Tensor, chunk_cols: int,
+                                         group_rows: int) -> torch.Tensor:
+    """Quantized batched chunked-ELL MV: int8 codes, or nibble-packed uint8
+    (inferred from the width mismatch vs ``cols``), x (M, B) -> (R_pad, B)
+    float32.  The per-row-group scale multiplies the accumulated output
+    once; ``scales=None`` returns the code-domain accumulator."""
+    r_pad, k, _lc = codes.shape
+    if codes.shape[-1] != cols.shape[-1]:              # nibble-packed plane
+        codes = nibble_unpack_ref(codes)[..., :cols.shape[-1]]
+    b = x.shape[1]
+    mulred = cols.shape[-1] * b <= MULRED_MAX_BLOCK
+    xp = _pad_x_to_chunks(x, k, chunk_cols)
+    acc = torch.zeros((r_pad, b), dtype=torch.float32, device=x.device)
+    for i in range(k):
+        g = _gather_chunk(xp, cols[:, i], i, chunk_cols)
+        ci = codes[:, i].float()
+        if mulred:
+            acc = acc + torch.sum(ci[:, :, None] * g, dim=1)
+        else:
+            acc = acc + torch.einsum("rl,rlb->rb", ci, g)
+    if scales is None:                                 # caller owns scaling
+        return acc
+    srow = torch.repeat_interleave(scales.float(), group_rows)
+    return acc * srow[:, None]
+
+
+def espim_spmv_batched_chunked_glu_ref(values: torch.Tensor,
+                                       cols: torch.Tensor, x: torch.Tensor,
+                                       chunk_cols: int, act: str
+                                       ) -> torch.Tensor:
+    """Gated MV over the half-major (2*Rg, K, Lc) gate+up pack: the same
+    accumulate as the unfused version, then act(gate) * up -> (Rg, B)."""
+    acc = espim_spmv_batched_chunked_ref(values, cols, x, chunk_cols)
+    return glu_epilogue_ref(acc, act)
+
+
+def espim_spmv_batched_chunked_quant_glu_ref(codes: torch.Tensor,
+                                             cols: torch.Tensor,
+                                             srow: torch.Tensor,
+                                             x: torch.Tensor, chunk_cols: int,
+                                             act: str) -> torch.Tensor:
+    """Quantized gated MV: code-domain accumulate, both halves times the
+    per-row scales ``srow`` (2*Rg,), then act(gate) * up -> (Rg, B)."""
+    acc = espim_spmv_batched_chunked_quant_ref(codes, cols, None, x,
+                                               chunk_cols, 1)
+    return glu_epilogue_ref(acc * srow.float()[:, None], act)
+
+
+def scatter_rows_ref(y_packed: torch.Tensor, perm: torch.Tensor,
+                     n_rows: int) -> torch.Tensor:
+    """Map packed-row outputs back to original row ids (perm < 0 = pad)."""
+    keep = perm >= 0
+    safe = torch.where(keep, perm, torch.zeros_like(perm)).long()
+    contrib = torch.where(
+        keep.reshape(keep.shape + (1,) * (y_packed.ndim - 1)), y_packed,
+        torch.zeros_like(y_packed))
+    out = torch.zeros((n_rows,) + tuple(y_packed.shape[1:]),
+                      dtype=y_packed.dtype, device=y_packed.device)
+    return out.index_add_(0, safe, contrib)

@@ -1,0 +1,195 @@
+"""The dense decoder pieces the sparse decode path runs, mirroring
+``src/repro/models/transformer.py``: parameter init, embedding and logits,
+the QKV projection, norms, and the projection-free attention cores (RoPE
++ cache write + attention) the packed QKV / O groups wrap.
+
+Params are the reference's dict layout: layer leaves stacked along a
+leading layer axis, projections stored (d_in, d_out).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve_device
+from repro_torch.models import layers as L
+
+__all__ = ["init_params", "init_cache", "embed_tokens",
+           "logits_from_hidden", "attn_decode_core", "attn_decode_apply",
+           "attn_prefill_core", "attn_prefill_apply", "splice_rows",
+           "mlp_apply"]
+
+
+def _normal(gen, shape, scale, dtype, device):
+    w = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
+    return (w * scale).to(dtype)
+
+
+def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
+                device=None) -> dict:
+    """Random params with the reference's init distribution: every
+    projection N(0, 1/d_in), the embedding N(0, 0.02^2), norms ones, QKV
+    biases zeros.  Draws come from ``generator`` (which must live on
+    ``device``), so the numbers are torch's, not jax.random's — tests
+    that compare the two packages convert the reference's params instead
+    (``repro_torch.convert``)."""
+    dev = resolve_device(device)
+    if cfg.family != "dense" or cfg.norm != "rmsnorm":
+        raise NotImplementedError(
+            f"the port serves the dense rmsnorm decoder family; {cfg.name} "
+            f"is {cfg.family}/{cfg.norm} (ROADMAP Queue 1 item 10)")
+    if generator is None:
+        generator = torch.Generator(device=dev).manual_seed(0)
+    n, d, f, hd = cfg.n_layers, cfg.d_model, cfg.d_ff, cfg.hd
+    dt = cfg.dtype
+
+    def proj(d_in, d_out):
+        return _normal(generator, (n, d_in, d_out), d_in ** -0.5, dt, dev)
+
+    attn = {"wq": proj(d, cfg.n_heads * hd), "wk": proj(d, cfg.n_kv_heads * hd),
+            "wv": proj(d, cfg.n_kv_heads * hd), "wo": proj(cfg.n_heads * hd, d)}
+    if cfg.qkv_bias:
+        for name, width in (("bq", cfg.n_heads * hd),
+                            ("bk", cfg.n_kv_heads * hd),
+                            ("bv", cfg.n_kv_heads * hd)):
+            attn[name] = torch.zeros((n, width), dtype=dt, device=dev)
+    if cfg.gated_mlp:
+        mlp = {"w_gate": proj(d, f), "w_up": proj(d, f), "w_down": proj(f, d)}
+    else:
+        mlp = {"w_up": proj(d, f), "w_down": proj(f, d)}
+
+    def norm():
+        return {"w": torch.ones((n, d), dtype=dt, device=dev)}
+
+    params = {
+        "embed": _normal(generator, (cfg.padded_vocab, d), 0.02, dt, dev),
+        "layers": {"ln1": norm(), "attn": attn, "ln2": norm(), "mlp": mlp},
+        "final_norm": {"w": torch.ones((d,), dtype=dt, device=dev)},
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = _normal(generator, (d, cfg.padded_vocab),
+                                    d ** -0.5, dt, dev)
+    return params
+
+
+def init_cache(cfg: ModelConfig, batch_size: int, max_len: int,
+               device=None) -> dict:
+    """Zero KV cache (L, B, max_len, KV, hd) in the compute dtype
+    (``device="meta"`` gives the shapes without allocating)."""
+    dev = resolve_device(device)
+    if cfg.kv_cache_dtype == "int8":
+        raise NotImplementedError("int8 KV cache is not ported yet")
+    shape = (cfg.n_layers, batch_size, max_len, cfg.n_kv_heads, cfg.hd)
+    return {"k": torch.zeros(shape, dtype=cfg.cdtype, device=dev),
+            "v": torch.zeros(shape, dtype=cfg.cdtype, device=dev),
+            "len": torch.zeros((batch_size,), dtype=torch.int32, device=dev)}
+
+
+def embed_tokens(cfg: ModelConfig, params: dict, tokens: torch.Tensor):
+    return params["embed"][tokens.long()].to(cfg.cdtype)
+
+
+def _norm(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
+    if cfg.norm != "rmsnorm":
+        raise NotImplementedError(f"norm {cfg.norm!r} is not ported")
+    return L.rms_norm(x, p["w"], cfg.norm_eps)
+
+
+def logits_from_hidden(cfg: ModelConfig, params: dict, h: torch.Tensor):
+    h = _norm(cfg, params["final_norm"], h)
+    if cfg.tie_embeddings:
+        return torch.einsum("bsd,vd->bsv", h, params["embed"].to(h.dtype))
+    return L.dense(h, params["lm_head"])
+
+
+def _qkv(cfg: ModelConfig, p: dict, x: torch.Tensor):
+    b, s, _ = x.shape
+    q = L.dense(x, p["wq"], p.get("bq")).reshape(b, s, cfg.n_heads, cfg.hd)
+    k = L.dense(x, p["wk"], p.get("bk")).reshape(b, s, cfg.n_kv_heads, cfg.hd)
+    v = L.dense(x, p["wv"], p.get("bv")).reshape(b, s, cfg.n_kv_heads, cfg.hd)
+    return q, k, v
+
+
+def _rope(cfg: ModelConfig, q, k, positions):
+    if cfg.mrope or cfg.learned_pos:
+        raise NotImplementedError("mrope / learned positions are not ported")
+    return L.apply_rope(q, k, positions, cfg.rope_theta)
+
+
+def attn_decode_core(cfg: ModelConfig, q, k, v, k_cache, v_cache,
+                     cache_len):
+    """RoPE + cache write + attention for one decode token on precomputed
+    heads.  q (B, 1, H, hd); k/v (B, 1, KV, hd); caches (B, S_max, KV, hd).
+    Returns (out (B, 1, H, hd) — pre-O-projection, k_cache, v_cache).
+
+    The write is the reference's masked ``where`` into new cache tensors:
+    the caller's cache is never modified, so two paths can decode from
+    one cache."""
+    pos = cache_len.to(torch.int32)
+    q, k = _rope(cfg, q, k, pos[:, None])
+    s_max = k_cache.shape[1]
+    at_pos = (torch.arange(s_max, dtype=torch.int32, device=pos.device)[None]
+              == pos[:, None])[..., None, None]           # (B, S, 1, 1)
+    k_cache = torch.where(at_pos, k.to(k_cache.dtype), k_cache)
+    v_cache = torch.where(at_pos, v.to(v_cache.dtype), v_cache)
+    out = L.attention_decode(q, k_cache, v_cache, pos + 1)
+    return out, k_cache, v_cache
+
+
+def attn_decode_apply(cfg: ModelConfig, p, x, k_cache, v_cache, cache_len):
+    """One-token decode through the dense attention weights ``p``."""
+    b = x.shape[0]
+    q, k, v = _qkv(cfg, p, x)
+    out, k_cache, v_cache = attn_decode_core(cfg, q, k, v, k_cache, v_cache,
+                                             cache_len)
+    out = L.dense(out.reshape(b, 1, cfg.n_heads * cfg.hd), p["wo"])
+    return out, k_cache, v_cache
+
+
+def splice_rows(cache: torch.Tensor, rows: torch.Tensor,
+                start: torch.Tensor) -> torch.Tensor:
+    """``rows`` (B, C, ...) written into a copy of ``cache`` (B, S, ...) at
+    sequence rows start..start+C-1 (per-batch ``start`` (B,)); rows past
+    S are dropped.  Masked gather + where, as the reference."""
+    s_max, c = cache.shape[1], rows.shape[1]
+    pos = torch.arange(s_max, dtype=torch.int32, device=cache.device)[None]
+    st = start.to(torch.int32)[:, None]
+    in_chunk = (pos >= st) & (pos < st + c)
+    idx = torch.clamp(pos - st, 0, c - 1).long()
+    extra = (1,) * (cache.ndim - 2)
+    gathered = torch.take_along_dim(
+        rows, idx.reshape(idx.shape + extra).expand(
+            idx.shape + rows.shape[2:]), dim=1)
+    return torch.where(in_chunk.reshape(in_chunk.shape + extra),
+                       gathered.to(cache.dtype), cache)
+
+
+def attn_prefill_core(cfg: ModelConfig, q, k, v, k_cache, v_cache, start):
+    """RoPE + cache splice + attention for a prefill chunk on precomputed
+    heads.  q (B, C, H, hd); k/v (B, C, KV, hd); start (B,).  Returns
+    (out (B, C, H, hd) — pre-O-projection, k_cache, v_cache)."""
+    c = q.shape[1]
+    pos = (start.to(torch.int32)[:, None]
+           + torch.arange(c, dtype=torch.int32, device=start.device)[None])
+    q, k = _rope(cfg, q, k, pos)
+    k_cache = splice_rows(k_cache, k, start)
+    v_cache = splice_rows(v_cache, v, start)
+    out = L.attention_prefill(q, k_cache, v_cache, pos)
+    return out, k_cache, v_cache
+
+
+def attn_prefill_apply(cfg: ModelConfig, p, x, k_cache, v_cache, start):
+    """Chunked prefill through the dense attention weights ``p``."""
+    b, c, _ = x.shape
+    q, k, v = _qkv(cfg, p, x)
+    out, k_cache, v_cache = attn_prefill_core(cfg, q, k, v, k_cache, v_cache,
+                                              start)
+    out = L.dense(out.reshape(b, c, cfg.n_heads * cfg.hd), p["wo"])
+    return out, k_cache, v_cache
+
+
+def mlp_apply(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
+    if cfg.gated_mlp:
+        return L.mlp_gated(x, p["w_gate"], p["w_up"], p["w_down"],
+                           cfg.activation)
+    return L.mlp_relu2(x, p["w_up"], p["w_down"], cfg.activation)

@@ -1,0 +1,56 @@
+"""Chunked prefill: C prompt tokens per call (mirrors
+``src/repro/serve/prefill.py``).
+
+The ESPIM engine runs the GEMM-shaped prefill chunk through the pruned
+dense copies of every covered projection (``proj_path="dense"``), while
+decode runs the packed SpMV kernels.  Each slot prefills into a private
+(B=1) scratch cache; after every chunk the freshly written K/V rows are
+sliced out for the engine to splice into the slot's pages.  The scratch
+cache starts from one shared zero prototype: the prefill step never
+modifies its input cache, so "resetting" a slot's scratch is a reference
+copy, not an allocation.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core import sparse_model
+from repro_torch.models import transformer as T
+
+__all__ = ["ChunkedPrefiller"]
+
+
+class ChunkedPrefiller:
+    def __init__(self, cfg: ModelConfig, chunk: int, max_len: int,
+                 seq_names, sparse: dict,
+                 impl: str | None = None, device=None):
+        self.cfg = cfg
+        self.chunk = chunk
+        self.device = torch.device(device)
+        # scratch length rounded up so the last chunk's pad rows fit
+        self.scratch_len = -(-max_len // chunk) * chunk
+        self.proto = T.init_cache(cfg, 1, self.scratch_len, self.device)
+        self.seq_names = list(seq_names)
+        self.sparse = sparse
+        self.impl = impl
+
+    def run_chunk(self, params, pf_cache, prompt, pos: int):
+        """Prefill one chunk starting at ``pos``.  Returns (full-chunk
+        logits (1, C, V), new scratch cache, n_valid)."""
+        c = self.chunk
+        n_valid = min(c, len(prompt) - pos)
+        tokens = torch.zeros((1, c), dtype=torch.int32)
+        tokens[0, :n_valid] = torch.as_tensor(prompt[pos:pos + n_valid])
+        batch = {"tokens": tokens.to(self.device),
+                 "n_valid": torch.tensor([n_valid], dtype=torch.int32,
+                                         device=self.device)}
+        logits, pf_cache = sparse_model.prefill_chunk_sparse(
+            self.cfg, params, self.sparse, pf_cache, batch, impl=self.impl,
+            device=self.device)
+        return logits, pf_cache, n_valid
+
+    def chunk_rows(self, pf_cache: dict, pos: int) -> dict:
+        """The K/V rows the chunk just wrote: {name: (Lx, C, ...)}."""
+        return {n: pf_cache[n][:, 0, pos:pos + self.chunk]
+                for n in self.seq_names}

@@ -1,0 +1,43 @@
+"""The serving step: one sparse decode step + greedy/temperature sampling
+(mirrors ``src/repro/serve/serve_step.py``)."""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core import sparse_model
+
+__all__ = ["sample_tokens", "serve_step_sparse_fn"]
+
+
+def sample_tokens(cfg: ModelConfig, last: torch.Tensor, temperature: float,
+                  generator: torch.Generator | None = None) -> torch.Tensor:
+    """Greedy/temperature sampling over one position's logits (B, V),
+    vocab padding masked.  Returns (B,) int32.  Temperature sampling
+    draws from the caller's ``generator`` (on the logits' device); torch
+    cannot replay jax.random, so only greedy tokens compare across the
+    two packages."""
+    last = last.float()
+    if cfg.padded_vocab != cfg.vocab_size:
+        last = last.clone()
+        last[:, cfg.vocab_size:] = -1e30
+    if temperature > 0.0:
+        probs = torch.softmax(last / temperature, dim=-1)
+        nxt = torch.multinomial(probs, 1, generator=generator)[:, 0]
+    else:
+        nxt = torch.argmax(last, dim=-1)
+    return nxt.to(torch.int32)
+
+
+def serve_step_sparse_fn(cfg: ModelConfig, params: dict, sparse: dict,
+                         cache: dict, batch: dict, temperature: float = 0.0,
+                         impl: str | None = None,
+                         generator: torch.Generator | None = None,
+                         device=None):
+    """ESPIM-format decode step -> (next_tokens (B, 1), logits (B, 1, V),
+    new_cache); every covered projection runs through the packed
+    kernels."""
+    logits, cache = sparse_model.decode_step_sparse(
+        cfg, params, sparse, cache, batch, impl=impl, device=device)
+    nxt = sample_tokens(cfg, logits[:, -1, :], temperature, generator)
+    return nxt[:, None], logits, cache
