@@ -10,13 +10,13 @@ through ``ServeEngine`` — then checks it:
 
 1. build: nvcc the kernels, print the build time and ptxas' report;
 2. engine: 8 requests through the int8 engine (kernels 2 and 4), then 4
-   through a 1-layer fp engine (kernels 1 and 3); every launch counter is
-   zeroed just before each drive and read just after, and each kernel of
-   the path must have launched;
+   through a 1-layer fp engine (kernels 1 and 3), each trace served 3
+   times; every launch counter is zeroed just before each serve and read
+   just after, and each kernel of the path must have launched;
 3. decode parity: 4 teacher-forced decode steps at B=4 through the kernels
    and through their plain versions, from the same packs and cache; then
-   one decode step's host time, device-busy share and SpMV share of
-   device time (``torch.profiler``);
+   one decode step's host time, and from ``torch.profiler``'s device
+   kernel spans the device-busy share and the SpMV share of device time;
 4. kernels: each of the four kernels against its plain version at the
    engine packs' full-width bucket shapes (plus int4 planes, one with an
    odd Lc), B in {1, 4}, with its time, the plain version's, a dense bf16
@@ -47,6 +47,8 @@ PROMPT_LENS = [3, 40, 2, 56, 5, 24, 4, 12]
 MAX_NEW = 12
 ENGINE_KW = dict(batch_slots=4, max_len=128, block_size=16, prefill_chunk=16,
                  policy="sjf")
+N_LAYERS_INT8, N_LAYERS_FP = 2, 1       # depth cut of the int8 / fp32 engines
+ENGINE_RUNS = 3                         # measured serves of the trace
 # data-sheet memory bandwidth, bytes/s, by card name (NVIDIA data sheets)
 _BANDWIDTH = (("H200", 4.8e12), ("H100 NVL", 3.9e12), ("H100 PCIe", 2.0e12),
               ("H100", 3.35e12))
@@ -102,27 +104,18 @@ def nvidia_smi() -> str:
 class Timer:
     """Median milliseconds of device time per call of ``fn``.
 
-    On the card ``fn``'s launches are captured once into a CUDA graph and
-    the graph is replayed ``reps`` times between two CUDA events, in
-    ``trials`` rounds: replay issues the whole launch sequence at once, so
-    the time is the kernels' own and not the Python launch path's (which,
-    for ~50 us kernels, is as slow as the kernels).  Elsewhere it falls
-    back to the host clock (for rehearsals of this script only)."""
+    ``fn``'s launches are captured once into a CUDA graph and the graph is
+    replayed ``reps`` times between two CUDA events, in ``trials`` rounds:
+    replay issues the whole launch sequence at once, so the time is the
+    kernels' own and not the Python launch path's (which, for ~50 us
+    kernels, is as slow as the kernels)."""
 
-    def __init__(self, torch, device):
-        self.torch, self.cuda = torch, device.type == "cuda"
+    def __init__(self, torch):
+        self.torch = torch
 
     def __call__(self, fn, reps: int = 10, trials: int = 5) -> float:
         torch = self.torch
         out = []
-        if not self.cuda:
-            fn()
-            for _ in range(trials):
-                t0 = time.perf_counter()
-                for _ in range(reps):
-                    fn()
-                out.append((time.perf_counter() - t0) * 1e3 / reps)
-            return statistics.median(out)
         side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(side):          # warm-up before capture
@@ -183,8 +176,10 @@ def serve(engine_mod, eng, prompts, max_new: int):
 
 
 def drive_engine(ctx, label, cfg, params, sparse, prompts, kernels) -> dict:
-    """Warm up, zero the launch counters, serve ``prompts``, read the
-    counters; every kernel in ``kernels`` must have launched."""
+    """Warm up, then ``ENGINE_RUNS`` times: zero the launch counters, serve
+    ``prompts``, read the counters; every kernel in ``kernels`` must have
+    launched in every run.  Reports each run's tok/s, TTFT and TPOT p50,
+    their medians, and the last run's launch counts."""
     from repro_torch.kernels import espim_spmv as K
     from repro_torch.serve import engine as E
     from repro_torch.serve.scheduler import latency_summary
@@ -192,37 +187,46 @@ def drive_engine(ctx, label, cfg, params, sparse, prompts, kernels) -> dict:
     eng = E.ServeEngine(cfg, params, sparse=sparse, device=ctx["device"],
                         **ENGINE_KW)
     serve(E, eng, [prompts[0][:3]], 2)                 # warm-up request
-    eng.reset_stats()
-    K.reset_launches()
-    reqs, stats, wall = serve(E, eng, prompts, MAX_NEW)
-    launches = dict(K.LAUNCHES)
-    for r in reqs:
-        need(len(r.output) == MAX_NEW,
-             f"[{label}] request {r.rid} produced {len(r.output)} tokens")
-        need(all(0 <= t < cfg.vocab_size for t in r.output),
-             f"[{label}] request {r.rid} sampled an id outside the vocab")
-    need(stats.requests_completed == len(prompts),
-         f"[{label}] {stats.requests_completed}/{len(prompts)} completed")
-    for k in kernels:
-        need(launches[k] > 0, f"[{label}] kernel {k} never launched")
-    eng.check_arena()
-    lat = latency_summary(stats.requests)      # exact percentiles
+    runs = []
+    for _ in range(ENGINE_RUNS):
+        eng.reset_stats()
+        K.reset_launches()
+        reqs, stats, wall = serve(E, eng, prompts, MAX_NEW)
+        launches = dict(K.LAUNCHES)
+        for r in reqs:
+            need(len(r.output) == MAX_NEW,
+                 f"[{label}] request {r.rid} produced {len(r.output)} tokens")
+            need(all(0 <= t < cfg.vocab_size for t in r.output),
+                 f"[{label}] request {r.rid} sampled an id outside the vocab")
+        need(stats.requests_completed == len(prompts),
+             f"[{label}] {stats.requests_completed}/{len(prompts)} completed")
+        for k in kernels:
+            need(launches[k] > 0, f"[{label}] kernel {k} never launched")
+        eng.check_arena()
+        lat = latency_summary(stats.requests)      # exact percentiles
+        runs.append({"tokens": stats.tokens_generated, "wall_s": wall,
+                     "tok_per_s": stats.tokens_generated / wall,
+                     "ttft_p50_s": lat["ttft_s"]["p50"],
+                     "tpot_p50_s": lat["tpot_s"]["p50"]})
     rec = {"requests": len(prompts), "tokens": stats.tokens_generated,
-           "wall_s": wall, "tok_per_s": stats.tokens_generated / wall,
+           "runs": runs,
+           **{k: statistics.median(r[k] for r in runs)
+              for k in ("tok_per_s", "ttft_p50_s", "tpot_p50_s")},
            "decode_steps": stats.decode_steps,
            "prefill_chunks": stats.prefill_chunks,
-           "ttft_p50_s": lat["ttft_s"]["p50"],
-           "tpot_p50_s": lat["tpot_s"]["p50"],
            "launches": launches,
            "launches_per_decode_step": {
                k: v / max(1, stats.decode_steps) for k, v in launches.items()},
-           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30
-           if ctx["device"].type == "cuda" else None}
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+
+    def spread(key, scale, fmt):
+        return "/".join(format(r[key] * scale, fmt) for r in runs)
+
     log(f"[engine:{label}] {len(prompts)} requests, "
-        f"{stats.tokens_generated} tokens in {wall:.3f} s = "
-        f"{rec['tok_per_s']:.1f} tok/s; TTFT p50 "
-        f"{rec['ttft_p50_s'] * 1e3:.1f} ms, TPOT p50 "
-        f"{rec['tpot_p50_s'] * 1e3:.2f} ms; {stats.decode_steps} decode "
+        f"{stats.tokens_generated} tokens per run, {ENGINE_RUNS} runs: "
+        f"{spread('tok_per_s', 1, '.1f')} tok/s; TTFT p50 "
+        f"{spread('ttft_p50_s', 1e3, '.1f')} ms; TPOT p50 "
+        f"{spread('tpot_p50_s', 1e3, '.2f')} ms; {stats.decode_steps} decode "
         f"steps, {stats.prefill_chunks} prefill chunks")
     log(f"[engine:{label}] launches {launches}; per decode step "
         + ", ".join(f"{k} {v:g}" for k, v in
@@ -285,47 +289,53 @@ def decode_step_profile(ctx, cfg, params, sparse, b=4, reps=10) -> dict:
         return decode_step_sparse(cfg, params, sparse, cache, batch,
                                   impl=ctx["impl"], device=dev)
 
-    def sync():
-        if dev.type == "cuda":
-            torch.cuda.synchronize()
-
     step()
     walls = []
     for _ in range(reps):
-        sync()
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         step()
-        sync()
+        torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
     rec = {"B": b, "layers": cfg.n_layers, "cache_len": 32,
            "step_ms": statistics.median(walls), "device_busy_share": None,
-           "spmv_share_of_device": None, "device_ms_per_step": None}
-    if dev.type == "cuda":
-        from torch.profiler import ProfilerActivity, profile
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            sync()
-            t0 = time.perf_counter()
-            for _ in range(reps):
-                step()
-            sync()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        dev_us = spmv_us = 0.0
-        for e in prof.key_averages():
-            us = getattr(e, "self_device_time_total",
-                         getattr(e, "self_cuda_time_total", 0)) or 0
-            dev_us += us
-            if "espim_spmv_kernel" in e.key:
-                spmv_us += us
-        if dev_us > 0:          # else the profiler saw no device time
-            rec.update(device_ms_per_step=dev_us / 1e3 / reps,
-                       device_busy_share=dev_us / 1e3 / wall_ms,
-                       spmv_share_of_device=spmv_us / dev_us)
+           "spmv_share_of_device": None, "device_ms_per_step": None,
+           "kernels_per_step": None}
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    # device kernels only: a CPU op's device time repeats its kernels'
+    spans, spmv_us = [], 0.0
+    for e in prof.events():
+        if (e.device_type != DeviceType.CUDA
+                or getattr(e, "is_user_annotation", False)):
+            continue
+        spans.append((e.time_range.start, e.time_range.end))
+        if "espim_spmv_kernel" in e.name:
+            spmv_us += e.time_range.elapsed_us()
+    busy_us, reach = 0.0, float("-inf")          # union of kernel spans
+    for start, end in sorted(spans):
+        if end > reach:
+            busy_us += end - max(start, reach)
+            reach = end
+    if busy_us > 0:             # else the profiler saw no device time
+        rec.update(device_ms_per_step=busy_us / 1e3 / reps,
+                   device_busy_share=busy_us / 1e3 / wall_ms,
+                   spmv_share_of_device=spmv_us / busy_us,
+                   kernels_per_step=len(spans) / reps)
     log(f"[step] decode_step_sparse B={b}, {cfg.n_layers} layers: "
         f"{rec['step_ms']:.2f} ms per step (host clock); device busy "
         f"{rec['device_busy_share']}, device ms/step "
         f"{rec['device_ms_per_step']}, SpMV share of device time "
-        f"{rec['spmv_share_of_device']} (profiler)")
+        f"{rec['spmv_share_of_device']}, kernels per step "
+        f"{rec['kernels_per_step']} (profiler, device kernels only)")
     return rec
 
 
@@ -371,9 +381,11 @@ def kernel_cases(ctx, sparse8, sparse_fp):
                     cols = bk["cols"][layer]
                     if quant is None:
                         planes = {"values": bk["values"][layer]}
-                    else:
+                    elif glu:       # only the GLU kernel reads the scales
                         planes = {"q": bk["q"][layer],
                                   "srow": bk["srow"][layer]}
+                    else:
+                        planes = {"q": bk["q"][layer]}
                     cases.append(dict(kernel=kern, variant=quant or "fp32",
                                       layer=layer, group=gname, bucket=bi,
                                       cols=cols, cc=g["chunk_cols"],
@@ -414,8 +426,9 @@ def run_case(ops, c, x, impl):
 
 
 def case_bytes(c, b: int) -> tuple[int, int]:
-    """(bytes, flops) the launch needs: every plane read once (values or
-    codes, cols, scales), x read once, the output written once."""
+    """(bytes, flops) the launch needs: every plane it reads read once
+    (values or codes, cols, and the GLU kernel's scales), x read once, the
+    output written once."""
     plane = sum(c[k].numel() * c[k].element_size()
                 for k in ("values", "q", "srow", "cols") if k in c)
     slots = c["cols"].numel()
@@ -524,14 +537,13 @@ def phase_kernels(ctx, sparse8, sparse_fp, launches_main) -> list:
     return entries
 
 
-def run(ctx, n_layers_int8: int = 2, n_layers_fp: int = 1,
-        width_cfg=None) -> list:
+def run(ctx) -> list:
     """All phases after the build; returns the kernels line's entries."""
     from repro_torch.configs.registry import get_config
     from repro_torch.core.sparse_model import sparse_stats, sparsify_model
     from repro_torch.models.transformer import init_params
     torch, dev, report = ctx["torch"], ctx["device"], ctx["report"]
-    cfg = (width_cfg or get_config(ARCH)).replace(n_layers=n_layers_int8)
+    cfg = get_config(ARCH).replace(n_layers=N_LAYERS_INT8)
     log(f"[model] {cfg.name}: d_model {cfg.d_model}, {cfg.n_heads} heads, "
         f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.param_dtype}; "
         f"{cfg.n_layers} layers (depth cut), sparsity {cfg.espim_sparsity}")
@@ -551,13 +563,13 @@ def run(ctx, n_layers_int8: int = 2, n_layers_fp: int = 1,
         log(f"[pack]   {gname}: buckets "
             + ", ".join(str(tuple(b["cols"].shape[1:])) for b in g["buckets"]))
 
-    cfg_fp = cfg.replace(n_layers=n_layers_fp)
-    params_fp = layer_slice(params, n_layers_fp)
+    cfg_fp = cfg.replace(n_layers=N_LAYERS_FP)
+    params_fp = layer_slice(params, N_LAYERS_FP)
     t0 = time.perf_counter()
     sparse_fp = sparsify_model(cfg_fp, params_fp, cfg.espim_sparsity,
                                projections="all", quant=None, device=dev)
     report["pack_fp"] = {"seconds": time.perf_counter() - t0,
-                         "layers": n_layers_fp}
+                         "layers": N_LAYERS_FP}
 
     rng = torch.Generator().manual_seed(ctx["seed"] + 3)
     prompts = [torch.randint(1, cfg.vocab_size, (n,), generator=rng).tolist()
@@ -613,7 +625,7 @@ def main(argv=None) -> int:
     report = {"card": card, "device": name, "seed": args.seed,
               "torch": torch.__version__, "cuda": torch.version.cuda}
     ctx = {"torch": torch, "device": dev, "seed": args.seed, "impl": None,
-           "report": report, "timer": Timer(torch, dev),
+           "report": report, "timer": Timer(torch),
            "bandwidth": card_bandwidth(name)}
     log(f"[card] {name} ({card}); torch {torch.__version__} CUDA "
         f"{torch.version.cuda}; data-sheet bandwidth "

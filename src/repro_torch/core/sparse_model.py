@@ -438,6 +438,15 @@ def _bucket_spmv(pack: dict, buf: tuple, g: int, xt: torch.Tensor,
                                   chunk_cols=pack["chunk_cols"], impl=impl)
 
 
+def _col_major(h: torch.Tensor) -> torch.Tensor:
+    """(N, D) activations -> the (D, N) fp32 contiguous x every bucket
+    launch of a group shares: one cast-and-transpose copy per group, so
+    the kernel wrappers find x ready and copy nothing."""
+    xt = torch.empty((h.shape[1], h.shape[0]), dtype=torch.float32,
+                     device=h.device)
+    return xt.copy_(h.T)
+
+
 def _group_apply(pack: dict, gb: dict, xt: torch.Tensor, impl) -> list:
     """All of one group's bucket launches -> per-bucket packed outputs."""
     return [_bucket_spmv(pack, buf, g, xt, impl)
@@ -459,7 +468,7 @@ def _fused_qkv(cfg: ModelConfig, sparse: dict, bufs: dict, attn_p: dict,
     g = sparse["groups"]["qkv"]
     gb = bufs["qkv"]
     b, t = hn.shape[0], hn.shape[1]
-    xt = hn.reshape(-1, hn.shape[-1]).T.float()               # (D, B*T)
+    xt = _col_major(hn.reshape(-1, hn.shape[-1]))            # (D, B*T)
     y = _group_take(gb, _group_apply(g, gb, xt, impl))        # (rows, B*T)
 
     def cut(name: str, n_heads: int) -> torch.Tensor:
@@ -480,7 +489,7 @@ def _fused_o(cfg: ModelConfig, sparse: dict, bufs: dict,
     g = sparse["groups"]["attn_out"]
     gb = bufs["attn_out"]
     b, t = out_h.shape[0], out_h.shape[1]
-    xt = out_h.reshape(b * t, -1).T.float()                   # (H*hd, B*T)
+    xt = _col_major(out_h.reshape(b * t, -1))                # (H*hd, B*T)
     y = _group_take(gb, _group_apply(g, gb, xt, impl))        # (D, B*T)
     return y.T.reshape(b, t, -1).to(out_h.dtype)
 
@@ -506,7 +515,7 @@ def _fused_mlp(cfg: ModelConfig, sparse: dict, bufs: dict, hn: torch.Tensor,
     gu = sparse["groups"]["gateup"]
     dn = sparse["groups"]["down"]
     b, t = hn.shape[0], hn.shape[1]
-    xt = hn.reshape(-1, hn.shape[-1]).T.float()               # (in, B*T)
+    xt = _col_major(hn.reshape(-1, hn.shape[-1]))            # (in, B*T)
 
     parts = []
     if sparse["gated"] and epilogue:

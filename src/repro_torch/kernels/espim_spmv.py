@@ -48,7 +48,9 @@ def _need(cond: bool, msg: str) -> None:
 def _common(values: torch.Tensor, cols: torch.Tensor, x: torch.Tensor,
             chunk_cols: int, extra=()) -> tuple:
     """Validate the operands every kernel shares; returns the (M, B) fp32
-    contiguous x and the stream handle."""
+    contiguous x and the stream handle.  x is copied only when it is not
+    already contiguous fp32; the decode path hands every bucket of a group
+    one ready x (``sparse_model._col_major``), so it copies nothing here."""
     dev = cols.device
     for name, t in (("values", values), ("cols", cols), ("x", x),
                     *extra):

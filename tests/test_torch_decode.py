@@ -107,6 +107,36 @@ def test_fused_epilogue_bit_identical_to_unfused(quant):
     assert torch.equal(outs[0][1]["v"], outs[1][1]["v"])
 
 
+@pytest.mark.parametrize("quant", [None, "int8"])
+def test_bucket_launches_share_one_contiguous_x_per_group(quant,
+                                                          monkeypatch):
+    """Each group casts and transposes its activations once: every bucket
+    launch gets the same contiguous fp32 x, so the kernel wrappers copy
+    nothing."""
+    _, pcfg, _, tparams, _, ps = _pair(quant)
+    seen = []
+
+    def spy(fn):
+        def wrapped(*args, **kw):
+            x = args[3] if fn.__name__.endswith("quant") else args[2]
+            seen.append((x.dtype, x.is_contiguous(), x.data_ptr()))
+            return fn(*args, **kw)
+        wrapped.__name__ = fn.__name__
+        return wrapped
+
+    for name in ("espim_spmv_batched", "espim_spmv_batched_quant"):
+        monkeypatch.setattr(PSM.ops, name, spy(getattr(PSM.ops, name)))
+    tk = torch.zeros((B, 1), dtype=torch.int32)
+    PSM.decode_step_sparse(pcfg, tparams, ps,
+                           PT.init_cache(pcfg, B, 4, device="cpu"),
+                           {"tokens": tk}, device="cpu")
+    n_buckets = sum(len(g["buckets"]) for g in ps["groups"].values())
+    assert len(seen) == pcfg.n_layers * n_buckets
+    assert all(d == torch.float32 and c for d, c, _ in seen)
+    # one x per group launch sequence: qkv, attn_out, gateup, down per layer
+    assert len({p for _, _, p in seen}) <= pcfg.n_layers * len(ps["groups"])
+
+
 def test_decode_leaves_input_cache_unchanged():
     _, pcfg, _, tparams, _, ps = _pair(None)
     cache = PT.init_cache(pcfg, B, 4, device="cpu")
