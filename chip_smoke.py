@@ -3,10 +3,12 @@
 
     python3 chip_smoke.py [--seed N] [--out DIR]
 
-Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` and
-drives the port's main path — int8 ESPIM decode of ``llama7b-espim`` at
-full width (depth cut to 2 layers; random weights from ``--seed``)
-through ``ServeEngine`` — then checks it:
+Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
+library per source, one nvcc each, all started together) and drives the
+port's paths at the full width of ``llama7b-espim`` (random weights from
+``--seed``): int8 ESPIM decode through ``ServeEngine`` (depth cut to 2
+layers), the standalone projection layers, and the ops of the other
+kernels — then checks them:
 
 1. build: nvcc the kernels, print the build time and ptxas' report;
 2. engine: 8 requests through the int8 engine (kernels 2 and 4), then 4
@@ -17,12 +19,25 @@ through ``ServeEngine`` — then checks it:
    and through their plain versions, from the same packs and cache; then
    one decode step's host time, and from ``torch.profiler``'s device
    kernel spans the device-busy share and the SpMV share of device time;
-4. kernels: each of the four kernels against its plain version at the
-   engine packs' full-width bucket shapes (plus int4 planes, one with an
-   odd Lc), B in {1, 4}, with its time, the plain version's, a dense bf16
-   ``torch.matmul`` of the same pruned matrix (each timed by CUDA events
-   around replays of a captured CUDA graph), and the least time the card
-   could take.
+4. projection: ``ESPIMGroupLinear`` over layer 0's wq/wk/wv and
+   ``ESPIMLinear`` over its w_down at 90% sparsity, fp32 and int8, each
+   called with a 1-D x (kernel 5 / kernel 2) and with (4, n_in)
+   (kernels 1 / 2), against ``impl="ref"`` and the dense pruned
+   (dequantized) fp32 product; then the dense datapath once; counters
+   zeroed before the phase and read after, and kernel 5 must launch;
+5. ops: the residual epilogue over the fp32 engine's attn_out and down
+   buckets, ``ops.dense_mv`` and ``flash_attention`` at the shapes of
+   step 6, counters zeroed before and read after;
+6. kernels: each of the eight kernels against its plain version — the
+   four decode kernels at the engine packs' full-width bucket shapes
+   (plus int4 planes, one with an odd Lc), B in {1, 4}; the unbatched
+   kernel on the projection packs in fp32 and bf16; the residual kernel
+   on the attn_out and down buckets; dense MV at (4096, 4096) and
+   (4096, 11008) in fp32 and bf16; flash attention at BH = 32, hd = 128,
+   S in {77, 512, 2048}, causal or not, fp32 and bf16 — with its time,
+   the plain version's, a library call of the same function that the
+   port never makes (each timed by CUDA events around replays of a
+   captured CUDA graph), and the least time the card could take.
 
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``.  Exits non-zero, with no result,
@@ -49,28 +64,50 @@ ENGINE_KW = dict(batch_slots=4, max_len=128, block_size=16, prefill_chunk=16,
                  policy="sjf")
 N_LAYERS_INT8, N_LAYERS_FP = 2, 1       # depth cut of the int8 / fp32 engines
 ENGINE_RUNS = 3                         # measured serves of the trace
+PROJ_SPARSITY = 0.9                     # the projection phase's pruning
+FLASH_BH, FLASH_HD = 32, 128            # llama7b's heads at B = 1
+FLASH_SEQS = (77, 512, 2048)
+DENSE_SHAPES = ((4096, 4096), (4096, 11008))
 # data-sheet memory bandwidth, bytes/s, by card name (NVIDIA data sheets)
 _BANDWIDTH = (("H200", 4.8e12), ("H100 NVL", 3.9e12), ("H100 PCIe", 2.0e12),
               ("H100", 3.35e12))
-FP32_PEAK = 67e12          # H100 SXM, float32 outside the tensor cores
+# H100 SXM data sheet peaks: float32 outside the tensor cores, and bf16
+# on the tensor cores (the bound of bf16 attention)
+PEAKS = {"fp32": 67e12, "bf16_tensor": 989e12}
 KERNEL_REL_TOL, KERNEL_ABS_TOL = 1e-5, 1e-6
+# bf16 inputs and attention: the JAX package's own test tolerances, as
+# |kernel - plain| <= atol + rtol * |plain| elementwise
+# (tests/test_kernels.py:36,84, tests/test_flash_kernel.py:32,43)
+ALLCLOSE_TOL = {"espim_spmv/bf16": 3e-2, "dense_mv/bf16": 5e-2,
+                "flash_attention/fp32": 2e-5, "flash_attention/bf16": 5e-2}
 LOGIT_COS_MIN = 0.999
 # bf16 activations between layers: an fp32 sum-order difference flips a
 # q/k/v element by one bf16 ulp (2^-8 of it) now and then, and the flips
 # propagate through the later layers and steps
 KV_REL_TOL = 2e-2
 
+# kernel -> (pallas_call it replaces, Pallas function, port source)
+_SPMV_CU = "src/repro_torch/kernels/csrc/espim_spmv.cu"
 _KERNELS = {
-    "espim_spmv_batched": ("src/repro/kernels/espim_spmv.py:625",
-                           "espim_spmv_batched_pallas"),
-    "espim_spmv_batched_quant": ("src/repro/kernels/espim_spmv.py:258",
-                                 "espim_spmv_batched_quant_pallas"),
-    "espim_spmv_batched_glu": ("src/repro/kernels/espim_spmv.py:451",
-                               "espim_spmv_batched_glu_pallas"),
-    "espim_spmv_batched_quant_glu": ("src/repro/kernels/espim_spmv.py:510",
-                                     "espim_spmv_batched_quant_glu_pallas"),
+    "espim_spmv_batched": ("src/repro/kernels/espim_spmv.py:649",
+                           "espim_spmv_batched_pallas", _SPMV_CU),
+    "espim_spmv_batched_quant": ("src/repro/kernels/espim_spmv.py:321",
+                                 "espim_spmv_batched_quant_pallas", _SPMV_CU),
+    "espim_spmv_batched_glu": ("src/repro/kernels/espim_spmv.py:489",
+                               "espim_spmv_batched_glu_pallas", _SPMV_CU),
+    "espim_spmv_batched_quant_glu": ("src/repro/kernels/espim_spmv.py:565",
+                                     "espim_spmv_batched_quant_glu_pallas",
+                                     _SPMV_CU),
+    "espim_spmv": ("src/repro/kernels/espim_spmv.py:130",
+                   "espim_spmv_pallas", _SPMV_CU),
+    "espim_spmv_batched_res": ("src/repro/kernels/espim_spmv.py:605",
+                               "espim_spmv_batched_res_pallas", _SPMV_CU),
+    "dense_mv": ("src/repro/kernels/dense_mv.py:53", "dense_mv_pallas",
+                 "src/repro_torch/kernels/csrc/dense_mv.cu"),
+    "flash_attention": ("src/repro/kernels/flash_attention.py:99",
+                        "flash_attention_pallas",
+                        "src/repro_torch/kernels/csrc/flash_attention.cu"),
 }
-_SOURCE = "src/repro_torch/kernels/csrc/espim_spmv.cu"
 
 
 class SmokeFailure(RuntimeError):
@@ -144,18 +181,40 @@ class Timer:
 # phases
 # --------------------------------------------------------------------------
 def phase_build(report: dict) -> None:
+    """nvcc every source at once, then load each library."""
     from repro_torch.kernels import build
     t0 = time.perf_counter()
-    build.load_library()
+    build.build_all()
+    for name in build.SOURCES:
+        build.load_library(name)
     dt = time.perf_counter() - t0
-    rec = build.BUILD_LOG["espim_spmv"]
-    report["build"] = {"seconds": dt, "nvcc_seconds": rec["seconds"],
-                       "cached": rec["cached"], "ptxas": rec["log"]}
-    log(f"[build] {_SOURCE} -> {Path(rec['path']).name} in {dt:.1f} s "
-        f"(cached={rec['cached']})")
-    for line in rec["log"].splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"[build]   {line.strip()}")
+    report["build"] = {"seconds": dt, "libraries": {}}
+    log(f"[build] {len(build.SOURCES)} libraries in {dt:.1f} s")
+    for name, rec in build.BUILD_LOG.items():
+        report["build"]["libraries"][name] = {
+            "nvcc_seconds": rec["seconds"], "cached": rec["cached"],
+            "ptxas": rec["log"]}
+        log(f"[build] {build.SOURCES[name].relative_to(ROOT)} -> "
+            f"{Path(rec['path']).name}: nvcc {rec['seconds']:.1f} s "
+            f"(cached={rec['cached']})")
+        for line in rec["log"].splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"[build]   {line.strip()}")
+
+
+def _counter_modules():
+    from repro_torch.kernels import dense_mv, espim_spmv, flash_attention
+    return espim_spmv, dense_mv, flash_attention
+
+
+def reset_launches() -> None:
+    for mod in _counter_modules():
+        mod.reset_launches()
+
+
+def read_launches() -> dict:
+    return {k: v for mod in _counter_modules()
+            for k, v in mod.LAUNCHES.items()}
 
 
 def layer_slice(params: dict, n: int) -> dict:
@@ -180,7 +239,6 @@ def drive_engine(ctx, label, cfg, params, sparse, prompts, kernels) -> dict:
     ``prompts``, read the counters; every kernel in ``kernels`` must have
     launched in every run.  Reports each run's tok/s, TTFT and TPOT p50,
     their medians, and the last run's launch counts."""
-    from repro_torch.kernels import espim_spmv as K
     from repro_torch.serve import engine as E
     from repro_torch.serve.scheduler import latency_summary
     torch = ctx["torch"]
@@ -190,9 +248,9 @@ def drive_engine(ctx, label, cfg, params, sparse, prompts, kernels) -> dict:
     runs = []
     for _ in range(ENGINE_RUNS):
         eng.reset_stats()
-        K.reset_launches()
+        reset_launches()
         reqs, stats, wall = serve(E, eng, prompts, MAX_NEW)
-        launches = dict(K.LAUNCHES)
+        launches = read_launches()
         for r in reqs:
             need(len(r.output) == MAX_NEW,
                  f"[{label}] request {r.rid} produced {len(r.output)} tokens")
@@ -448,7 +506,7 @@ def phase_kernels(ctx, sparse8, sparse_fp, launches_main) -> list:
     xs = {(m, b): torch.randn((m, b), generator=gen, device=dev)
           for m in {c["m"] for c in cases} for b in (1, 4)}
     # 1) correctness: every case, B in {1, 4}
-    worst = {k: 0.0 for k in _KERNELS}
+    worst = dict.fromkeys((c["kernel"] for c in cases), 0.0)
     rows = []
     for c in cases:
         for b in (1, 4):
@@ -490,7 +548,7 @@ def phase_kernels(ctx, sparse8, sparse_fp, launches_main) -> list:
             t_p = timer(lambda: launch_all("ref"), reps=3) / n_layers
             nbytes = sum(case_bytes(c, b)[0] for c in sel) / n_layers
             flops = sum(case_bytes(c, b)[1] for c in sel) / n_layers
-            t_bytes, t_ops = nbytes / bw * 1e3, flops / FP32_PEAK * 1e3
+            t_bytes, t_ops = nbytes / bw * 1e3, flops / PEAKS["fp32"] * 1e3
             # library: dense bf16 matmul of the same pruned (dequantized)
             # matrices, one call per group and layer
             mats = []
@@ -523,18 +581,325 @@ def phase_kernels(ctx, sparse8, sparse_fp, launches_main) -> list:
                     "espim_spmv_batched_quant": "int8",
                     "espim_spmv_batched_quant_glu": "int8"}
     entries = []
-    for name, (replaces, fn) in _KERNELS.items():
-        r = timed[((name, main_variant[name]), 4)]
-        entries.append({
-            "name": name, "route": "cuda", "source": _SOURCE,
-            "replaces": f"{replaces} ({fn})",
-            "launches": launches_main[name],
-            "max_abs_err": worst[name], "ms": r["ms"],
-            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    for name, variant in main_variant.items():
+        r = timed[((name, variant), 4)]
+        entries.append(_entry(name, launches_main[name], worst[name], r))
     ctx["report"]["kernel_checks"] = rows
     ctx["report"]["kernel_timing"] = list(timed.values())
     return entries
+
+
+def _entry(name: str, launches: int, err: float, r: dict) -> dict:
+    replaces, fn, source = _KERNELS[name]
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": f"{replaces} ({fn})", "launches": launches,
+            "max_abs_err": err, "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"]}
+
+
+# --------------------------------------------------------------------------
+# the projection path and the ops of kernels 5-8
+# --------------------------------------------------------------------------
+def dense_from_weights(torch, w):
+    """The (n_rows, n_cols) fp32 matrix a device pack holds — the codes
+    times their scales for a quantized pack — scattered back from the
+    planes through ``perm``."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import nibble_unpack_ref
+    vals = w.values
+    r, k, lc = w.cols.shape
+    if isinstance(w, ops.QuantEspimWeights):
+        if vals.shape[-1] != lc:
+            vals = nibble_unpack_ref(vals)[..., :lc]
+        srow = torch.repeat_interleave(w.scales, w.group_rows)[:r]
+        vals = vals.float() * srow[:, None, None]
+    vals = vals.float()
+    dev = vals.device
+    gcol = (w.cols.long()
+            + (torch.arange(k, device=dev) * w.chunk_cols)[None, :, None])
+    rows = w.perm.long()[:, None, None].expand(r, k, lc)
+    keep = (rows >= 0) & (vals != 0)
+    dense = torch.zeros((w.n_rows, w.n_cols), dtype=torch.float32,
+                        device=dev)
+    return dense.index_put_((rows[keep], gcol[keep]), vals[keep],
+                            accumulate=True)
+
+
+def _within(kernel: str, variant: str, got, want) -> tuple[bool, float]:
+    """(passes, max|got - want|) under the kernel's stated tolerance."""
+    got, want = got.float(), want.float()
+    diff = (got - want).abs()
+    err = float(diff.max()) if diff.numel() else 0.0
+    tol = ALLCLOSE_TOL.get(f"{kernel}/{variant.split()[0]}")
+    if tol is not None:
+        ok = bool((diff <= tol + tol * want.abs()).all())
+    else:
+        ok = err <= KERNEL_REL_TOL * float(want.abs().max()) + KERNEL_ABS_TOL
+    return (ok and got.shape == want.shape
+            and bool(got.isfinite().all())), err
+
+
+def phase_projection(ctx, params) -> dict:
+    """The standalone projection layers at full width: ESPIMGroupLinear
+    over layer 0's wq/wk/wv (3 x 4096 x 4096) and ESPIMLinear over its
+    w_down (4096 x 11008), 90% sparse, fp32 and int8; each called with a
+    1-D x and with (4, n_in), against ``impl="ref"`` and the dense pruned
+    (dequantized) fp32 product; then the dense datapath once.  Launch
+    counters are zeroed before the calls and read after."""
+    from repro_torch.core.espim_linear import ESPIMGroupLinear, ESPIMLinear
+    from repro_torch.core.pruning import magnitude_prune
+    import numpy as np
+    torch, dev = ctx["torch"], ctx["device"]
+    qkv = ("wq", "wk", "wv")
+    attn, mlp = params["layers"]["attn"], params["layers"]["mlp"]
+    # (n_out, n_in) float32 host copies of layer 0's weights
+    host = {n: attn[n][0].T.float().cpu().numpy() for n in qkv}
+    host["w_down"] = mlp["w_down"][0].T.float().cpu().numpy()
+    t0 = time.perf_counter()
+    layers = {}
+    for quant in (None, "int8"):
+        v = quant or "fp32"
+        layers[("qkv", v)] = ESPIMGroupLinear.from_dense(
+            {n: host[n] for n in qkv}, prune_sparsity=PROJ_SPARSITY,
+            quant=quant, device=dev)
+        layers[("down", v)] = ESPIMLinear.from_dense(
+            host["w_down"], prune_sparsity=PROJ_SPARSITY, quant=quant,
+            device=dev)
+    pack_s = time.perf_counter() - t0
+    pruned = {"qkv": np.concatenate([magnitude_prune(host[n], PROJ_SPARSITY)
+                                     for n in qkv]),
+              "down": magnitude_prune(host["w_down"], PROJ_SPARSITY)}
+    dense = {}
+    for (name, v), layer in layers.items():
+        dense[(name, v)] = dense_from_weights(torch, layer.weights)
+        if v == "fp32":     # the fp32 planes hold the pruned matrix exactly
+            want = torch.from_numpy(pruned[name]).to(dev)
+            need(torch.equal(dense[(name, v)], want),
+                 f"[proj] {name} fp32 planes != the pruned matrix")
+    gen = torch.Generator(device=dev).manual_seed(ctx["seed"] + 4)
+    checks = []
+    reset_launches()
+    for (name, v), layer in layers.items():
+        for shape in ((layer.n_in,), (4, layer.n_in)):
+            x = torch.randn(shape, generator=gen, device=dev)
+            outs = [layer(x), layer(x, impl="ref")]
+            if name == "qkv":
+                outs = [torch.cat([o[n] for n in qkv], dim=-1) for o in outs]
+            got, plain = outs
+            prod = x @ dense[(name, v)].T
+            for what, want in (("plain", plain), ("dense", prod)):
+                ok, err = _within("projection", v, got, want)
+                need(ok, f"[proj] {name} {v} x{tuple(shape)}: "
+                     f"max|layer - {what}| {err:.3e} out of tolerance")
+                checks.append({"layer": name, "variant": v,
+                               "x": list(shape), "against": what,
+                               "max_abs_err": err,
+                               "max_abs_want": float(want.abs().max())})
+    before = read_launches()
+    dense_layer = ESPIMLinear.from_dense(host["w_down"], device=dev)
+    x = torch.randn((dense_layer.n_in,), generator=gen, device=dev)
+    y = dense_layer(x)
+    need(not dense_layer.sparse,
+         f"[proj] the unpruned w_down (density {dense_layer.density}) did "
+         f"not take the dense datapath")
+    need(read_launches() == before, "[proj] the dense datapath launched a "
+         "kernel")
+    ok, err = _within("projection", "fp32", y,
+                      dense_layer.weight @ x)
+    need(ok, f"[proj] dense datapath max err {err:.3e}")
+    launches = read_launches()
+    for k in ("espim_spmv", "espim_spmv_batched",
+              "espim_spmv_batched_quant"):
+        need(launches[k] > 0, f"[proj] kernel {k} never launched")
+    worst = max(c["max_abs_err"] / c["max_abs_want"] for c in checks)
+    g, d = layers[("qkv", "fp32")], layers[("down", "fp32")]
+    log(f"[proj] ESPIMGroupLinear qkv {'+'.join(map(str, g.sizes))}x"
+        f"{g.n_in} + ESPIMLinear down {d.n_out}x{d.n_in} at "
+        f"{PROJ_SPARSITY:.0%} sparsity, fp32 and int8, "
+        f"packed on the host in {pack_s:.1f} s; {len(checks)} checks "
+        f"(1-D and (4, n_in) x, vs impl='ref' and the dense product), worst "
+        f"max|diff|/max|want| {worst:.2e}; dense datapath at density "
+        f"{dense_layer.density:.7f} ok; launches "
+        + ", ".join(f"{k} {n}" for k, n in launches.items() if n))
+    ctx["report"]["projection"] = {"pack_seconds": pack_s, "checks": checks,
+                                   "launches": launches,
+                                   "dense_density": dense_layer.density}
+    return {"launches": launches, "layers": layers,
+            "dense": {n: dense[(n, "fp32")] for n in ("qkv", "down")}}
+
+
+def new_kernel_cases(ctx, proj, sparse_fp) -> list:
+    """Timing groups of kernels 5-8: (kernel, variant, cases), each case
+    {"run": impl -> tensor, "library": () -> tensor, "bytes", "flops",
+    "peak"} at the shapes the projection phase and the ops give them."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import flash_attention
+    torch, dev = ctx["torch"], ctx["device"]
+    gen = torch.Generator(device=dev).manual_seed(ctx["seed"] + 5)
+    bf = torch.bfloat16
+    groups = []
+    # kernel 5: the projection packs with a 1-D x, fp32 and bf16
+    for dt, label in ((torch.float32, "fp32"), (bf, "bf16")):
+        cases = []
+        for name in ("qkv", "down"):
+            w = proj["layers"][(name, "fp32")].weights
+            vals = w.values.to(dt)
+            x = torch.randn((w.n_cols,), generator=gen, device=dev).to(dt)
+            wb = proj["dense"][name].to(bf)
+            xb = x.to(bf)
+            cases.append({
+                "run": (lambda impl, v=vals, c=w.cols, x=x, cc=w.chunk_cols:
+                        ops.espim_spmv(v, c, x, chunk_cols=cc, impl=impl)),
+                "library": lambda wb=wb, xb=xb: torch.matmul(wb, xb),
+                "bytes": (vals.numel() * vals.element_size()
+                          + w.cols.numel() * 4 + x.numel() * x.element_size()
+                          + w.cols.shape[0] * 4),
+                "flops": 2 * w.cols.numel(), "peak": "fp32"})
+        groups.append(("espim_spmv", label, cases))
+    # kernel 6: the fp32 engine's attn_out and down buckets + residual
+    for b in (1, 4):
+        cases = []
+        for gname in ("attn_out", "down"):
+            g = sparse_fp["groups"][gname]
+            x = torch.randn((g["n_cols"], b), generator=gen, device=dev)
+            wb = _dense_t(torch, sparse_fp["pruned"], g["projections"], 0)
+            xb = x.T.to(bf).contiguous()
+            rb = torch.randn((b, wb.shape[1]), generator=gen,
+                             device=dev).to(bf)
+            for bi, bk in enumerate(g["buckets"]):
+                vals, cols = bk["values"][0], bk["cols"][0]
+                res = torch.randn((cols.shape[0], b), generator=gen,
+                                  device=dev)
+                cases.append({
+                    "run": (lambda impl, v=vals, c=cols, x=x, r=res,
+                            cc=g["chunk_cols"]:
+                            ops.espim_spmv_batched(
+                                v, c, x, chunk_cols=cc, impl=impl,
+                                epilogue="residual", residual=r)),
+                    # one call per group: the first bucket carries it
+                    "library": ((lambda rb=rb, xb=xb, wb=wb:
+                                 torch.addmm(rb, xb, wb)) if bi == 0
+                                else None),
+                    "bytes": (vals.numel() * 4 + cols.numel() * 4
+                              + x.numel() * 4 + 2 * res.numel() * 4),
+                    "flops": 2 * cols.numel() * b, "peak": "fp32"})
+        groups.append(("espim_spmv_batched_res", f"fp32 B={b}", cases))
+    # kernel 7: dense MV
+    for r, c in DENSE_SHAPES:
+        for dt, label in ((torch.float32, "fp32"), (bf, "bf16")):
+            w = torch.randn((r, c), generator=gen, device=dev).to(dt)
+            x = torch.randn((c,), generator=gen, device=dev).to(dt)
+            groups.append(("dense_mv", f"{label} {r}x{c}", [{
+                "run": lambda impl, w=w, x=x: ops.dense_mv(w, x, impl=impl),
+                "library": lambda w=w, x=x: torch.mv(w, x),
+                "bytes": (w.numel() + x.numel()) * w.element_size() + r * 4,
+                "flops": 2 * r * c, "peak": "fp32"}]))
+    # kernel 8: flash attention
+    for seq in FLASH_SEQS:
+        for causal in (True, False):
+            for dt, label in ((torch.float32, "fp32"), (bf, "bf16")):
+                q, k, v = (torch.randn((FLASH_BH, seq, FLASH_HD),
+                                       generator=gen, device=dev).to(dt)
+                           for _ in range(3))
+                pairs = seq * (seq + 1) // 2 if causal else seq * seq
+                groups.append((
+                    "flash_attention",
+                    f"{label} S={seq} {'causal' if causal else 'full'}", [{
+                        "run": (lambda impl, q=q, k=k, v=v, cz=causal:
+                                flash_attention(q, k, v, causal=cz,
+                                                impl=impl)),
+                        # (1, BH, S, hd): SDPA's fused backends take 4-D
+                        "library": (lambda q=q, k=k, v=v, cz=causal:
+                                    F.scaled_dot_product_attention(
+                                        q[None], k[None], v[None],
+                                        is_causal=cz)),
+                        "bytes": 4 * q.numel() * q.element_size(),
+                        "flops": 4 * FLASH_BH * FLASH_HD * pairs,
+                        "peak": "fp32" if label == "fp32"
+                        else "bf16_tensor"}]))
+    return groups
+
+
+def phase_ops(ctx, groups) -> dict:
+    """Drive kernels 6-8 through their ops once per case (the entry point
+    a caller uses: ``ops.espim_spmv_batched(epilogue="residual")``,
+    ``ops.dense_mv``, ``flash_attention``), counters zeroed just before
+    and read just after."""
+    torch = ctx["torch"]
+    reset_launches()
+    n = 0
+    for kernel, variant, cases in groups:
+        if kernel == "espim_spmv":
+            continue
+        for c in cases:
+            out = c["run"](None)
+            need(bool(out.isfinite().all()),
+                 f"[ops] {kernel} {variant}: non-finite output")
+            n += 1
+    torch.cuda.synchronize()
+    launches = read_launches()
+    for k in ("espim_spmv_batched_res", "dense_mv", "flash_attention"):
+        need(launches[k] > 0, f"[ops] kernel {k} never launched")
+    log(f"[ops] {n} op calls; launches "
+        + ", ".join(f"{k} {v}" for k, v in launches.items() if v))
+    ctx["report"]["ops"] = {"calls": n, "launches": launches}
+    return launches
+
+
+def phase_new_kernels(ctx, groups, launches_main) -> list:
+    """Kernels 5-8 against their plain versions, then timed beside the
+    plain version, the library call and the bound."""
+    torch, timer, bw = ctx["torch"], ctx["timer"], ctx["bandwidth"]
+    worst, rows, timed = {}, [], []
+    for kernel, variant, cases in groups:
+        for i, c in enumerate(cases):
+            got, want = c["run"](None), c["run"]("ref")
+            ok, err = _within(kernel, variant, got, want)
+            need(ok, f"{kernel} {variant} case {i}: max|kernel-plain| "
+                 f"{err:.3e} out of tolerance")
+            worst[kernel] = max(worst.get(kernel, 0.0), err)
+            rows.append({"kernel": kernel, "variant": variant, "case": i,
+                         "shape": list(got.shape), "max_abs_err": err,
+                         "max_abs_plain": float(want.float().abs().max())})
+        t_k = timer(lambda cases=cases: [c["run"](None) for c in cases])
+        t_p = timer(lambda cases=cases: [c["run"]("ref") for c in cases],
+                    reps=3)
+        t_lib = timer(lambda cases=cases: [c["library"]() for c in cases
+                                           if c["library"]])
+        nbytes = sum(c["bytes"] for c in cases)
+        t_bytes = nbytes / bw * 1e3
+        t_ops = sum(c["flops"] / PEAKS[c["peak"]] for c in cases) * 1e3
+        r = {"kernel": kernel, "variant": variant,
+             "launches_per_call": len(cases), "ms": t_k, "plain_ms": t_p,
+             "library_ms": t_lib, "bound_ms": max(t_bytes, t_ops),
+             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+             "peak": cases[0]["peak"], "bytes": nbytes,
+             "flops": sum(c["flops"] for c in cases),
+             "achieved_GBps": nbytes / (t_k * 1e-3) / 1e9,
+             "achieved_TFLOPs": sum(c["flops"] for c in cases)
+             / (t_k * 1e-3) / 1e12}
+        timed.append(r)
+        log(f"[kernels] {kernel:22s} {variant:22s}: {len(cases)} launches "
+            f"{t_k * 1e3:9.1f} us (plain {t_p * 1e3:9.1f} us, library "
+            f"{t_lib * 1e3:8.1f} us, bound {r['bound_ms'] * 1e3:7.1f} us by "
+            f"{r['bound_by']} at the {r['peak']} peak; "
+            f"{r['achieved_GBps']:.0f} GB/s, "
+            f"{r['achieved_TFLOPs']:.2f} TFLOP/s)")
+    log(f"[kernels] kernels 5-8: {len(rows)} checks within their "
+        f"tolerances; worst max|kernel-plain| "
+        + ", ".join(f"{k} {v:.2e}" for k, v in worst.items()))
+    main_variant = {"espim_spmv": "fp32",
+                    "espim_spmv_batched_res": "fp32 B=4",
+                    "dense_mv": "fp32 {}x{}".format(*DENSE_SHAPES[-1]),
+                    "flash_attention": f"bf16 S={FLASH_SEQS[-1]} causal"}
+    by_key = {(r["kernel"], r["variant"]): r for r in timed}
+    ctx["report"]["kernel_checks"] += rows
+    ctx["report"]["kernel_timing"] += timed
+    return [_entry(k, launches_main[k], worst[k], by_key[(k, v)])
+            for k, v in main_variant.items()]
 
 
 def run(ctx) -> list:
@@ -593,7 +958,14 @@ def run(ctx) -> list:
         "int8": decode_parity(ctx, "int8", cfg, params, sparse8),
         "fp32": decode_parity(ctx, "fp32", cfg_fp, params_fp, sparse_fp)}
     report["decode_step"] = decode_step_profile(ctx, cfg, params, sparse8)
-    return phase_kernels(ctx, sparse8, sparse_fp, launches_main)
+    proj = phase_projection(ctx, params)
+    groups = new_kernel_cases(ctx, proj, sparse_fp)
+    launches_main["espim_spmv"] = proj["launches"]["espim_spmv"]
+    launches_main.update({k: v for k, v in phase_ops(ctx, groups).items()
+                          if k in ("espim_spmv_batched_res", "dense_mv",
+                                   "flash_attention")})
+    entries = phase_kernels(ctx, sparse8, sparse_fp, launches_main)
+    return entries + phase_new_kernels(ctx, groups, launches_main)
 
 
 def main(argv=None) -> int:

@@ -1,7 +1,9 @@
 """Build and bind the port's CUDA kernels.
 
 Each source under ``csrc/`` is compiled by ``nvcc`` for ``sm_90a`` into a
-shared library with a plain C interface, at first use, under
+shared library with a plain C interface (``SOURCES``: one library per
+source; ``build_all`` starts one ``nvcc`` per source at once), at first
+use, under
 ``build/repro_torch/`` at the repository root.  The library's file name
 carries a hash of the source and the flags, so an edited source is rebuilt
 and a stale library is never loaded.  It is loaded with ``ctypes``; every
@@ -21,20 +23,25 @@ import time
 from pathlib import Path
 
 __all__ = ["SOURCES", "NVCC_FLAGS", "build_dir", "library_path",
-           "find_nvcc", "build", "load_library", "BUILD_LOG"]
+           "find_nvcc", "build", "build_all", "load_library", "BUILD_LOG"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = {"espim_spmv": _CSRC / "espim_spmv.cu"}
+SOURCES = {"espim_spmv": _CSRC / "espim_spmv.cu",
+           "dense_mv": _CSRC / "dense_mv.cu",
+           "flash_attention": _CSRC / "flash_attention.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # per-library build record: {name: {"path", "seconds", "cached", "log"}}
 BUILD_LOG: dict = {}
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
-# C signatures of the entry points (csrc/espim_spmv.cu)
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# C signatures of the entry points (csrc/<library>.cu)
 _SIGNATURES = {
     "espim_spmv": {
+        "espim_spmv": [_P, _I, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P],
+        "espim_spmv_batched_res_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                       _I, _I, _P],
         "espim_spmv_batched_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                    _P],
         "espim_spmv_batched_quant": [_P, _I, _I, _P, _P, _I, _P, _P, _I, _I,
@@ -43,6 +50,12 @@ _SIGNATURES = {
                                        _I, _I, _P],
         "espim_spmv_batched_quant_glu": [_P, _I, _I, _P, _P, _P, _P, _I, _I,
                                          _I, _I, _I, _I, _I, _P],
+    },
+    "dense_mv": {
+        "dense_mv": [_P, _I, _P, _I, _P, _I, _I, _I, _P],
+    },
+    "flash_attention": {
+        "flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     },
 }
 _LIBS: dict = {}
@@ -68,29 +81,45 @@ def find_nvcc() -> str:
                        "the port's CUDA kernels are built at first use")
 
 
+def build_all(names=None) -> dict:
+    """Compile every named source (default: all) whose hashed library does
+    not exist yet, one ``nvcc`` per source, all started together; returns
+    {name: library path}.  Each writes to a temporary name and renames,
+    so concurrent processes never load a half-written library.  Raises
+    with nvcc's output if any build fails."""
+    names = list(SOURCES if names is None else names)
+    running = {}
+    for name in names:
+        out = library_path(name)
+        if out.exists():
+            BUILD_LOG.setdefault(name, {"path": str(out), "seconds": 0.0,
+                                        "cached": True, "log": ""})
+            continue
+        out.parent.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])]
+        running[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                          stderr=subprocess.STDOUT,
+                                          text=True),
+                         tmp, out, time.perf_counter())
+    failed = []
+    for name, (proc, tmp, out, t0) in running.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed for {SOURCES[name]} "
+                          f"(rc {proc.returncode}):\n{log}")
+            continue
+        os.replace(tmp, out)
+        BUILD_LOG[name] = {"path": str(out), "cached": False, "log": log,
+                           "seconds": time.perf_counter() - t0}
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return {name: library_path(name) for name in names}
+
+
 def build(name: str) -> Path:
-    """Compile one source unless its hashed library already exists.
-    Writes to a temporary name and renames, so concurrent processes never
-    load a half-written library.  Raises with nvcc's output on failure."""
-    out = library_path(name)
-    if out.exists():
-        BUILD_LOG.setdefault(name, {"path": str(out), "seconds": 0.0,
-                                    "cached": True, "log": ""})
-        return out
-    out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    dt = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {SOURCES[name]} "
-                           f"(rc {proc.returncode}):\n{proc.stdout}\n"
-                           f"{proc.stderr}")
-    os.replace(tmp, out)
-    BUILD_LOG[name] = {"path": str(out), "seconds": dt, "cached": False,
-                       "log": proc.stdout + proc.stderr}
-    return out
+    """Compile one source unless its hashed library already exists."""
+    return build_all([name])[name]
 
 
 def load_library(name: str = "espim_spmv") -> ctypes.CDLL:

@@ -1,8 +1,11 @@
 """Launch wrappers of the hand-written Hopper SpMV kernels
 (``csrc/espim_spmv.cu``), one per Pallas kernel of the JAX package's
-decode path (``src/repro/kernels/espim_spmv.py``):
+``src/repro/kernels/espim_spmv.py``:
 
+* ``espim_spmv_cuda`` replaces ``espim_spmv_pallas`` (unbatched);
 * ``espim_spmv_batched_cuda`` replaces ``espim_spmv_batched_pallas``;
+* ``espim_spmv_batched_res_cuda`` replaces
+  ``espim_spmv_batched_res_pallas``;
 * ``espim_spmv_batched_quant_cuda`` replaces
   ``espim_spmv_batched_quant_pallas``;
 * ``espim_spmv_batched_glu_cuda`` replaces
@@ -14,7 +17,7 @@ The wrappers take CUDA tensors only: they check device, dtype, shape and
 contiguity, allocate the output, launch on the current stream, raise if
 the launch was refused, and add one to ``LAUNCHES[<kernel>]``.  Their
 plain versions live in ``kernels/ref.py``; ``kernels/ops.py`` picks
-between the two by the tensors' device.  All four are bound by the bytes
+between the two by the tensors' device.  All six are bound by the bytes
 of the value and index planes (see the source's header note).
 """
 from __future__ import annotations
@@ -23,13 +26,14 @@ import torch
 
 from repro_torch.kernels.build import load_library
 
-__all__ = ["LAUNCHES", "reset_launches", "ACT_IDS",
-           "espim_spmv_batched_cuda", "espim_spmv_batched_quant_cuda",
-           "espim_spmv_batched_glu_cuda",
+__all__ = ["LAUNCHES", "reset_launches", "ACT_IDS", "espim_spmv_cuda",
+           "espim_spmv_batched_cuda", "espim_spmv_batched_res_cuda",
+           "espim_spmv_batched_quant_cuda", "espim_spmv_batched_glu_cuda",
            "espim_spmv_batched_quant_glu_cuda"]
 
 # kernel launches since the last reset, one plain integer per kernel
-LAUNCHES = {"espim_spmv_batched": 0, "espim_spmv_batched_quant": 0,
+LAUNCHES = {"espim_spmv": 0, "espim_spmv_batched": 0,
+            "espim_spmv_batched_res": 0, "espim_spmv_batched_quant": 0,
             "espim_spmv_batched_glu": 0, "espim_spmv_batched_quant_glu": 0}
 
 ACT_IDS = {"silu": 0, "gelu": 1, "relu": 2, "relu2": 3}
@@ -46,11 +50,12 @@ def _need(cond: bool, msg: str) -> None:
 
 
 def _common(values: torch.Tensor, cols: torch.Tensor, x: torch.Tensor,
-            chunk_cols: int, extra=()) -> tuple:
-    """Validate the operands every kernel shares; returns the (M, B) fp32
-    contiguous x and the stream handle.  x is copied only when it is not
-    already contiguous fp32; the decode path hands every bucket of a group
-    one ready x (``sparse_model._col_major``), so it copies nothing here."""
+            chunk_cols: int, extra=(), batched: bool = True) -> tuple:
+    """Validate the operands every kernel shares; returns the contiguous
+    x — (M, B) fp32, or for the unbatched kernel (M,) fp32 or bf16 — and
+    the stream handle.  x is copied only when it is not already in that
+    form; the decode path hands every bucket of a group one ready x
+    (``sparse_model._col_major``), so it copies nothing here."""
     dev = cols.device
     for name, t in (("values", values), ("cols", cols), ("x", x),
                     *extra):
@@ -62,11 +67,14 @@ def _common(values: torch.Tensor, cols: torch.Tensor, x: torch.Tensor,
             _need(t.is_contiguous(), f"{name} must be contiguous")
     _need(cols.dtype == torch.int32 and cols.dim() == 3,
           f"cols must be int32 (R, K, Lc), got {cols.dtype}{tuple(cols.shape)}")
-    _need(x.dim() == 2, f"x must be (M, B), got {tuple(x.shape)}")
+    want = 2 if batched else 1
+    _need(x.dim() == want,
+          f"x must be {'(M, B)' if batched else '(M,)'}, got {tuple(x.shape)}")
     _need(int(chunk_cols) > 0, f"chunk_cols must be positive, got {chunk_cols}")
     _need(max(cols.numel(), x.numel()) < 2 ** 31,
           "plane or x too large for 32-bit slot offsets")
-    xc = x.to(torch.float32).contiguous()
+    keep = not batched and x.dtype == torch.bfloat16
+    xc = (x if keep else x.to(torch.float32)).contiguous()
     stream = torch.cuda.current_stream(dev).cuda_stream
     return xc, stream
 
@@ -99,6 +107,28 @@ def _halves(cols: torch.Tensor) -> int:
     return cols.shape[0] // 2
 
 
+def espim_spmv_cuda(values: torch.Tensor, cols: torch.Tensor,
+                    x: torch.Tensor, *, chunk_cols: int) -> torch.Tensor:
+    """y (R,) f32 = chunked-ELL(values f32 | bf16, cols) @ x (M,); x in
+    bf16 stays bf16, any other dtype goes in as f32."""
+    xc, stream = _common(values, cols, x, chunk_cols, batched=False)
+    _need(values.dtype in (torch.float32, torch.bfloat16)
+          and values.shape == cols.shape,
+          f"values must be float32 or bfloat16 {tuple(cols.shape)}, got "
+          f"{values.dtype}{tuple(values.shape)}")
+    r, k, lc = cols.shape
+    out = torch.empty((r,), dtype=torch.float32, device=cols.device)
+    if r == 0:
+        return out
+    rc = load_library().espim_spmv(
+        values.data_ptr(), int(values.dtype == torch.bfloat16),
+        cols.data_ptr(), xc.data_ptr(), int(xc.dtype == torch.bfloat16),
+        out.data_ptr(), r, k, lc, int(chunk_cols), xc.shape[0], stream)
+    _check_rc(rc, "espim_spmv")
+    LAUNCHES["espim_spmv"] += 1
+    return out
+
+
 def espim_spmv_batched_cuda(values: torch.Tensor, cols: torch.Tensor,
                             x: torch.Tensor, *, chunk_cols: int
                             ) -> torch.Tensor:
@@ -117,6 +147,35 @@ def espim_spmv_batched_cuda(values: torch.Tensor, cols: torch.Tensor,
         r, k, lc, int(chunk_cols), m, b, stream)
     _check_rc(rc, "espim_spmv_batched")
     LAUNCHES["espim_spmv_batched"] += 1
+    return out
+
+
+def espim_spmv_batched_res_cuda(values: torch.Tensor, cols: torch.Tensor,
+                                x: torch.Tensor, residual: torch.Tensor, *,
+                                chunk_cols: int) -> torch.Tensor:
+    """y (R, B) f32 = chunked-ELL(values f32, cols) @ x (M, B) + residual,
+    the residual (R, B) f32 in packed row order, added in the same
+    launch after each row's reduce."""
+    xc, stream = _common(values, cols, x, chunk_cols,
+                         extra=(("residual", residual),))
+    _need(values.dtype == torch.float32 and values.shape == cols.shape,
+          f"values must be float32 {tuple(cols.shape)}, got "
+          f"{values.dtype}{tuple(values.shape)}")
+    r, k, lc = cols.shape
+    m, b = xc.shape
+    _need(residual.dtype == torch.float32
+          and tuple(residual.shape) == (r, b),
+          f"residual must be float32 {(r, b)}, got "
+          f"{residual.dtype}{tuple(residual.shape)}")
+    out = torch.empty((r, b), dtype=torch.float32, device=cols.device)
+    if r == 0 or b == 0:
+        return out
+    rc = load_library().espim_spmv_batched_res_f32(
+        values.data_ptr(), cols.data_ptr(), xc.data_ptr(),
+        residual.data_ptr(), out.data_ptr(), r, k, lc, int(chunk_cols), m, b,
+        stream)
+    _check_rc(rc, "espim_spmv_batched_res")
+    LAUNCHES["espim_spmv_batched_res"] += 1
     return out
 
 

@@ -1,23 +1,32 @@
 """Plain PyTorch versions of the ESPIM kernels.
 
 Each function mirrors its namesake in the JAX package's
-``repro/kernels/ref.py`` op for op: the CPU tests hold them against that
-module and against the Pallas kernels (interpret mode), and
+``repro/kernels/ref.py`` (``flash_attention_ref``: the math of
+``repro/kernels/flash_attention.py``) op for op: the CPU tests hold them
+against that module and against the Pallas kernels (interpret mode), and
 ``chip_smoke.py`` holds the hand-written CUDA kernels
-(``kernels/espim_spmv.py``) against them on the card.  ``kernels/ops.py``
-runs them for tensors that lie on the CPU.
+(``kernels/espim_spmv.py``, ``kernels/dense_mv.py``,
+``kernels/flash_attention.py``) against them on the card.
+``kernels/ops.py`` runs them for tensors that lie on the CPU.
 
-Layout: column-chunked ELL — values/cols ``(R_pad, K, Lc)`` with
+Layouts: column-chunked ELL — values/cols ``(R_pad, K, Lc)`` with
 chunk-local column ids into one ``chunk_cols``-wide slab of ``x (M, B)``;
 pad slots carry value 0 and column 0, and ``x`` is zero-padded to
-``K * chunk_cols``.  Every function accumulates in float32.
+``K * chunk_cols``.  The plain ELL layout — values/cols ``(R_pad, L)``
+with global column ids — has plain versions only.  Every function
+accumulates in float32.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
 
 __all__ = [
+    "espim_spmv_ref",
+    "espim_spmv_batched_ref",
+    "espim_spmv_chunked_ref",
     "espim_spmv_batched_chunked_ref",
     "espim_spmv_batched_chunked_quant_ref",
     "nibble_unpack_ref",
@@ -27,6 +36,9 @@ __all__ = [
     "espim_spmv_batched_chunked_glu_ref",
     "espim_spmv_batched_chunked_quant_glu_ref",
     "MULRED_MAX_BLOCK",
+    "dense_mv_ref",
+    "flash_attention_ref",
+    "NEG_INF",
 ]
 
 
@@ -58,12 +70,40 @@ def glu_epilogue_ref(acc: torch.Tensor, act: str) -> torch.Tensor:
     return epilogue_act(act)(acc[:rg]) * acc[rg:]
 
 
+def espim_spmv_ref(values: torch.Tensor, cols: torch.Tensor,
+                   x: torch.Tensor) -> torch.Tensor:
+    """Plain ELL MV: values, cols (R_pad, L) with global ids; x (M,) ->
+    (R_pad,) float32.  Pad slots carry value 0 and contribute nothing."""
+    xv = x[cols.long()]                                 # (R_pad, L)
+    return torch.sum(values.float() * xv.float(), dim=1)
+
+
+def espim_spmv_batched_ref(values: torch.Tensor, cols: torch.Tensor,
+                           x: torch.Tensor) -> torch.Tensor:
+    """Plain batched ELL MV: x (M, B) -> (R_pad, B) float32."""
+    xv = x[cols.long()]                                 # (R_pad, L, B)
+    return torch.einsum("rl,rlb->rb", values.float(), xv.float())
+
+
 def _pad_x_to_chunks(x: torch.Tensor, n_chunks: int, chunk_cols: int
                      ) -> torch.Tensor:
+    """Zero-pad dim 0 of x (M,) or (M, B) to ``n_chunks * chunk_cols``."""
     pad = n_chunks * chunk_cols - x.shape[0]
     if pad:
-        x = F.pad(x, (0, 0, 0, pad))
+        x = F.pad(x, (0, 0) * (x.dim() - 1) + (0, pad))
     return x
+
+
+def espim_spmv_chunked_ref(values: torch.Tensor, cols: torch.Tensor,
+                           x: torch.Tensor, chunk_cols: int) -> torch.Tensor:
+    """Unbatched chunked-ELL MV: values (float32 or bfloat16), cols
+    (R_pad, K, Lc) chunk-local; x (M,) -> (R_pad,) float32.  Rebases the
+    ids to global columns and gathers once (the reference's oracle)."""
+    k = values.shape[1]
+    xp = _pad_x_to_chunks(x, k, chunk_cols)
+    base = torch.arange(k, device=cols.device) * chunk_cols
+    xv = xp[cols.long() + base[None, :, None]]          # (R_pad, K, Lc)
+    return torch.sum(values.float() * xv.float(), dim=(1, 2))
 
 
 def _gather_chunk(xp: torch.Tensor, cols_k: torch.Tensor, i: int,
@@ -155,6 +195,30 @@ def espim_spmv_batched_chunked_quant_glu_ref(codes: torch.Tensor,
     acc = espim_spmv_batched_chunked_quant_ref(codes, cols, None, x,
                                                chunk_cols, 1)
     return glu_epilogue_ref(acc * srow.float()[:, None], act)
+
+
+def dense_mv_ref(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Dense MV (Newton's datapath analogue): w (R, C) @ x (C,) -> (R,)
+    float32."""
+    return torch.matmul(w.float(), x.float())
+
+
+NEG_INF = -1e30     # the reference kernel's mask value
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True) -> torch.Tensor:
+    """Attention over (BH, S, hd) by a plain masked softmax in float32:
+    scores of q·(1/sqrt(hd)) against k, keys after the query masked when
+    ``causal`` (q_pos >= k_pos kept), softmax, times v; the output is cast
+    to q's dtype, as the kernel's is."""
+    s, hd = q.shape[1], q.shape[2]
+    scores = (q.float() * (1.0 / math.sqrt(hd))) @ k.float().transpose(1, 2)
+    if causal:
+        pos = torch.arange(s, device=q.device)
+        scores = scores.masked_fill(pos[None, :] > pos[:, None], NEG_INF)
+    p = torch.softmax(scores, dim=-1)
+    return (p @ v.float()).to(q.dtype)
 
 
 def scatter_rows_ref(y_packed: torch.Tensor, perm: torch.Tensor,

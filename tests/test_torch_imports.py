@@ -28,7 +28,10 @@ def _port_modules():
 
 def test_importing_every_module_leaves_jax_and_repro_out():
     mods = _port_modules()
-    assert "repro_torch.kernels.espim_spmv" in mods
+    for m in ("kernels.espim_spmv", "kernels.dense_mv",
+              "kernels.flash_attention", "core.espim_linear",
+              "core.pim_sim", "core.energy"):
+        assert f"repro_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -45,7 +48,9 @@ def test_importing_every_module_leaves_jax_and_repro_out():
 
 
 def test_no_source_imports_jax_or_repro():
-    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                          ROOT / "examples" /
+                                          "quickstart_torch.py"]
     assert len(files) > 20
     for f in files:
         hit = _FORBIDDEN.search(f.read_text())
@@ -96,3 +101,24 @@ def test_init_params_follows_the_reference_distribution():
     again = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
     assert torch.equal(again["layers"]["mlp"]["w_down"],
                        p["layers"]["mlp"]["w_down"])
+
+
+def test_projection_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch):
+    import numpy as np
+
+    from repro_torch.core.espim_linear import ESPIMGroupLinear, ESPIMLinear
+    from repro_torch.core.sparse_format import pack_ell_chunked
+    from repro_torch.kernels import ops
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    w = np.eye(16, 32, dtype=np.float32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ops.pack_to_device(pack_ell_chunked(w, chunk_cols=16))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ESPIMLinear.from_dense(w)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ESPIMGroupLinear.from_dense({"a": w, "b": w})
+    lin = ESPIMLinear.from_dense(w, device="cpu")
+    assert lin.sparse and lin.cols.device.type == "cpu"
+    y = lin(torch.ones(32))
+    assert torch.equal(y, torch.ones(16))

@@ -1,8 +1,11 @@
 """The port's plain kernel versions (``repro_torch.kernels.ref``, which
 ``ops`` runs for CPU tensors) against the JAX package's jnp oracles AND
-its Pallas kernels 1-4 in interpret mode, at rtol = atol = 1e-5 as in
-``tests/test_kernels.py``.  The CUDA kernels themselves are held against
-these plain versions on the card by ``chip_smoke.py``."""
+its Pallas kernels in interpret mode, at the tolerances of the JAX
+package's own tests (``tests/test_kernels.py``,
+``tests/test_flash_kernel.py``): 1e-5 in fp32 for the SpMV family, 3e-2
+for bf16 SpMV, 1e-4 / 5e-2 for dense MV, 2e-5 / 5e-2 for attention.
+The CUDA kernels themselves are held against these plain versions on
+the card by ``chip_smoke.py``."""
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -11,15 +14,21 @@ import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
 from repro.core.pruning import magnitude_prune  # noqa: E402
-from repro.core.sparse_format import pack_ell_chunked  # noqa: E402
+from repro.core.sparse_format import pack_ell, pack_ell_chunked  # noqa: E402
+from repro.kernels import ops as RO  # noqa: E402
 from repro.kernels import ref as RR  # noqa: E402
+from repro.kernels.dense_mv import dense_mv_pallas  # noqa: E402
 from repro.kernels.espim_spmv import (  # noqa: E402
     espim_spmv_batched_glu_pallas, espim_spmv_batched_pallas,
-    espim_spmv_batched_quant_glu_pallas, espim_spmv_batched_quant_pallas)
+    espim_spmv_batched_quant_glu_pallas, espim_spmv_batched_quant_pallas,
+    espim_spmv_batched_res_pallas, espim_spmv_pallas)
+from repro.kernels.flash_attention import flash_attention_pallas  # noqa: E402
+from repro.models import layers as RL  # noqa: E402
 from repro.quant.qpack import nibble_pack  # noqa: E402
 
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import ref as PR  # noqa: E402
+from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 ACTS = ["silu", "gelu", "relu", "relu2"]
@@ -176,9 +185,11 @@ def test_ops_dispatch_guards():
         ops.espim_spmv_batched(v, c, x)
     with pytest.raises(ValueError, match="inconsistent"):
         ops.espim_spmv_batched(v, c, x, chunk_cols=512)
-    with pytest.raises(NotImplementedError, match="Queue 2 item 6"):
-        ops.espim_spmv_batched(v, c, x, chunk_cols=64, epilogue="residual",
-                               residual=torch.zeros(32, 2))
+    with pytest.raises(ValueError, match="needs the residual operand"):
+        ops.espim_spmv_batched(v, c, x, chunk_cols=64, epilogue="residual")
+    with pytest.raises(ValueError, match="needs the residual operand"):
+        ops.espim_spmv_batched_quant(v.to(torch.int8), c, None, x,
+                                     chunk_cols=64, epilogue="residual")
     with pytest.raises(ValueError, match="needs srow"):
         ops.espim_spmv_batched_quant(v.to(torch.int8), c, None, x,
                                      chunk_cols=64, epilogue="glu")
@@ -201,7 +212,6 @@ def test_cuda_wrappers_reject_cpu_tensors():
     assert all(n == 0 for n in K.LAUNCHES.values())
 
 
-
 def test_kernel_library_is_keyed_by_source_and_needs_nvcc(monkeypatch,
                                                           tmp_path):
     """The CUDA library builds under build/repro_torch at the repository
@@ -220,3 +230,221 @@ def test_kernel_library_is_keyed_by_source_and_needs_nvcc(monkeypatch,
     monkeypatch.setenv("PATH", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc not found"):
         B.find_nvcc()
+
+
+# --------------------------------------------------------------------------
+# kernels 5-8: the unbatched SpMV, the residual epilogue, dense MV and
+# flash attention
+# --------------------------------------------------------------------------
+@pytest.mark.parametrize("r,c,sparsity", [
+    (128, 256, 0.9), (256, 1000, 0.8), (384, 512, 0.5), (128, 128, 0.95),
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_unbatched_matches_reference_and_pallas(r, c, sparsity, dtype):
+    """``tests/test_kernels.py:26-38``: the same packs, x and tolerances
+    (1e-5 fp32, 3e-2 bf16), the bf16 planes rounded once on each side."""
+    rng = np.random.default_rng(0)
+    w = magnitude_prune(rng.standard_normal((r, c)).astype(np.float32),
+                        sparsity)
+    pack = pack_ell_chunked(w, chunk_cols=128)
+    x = rng.standard_normal(c).astype(np.float32)
+    jd = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    td = getattr(torch, dtype)
+    jv, jc, jx = (jnp.asarray(pack.values, jd),
+                  jnp.asarray(pack.cols, jnp.int32), jnp.asarray(x, jd))
+    got = ops.espim_spmv(_t(pack.values).to(td), _t(pack.cols), _t(x).to(td),
+                         chunk_cols=pack.chunk_cols)
+    assert got.dtype == torch.float32 and got.shape == (pack.r_pad,)
+    tol = 1e-5 if dtype == "float32" else 3e-2
+    for want in (RR.espim_spmv_chunked_ref(jv, jc, jx, pack.chunk_cols),
+                 espim_spmv_pallas(jv, jc, jx, chunk_cols=pack.chunk_cols,
+                                   block_r=128, block_l=64)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=tol,
+                                   atol=tol)
+
+
+@pytest.mark.parametrize("batched", [False, True])
+def test_plain_layout_matches_reference(batched):
+    """The plain (R_pad, L) ELL layout: plain versions only, as in the
+    reference (``tests/test_kernels.py::test_plain_ell_requires_ref_impl``);
+    the kernels' impls raise."""
+    rng = np.random.default_rng(3)
+    w = magnitude_prune(rng.standard_normal((128, 300)).astype(np.float32),
+                        0.9)
+    pack = pack_ell(w)
+    x = rng.standard_normal((300, 4) if batched else 300).astype(np.float32)
+    op, rop = ((ops.espim_spmv_batched, RO.espim_spmv_batched) if batched
+               else (ops.espim_spmv, RO.espim_spmv))
+    v, c = _t(pack.values), _t(pack.cols.astype(np.int32))
+    got = op(v, c, _t(x), impl="ref")
+    want = rop(jnp.asarray(pack.values), jnp.asarray(pack.cols, jnp.int32),
+               jnp.asarray(x), impl="ref")
+    _close(got, want)
+    for impl in (None, "cuda"):
+        with pytest.raises(ValueError, match="column-chunked"):
+            op(v, c, _t(x), impl=impl)
+
+
+@pytest.mark.parametrize("b", [1, 4])
+def test_residual_matches_reference_and_pallas(b):
+    """``tests/test_autotune.py:291-300``: the fp residual epilogue against
+    the reference's ref lowering (bit-exact there: the same sums) and its
+    Pallas kernel (1e-5)."""
+    rng = np.random.default_rng(11)
+    rg, m = 64, 256
+    w = (rng.standard_normal((2 * rg, m))
+         * (rng.random((2 * rg, m)) < 0.15)).astype(np.float32)
+    pack = pack_ell_chunked(w, chunk_cols=128)
+    x = rng.standard_normal((m, b)).astype(np.float32)
+    res = rng.standard_normal((pack.r_pad, b)).astype(np.float32)
+    got = ops.espim_spmv_batched(_t(pack.values), _t(pack.cols), _t(x),
+                                 chunk_cols=pack.chunk_cols,
+                                 epilogue="residual", residual=_t(res))
+    plain = ops.espim_spmv_batched(_t(pack.values), _t(pack.cols), _t(x),
+                                   chunk_cols=pack.chunk_cols)
+    assert torch.equal(got, plain + _t(res))
+    jv, jc = jnp.asarray(pack.values), jnp.asarray(pack.cols, jnp.int32)
+    jx, jr = jnp.asarray(x), jnp.asarray(res)
+    _close(got,
+           RO.espim_spmv_batched(jv, jc, jx, chunk_cols=pack.chunk_cols,
+                                 impl="ref", epilogue="residual",
+                                 residual=jr),
+           espim_spmv_batched_res_pallas(jv, jc, jx, jr,
+                                         chunk_cols=pack.chunk_cols,
+                                         block_r=64, block_l=32))
+
+
+@pytest.mark.parametrize("bits,lc", [(8, 12), (4, 7)])
+@pytest.mark.parametrize("scaled", [False, True])
+def test_quant_residual_matches_reference(bits, lc, scaled):
+    """The quant residual epilogue is op-level: the scaled (or, with
+    ``scales=None``, ``srow``-scaled) product plus the residual."""
+    r, m, cc, gr, b = 64, 300, 128, 8, 4
+    _, dcodes, cols = _code_planes(r, m, cc, lc, bits, seed=lc)
+    rng = np.random.default_rng(9)
+    x = (rng.standard_normal((m, b)) / (2 ** (bits - 1) - 1)).astype(
+        np.float32)
+    scales = (rng.random(r // gr).astype(np.float32) + 0.5) * 0.01
+    srow = np.repeat(scales, gr)
+    res = rng.standard_normal((r, b)).astype(np.float32)
+    kw = (dict(scales=scales, srow=None) if scaled
+          else dict(scales=None, srow=srow))
+    got = ops.espim_spmv_batched_quant(
+        _t(dcodes), _t(cols), None if kw["scales"] is None
+        else _t(kw["scales"]), _t(x), chunk_cols=cc, group_rows=gr,
+        epilogue="residual", residual=_t(res),
+        srow=None if kw["srow"] is None else _t(kw["srow"]))
+    want = RO.espim_spmv_batched_quant(
+        jnp.asarray(dcodes), jnp.asarray(cols),
+        None if kw["scales"] is None else jnp.asarray(kw["scales"]),
+        jnp.asarray(x), chunk_cols=cc, group_rows=gr, impl="ref",
+        epilogue="residual", residual=jnp.asarray(res),
+        srow=None if kw["srow"] is None else jnp.asarray(kw["srow"]))
+    _close(got, want)
+
+
+@pytest.mark.parametrize("r,c", [(128, 128), (200, 333), (384, 1024)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_dense_mv_matches_reference_and_pallas(r, c, dtype):
+    """``tests/test_kernels.py:77-86``: tolerances 1e-4 fp32, 5e-2 bf16."""
+    rng = np.random.default_rng(r + c)
+    w = rng.standard_normal((r, c)).astype(np.float32)
+    x = rng.standard_normal(c).astype(np.float32)
+    jd = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    got = ops.dense_mv(_t(w).to(getattr(torch, dtype)),
+                       _t(x).to(getattr(torch, dtype)))
+    assert got.dtype == torch.float32
+    jw, jx = jnp.asarray(w, jd), jnp.asarray(x, jd)
+    tol = 1e-4 if dtype == "float32" else 5e-2
+    for want in (RR.dense_mv_ref(jw, jx),
+                 dense_mv_pallas(jw, jx, block_r=128, block_c=128)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=tol,
+                                   atol=tol)
+
+
+def _flash_oracle(q, k, v, causal):
+    bh, s, hd = q.shape
+    return RL.flash_attention(
+        q.reshape(bh, s, 1, hd), k.reshape(bh, s, 1, hd),
+        v.reshape(bh, s, 1, hd), causal=causal, q_chunk=64, kv_chunk=64,
+    ).reshape(bh, s, hd)
+
+
+@pytest.mark.parametrize("s,hd,causal,blk", [
+    (256, 64, True, 64), (128, 128, False, 128), (77, 32, True, 32),
+    (200, 64, True, 128),
+])
+def test_flash_attention_matches_reference_and_pallas(s, hd, causal, blk):
+    """``tests/test_flash_kernel.py``'s shapes, at its 2e-5."""
+    rng = np.random.default_rng(s + hd)
+    q, k, v = (rng.standard_normal((3, s, hd)).astype(np.float32)
+               for _ in range(3))
+    got = flash_attention(_t(q), _t(k), _t(v), causal=causal)
+    assert got.dtype == torch.float32 and got.shape == (3, s, hd)
+    jq, jk, jv = (jnp.asarray(a) for a in (q, k, v))
+    for want in (_flash_oracle(jq, jk, jv, causal),
+                 flash_attention_pallas(jq, jk, jv, causal=causal,
+                                        blk_q=blk, blk_k=blk)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   rtol=2e-5, atol=2e-5)
+
+
+def test_flash_attention_bf16_matches_reference_and_pallas():
+    """``tests/test_flash_kernel.py::test_flash_pallas_bf16`` at 5e-2; the
+    output stays bf16."""
+    rng = np.random.default_rng(1)
+    q, k, v = (rng.standard_normal((2, 128, 64)).astype(np.float32)
+               for _ in range(3))
+    got = flash_attention(*(_t(a).to(torch.bfloat16) for a in (q, k, v)))
+    assert got.dtype == torch.bfloat16
+    jq, jk, jv = (jnp.asarray(a, jnp.bfloat16) for a in (q, k, v))
+    f32 = [a.astype(jnp.float32) for a in (jq, jk, jv)]
+    for want in (_flash_oracle(*f32, True),
+                 flash_attention_pallas(jq, jk, jv, blk_q=64, blk_k=64)):
+        np.testing.assert_allclose(got.float().numpy(),
+                                   np.asarray(want, np.float32), rtol=5e-2,
+                                   atol=5e-2)
+
+
+def test_new_wrappers_reject_cpu_tensors_and_dispatch():
+    """Kernels 5-8's wrappers launch on CUDA tensors or raise; their ops
+    take the plain version for CPU tensors and refuse impl='cuda'."""
+    from repro_torch.kernels import dense_mv as D
+    from repro_torch.kernels import espim_spmv as K
+    from repro_torch.kernels import flash_attention as FA
+    vals, cols = _fp_pack(32, 100, 64, seed=3)
+    v, c = _t(vals), _t(cols)
+    q = torch.ones((1, 8, 32))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        K.espim_spmv_cuda(v, c, torch.ones(100), chunk_cols=64)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        K.espim_spmv_batched_res_cuda(v, c, torch.ones(100, 1),
+                                      torch.zeros(32, 1), chunk_cols=64)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        D.dense_mv_cuda(torch.ones(4, 8), torch.ones(8))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        FA.flash_attention_cuda(q, q, q)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ops.espim_spmv(v, c, torch.ones(100), chunk_cols=64, impl="cuda")
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ops.dense_mv(torch.ones(4, 8), torch.ones(8), impl="cuda")
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        flash_attention(q, q, q, impl="cuda")
+    with pytest.raises(ValueError, match="unknown impl"):
+        flash_attention(q, q, q, impl="pallas")
+    assert all(n == 0 for mod in (K, D, FA) for n in mod.LAUNCHES.values())
+    assert torch.equal(flash_attention(q, q, q),
+                       PR.flash_attention_ref(q, q, q, True))
+
+
+@pytest.mark.parametrize("name", ["espim_spmv", "dense_mv",
+                                  "flash_attention"])
+def test_every_source_has_a_hashed_library(name):
+    """One library per CUDA source, each named by a hash of its own
+    source and the flags, under build/repro_torch."""
+    from repro_torch.kernels import build as B
+    assert B.SOURCES[name].is_file()
+    path = B.library_path(name)
+    assert path.name.startswith(f"lib{name}_") and path.suffix == ".so"
+    others = {B.library_path(n) for n in B.SOURCES if n != name}
+    assert path not in others and path.parent == B.build_dir()
