@@ -30,14 +30,19 @@ kernels — then checks them:
    step 6, counters zeroed before and read after;
 6. kernels: each of the eight kernels against its plain version — the
    four decode kernels at the engine packs' full-width bucket shapes
-   (plus int4 planes, one with an odd Lc), B in {1, 4}; the unbatched
+   (plus int4 planes, one with an odd Lc), B in {1, 2, 3, 4, 8, 13} for
+   kernels 1-2 and {1, 4} for kernels 3-4, every check also launched
+   twice for identical bits; the unbatched
    kernel on the projection packs in fp32 and bf16; the residual kernel
    on the attn_out and down buckets; dense MV at (4096, 4096) and
    (4096, 11008) in fp32 and bf16; flash attention at BH = 32, hd = 128,
    S in {77, 512, 2048}, causal or not, fp32 and bf16 — with its time,
    the plain version's, a library call of the same function that the
    port never makes (each timed by CUDA events around replays of a
-   captured CUDA graph), and the least time the card could take.
+   captured CUDA graph), and the least time the card could take; then
+   each bucket launch of kernels 1-2 at B = 4 on its own (a graph of an
+   L2-evicting read and the launch, less the read): rows, K, Lc, µs and
+   GB/s.
 
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``.  Exits non-zero, with no result,
@@ -75,6 +80,14 @@ _BANDWIDTH = (("H200", 4.8e12), ("H100 NVL", 3.9e12), ("H100 PCIe", 2.0e12),
 # on the tensor cores (the bound of bf16 attention)
 PEAKS = {"fp32": 67e12, "bf16_tensor": 989e12}
 KERNEL_REL_TOL, KERNEL_ABS_TOL = 1e-5, 1e-6
+# kernels 1 and 2 (the streaming body) are checked at every batch tile
+# (1, 2, 4, 8), a tile's remainder (3) and the loop over tiles of 8 (13);
+# kernels 3 and 4 are checked, and every SpMV kernel timed, at B in {1, 4}
+STREAM_KERNELS = ("espim_spmv_batched", "espim_spmv_batched_quant")
+CHECK_BATCHES = (1, 2, 3, 4, 8, 13)
+TIME_BATCHES = (1, 4)
+# the SpMV kernels' names in a profiler trace (espim_spmv.cu's two bodies)
+SPMV_KERNEL_NAMES = ("espim_spmv_kernel", "espim_spmv_stream_kernel")
 # bf16 inputs and attention: the JAX package's own test tolerances, as
 # |kernel - plain| <= atol + rtol * |plain| elementwise
 # (tests/test_kernels.py:36,84, tests/test_flash_kernel.py:32,43)
@@ -376,7 +389,7 @@ def decode_step_profile(ctx, cfg, params, sparse, b=4, reps=10) -> dict:
                 or getattr(e, "is_user_annotation", False)):
             continue
         spans.append((e.time_range.start, e.time_range.end))
-        if "espim_spmv_kernel" in e.name:
+        if any(n in e.name for n in SPMV_KERNEL_NAMES):
             spmv_us += e.time_range.elapsed_us()
     busy_us, reach = 0.0, float("-inf")          # union of kernel spans
     for start, end in sorted(spans):
@@ -494,33 +507,66 @@ def case_bytes(c, b: int) -> tuple[int, int]:
     return plane + c["m"] * b * 4 + rows_out * b * 4, 2 * slots * b
 
 
+def bucket_times(ctx, sel, xs, b) -> list:
+    """Device µs of each launch in ``sel`` at batch ``b`` on its own: the
+    ``Timer`` of a graph that reads a 128 MB buffer (evicting the 50 MB L2,
+    as the layer's other launches do) and then makes the launch, less the
+    read's own time; with the launch's shape and the GB/s of its bytes
+    (``case_bytes``)."""
+    from repro_torch.kernels import ops
+    torch, timer = ctx["torch"], ctx["timer"]
+    flush = torch.ones(32 << 20, device=ctx["device"])
+    t_flush = timer(flush.sum)
+    out = []
+    for c in sel:
+        x = xs[(c["m"], b)]
+        t = timer(lambda c=c, x=x: (flush.sum(),
+                                    run_case(ops, c, x, ctx["impl"])))
+        us = (t - t_flush) * 1e3
+        nbytes = case_bytes(c, b)[0]
+        rows, k, lc = c["cols"].shape
+        out.append({"kernel": c["kernel"], "variant": c["variant"], "B": b,
+                    "layer": c["layer"], "group": c["group"],
+                    "bucket": c["bucket"], "rows": rows, "K": k, "Lc": lc,
+                    "us": us, "bytes": nbytes,
+                    "GBps": nbytes / (us * 1e-6) / 1e9})
+    return out
+
+
 def phase_kernels(ctx, sparse8, sparse_fp, launches_main) -> list:
-    """Every kernel against its plain version, then timed.  The launches
-    made here are comparisons: the line reports the engine runs' counts
-    (``launches_main``)."""
+    """Every kernel against its plain version (and against itself: two
+    launches on the same inputs must give the same bits), then timed.  The
+    launches made here are comparisons: the line reports the engine runs'
+    counts (``launches_main``)."""
     from repro_torch.kernels import ops
     torch, dev, timer = ctx["torch"], ctx["device"], ctx["timer"]
     bw = ctx["bandwidth"]
     cases = kernel_cases(ctx, sparse8, sparse_fp)
     gen = torch.Generator(device=dev).manual_seed(ctx["seed"] + 2)
     xs = {(m, b): torch.randn((m, b), generator=gen, device=dev)
-          for m in {c["m"] for c in cases} for b in (1, 4)}
-    # 1) correctness: every case, B in {1, 4}
+          for m in {c["m"] for c in cases} for b in CHECK_BATCHES}
+    # 1) correctness: every case; kernels 1-2 at every batch tile and its
+    # remainders (CHECK_BATCHES), kernels 3-4 at B in {1, 4}
     worst = dict.fromkeys((c["kernel"] for c in cases), 0.0)
     rows = []
     for c in cases:
-        for b in (1, 4):
+        batches = (CHECK_BATCHES if c["kernel"] in STREAM_KERNELS
+                   else TIME_BATCHES)
+        for b in batches:
             x = xs[(c["m"], b)]
             got = run_case(ops, c, x, ctx["impl"])
+            again = run_case(ops, c, x, ctx["impl"])
             want = run_case(ops, c, x, "ref")
             err = float((got - want).abs().max())
             scale = float(want.abs().max())
+            what = (f"{c['kernel']} {c['variant']} {c['group']}/"
+                    f"b{c['bucket']} B={b}")
             need(got.shape == want.shape and bool(torch.isfinite(got).all()),
-                 f"{c['kernel']} {c['variant']} {c['group']}/b{c['bucket']}"
-                 f" B={b}: bad output")
+                 f"{what}: bad output")
+            need(torch.equal(got, again), f"{what}: two launches on the "
+                 "same inputs gave different bits")
             need(err <= KERNEL_REL_TOL * scale + KERNEL_ABS_TOL,
-                 f"{c['kernel']} {c['variant']} {c['group']}/b{c['bucket']}"
-                 f" B={b}: max|kernel-plain| {err:.3e} > "
+                 f"{what}: max|kernel-plain| {err:.3e} > "
                  f"{KERNEL_REL_TOL}*{scale:.3e}+{KERNEL_ABS_TOL}")
             worst[c["kernel"]] = max(worst[c["kernel"]], err)
             rows.append({"kernel": c["kernel"], "variant": c["variant"],
@@ -529,7 +575,8 @@ def phase_kernels(ctx, sparse8, sparse_fp, launches_main) -> list:
                          "shape": list(c["cols"].shape), "B": b,
                          "max_abs_err": err, "max_abs_plain": scale})
     log(f"[kernels] {len(rows)} checks within {KERNEL_REL_TOL}*max|plain| + "
-        f"{KERNEL_ABS_TOL}; worst max|kernel-plain| "
+        f"{KERNEL_ABS_TOL}, each bit-identical across two launches; worst "
+        "max|kernel-plain| "
         + ", ".join(f"{k} {v:.2e}" for k, v in worst.items()))
     # 2) timing: per kernel and variant, one layer's launches at B in {1,4},
     # cycling over every layer so the planes stream from HBM (the packs
@@ -540,7 +587,7 @@ def phase_kernels(ctx, sparse8, sparse_fp, launches_main) -> list:
         sel = [c for c in cases if (c["kernel"], c["variant"]) == key]
         n_layers = len({c["layer"] for c in sel})
         src = sparse_fp if key[1] == "fp32" else sparse8
-        for b in (1, 4):
+        for b in TIME_BATCHES:
             def launch_all(impl, sel=sel, b=b):
                 for c in sel:
                     run_case(ops, c, xs[(c["m"], b)], impl)
@@ -580,6 +627,19 @@ def phase_kernels(ctx, sparse8, sparse_fp, launches_main) -> list:
                     "espim_spmv_batched_glu": "fp32",
                     "espim_spmv_batched_quant": "int8",
                     "espim_spmv_batched_quant_glu": "int8"}
+    # 3) per bucket launch of kernels 1 and 2 at B = 4: does a small
+    # bucket under-fill the card?
+    per_bucket = []
+    for name in STREAM_KERNELS:
+        sel = [c for c in cases if c["kernel"] == name
+               and c["variant"] == main_variant[name]]
+        per_bucket += bucket_times(ctx, sel, xs, 4)
+    for r in per_bucket:
+        log(f"[buckets] {r['kernel']:24s} {r['variant']:4s} B={r['B']} "
+            f"layer {r['layer']} {r['group']:8s}/b{r['bucket']} rows "
+            f"{r['rows']:5d} K {r['K']:2d} Lc {r['Lc']:3d}: "
+            f"{r['us']:7.1f} us, {r['GBps']:5.0f} GB/s")
+    ctx["report"]["bucket_timing"] = per_bucket
     entries = []
     for name, variant in main_variant.items():
         r = timed[((name, variant), 4)]

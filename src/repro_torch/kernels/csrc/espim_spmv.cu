@@ -26,19 +26,59 @@
 // activation, the op order of _glu_quant_kernel.
 //
 // Bound: bytes. Each slot is read once (4 B col + 4 / 2 / 1 / 0.5 B
-// value) for 2 * B flops, so at decode batch B <= 16 the kernel is far
-// below the card's operations-per-byte ridge; the value and index planes
-// are ~all of the traffic (x is K * chunk_cols * B elements and stays in
-// L2). Design for that bound, kept simple: one warp per packed row (per
-// gate/up row pair for GLU); the warp's lanes stride over the row's
-// K * Lc contiguous slots so plane reads are coalesced and each plane
-// byte is read exactly once; x rows are gathered through the read-only
-// cache (__ldg), contiguous over B in the (M, B) layout; B partial sums
-// live in registers, tiled by the batch tile BT so any B works; a
-// warp-shuffle reduce ends each row and lane 0 writes it, with the
-// residual added there (no second pass). Column ids are bound-checked
-// against M in place of padding x. No shared memory, no atomics: the sum
-// order is fixed, so repeated runs give identical bits.
+// value) for 2 * B flops, so at decode batch B <= 16 the kernels are far
+// below the card's operations-per-byte ridge (no tensor cores); the value
+// and index planes are ~all of the traffic (x is K * chunk_cols * B
+// elements and stays in L1 / L2). No atomics: every sum has a fixed
+// order, so repeated runs give identical bits.
+//
+// Two bodies.
+//
+// The streaming body (espim_spmv_stream_kernel) serves kernels 1 and 2,
+// espim_spmv_batched_f32 and espim_spmv_batched_quant, the decode path's
+// QKV / O / down buckets. Those launches are short (32 to ~12k rows of
+// 8-22 chunks x Lc 80-88 slots) and the warp-per-row body below was
+// latency-bound on them, not byte-bound: a lane had one 4-byte index load
+// and one value load in flight before the gather that needed them, and
+// its 8-wide batch tile carried 8 accumulators at any B. The streaming
+// body keeps plane bytes in flight and its chains short:
+//   - a lane owns groups of 4 consecutive slots; it loads a group's 4
+//     column ids as one 16-byte load and its 4 values as one load (16 B
+//     fp32, 4 B int8, 2 B int4), and issues U groups' loads before the
+//     first gather that needs them. The planes are loaded with
+//     L1::no_allocate, so L1 keeps the x rows the gathers hit.
+//   - the batch tile BT equals B (instantiated for 1, 2, 4, 8; larger B
+//     loops over tiles of 8): BT accumulators a lane, BT * log2(32)
+//     shuffles a warp, and one x row of BT floats is one 4/8/16-byte load
+//     (two at BT = 8) when the x row pitch allows it.
+//   - a row's K * Lc slots are walked in order, lanes interleaved over
+//     groups (coalesced plane reads, each plane byte read once). Lc / 4 =
+//     20-22 groups a chunk do not fill a warp, so the walk is flat and
+//     each lane carries its (chunk base, offset) forward by a compare and
+//     subtract: no per-slot division.
+//   - a warp a row, or 2 or 4 warps of one block when the launch has few
+//     rows (stream_wpr): a small bucket of long rows (down: 22 chunks) was
+//     a few long dependent chains on an idle card, while a large bucket
+//     already fills the card and only pays the extra reduce. The warps'
+//     partial sums meet in shared memory and are added in warp order (no
+//     atomics; a row never spans blocks).
+//   - x stays in global memory, gathered through L1: staging it in shared
+//     memory gained little on the QKV / O buckets and lost on down, where
+//     a block copies 176 KB of x before its first gather (the A/B in
+//     PERF.md), so the gathers do not set the pace.
+//   - widths or pointers that do not meet the vector alignment (Lc not a
+//     multiple of 4, a plane not aligned) take a scalar slot walk inside
+//     the same kernel; the host picks the walk from the shapes and
+//     pointers (stream_mode), the tile from B and the warps a row from
+//     the rows.
+//
+// The warp-per-row body (espim_spmv_kernel) serves kernels 3-6: the
+// warp's lanes stride over the row's slots one at a time, x rows are
+// gathered through the read-only cache, B partial sums live in registers
+// tiled by the batch tile BT (8, or 1 unbatched), a warp-shuffle reduce
+// ends each row and lane 0 writes it, with the GLU or residual epilogue
+// applied there (no second pass). Column ids are bound-checked against M
+// in place of padding x, in both bodies.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -210,6 +250,330 @@ int launch_unbatched(const void* values, const int* cols, const void* x,
                                     lc, chunk_cols, m, 1, 1, 0, stream);
 }
 
+
+// --------------------------------------------------------------------------
+// The streaming body of kernels 1 and 2 (see the note at the head).
+// --------------------------------------------------------------------------
+constexpr int kStreamThreads = 128;                  // 4 warps a block
+constexpr int kStreamWarps = kStreamThreads / kWarp;
+
+// stream_mode bits: the vector slot walk, and whole-row x loads
+constexpr int kVecPlanes = 1;
+constexpr int kVecX = 2;
+
+// plane loads that do not allocate in L1, which is left to the x rows
+__device__ __forceinline__ int4 ld_plane16(const void* p) {
+  int4 r;
+  asm("ld.global.nc.L1::no_allocate.v4.s32 {%0, %1, %2, %3}, [%4];"
+      : "=r"(r.x), "=r"(r.y), "=r"(r.z), "=r"(r.w)
+      : "l"(p));
+  return r;
+}
+__device__ __forceinline__ unsigned ld_plane4(const void* p) {
+  unsigned r;
+  asm("ld.global.nc.L1::no_allocate.u32 %0, [%1];" : "=r"(r) : "l"(p));
+  return r;
+}
+__device__ __forceinline__ unsigned ld_plane2(const void* p) {
+  unsigned short r;
+  asm("ld.global.nc.L1::no_allocate.u16 %0, [%1];" : "=h"(r) : "l"(p));
+  return r;
+}
+
+// the values of one group of 4 consecutive slots starting at slot s0 of a
+// plane (Lc a multiple of 4, so the group lies in one chunk and, for int4,
+// starts at byte s0 / 2), as the bits one load brings, and slot i of them
+template <int P>
+struct Group;
+template <>
+struct Group<kF32> {
+  using T = int4;
+  __device__ static T load(const void* v, long long s0) {
+    return ld_plane16(static_cast<const float*>(v) + s0);
+  }
+  __device__ static float get(const T& w, int i) {
+    return __int_as_float(i == 0 ? w.x : i == 1 ? w.y : i == 2 ? w.z : w.w);
+  }
+};
+template <>
+struct Group<kI8> {
+  using T = unsigned;
+  __device__ static T load(const void* v, long long s0) {
+    return ld_plane4(static_cast<const signed char*>(v) + s0);
+  }
+  __device__ static float get(T w, int i) {  // byte i, sign-extended
+    return static_cast<float>(static_cast<int>(w << (24 - 8 * i)) >> 24);
+  }
+};
+template <>
+struct Group<kNib> {
+  using T = unsigned;
+  __device__ static T load(const void* v, long long s0) {
+    return ld_plane2(static_cast<const unsigned char*>(v) + (s0 >> 1));
+  }
+  __device__ static float get(T w, int i) {  // nibble i, sign-extended
+    return static_cast<float>(static_cast<int>(w << (28 - 4 * i)) >> 28);
+  }
+};
+
+// acc[j] += v * x[off + j] for the tile's nb columns; XV: the BT floats
+// at x + off are one aligned row (BT == nb), loaded in 4-16 byte pieces
+template <int BT, bool XV>
+__device__ __forceinline__ void gather_fma(const float* __restrict__ x,
+                                           long long off, float v, int nb,
+                                           float (&acc)[BT]) {
+  if (XV && BT == 1) {
+    acc[0] = fmaf(v, __ldg(x + off), acc[0]);
+  } else if (XV && BT == 2) {
+    const float2 t = __ldg(reinterpret_cast<const float2*>(x + off));
+    acc[0] = fmaf(v, t.x, acc[0]);
+    acc[BT - 1] = fmaf(v, t.y, acc[BT - 1]);
+  } else if (XV) {
+#pragma unroll
+    for (int h = 0; h < BT / 4; ++h) {
+      const float4 t = __ldg(reinterpret_cast<const float4*>(x + off) + h);
+      acc[4 * h] = fmaf(v, t.x, acc[4 * h]);
+      acc[4 * h + 1] = fmaf(v, t.y, acc[4 * h + 1]);
+      acc[4 * h + 2] = fmaf(v, t.z, acc[4 * h + 2]);
+      acc[4 * h + 3] = fmaf(v, t.w, acc[4 * h + 3]);
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < BT; ++j)
+      if (j < nb) acc[j] = fmaf(v, __ldg(x + off + j), acc[j]);
+  }
+}
+
+// advance a lane's (chunk base, offset in chunk) by `step` slots
+__device__ __forceinline__ void advance(int& l, int& base, int& k, int step,
+                                        int lc, int chunk_cols) {
+  l += step;
+  while (l >= lc) {
+    l -= lc;
+    base += chunk_cols;
+    ++k;
+  }
+}
+
+// one row's slots in groups of 4: lane `lane` of `lanes` takes groups
+// lane, lane + lanes, ...; U groups' index and value loads are issued
+// before the first of their gathers
+template <int P, int BT, int U, bool XV>
+__device__ __forceinline__ void walk_groups(
+    const void* __restrict__ values, const int* __restrict__ cols,
+    const float* __restrict__ x, long long rslot, int slots, int lc,
+    int chunk_cols, int m, int b, int b0, int nb, int lane, int lanes,
+    float (&acc)[BT]) {
+  using G = Group<P>;
+  const int groups = slots >> 2;
+  const int4* c4 = reinterpret_cast<const int4*>(cols + rslot);
+  int l = 0, base = 0, k = 0;
+  advance(l, base, k, 4 * lane, lc, chunk_cols);
+  for (int g = lane; g < groups; g += U * lanes) {
+    int4 cv[U];
+    typename G::T vv[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int gu = g + u * lanes;
+      if (gu < groups) {
+        cv[u] = ld_plane16(c4 + gu);
+        vv[u] = G::load(values, rslot + 4LL * gu);
+      } else {
+        cv[u] = make_int4(0, 0, 0, 0);
+        vv[u] = typename G::T();
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (g + u * lanes < groups) {
+        const int c[4] = {cv[u].x, cv[u].y, cv[u].z, cv[u].w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int gc = base + c[i];
+          if (static_cast<unsigned>(gc) < static_cast<unsigned>(m))
+            gather_fma<BT, XV>(x, static_cast<long long>(gc) * b + b0,
+                               G::get(vv[u], i), nb, acc);
+        }
+      }
+      advance(l, base, k, 4 * lanes, lc, chunk_cols);
+    }
+  }
+}
+
+// one row's slots one at a time (any Lc, any alignment)
+template <int P, int BT, bool XV>
+__device__ __forceinline__ void walk_slots(
+    const void* __restrict__ values, const int* __restrict__ cols,
+    const float* __restrict__ x, long long rslot, long long vrow, int slots,
+    int lc, int lv, int chunk_cols, int m, int b, int b0, int nb, int lane,
+    int lanes, float (&acc)[BT]) {
+  int l = 0, base = 0, k = 0;
+  advance(l, base, k, lane, lc, chunk_cols);
+  for (int s = lane; s < slots; s += lanes) {
+    const int gc = base + __ldg(cols + rslot + s);
+    const float v = slot_value<P>(values, vrow, s, k, l, lv);
+    if (static_cast<unsigned>(gc) < static_cast<unsigned>(m))
+      gather_fma<BT, XV>(x, static_cast<long long>(gc) * b + b0, v, nb, acc);
+    advance(l, base, k, lanes, lc, chunk_cols);
+  }
+}
+
+// A row per `wpr` warps (1, 2 or 4), kStreamWarps / wpr rows a block. The
+// row's lanes walk its slots; each warp reduces its partial sums by
+// shuffles, and with wpr > 1 the first warp of the row adds the other
+// warps' partials from shared memory in warp order. Every thread reaches
+// every barrier: a team past the last row walks nothing.
+template <int P, int BT, int U>
+__global__ void __launch_bounds__(kStreamThreads)
+espim_spmv_stream_kernel(const void* __restrict__ values,
+                         const int* __restrict__ cols,
+                         const float* __restrict__ x,
+                         const float* __restrict__ scale,
+                         float* __restrict__ out, int rows, int n_chunks,
+                         int lc, int lv, int chunk_cols, int m, int b,
+                         int group_rows, int mode, int wpr) {
+  __shared__ float part[kStreamWarps][BT];
+  const int warp = threadIdx.x / kWarp;
+  const int lanes = kWarp * wpr;
+  const int lane = threadIdx.x % lanes;  // within the row's team
+  const long long r =
+      static_cast<long long>(blockIdx.x) * (kStreamWarps / wpr) + warp / wpr;
+  const bool live = r < rows;
+  const int slots = n_chunks * lc;
+  const long long rslot = r * slots;
+  const long long vrow = P == kNib ? r * n_chunks * lv : rslot;
+  for (int b0 = 0; b0 < b; b0 += BT) {
+    const int nb = min(BT, b - b0);
+    float acc[BT];
+#pragma unroll
+    for (int j = 0; j < BT; ++j) acc[j] = 0.0f;
+    if (live) {
+      if ((mode & kVecPlanes) && (mode & kVecX))
+        walk_groups<P, BT, U, true>(values, cols, x, rslot, slots, lc,
+                                    chunk_cols, m, b, b0, nb, lane, lanes,
+                                    acc);
+      else if (mode & kVecPlanes)
+        walk_groups<P, BT, U, false>(values, cols, x, rslot, slots, lc,
+                                     chunk_cols, m, b, b0, nb, lane, lanes,
+                                     acc);
+      else if (mode & kVecX)
+        walk_slots<P, BT, true>(values, cols, x, rslot, vrow, slots, lc, lv,
+                                chunk_cols, m, b, b0, nb, lane, lanes, acc);
+      else
+        walk_slots<P, BT, false>(values, cols, x, rslot, vrow, slots, lc, lv,
+                                 chunk_cols, m, b, b0, nb, lane, lanes, acc);
+    }
+#pragma unroll
+    for (int j = 0; j < BT; ++j)
+#pragma unroll
+      for (int off = kWarp / 2; off > 0; off >>= 1)
+        acc[j] += __shfl_xor_sync(0xffffffffu, acc[j], off);
+    if (wpr > 1) {
+      if (threadIdx.x % kWarp == 0) {
+#pragma unroll
+        for (int j = 0; j < BT; ++j) part[warp][j] = acc[j];
+      }
+      __syncthreads();
+      if (lane == 0) {
+#pragma unroll
+        for (int j = 0; j < BT; ++j) {
+          float t = part[warp][j];
+          for (int w = 1; w < wpr; ++w) t += part[warp + w][j];
+          acc[j] = t;
+        }
+      }
+      __syncthreads();  // the next tile reuses part
+    }
+    if (live && lane == 0) {
+      const float sr = scale ? scale[r / group_rows] : 1.0f;
+      float* o = out + r * b + b0;
+#pragma unroll
+      for (int j = 0; j < BT; ++j)
+        if (j < nb) o[j] = scale ? acc[j] * sr : acc[j];
+    }
+  }
+}
+
+// the batch tile for B: 1, 2, 4, or 8 (B > 8 loops over tiles of 8)
+inline int stream_tile(int b) { return b <= 1 ? 1 : b <= 2 ? 2 : b <= 4 ? 4 : 8; }
+
+inline bool aligned(const void* p, unsigned bytes) {
+  return reinterpret_cast<uintptr_t>(p) % bytes == 0;
+}
+
+// kVecPlanes when every group of 4 slots is one aligned 16-byte index
+// load and one aligned value load; kVecX when every x row of a tile is
+// one aligned load of BT floats
+template <int P>
+int stream_mode(const void* values, const int* cols, const float* x, int lc,
+                int lv, int b) {
+  const int bt = stream_tile(b);
+  const unsigned vbytes = P == kF32 ? 16 : P == kI8 ? 4 : 2;
+  const bool vec = lc % 4 == 0 && (P != kNib || 2 * lv == lc) &&
+                   aligned(cols, 16) && aligned(values, vbytes);
+  const bool vx = b % bt == 0 && aligned(x, 4 * (bt < 4 ? bt : 4));
+  return (vec ? kVecPlanes : 0) | (vx ? kVecX : 0);
+}
+
+template <int P, int BT, int U>
+int launch_stream_tile(const void* values, const int* cols, const float* x,
+                       const float* scale, float* out, int rows, int n_chunks,
+                       int lc, int lv, int chunk_cols, int m, int b,
+                       int group_rows, int mode, int wpr, void* stream) {
+  const int per_block = kStreamWarps / wpr;
+  const dim3 grid(static_cast<unsigned>(
+      (static_cast<long long>(rows) + per_block - 1) / per_block));
+  espim_spmv_stream_kernel<P, BT, U>
+      <<<grid, kStreamThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+          values, cols, x, scale, out, rows, n_chunks, lc, lv, chunk_cols, m,
+          b, group_rows, mode, wpr);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// groups of 4 slots in flight a lane (the A/B in PERF.md)
+constexpr int kStreamU = 2;
+
+// warps a row: as many (1, 2 or 4) as keep rows * warps within kFillWarps
+// an SM, so a launch of few rows still fills the card while a large one
+// keeps whole rows per warp (the A/B in PERF.md)
+constexpr int kFillWarps = 32;
+inline int stream_wpr(int rows) {
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const long long fill = 1LL * sms * kFillWarps;
+  return 4LL * rows <= fill ? 4 : 2LL * rows <= fill ? 2 : 1;
+}
+
+// kernels 1 and 2: the tile from B, the slot walk from the shapes and
+// pointers, the warps a row from the rows
+template <int P>
+int launch_stream(const void* values, const int* cols, const float* x,
+                  const float* scale, float* out, int rows, int n_chunks,
+                  int lc, int lv, int chunk_cols, int m, int b,
+                  int group_rows, void* stream) {
+  const int mode = stream_mode<P>(values, cols, x, lc, lv, b);
+  const int wpr = stream_wpr(rows);
+  switch (stream_tile(b)) {
+    case 1:
+      return launch_stream_tile<P, 1, kStreamU>(
+          values, cols, x, scale, out, rows, n_chunks, lc, lv, chunk_cols, m,
+          b, group_rows, mode, wpr, stream);
+    case 2:
+      return launch_stream_tile<P, 2, kStreamU>(
+          values, cols, x, scale, out, rows, n_chunks, lc, lv, chunk_cols, m,
+          b, group_rows, mode, wpr, stream);
+    case 4:
+      return launch_stream_tile<P, 4, kStreamU>(
+          values, cols, x, scale, out, rows, n_chunks, lc, lv, chunk_cols, m,
+          b, group_rows, mode, wpr, stream);
+    default:
+      return launch_stream_tile<P, 8, kStreamU>(
+          values, cols, x, scale, out, rows, n_chunks, lc, lv, chunk_cols, m,
+          b, group_rows, mode, wpr, stream);
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -232,10 +596,10 @@ int espim_spmv_batched_f32(const void* values, const void* cols,
                            const void* x, void* out, int rows, int n_chunks,
                            int lc, int chunk_cols, int m, int b,
                            void* stream) {
-  return launch<kF32, false>(values, static_cast<const int*>(cols),
-                             static_cast<const float*>(x), nullptr, nullptr,
+  return launch_stream<kF32>(values, static_cast<const int*>(cols),
+                             static_cast<const float*>(x), nullptr,
                              static_cast<float*>(out), rows, n_chunks, lc, lc,
-                             chunk_cols, m, b, 1, 0, stream);
+                             chunk_cols, m, b, 1, stream);
 }
 
 // values f32 (R, K, Lc); residual f32 (R, B) in packed row order; out (R, B)
@@ -262,11 +626,10 @@ int espim_spmv_batched_quant(const void* codes, int nibble, int lv,
   const float* sc = static_cast<const float*>(scales);
   float* o = static_cast<float*>(out);
   if (nibble)
-    return launch<kNib, false>(codes, c, xs, sc, nullptr, o, rows, n_chunks,
-                               lc, lv, chunk_cols, m, b, group_rows, 0,
-                               stream);
-  return launch<kI8, false>(codes, c, xs, sc, nullptr, o, rows, n_chunks, lc,
-                            lc, chunk_cols, m, b, group_rows, 0, stream);
+    return launch_stream<kNib>(codes, c, xs, sc, o, rows, n_chunks, lc, lv,
+                               chunk_cols, m, b, group_rows, stream);
+  return launch_stream<kI8>(codes, c, xs, sc, o, rows, n_chunks, lc, lc,
+                            chunk_cols, m, b, group_rows, stream);
 }
 
 // values f32 (2 * Rg, K, Lc) half-major; out (Rg, B)

@@ -448,3 +448,38 @@ def test_every_source_has_a_hashed_library(name):
     assert path.name.startswith(f"lib{name}_") and path.suffix == ".so"
     others = {B.library_path(n) for n in B.SOURCES if n != name}
     assert path not in others and path.parent == B.build_dir()
+
+
+def _extern_c_signatures(source):
+    """{function: [kind, ...]} of every function defined in the source's
+    ``extern "C"`` block: "p" for a pointer parameter, else its type."""
+    import re
+    text = re.sub(r"//[^\n]*", "", source.read_text())
+    block = text.split('extern "C" {', 1)[1].split('}  // extern "C"')[0]
+    sigs = {}
+    for m in re.finditer(r"\bint\s+(\w+)\s*\(([^)]*)\)\s*\{", block):
+        kinds = []
+        for param in m.group(2).split(","):
+            decl = param.strip()
+            kinds.append("p" if "*" in decl else decl.split()[-2])
+        sigs[m.group(1)] = kinds
+    return sigs
+
+
+@pytest.mark.parametrize("name", ["espim_spmv", "dense_mv",
+                                  "flash_attention"])
+def test_ctypes_signatures_match_the_sources(name):
+    """Every ``extern "C"`` entry point of a CUDA source is bound by
+    ``build._SIGNATURES`` with the same parameter count and kinds (a
+    pointer as c_void_p, an int as c_int, a float as c_float), and every
+    bound name exists in the source: a mismatch would pass a cut pointer
+    or a shifted argument to the kernel on the card."""
+    import ctypes
+
+    from repro_torch.kernels import build as B
+    kind = {ctypes.c_void_p: "p", ctypes.c_int: "int",
+            ctypes.c_float: "float"}
+    src = _extern_c_signatures(B.SOURCES[name])
+    bound = {fn: [kind[t] for t in argtypes]
+             for fn, argtypes in B._SIGNATURES[name].items()}
+    assert src and src == bound
