@@ -29,10 +29,10 @@ kernels — then checks them:
    buckets, ``ops.dense_mv`` and ``flash_attention`` at the shapes of
    step 6, counters zeroed before and read after;
 6. kernels: each of the eight kernels against its plain version — the
-   four decode kernels at the engine packs' full-width bucket shapes
-   (plus int4 planes, one with an odd Lc), B in {1, 2, 3, 4, 8, 13} for
-   kernels 1-2 and {1, 4} for kernels 3-4, every check also launched
-   twice for identical bits; the unbatched
+   four decode kernels (1-4, all on the streaming body) at the engine
+   packs' full-width bucket shapes (plus int4 planes, one QKV and one
+   gate+up bucket with an odd Lc), B in {1, 2, 3, 4, 8, 13}, every check
+   also launched twice for identical bits; the unbatched
    kernel on the projection packs in fp32 and bf16; the residual kernel
    on the attn_out and down buckets; dense MV at (4096, 4096) and
    (4096, 11008) in fp32 and bf16; flash attention at BH = 32, hd = 128,
@@ -40,7 +40,7 @@ kernels — then checks them:
    the plain version's, a library call of the same function that the
    port never makes (each timed by CUDA events around replays of a
    captured CUDA graph), and the least time the card could take; then
-   each bucket launch of kernels 1-2 at B = 4 on its own (a graph of an
+   each bucket launch of kernels 1-4 at B = 4 on its own (a graph of an
    L2-evicting read and the launch, less the read): rows, K, Lc, µs and
    GB/s.
 
@@ -80,14 +80,18 @@ _BANDWIDTH = (("H200", 4.8e12), ("H100 NVL", 3.9e12), ("H100 PCIe", 2.0e12),
 # on the tensor cores (the bound of bf16 attention)
 PEAKS = {"fp32": 67e12, "bf16_tensor": 989e12}
 KERNEL_REL_TOL, KERNEL_ABS_TOL = 1e-5, 1e-6
-# kernels 1 and 2 (the streaming body) are checked at every batch tile
-# (1, 2, 4, 8), a tile's remainder (3) and the loop over tiles of 8 (13);
-# kernels 3 and 4 are checked, and every SpMV kernel timed, at B in {1, 4}
-STREAM_KERNELS = ("espim_spmv_batched", "espim_spmv_batched_quant")
+# kernels 1-4 (the streaming body) are checked at every batch tile
+# (1, 2, 4, 8), a tile's remainder (3) and the loop over tiles of 8 (13),
+# and each of their bucket launches is timed at B = 4; every SpMV kernel
+# is timed per layer at B in {1, 4}
+STREAM_KERNELS = ("espim_spmv_batched", "espim_spmv_batched_quant",
+                  "espim_spmv_batched_glu", "espim_spmv_batched_quant_glu")
 CHECK_BATCHES = (1, 2, 3, 4, 8, 13)
 TIME_BATCHES = (1, 4)
-# the SpMV kernels' names in a profiler trace (espim_spmv.cu's two bodies)
-SPMV_KERNEL_NAMES = ("espim_spmv_kernel", "espim_spmv_stream_kernel")
+# the SpMV kernels' names in a profiler trace: espim_spmv.cu's
+# warp-per-row body and the streaming body's two kernels
+SPMV_KERNEL_NAMES = ("espim_spmv_kernel", "espim_spmv_stream_kernel",
+                     "espim_spmv_stream_glu_kernel")
 # bf16 inputs and attention: the JAX package's own test tolerances, as
 # |kernel - plain| <= atol + rtol * |plain| elementwise
 # (tests/test_kernels.py:36,84, tests/test_flash_kernel.py:32,43)
@@ -545,14 +549,11 @@ def phase_kernels(ctx, sparse8, sparse_fp, launches_main) -> list:
     gen = torch.Generator(device=dev).manual_seed(ctx["seed"] + 2)
     xs = {(m, b): torch.randn((m, b), generator=gen, device=dev)
           for m in {c["m"] for c in cases} for b in CHECK_BATCHES}
-    # 1) correctness: every case; kernels 1-2 at every batch tile and its
-    # remainders (CHECK_BATCHES), kernels 3-4 at B in {1, 4}
+    # 1) correctness: every case at every batch tile and its remainders
     worst = dict.fromkeys((c["kernel"] for c in cases), 0.0)
     rows = []
     for c in cases:
-        batches = (CHECK_BATCHES if c["kernel"] in STREAM_KERNELS
-                   else TIME_BATCHES)
-        for b in batches:
+        for b in CHECK_BATCHES:
             x = xs[(c["m"], b)]
             got = run_case(ops, c, x, ctx["impl"])
             again = run_case(ops, c, x, ctx["impl"])
@@ -627,15 +628,15 @@ def phase_kernels(ctx, sparse8, sparse_fp, launches_main) -> list:
                     "espim_spmv_batched_glu": "fp32",
                     "espim_spmv_batched_quant": "int8",
                     "espim_spmv_batched_quant_glu": "int8"}
-    # 3) per bucket launch of kernels 1 and 2 at B = 4: does a small
-    # bucket under-fill the card?
+    # 3) per bucket launch of kernels 1-4 at B = 4: does a small bucket
+    # under-fill the card?
     per_bucket = []
     for name in STREAM_KERNELS:
         sel = [c for c in cases if c["kernel"] == name
                and c["variant"] == main_variant[name]]
         per_bucket += bucket_times(ctx, sel, xs, 4)
     for r in per_bucket:
-        log(f"[buckets] {r['kernel']:24s} {r['variant']:4s} B={r['B']} "
+        log(f"[buckets] {r['kernel']:28s} {r['variant']:4s} B={r['B']} "
             f"layer {r['layer']} {r['group']:8s}/b{r['bucket']} rows "
             f"{r['rows']:5d} K {r['K']:2d} Lc {r['Lc']:3d}: "
             f"{r['us']:7.1f} us, {r['GBps']:5.0f} GB/s")

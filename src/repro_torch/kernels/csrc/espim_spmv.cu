@@ -29,15 +29,20 @@
 // value) for 2 * B flops, so at decode batch B <= 16 the kernels are far
 // below the card's operations-per-byte ridge (no tensor cores); the value
 // and index planes are ~all of the traffic (x is K * chunk_cols * B
-// elements and stays in L1 / L2). No atomics: every sum has a fixed
-// order, so repeated runs give identical bits.
+// elements and stays in L1 / L2). The GLU launches read both halves of
+// their pair, 8 B per fp32 slot, 5 B per int8 slot, 4.5 B per int4 slot,
+// plus 4 B of srow per packed row (quant), and write Rg * B floats. No
+// atomics: every sum has a fixed order, so repeated runs give identical
+// bits.
 //
 // Two bodies.
 //
-// The streaming body (espim_spmv_stream_kernel) serves kernels 1 and 2,
-// espim_spmv_batched_f32 and espim_spmv_batched_quant, the decode path's
-// QKV / O / down buckets. Those launches are short (32 to ~12k rows of
-// 8-22 chunks x Lc 80-88 slots) and the warp-per-row body below was
+// The streaming body serves kernels 1-4: espim_spmv_stream_kernel runs
+// espim_spmv_batched_f32 and espim_spmv_batched_quant (the decode path's
+// QKV / O / down buckets), espim_spmv_stream_glu_kernel runs
+// espim_spmv_batched_glu_f32 and espim_spmv_batched_quant_glu (its
+// gate+up buckets). Those launches are short (32 to ~12k rows of 8-22
+// chunks x Lc 80-88 slots) and the warp-per-row body below was
 // latency-bound on them, not byte-bound: a lane had one 4-byte index load
 // and one value load in flight before the gather that needed them, and
 // its 8-wide batch tile carried 8 accumulators at any B. The streaming
@@ -71,16 +76,34 @@
 //     the same kernel; the host picks the walk from the shapes and
 //     pointers (stream_mode), the tile from B and the warps a row from
 //     the rows.
+// The GLU variant's output row r needs gate row r and up row r + Rg of the
+// same half-major plane. A team of 1, 2 or 4 warps owns a pair, and the
+// warps a pair come from stream_wpr over the pairs, the pairs counting as
+// rows (the engines' gate+up buckets hold 384-6944 pairs; on 132 SMs
+// those over 2112 take one warp a pair). It walks the gate row, reduces
+// it and parks the sum in shared memory, then walks the up row with the
+// same BT accumulator registers (design "a"; only BT accumulators are
+// live, where 2 * BT spilled at BT = 8). Design "b" (SPLIT) splits the
+// team's warps between the two rows at once and meets their sums in
+// shared memory in warp order; only scripts/spmv_tile_ab.py instantiates
+// it. Design a at U = 2 was the best
+// or within 2% of the best of 15 (design, U, warps a pair) variants on
+// one full-width layer, fp32 and int8, B = 1 and 4 (the A/B in PERF.md).
+// The team's first lane writes the epilogue in the reference's op order:
+// act(gate) * up (fp32), or act(gate * srow[r]) * (up * srow[r + Rg])
+// (int8 / int4), with apply_act below.
 //
-// The warp-per-row body (espim_spmv_kernel) serves kernels 3-6: the
+// The warp-per-row body (espim_spmv_kernel) serves kernels 5 and 6: the
 // warp's lanes stride over the row's slots one at a time, x rows are
 // gathered through the read-only cache, B partial sums live in registers
 // tiled by the batch tile BT (8, or 1 unbatched), a warp-shuffle reduce
-// ends each row and lane 0 writes it, with the GLU or residual epilogue
-// applied there (no second pass). Column ids are bound-checked against M
-// in place of padding x, in both bodies.
+// ends each row and lane 0 writes it, with the residual epilogue applied
+// there (no second pass). Column ids are bound-checked against M in place
+// of padding x, in both bodies.
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -167,73 +190,49 @@ __device__ __forceinline__ void row_accumulate(
       acc[j] += __shfl_down_sync(0xffffffffu, acc[j], off);
 }
 
-// One warp per output row. Non-GLU: row r of an (R, K, Lc) plane. GLU:
-// gate row r and up row r + rows_out of a (2 * rows_out, K, Lc) plane.
-template <int P, bool GLU, typename XT, int BT>
+// One warp per output row r of an (R, K, Lc) plane, plus residual[r, b]
+// unless residual is null.
+template <int P, typename XT, int BT>
 __global__ void __launch_bounds__(kWarp * kWarpsPerBlock)
 espim_spmv_kernel(const void* __restrict__ values, const int* __restrict__ cols,
-                  const XT* __restrict__ x, const float* __restrict__ scale,
+                  const XT* __restrict__ x,
                   const float* __restrict__ residual, float* __restrict__ out,
-                  int rows_out, int n_chunks, int lc, int lv, int chunk_cols,
-                  int m, int b, int group_rows, int act) {
+                  int rows, int n_chunks, int lc, int lv, int chunk_cols,
+                  int m, int b) {
   const int lane = threadIdx.x & (kWarp - 1);
   const int row = blockIdx.x * kWarpsPerBlock + (threadIdx.x / kWarp);
-  if (row >= rows_out) return;  // uniform across the warp
+  if (row >= rows) return;  // uniform across the warp
   const int slots = n_chunks * lc;
   const int vrow = (P == kNib) ? n_chunks * lv : slots;
   const long long cg = static_cast<long long>(row) * slots;
   const long long vg = static_cast<long long>(row) * vrow;
-  const long long cu = static_cast<long long>(row + rows_out) * slots;
-  const long long vu = static_cast<long long>(row + rows_out) * vrow;
   for (int b0 = 0; b0 < b; b0 += BT) {
     const int nb = min(BT, b - b0);
-    float ag[BT];
-    float au[BT];
+    float acc[BT];
 #pragma unroll
-    for (int j = 0; j < BT; ++j) ag[j] = au[j] = 0.0f;
+    for (int j = 0; j < BT; ++j) acc[j] = 0.0f;
     row_accumulate<P, XT, BT>(values, cols, x, vg, cg, lane, slots, lc, lv,
-                              chunk_cols, m, b, b0, nb, ag);
-    if (GLU)
-      row_accumulate<P, XT, BT>(values, cols, x, vu, cu, lane, slots, lc, lv,
-                                chunk_cols, m, b, b0, nb, au);
+                              chunk_cols, m, b, b0, nb, acc);
     if (lane == 0) {
       float* o = out + static_cast<long long>(row) * b + b0;
-      if (GLU) {
-        const float sg = scale ? scale[row] : 1.0f;
-        const float su = scale ? scale[row + rows_out] : 1.0f;
-        for (int j = 0; j < nb; ++j) {
-          float gate = ag[j], up = au[j];
-          if (scale) {
-            gate *= sg;
-            up *= su;
-          }
-          o[j] = apply_act(gate, act) * up;
-        }
-      } else {
-        const float sr = scale ? scale[row / group_rows] : 1.0f;
-        const float* res =
-            residual ? residual + static_cast<long long>(row) * b + b0
-                     : nullptr;
-        for (int j = 0; j < nb; ++j) {
-          const float y = scale ? ag[j] * sr : ag[j];
-          o[j] = res ? y + res[j] : y;
-        }
-      }
+      const float* res =
+          residual ? residual + static_cast<long long>(row) * b + b0
+                   : nullptr;
+      for (int j = 0; j < nb; ++j) o[j] = res ? acc[j] + res[j] : acc[j];
     }
   }
 }
 
-template <int P, bool GLU, typename XT = float, int BT = kBTile>
+template <int P, typename XT = float, int BT = kBTile>
 int launch(const void* values, const int* cols, const XT* x,
-           const float* scale, const float* residual, float* out,
-           int rows_out, int n_chunks, int lc, int lv, int chunk_cols, int m,
-           int b, int group_rows, int act, void* stream) {
+           const float* residual, float* out, int rows, int n_chunks, int lc,
+           int lv, int chunk_cols, int m, int b, void* stream) {
   const dim3 block(kWarp * kWarpsPerBlock);
-  const dim3 grid((rows_out + kWarpsPerBlock - 1) / kWarpsPerBlock);
-  espim_spmv_kernel<P, GLU, XT, BT>
+  const dim3 grid((rows + kWarpsPerBlock - 1) / kWarpsPerBlock);
+  espim_spmv_kernel<P, XT, BT>
       <<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-          values, cols, x, scale, residual, out, rows_out, n_chunks, lc, lv,
-          chunk_cols, m, b, group_rows, act);
+          values, cols, x, residual, out, rows, n_chunks, lc, lv, chunk_cols,
+          m, b);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -242,17 +241,17 @@ int launch_unbatched(const void* values, const int* cols, const void* x,
                      int x_bf16, float* out, int rows, int n_chunks, int lc,
                      int chunk_cols, int m, void* stream) {
   if (x_bf16)
-    return launch<P, false, unsigned short, 1>(
-        values, cols, static_cast<const unsigned short*>(x), nullptr, nullptr,
-        out, rows, n_chunks, lc, lc, chunk_cols, m, 1, 1, 0, stream);
-  return launch<P, false, float, 1>(values, cols, static_cast<const float*>(x),
-                                    nullptr, nullptr, out, rows, n_chunks, lc,
-                                    lc, chunk_cols, m, 1, 1, 0, stream);
+    return launch<P, unsigned short, 1>(
+        values, cols, static_cast<const unsigned short*>(x), nullptr, out,
+        rows, n_chunks, lc, lc, chunk_cols, m, 1, stream);
+  return launch<P, float, 1>(values, cols, static_cast<const float*>(x),
+                             nullptr, out, rows, n_chunks, lc, lc, chunk_cols,
+                             m, 1, stream);
 }
 
 
 // --------------------------------------------------------------------------
-// The streaming body of kernels 1 and 2 (see the note at the head).
+// The streaming body of kernels 1-4 (see the note at the head).
 // --------------------------------------------------------------------------
 constexpr int kStreamThreads = 128;                  // 4 warps a block
 constexpr int kStreamWarps = kStreamThreads / kWarp;
@@ -418,6 +417,65 @@ __device__ __forceinline__ void walk_slots(
   }
 }
 
+// row r's slots into acc[0 : nb) for batch columns b0..b0+nb, by the
+// slot walk `mode` names; lane `lane` of `lanes` walks its share
+template <int P, int BT, int U>
+__device__ __forceinline__ void walk_row(
+    const void* __restrict__ values, const int* __restrict__ cols,
+    const float* __restrict__ x, long long r, int n_chunks, int lc, int lv,
+    int chunk_cols, int m, int b, int b0, int nb, int mode, int lane,
+    int lanes, float (&acc)[BT]) {
+  const int slots = n_chunks * lc;
+  const long long rslot = r * slots;
+  const long long vrow = P == kNib ? r * n_chunks * lv : rslot;
+  if ((mode & kVecPlanes) && (mode & kVecX))
+    walk_groups<P, BT, U, true>(values, cols, x, rslot, slots, lc, chunk_cols,
+                                m, b, b0, nb, lane, lanes, acc);
+  else if (mode & kVecPlanes)
+    walk_groups<P, BT, U, false>(values, cols, x, rslot, slots, lc,
+                                 chunk_cols, m, b, b0, nb, lane, lanes, acc);
+  else if (mode & kVecX)
+    walk_slots<P, BT, true>(values, cols, x, rslot, vrow, slots, lc, lv,
+                            chunk_cols, m, b, b0, nb, lane, lanes, acc);
+  else
+    walk_slots<P, BT, false>(values, cols, x, rslot, vrow, slots, lc, lv,
+                             chunk_cols, m, b, b0, nb, lane, lanes, acc);
+}
+
+// the warp's sum of acc, in every lane (a butterfly: a fixed order)
+template <int BT>
+__device__ __forceinline__ void warp_sum(float (&acc)[BT]) {
+#pragma unroll
+  for (int j = 0; j < BT; ++j)
+#pragma unroll
+    for (int off = kWarp / 2; off > 0; off >>= 1)
+      acc[j] += __shfl_xor_sync(0xffffffffu, acc[j], off);
+}
+
+// each warp's lane 0 posts its warp sum to part[warp]; every thread of the
+// block must call it, and read part only after the barrier
+template <int BT>
+__device__ __forceinline__ void post_warp_sum(float (&part)[kStreamWarps][BT],
+                                              const float (&acc)[BT]) {
+  if (threadIdx.x % kWarp == 0) {
+#pragma unroll
+    for (int j = 0; j < BT; ++j) part[threadIdx.x / kWarp][j] = acc[j];
+  }
+  __syncthreads();
+}
+
+// part[w0] + ... + part[w0 + n - 1], added in warp order
+template <int BT>
+__device__ __forceinline__ void sum_warps(const float (&part)[kStreamWarps][BT],
+                                          int w0, int n, float (&acc)[BT]) {
+#pragma unroll
+  for (int j = 0; j < BT; ++j) {
+    float t = part[w0][j];
+    for (int w = 1; w < n; ++w) t += part[w0 + w][j];
+    acc[j] = t;
+  }
+}
+
 // A row per `wpr` warps (1, 2 or 4), kStreamWarps / wpr rows a block. The
 // row's lanes walk its slots; each warp reduces its partial sums by
 // shuffles, and with wpr > 1 the first warp of the row adds the other
@@ -439,49 +497,18 @@ espim_spmv_stream_kernel(const void* __restrict__ values,
   const long long r =
       static_cast<long long>(blockIdx.x) * (kStreamWarps / wpr) + warp / wpr;
   const bool live = r < rows;
-  const int slots = n_chunks * lc;
-  const long long rslot = r * slots;
-  const long long vrow = P == kNib ? r * n_chunks * lv : rslot;
   for (int b0 = 0; b0 < b; b0 += BT) {
     const int nb = min(BT, b - b0);
     float acc[BT];
 #pragma unroll
     for (int j = 0; j < BT; ++j) acc[j] = 0.0f;
-    if (live) {
-      if ((mode & kVecPlanes) && (mode & kVecX))
-        walk_groups<P, BT, U, true>(values, cols, x, rslot, slots, lc,
-                                    chunk_cols, m, b, b0, nb, lane, lanes,
-                                    acc);
-      else if (mode & kVecPlanes)
-        walk_groups<P, BT, U, false>(values, cols, x, rslot, slots, lc,
-                                     chunk_cols, m, b, b0, nb, lane, lanes,
-                                     acc);
-      else if (mode & kVecX)
-        walk_slots<P, BT, true>(values, cols, x, rslot, vrow, slots, lc, lv,
-                                chunk_cols, m, b, b0, nb, lane, lanes, acc);
-      else
-        walk_slots<P, BT, false>(values, cols, x, rslot, vrow, slots, lc, lv,
-                                 chunk_cols, m, b, b0, nb, lane, lanes, acc);
-    }
-#pragma unroll
-    for (int j = 0; j < BT; ++j)
-#pragma unroll
-      for (int off = kWarp / 2; off > 0; off >>= 1)
-        acc[j] += __shfl_xor_sync(0xffffffffu, acc[j], off);
+    if (live)
+      walk_row<P, BT, U>(values, cols, x, r, n_chunks, lc, lv, chunk_cols, m,
+                         b, b0, nb, mode, lane, lanes, acc);
+    warp_sum(acc);
     if (wpr > 1) {
-      if (threadIdx.x % kWarp == 0) {
-#pragma unroll
-        for (int j = 0; j < BT; ++j) part[warp][j] = acc[j];
-      }
-      __syncthreads();
-      if (lane == 0) {
-#pragma unroll
-        for (int j = 0; j < BT; ++j) {
-          float t = part[warp][j];
-          for (int w = 1; w < wpr; ++w) t += part[warp + w][j];
-          acc[j] = t;
-        }
-      }
+      post_warp_sum(part, acc);
+      if (lane == 0) sum_warps(part, warp, wpr, acc);
       __syncthreads();  // the next tile reuses part
     }
     if (live && lane == 0) {
@@ -490,6 +517,89 @@ espim_spmv_stream_kernel(const void* __restrict__ values,
 #pragma unroll
       for (int j = 0; j < BT; ++j)
         if (j < nb) o[j] = scale ? acc[j] * sr : acc[j];
+    }
+  }
+}
+
+// GLU: output row r of rows_g from gate row r and up row r + rows_g of a
+// half-major (2 * rows_g, K, Lc) plane; a pair per team of `wpr` warps,
+// kStreamWarps / wpr pairs a block. SPLIT false (design a): the whole team
+// walks the gate row, then the up row, with one set of BT accumulators;
+// the gate sum waits in shared memory. SPLIT (design b, wpr 2 or 4): the
+// team's first wpr / 2 warps walk the gate row while the others walk the
+// up row. Either way the warps' sums are added in warp order, and the
+// team's first lane writes act(g) * u, g and u times srow first when srow
+// is not null. Every thread reaches every barrier.
+template <int P, int BT, int U, bool SPLIT>
+__global__ void __launch_bounds__(kStreamThreads)
+espim_spmv_stream_glu_kernel(const void* __restrict__ values,
+                             const int* __restrict__ cols,
+                             const float* __restrict__ x,
+                             const float* __restrict__ srow,
+                             float* __restrict__ out, int rows_g,
+                             int n_chunks, int lc, int lv, int chunk_cols,
+                             int m, int b, int mode, int wpr, int act) {
+  __shared__ float part[kStreamWarps][BT];
+  __shared__ float gate[kStreamWarps][BT];
+  const int warp = threadIdx.x / kWarp;
+  const int team = warp / wpr;
+  const int w0 = team * wpr;                 // the team's first warp
+  const int hw = SPLIT ? wpr / 2 : wpr;      // warps walking one row
+  const int lanes = kWarp * hw;
+  const int lane = threadIdx.x % lanes;      // within the row's walkers
+  const bool lead = threadIdx.x % (kWarp * wpr) == 0;
+  const long long r =
+      static_cast<long long>(blockIdx.x) * (kStreamWarps / wpr) + team;
+  const bool live = r < rows_g;
+  for (int b0 = 0; b0 < b; b0 += BT) {
+    const int nb = min(BT, b - b0);
+    float acc[BT];
+#pragma unroll
+    for (int pass = 0; pass < (SPLIT ? 1 : 2); ++pass) {
+      const int half = SPLIT ? (warp - w0) / hw : pass;
+#pragma unroll
+      for (int j = 0; j < BT; ++j) acc[j] = 0.0f;
+      if (live)
+        walk_row<P, BT, U>(values, cols, x, r + half * rows_g, n_chunks, lc,
+                           lv, chunk_cols, m, b, b0, nb, mode, lane, lanes,
+                           acc);
+      warp_sum(acc);
+      if (SPLIT) {
+        post_warp_sum(part, acc);
+        if (lead) {
+          sum_warps(part, w0, hw, acc);
+#pragma unroll
+          for (int j = 0; j < BT; ++j) gate[team][j] = acc[j];
+          sum_warps(part, w0 + hw, hw, acc);
+        }
+        __syncthreads();  // the next tile reuses part
+      } else {
+        if (wpr > 1) {
+          post_warp_sum(part, acc);
+          if (lead) sum_warps(part, w0, wpr, acc);
+          __syncthreads();  // the up pass reuses part
+        }
+        if (pass == 0 && lead) {
+#pragma unroll
+          for (int j = 0; j < BT; ++j) gate[team][j] = acc[j];
+        }
+      }
+    }
+    if (live && lead) {
+      const float sg = srow ? srow[r] : 1.0f;
+      const float su = srow ? srow[r + rows_g] : 1.0f;
+      float* o = out + r * b + b0;
+#pragma unroll
+      for (int j = 0; j < BT; ++j) {
+        if (j < nb) {
+          float g = gate[team][j], u = acc[j];
+          if (srow) {
+            g *= sg;
+            u *= su;
+          }
+          o[j] = apply_act(g, act) * u;
+        }
+      }
     }
   }
 }
@@ -545,6 +655,21 @@ inline int stream_wpr(int rows) {
   return 4LL * rows <= fill ? 4 : 2LL * rows <= fill ? 2 : 1;
 }
 
+// f(std::integral_constant<int, BT>()) for the batch tile BT of B
+template <typename F>
+int by_tile(int b, F&& f) {
+  switch (stream_tile(b)) {
+    case 1:
+      return f(std::integral_constant<int, 1>());
+    case 2:
+      return f(std::integral_constant<int, 2>());
+    case 4:
+      return f(std::integral_constant<int, 4>());
+    default:
+      return f(std::integral_constant<int, 8>());
+  }
+}
+
 // kernels 1 and 2: the tile from B, the slot walk from the shapes and
 // pointers, the warps a row from the rows
 template <int P>
@@ -554,24 +679,42 @@ int launch_stream(const void* values, const int* cols, const float* x,
                   int group_rows, void* stream) {
   const int mode = stream_mode<P>(values, cols, x, lc, lv, b);
   const int wpr = stream_wpr(rows);
-  switch (stream_tile(b)) {
-    case 1:
-      return launch_stream_tile<P, 1, kStreamU>(
-          values, cols, x, scale, out, rows, n_chunks, lc, lv, chunk_cols, m,
-          b, group_rows, mode, wpr, stream);
-    case 2:
-      return launch_stream_tile<P, 2, kStreamU>(
-          values, cols, x, scale, out, rows, n_chunks, lc, lv, chunk_cols, m,
-          b, group_rows, mode, wpr, stream);
-    case 4:
-      return launch_stream_tile<P, 4, kStreamU>(
-          values, cols, x, scale, out, rows, n_chunks, lc, lv, chunk_cols, m,
-          b, group_rows, mode, wpr, stream);
-    default:
-      return launch_stream_tile<P, 8, kStreamU>(
-          values, cols, x, scale, out, rows, n_chunks, lc, lv, chunk_cols, m,
-          b, group_rows, mode, wpr, stream);
-  }
+  return by_tile(b, [&](auto bt) {
+    return launch_stream_tile<P, decltype(bt)::value, kStreamU>(
+        values, cols, x, scale, out, rows, n_chunks, lc, lv, chunk_cols, m, b,
+        group_rows, mode, wpr, stream);
+  });
+}
+
+template <int P, int BT, int U, bool SPLIT>
+int launch_glu_tile(const void* values, const int* cols, const float* x,
+                    const float* srow, float* out, int rows_g, int n_chunks,
+                    int lc, int lv, int chunk_cols, int m, int b, int mode,
+                    int wpr, int act, void* stream) {
+  const int per_block = kStreamWarps / wpr;
+  const dim3 grid(static_cast<unsigned>(
+      (static_cast<long long>(rows_g) + per_block - 1) / per_block));
+  espim_spmv_stream_glu_kernel<P, BT, U, SPLIT>
+      <<<grid, kStreamThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+          values, cols, x, srow, out, rows_g, n_chunks, lc, lv, chunk_cols, m,
+          b, mode, wpr, act);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// kernels 3 and 4: as kernels 1 and 2, a pair counting as a row, in
+// design a (the A/B in PERF.md)
+template <int P>
+int launch_glu(const void* values, const int* cols, const float* x,
+               const float* srow, float* out, int rows_g, int n_chunks,
+               int lc, int lv, int chunk_cols, int m, int b, int act,
+               void* stream) {
+  const int mode = stream_mode<P>(values, cols, x, lc, lv, b);
+  const int wpr = stream_wpr(rows_g);
+  return by_tile(b, [&](auto bt) {
+    return launch_glu_tile<P, decltype(bt)::value, kStreamU, false>(
+        values, cols, x, srow, out, rows_g, n_chunks, lc, lv, chunk_cols, m,
+        b, mode, wpr, act, stream);
+  });
 }
 
 }  // namespace
@@ -607,11 +750,11 @@ int espim_spmv_batched_res_f32(const void* values, const void* cols,
                                const void* x, const void* residual, void* out,
                                int rows, int n_chunks, int lc, int chunk_cols,
                                int m, int b, void* stream) {
-  return launch<kF32, false>(values, static_cast<const int*>(cols),
-                             static_cast<const float*>(x), nullptr,
-                             static_cast<const float*>(residual),
-                             static_cast<float*>(out), rows, n_chunks, lc, lc,
-                             chunk_cols, m, b, 1, 0, stream);
+  return launch<kF32>(values, static_cast<const int*>(cols),
+                       static_cast<const float*>(x),
+                       static_cast<const float*>(residual),
+                       static_cast<float*>(out), rows, n_chunks, lc, lc,
+                       chunk_cols, m, b, stream);
 }
 
 // codes int8 (R, K, Lc) or nibble-packed uint8 (R, K, lv); scales
@@ -637,10 +780,10 @@ int espim_spmv_batched_glu_f32(const void* values, const void* cols,
                                const void* x, void* out, int rows_g,
                                int n_chunks, int lc, int chunk_cols, int m,
                                int b, int act, void* stream) {
-  return launch<kF32, true>(values, static_cast<const int*>(cols),
-                            static_cast<const float*>(x), nullptr, nullptr,
-                            static_cast<float*>(out), rows_g, n_chunks, lc, lc,
-                            chunk_cols, m, b, 1, act, stream);
+  return launch_glu<kF32>(values, static_cast<const int*>(cols),
+                          static_cast<const float*>(x), nullptr,
+                          static_cast<float*>(out), rows_g, n_chunks, lc, lc,
+                          chunk_cols, m, b, act, stream);
 }
 
 // codes int8 / nibble uint8 (2 * Rg, K, Lc | lv); srow (2 * Rg,) f32;
@@ -655,10 +798,10 @@ int espim_spmv_batched_quant_glu(const void* codes, int nibble, int lv,
   const float* sr = static_cast<const float*>(srow);
   float* o = static_cast<float*>(out);
   if (nibble)
-    return launch<kNib, true>(codes, c, xs, sr, nullptr, o, rows_g, n_chunks,
-                              lc, lv, chunk_cols, m, b, 1, act, stream);
-  return launch<kI8, true>(codes, c, xs, sr, nullptr, o, rows_g, n_chunks, lc,
-                           lc, chunk_cols, m, b, 1, act, stream);
+    return launch_glu<kNib>(codes, c, xs, sr, o, rows_g, n_chunks, lc, lv,
+                            chunk_cols, m, b, act, stream);
+  return launch_glu<kI8>(codes, c, xs, sr, o, rows_g, n_chunks, lc, lc,
+                         chunk_cols, m, b, act, stream);
 }
 
 }  // extern "C"

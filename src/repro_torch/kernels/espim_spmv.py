@@ -18,11 +18,11 @@ contiguity, allocate the output, launch on the current stream, raise if
 the launch was refused, and add one to ``LAUNCHES[<kernel>]``.  Their
 plain versions live in ``kernels/ref.py``; ``kernels/ops.py`` picks
 between the two by the tensors' device.  All six are bound by the bytes
-of the value and index planes (see the source's header note).  Kernels 1
-and 2 (``espim_spmv_batched_cuda``, ``espim_spmv_batched_quant_cuda``)
-run the source's streaming body, whose C launcher picks the batch tile
-from B and the vector or scalar slot walk from Lc and the planes'
-alignment; any width, alignment and B >= 1 is taken.
+of the value and index planes (see the source's header note).  Kernels
+1-4 (``espim_spmv_batched_cuda``, ``espim_spmv_batched_quant_cuda`` and
+their GLU forms) run the source's streaming body, whose C launcher picks
+the batch tile from B and the vector or scalar slot walk from Lc and the
+planes' alignment; any width, alignment and B >= 1 is taken.
 """
 from __future__ import annotations
 
