@@ -10,7 +10,9 @@ port's paths at the full width of ``llama7b-espim`` (random weights from
 layers), the standalone projection layers, and the ops of the other
 kernels — then checks them:
 
-1. build: nvcc the kernels, print the build time and ptxas' report;
+1. build: nvcc the kernels, print the build time and ptxas' report, and
+   the tensor-core instructions in the flash library's SASS (HGMMA for
+   wgmma, HMMA for mma.sync); fails if its bf16 body holds neither;
 2. engine: 8 requests through the int8 engine (kernels 2 and 4), then 4
    through a 1-layer fp engine (kernels 1 and 3), each trace served 3
    times; every launch counter is zeroed just before each serve and read
@@ -28,19 +30,20 @@ kernels — then checks them:
 5. ops: the residual epilogue over the fp32 engine's attn_out and down
    buckets, ``ops.dense_mv`` and ``flash_attention`` at the shapes of
    step 6, counters zeroed before and read after;
-6. kernels: each of the eight kernels against its plain version — the
-   four decode kernels (1-4, all on the streaming body) at the engine
+6. kernels: each of the eight kernels against its plain version, every
+   check also launched twice for identical bits — the five kernels on
+   the streaming body (1-4 and the residual kernel 6) at the engine
    packs' full-width bucket shapes (plus int4 planes, one QKV and one
-   gate+up bucket with an odd Lc), B in {1, 2, 3, 4, 8, 13}, every check
-   also launched twice for identical bits; the unbatched
-   kernel on the projection packs in fp32 and bf16; the residual kernel
-   on the attn_out and down buckets; dense MV at (4096, 4096) and
-   (4096, 11008) in fp32 and bf16; flash attention at BH = 32, hd = 128,
-   S in {77, 512, 2048}, causal or not, fp32 and bf16 — with its time,
-   the plain version's, a library call of the same function that the
-   port never makes (each timed by CUDA events around replays of a
-   captured CUDA graph), and the least time the card could take; then
-   each bucket launch of kernels 1-4 at B = 4 on its own (a graph of an
+   gate+up bucket with an odd Lc), B in {1, 2, 3, 4, 8, 13}; the
+   unbatched kernel on the projection packs in fp32 and bf16; the
+   residual kernel also per call at B in {1, 4}; dense MV at
+   (4096, 4096) and (4096, 11008) in fp32 and bf16; flash attention at
+   BH = 32, hd = 128, S in {77, 512, 2048}, and at hd 32 and 64 with a
+   ragged S = 200, causal or not, fp32 and bf16 — with its time, the
+   plain version's, a library call of the same function that the port
+   never makes (each timed by CUDA events around replays of a captured
+   CUDA graph), and the least time the card could take; then each
+   bucket launch of kernels 1-4 and 6 at B = 4 on its own (a graph of an
    L2-evicting read and the launch, less the read): rows, K, Lc, µs and
    GB/s.
 
@@ -53,6 +56,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -72,6 +76,9 @@ ENGINE_RUNS = 3                         # measured serves of the trace
 PROJ_SPARSITY = 0.9                     # the projection phase's pruning
 FLASH_BH, FLASH_HD = 32, 128            # llama7b's heads at B = 1
 FLASH_SEQS = (77, 512, 2048)
+# the other head widths the kernel is built for, at a ragged S: every
+# instantiation, and both swizzle widths of the bf16 body, run on the card
+FLASH_RAGGED_SEQ, FLASH_OTHER_HDS = 200, (32, 64)
 DENSE_SHAPES = ((4096, 4096), (4096, 11008))
 # data-sheet memory bandwidth, bytes/s, by card name (NVIDIA data sheets)
 _BANDWIDTH = (("H200", 4.8e12), ("H100 NVL", 3.9e12), ("H100 PCIe", 2.0e12),
@@ -80,12 +87,13 @@ _BANDWIDTH = (("H200", 4.8e12), ("H100 NVL", 3.9e12), ("H100 PCIe", 2.0e12),
 # on the tensor cores (the bound of bf16 attention)
 PEAKS = {"fp32": 67e12, "bf16_tensor": 989e12}
 KERNEL_REL_TOL, KERNEL_ABS_TOL = 1e-5, 1e-6
-# kernels 1-4 (the streaming body) are checked at every batch tile
+# kernels 1-4 and 6 (the streaming body) are checked at every batch tile
 # (1, 2, 4, 8), a tile's remainder (3) and the loop over tiles of 8 (13),
 # and each of their bucket launches is timed at B = 4; every SpMV kernel
-# is timed per layer at B in {1, 4}
+# is timed per layer (kernel 6: per call) at B in {1, 4}
 STREAM_KERNELS = ("espim_spmv_batched", "espim_spmv_batched_quant",
-                  "espim_spmv_batched_glu", "espim_spmv_batched_quant_glu")
+                  "espim_spmv_batched_glu", "espim_spmv_batched_quant_glu",
+                  "espim_spmv_batched_res")
 CHECK_BATCHES = (1, 2, 3, 4, 8, 13)
 TIME_BATCHES = (1, 4)
 # the SpMV kernels' names in a profiler trace: espim_spmv.cu's
@@ -155,6 +163,28 @@ def nvidia_smi() -> str:
     return proc.stdout.strip().splitlines()[0]
 
 
+def sass_tensor_ops(path) -> dict:
+    """{kernel function: {"HGMMA": n, "HMMA": n}}: the tensor-core
+    instructions in ``cuobjdump --dump-sass`` of a built library (HGMMA
+    is wgmma, HMMA mma.sync)."""
+    from repro_torch.kernels.build import find_nvcc
+    tool = Path(find_nvcc()).parent / "cuobjdump"
+    proc = subprocess.run([str(tool), "--dump-sass", str(path)],
+                          capture_output=True, text=True, timeout=300)
+    need(proc.returncode == 0,
+         f"cuobjdump failed on {path}: {proc.stderr.strip()[:500]}")
+    out, fn = {}, None
+    for line in proc.stdout.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            out[fn] = {"HGMMA": 0, "HMMA": 0}
+        elif fn:
+            for op in out[fn]:
+                out[fn][op] += len(re.findall(rf"\b{op}\.", line))
+    return out
+
+
 class Timer:
     """Median milliseconds of device time per call of ``fn``.
 
@@ -198,7 +228,8 @@ class Timer:
 # phases
 # --------------------------------------------------------------------------
 def phase_build(report: dict) -> None:
-    """nvcc every source at once, then load each library."""
+    """nvcc every source at once, then load each library; then the
+    tensor-core instructions of the flash library's kernels."""
     from repro_torch.kernels import build
     t0 = time.perf_counter()
     build.build_all()
@@ -217,6 +248,18 @@ def phase_build(report: dict) -> None:
         for line in rec["log"].splitlines():
             if "registers" in line or "spill" in line:
                 log(f"[build]   {line.strip()}")
+    sass = sass_tensor_ops(build.library_path("flash_attention"))
+    report["build"]["flash_attention_sass"] = sass
+    for fn, n in sass.items():
+        log(f"[build] flash_attention SASS {fn}: HGMMA {n['HGMMA']}, "
+            f"HMMA {n['HMMA']}")
+    # the fp32 body is flash_attention_kernel; every other is bf16
+    bf16 = {fn: n for fn, n in sass.items()
+            if "flash_attention_kernel" not in fn}
+    need(bool(bf16) and all(n["HGMMA"] + n["HMMA"] > 0
+                            for n in bf16.values()),
+         "[build] a bf16 flash_attention body holds no tensor-core "
+         "instruction (HGMMA / HMMA)")
 
 
 def _counter_modules():
@@ -468,6 +511,21 @@ def kernel_cases(ctx, sparse8, sparse_fp):
     # int4 planes for kernels 2 and 4: the int8 codes requantized to
     # [-7, 7] and nibble-packed (the plane the int4 serving path gathers)
     extra = []
+    # kernel 6: the fp32 attn_out and down buckets with a packed-order
+    # residual for each checked batch
+    gen = None
+    for c in cases:
+        if (c["kernel"], c["group"]) not in (("espim_spmv_batched",
+                                              "attn_out"),
+                                             ("espim_spmv_batched", "down")):
+            continue
+        dev = c["cols"].device
+        if gen is None:
+            gen = torch.Generator(device=dev).manual_seed(
+                ctx.get("seed", 0) + 6)
+        res = {b: torch.randn((c["cols"].shape[0], b), generator=gen,
+                              device=dev) for b in CHECK_BATCHES}
+        extra.append(dict(c, kernel="espim_spmv_batched_res", res=res))
     for c in cases:
         if c["variant"] != "int8":
             continue
@@ -487,6 +545,11 @@ def run_case(ops, c, x, impl):
     if c["kernel"] == "espim_spmv_batched":
         return ops.espim_spmv_batched(c["values"], c["cols"], x,
                                       chunk_cols=c["cc"], impl=impl)
+    if c["kernel"] == "espim_spmv_batched_res":
+        return ops.espim_spmv_batched(c["values"], c["cols"], x,
+                                      chunk_cols=c["cc"], impl=impl,
+                                      epilogue="residual",
+                                      residual=c["res"][x.shape[1]])
     if c["kernel"] == "espim_spmv_batched_glu":
         return ops.espim_spmv_batched(c["values"], c["cols"], x,
                                       chunk_cols=c["cc"], impl=impl,
@@ -502,13 +565,14 @@ def run_case(ops, c, x, impl):
 
 def case_bytes(c, b: int) -> tuple[int, int]:
     """(bytes, flops) the launch needs: every plane it reads read once
-    (values or codes, cols, and the GLU kernel's scales), x read once, the
-    output written once."""
+    (values or codes, cols, and the GLU kernel's scales), x and the
+    residual read once, the output written once."""
     plane = sum(c[k].numel() * c[k].element_size()
                 for k in ("values", "q", "srow", "cols") if k in c)
     slots = c["cols"].numel()
     rows_out = c["cols"].shape[0] // (2 if "glu" in c["kernel"] else 1)
-    return plane + c["m"] * b * 4 + rows_out * b * 4, 2 * slots * b
+    res = rows_out * b * 4 if "res" in c else 0
+    return plane + c["m"] * b * 4 + rows_out * b * 4 + res, 2 * slots * b
 
 
 def bucket_times(ctx, sel, xs, b) -> list:
@@ -579,12 +643,15 @@ def phase_kernels(ctx, sparse8, sparse_fp, launches_main) -> list:
         f"{KERNEL_ABS_TOL}, each bit-identical across two launches; worst "
         "max|kernel-plain| "
         + ", ".join(f"{k} {v:.2e}" for k, v in worst.items()))
+    ctx["worst"] = worst
     # 2) timing: per kernel and variant, one layer's launches at B in {1,4},
     # cycling over every layer so the planes stream from HBM (the packs
-    # of all layers exceed the 50 MB L2)
+    # of all layers exceed the 50 MB L2); kernel 6 is timed per call,
+    # beside its addmm, by phase_new_kernels
     timed = {}
     for key in sorted({(c["kernel"], c["variant"]) for c in cases
-                       if c["variant"] != "int4-oddLc"}):
+                       if c["variant"] != "int4-oddLc"
+                       and c["kernel"] != "espim_spmv_batched_res"}):
         sel = [c for c in cases if (c["kernel"], c["variant"]) == key]
         n_layers = len({c["layer"] for c in sel})
         src = sparse_fp if key[1] == "fp32" else sparse8
@@ -628,12 +695,13 @@ def phase_kernels(ctx, sparse8, sparse_fp, launches_main) -> list:
                     "espim_spmv_batched_glu": "fp32",
                     "espim_spmv_batched_quant": "int8",
                     "espim_spmv_batched_quant_glu": "int8"}
-    # 3) per bucket launch of kernels 1-4 at B = 4: does a small bucket
-    # under-fill the card?
+    # 3) per bucket launch of kernels 1-4 and 6 at B = 4: does a small
+    # bucket under-fill the card?
     per_bucket = []
+    bucket_variant = dict(main_variant, espim_spmv_batched_res="fp32")
     for name in STREAM_KERNELS:
         sel = [c for c in cases if c["kernel"] == name
-               and c["variant"] == main_variant[name]]
+               and c["variant"] == bucket_variant[name]]
         per_bucket += bucket_times(ctx, sel, xs, 4)
     for r in per_bucket:
         log(f"[buckets] {r['kernel']:28s} {r['variant']:4s} B={r['B']} "
@@ -859,16 +927,19 @@ def new_kernel_cases(ctx, proj, sparse_fp) -> list:
                 "bytes": (w.numel() + x.numel()) * w.element_size() + r * 4,
                 "flops": 2 * r * c, "peak": "fp32"}]))
     # kernel 8: flash attention
-    for seq in FLASH_SEQS:
+    shapes = ([(seq, FLASH_HD) for seq in FLASH_SEQS]
+              + [(FLASH_RAGGED_SEQ, hd) for hd in FLASH_OTHER_HDS])
+    for seq, hd in shapes:
         for causal in (True, False):
             for dt, label in ((torch.float32, "fp32"), (bf, "bf16")):
-                q, k, v = (torch.randn((FLASH_BH, seq, FLASH_HD),
+                q, k, v = (torch.randn((FLASH_BH, seq, hd),
                                        generator=gen, device=dev).to(dt)
                            for _ in range(3))
                 pairs = seq * (seq + 1) // 2 if causal else seq * seq
                 groups.append((
                     "flash_attention",
-                    f"{label} S={seq} {'causal' if causal else 'full'}", [{
+                    f"{label} S={seq} {'causal' if causal else 'full'}"
+                    + ("" if hd == FLASH_HD else f" hd={hd}"), [{
                         "run": (lambda impl, q=q, k=k, v=v, cz=causal:
                                 flash_attention(q, k, v, causal=cz,
                                                 impl=impl)),
@@ -878,7 +949,7 @@ def new_kernel_cases(ctx, proj, sparse_fp) -> list:
                                         q[None], k[None], v[None],
                                         is_causal=cz)),
                         "bytes": 4 * q.numel() * q.element_size(),
-                        "flops": 4 * FLASH_BH * FLASH_HD * pairs,
+                        "flops": 4 * FLASH_BH * hd * pairs,
                         "peak": "fp32" if label == "fp32"
                         else "bf16_tensor"}]))
     return groups
@@ -911,16 +982,20 @@ def phase_ops(ctx, groups) -> dict:
 
 
 def phase_new_kernels(ctx, groups, launches_main) -> list:
-    """Kernels 5-8 against their plain versions, then timed beside the
-    plain version, the library call and the bound."""
+    """Kernels 5-8 against their plain versions (and against themselves:
+    two launches on the same inputs must give the same bits), then timed
+    beside the plain version, the library call and the bound."""
     torch, timer, bw = ctx["torch"], ctx["timer"], ctx["bandwidth"]
-    worst, rows, timed = {}, [], []
+    worst, rows, timed = dict(ctx.get("worst", {})), [], []
     for kernel, variant, cases in groups:
         for i, c in enumerate(cases):
-            got, want = c["run"](None), c["run"]("ref")
+            got, again = c["run"](None), c["run"](None)
+            want = c["run"]("ref")
             ok, err = _within(kernel, variant, got, want)
             need(ok, f"{kernel} {variant} case {i}: max|kernel-plain| "
                  f"{err:.3e} out of tolerance")
+            need(torch.equal(got, again), f"{kernel} {variant} case {i}: "
+                 "two launches on the same inputs gave different bits")
             worst[kernel] = max(worst.get(kernel, 0.0), err)
             rows.append({"kernel": kernel, "variant": variant, "case": i,
                          "shape": list(got.shape), "max_abs_err": err,
@@ -949,13 +1024,15 @@ def phase_new_kernels(ctx, groups, launches_main) -> list:
             f"{r['bound_by']} at the {r['peak']} peak; "
             f"{r['achieved_GBps']:.0f} GB/s, "
             f"{r['achieved_TFLOPs']:.2f} TFLOP/s)")
-    log(f"[kernels] kernels 5-8: {len(rows)} checks within their "
-        f"tolerances; worst max|kernel-plain| "
-        + ", ".join(f"{k} {v:.2e}" for k, v in worst.items()))
     main_variant = {"espim_spmv": "fp32",
                     "espim_spmv_batched_res": "fp32 B=4",
                     "dense_mv": "fp32 {}x{}".format(*DENSE_SHAPES[-1]),
                     "flash_attention": f"bf16 S={FLASH_SEQS[-1]} causal"}
+    log(f"[kernels] kernels 5-8: {len(rows)} checks within their "
+        f"tolerances, each bit-identical across two launches; worst "
+        f"max|kernel-plain| "
+        + ", ".join(f"{k} {v:.2e}" for k, v in worst.items()
+                    if k in main_variant))
     by_key = {(r["kernel"], r["variant"]): r for r in timed}
     ctx["report"]["kernel_checks"] += rows
     ctx["report"]["kernel_timing"] += timed

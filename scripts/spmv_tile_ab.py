@@ -6,8 +6,8 @@
 Builds, from ``src/repro_torch/kernels/csrc/espim_spmv.cu``, a throwaway
 library that instantiates variants the port itself does not launch:
 
-* the warp-per-row body (``espim_spmv_kernel``, kernels 5-6, and kernels
-  1-2 before the streaming body) at batch tiles 1, 4 and 8;
+* the warp-per-row body (``espim_spmv_kernel``, kernel 5, and kernels
+  1-2 and 6 before the streaming body) at batch tiles 1, 4 and 8;
 * the streaming body (``espim_spmv_stream_kernel``, kernels 1-2) at
   several (U groups in flight a lane, warps a row), beside the port's own
   entry points (``espim_spmv_batched_f32``, ``espim_spmv_batched_quant``),
@@ -77,7 +77,7 @@ def shim_source() -> str:
             lines.append(
                 f"  if (p == {pi} && bt == {bt}) return launch<{pc}, "
                 f"float, {bt}>(v, static_cast<const int*>(c), "
-                "static_cast<const float*>(x), nullptr, "
+                "static_cast<const float*>(x), "
                 "static_cast<float*>(out), rows, k, lc, lc, cc, m, b, s);")
     lines += ["  return -1;", "}",
               "int ab_stream(int p, int var, const void* v, const void* c, "
@@ -94,7 +94,8 @@ def shim_source() -> str:
                 lines.append(
                     f"  if (p == {pi} && var == {vi} && b == {bt}) return "
                     f"launch_stream_tile<{pc}, {bt}, {u}>(v, ci, xf, nullptr, "
-                    f"o, rows, k, lc, lc, cc, m, b, 1, mode{pi}, {wpr}, s);")
+                    f"nullptr, o, rows, k, lc, lc, cc, m, b, 1, mode{pi}, "
+                    f"{wpr}, s);")
     lines += ["  return -1;", "}",
               "int ab_glu(int p, int var, const void* v, const void* c, "
               "const void* srow, const void* x, void* out, int rows_g, "

@@ -16,11 +16,11 @@
 // where v is fp32, bf16 (the unbatched kernel only), int8 codes, or int4
 // codes packed two to a byte (slot 2j in the low nibble of byte j,
 // Lv = ceil(Lc / 2) bytes per chunk row). The unbatched kernel takes x (M,)
-// in fp32 or bf16 and is the B = 1 case of the same warp-per-row body.
-// The residual kernel adds residual[r, b] (packed row order) to the
-// reduced sum before the one store. The quant kernel multiplies by
-// scale[r / group_rows] after the reduce unless scale is null (the
-// serving path owns its scales). The GLU kernels read a half-major
+// in fp32 or bf16. The residual kernel adds residual[r, b] (packed row
+// order) to the reduced sum before the one store, the reference's order
+// (_spmv_batched_res_kernel: sum, then residual). The quant kernel
+// multiplies by scale[r / group_rows] after the reduce unless scale is null
+// (the serving path owns its scales). The GLU kernels read a half-major
 // (2 * Rg, K, Lc) gate+up pack and write act(gate) * up (Rg, B); the quant
 // GLU multiplies BOTH halves by their per-row scale srow before the
 // activation, the op order of _glu_quant_kernel.
@@ -37,16 +37,18 @@
 //
 // Two bodies.
 //
-// The streaming body serves kernels 1-4: espim_spmv_stream_kernel runs
-// espim_spmv_batched_f32 and espim_spmv_batched_quant (the decode path's
-// QKV / O / down buckets), espim_spmv_stream_glu_kernel runs
+// The streaming body serves kernels 1-4 and 6: espim_spmv_stream_kernel
+// runs espim_spmv_batched_f32 and espim_spmv_batched_quant (the decode
+// path's QKV / O / down buckets) and, with its RES flag,
+// espim_spmv_batched_res_f32; espim_spmv_stream_glu_kernel runs
 // espim_spmv_batched_glu_f32 and espim_spmv_batched_quant_glu (its
 // gate+up buckets). Those launches are short (32 to ~12k rows of 8-22
 // chunks x Lc 80-88 slots) and the warp-per-row body below was
-// latency-bound on them, not byte-bound: a lane had one 4-byte index load
-// and one value load in flight before the gather that needed them, and
-// its 8-wide batch tile carried 8 accumulators at any B. The streaming
-// body keeps plane bytes in flight and its chains short:
+// latency-bound on them, not byte-bound (3.3-3.5x slower on kernels 1-2's
+// buckets, 4.6x the addmm on kernel 6's; PERF.md): a lane had one 4-byte
+// index load and one value load in flight before the gather that needed
+// them, and its 8-wide batch tile carried 8 accumulators at any B. The
+// streaming body keeps plane bytes in flight and its chains short:
 //   - a lane owns groups of 4 consecutive slots; it loads a group's 4
 //     column ids as one 16-byte load and its 4 values as one load (16 B
 //     fp32, 4 B int8, 2 B int4), and issues U groups' loads before the
@@ -93,13 +95,18 @@
 // act(gate) * up (fp32), or act(gate * srow[r]) * (up * srow[r + Rg])
 // (int8 / int4), with apply_act below.
 //
-// The warp-per-row body (espim_spmv_kernel) serves kernels 5 and 6: the
-// warp's lanes stride over the row's slots one at a time, x rows are
-// gathered through the read-only cache, B partial sums live in registers
-// tiled by the batch tile BT (8, or 1 unbatched), a warp-shuffle reduce
-// ends each row and lane 0 writes it, with the residual epilogue applied
-// there (no second pass). Column ids are bound-checked against M in place
-// of padding x, in both bodies.
+// The residual kernel (6) is kernel 1's launch with RES set: the row's
+// lead lane writes acc[j] + residual[r * B + b0 + j], so kernels 1-2's
+// instantiations (RES false) keep their code. On the fp32 attn_out + down
+// buckets at B = 4 it went from 248.4 us on the warp-per-row body to
+// 63.3 us (bound 24.0, addmm 54.8; NVIDIA H100 80GB HBM3, 700 W, PERF.md).
+//
+// The warp-per-row body (espim_spmv_kernel) serves only kernel 5, the
+// unbatched espim_spmv: the warp's lanes stride over the row's slots one
+// at a time, x is gathered through the read-only cache (fp32 or bf16), a
+// warp-shuffle reduce ends each row and lane 0 writes it. It goes once
+// kernel 5 moves to the streaming body. Column ids are bound-checked
+// against M in place of padding x, in both bodies.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -109,7 +116,6 @@ namespace {
 
 constexpr int kWarp = 32;
 constexpr int kWarpsPerBlock = 8;
-constexpr int kBTile = 8;   // batch columns accumulated per pass over a row
 
 enum Plane { kF32 = 0, kI8 = 1, kNib = 2, kBF16 = 3 };
 
@@ -190,13 +196,11 @@ __device__ __forceinline__ void row_accumulate(
       acc[j] += __shfl_down_sync(0xffffffffu, acc[j], off);
 }
 
-// One warp per output row r of an (R, K, Lc) plane, plus residual[r, b]
-// unless residual is null.
+// One warp per output row r of an (R, K, Lc) plane.
 template <int P, typename XT, int BT>
 __global__ void __launch_bounds__(kWarp * kWarpsPerBlock)
 espim_spmv_kernel(const void* __restrict__ values, const int* __restrict__ cols,
-                  const XT* __restrict__ x,
-                  const float* __restrict__ residual, float* __restrict__ out,
+                  const XT* __restrict__ x, float* __restrict__ out,
                   int rows, int n_chunks, int lc, int lv, int chunk_cols,
                   int m, int b) {
   const int lane = threadIdx.x & (kWarp - 1);
@@ -215,24 +219,20 @@ espim_spmv_kernel(const void* __restrict__ values, const int* __restrict__ cols,
                               chunk_cols, m, b, b0, nb, acc);
     if (lane == 0) {
       float* o = out + static_cast<long long>(row) * b + b0;
-      const float* res =
-          residual ? residual + static_cast<long long>(row) * b + b0
-                   : nullptr;
-      for (int j = 0; j < nb; ++j) o[j] = res ? acc[j] + res[j] : acc[j];
+      for (int j = 0; j < nb; ++j) o[j] = acc[j];
     }
   }
 }
 
-template <int P, typename XT = float, int BT = kBTile>
-int launch(const void* values, const int* cols, const XT* x,
-           const float* residual, float* out, int rows, int n_chunks, int lc,
-           int lv, int chunk_cols, int m, int b, void* stream) {
+template <int P, typename XT, int BT>
+int launch(const void* values, const int* cols, const XT* x, float* out,
+           int rows, int n_chunks, int lc, int lv, int chunk_cols, int m,
+           int b, void* stream) {
   const dim3 block(kWarp * kWarpsPerBlock);
   const dim3 grid((rows + kWarpsPerBlock - 1) / kWarpsPerBlock);
   espim_spmv_kernel<P, XT, BT>
       <<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-          values, cols, x, residual, out, rows, n_chunks, lc, lv, chunk_cols,
-          m, b);
+          values, cols, x, out, rows, n_chunks, lc, lv, chunk_cols, m, b);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -242,16 +242,16 @@ int launch_unbatched(const void* values, const int* cols, const void* x,
                      int chunk_cols, int m, void* stream) {
   if (x_bf16)
     return launch<P, unsigned short, 1>(
-        values, cols, static_cast<const unsigned short*>(x), nullptr, out,
-        rows, n_chunks, lc, lc, chunk_cols, m, 1, stream);
-  return launch<P, float, 1>(values, cols, static_cast<const float*>(x),
-                             nullptr, out, rows, n_chunks, lc, lc, chunk_cols,
-                             m, 1, stream);
+        values, cols, static_cast<const unsigned short*>(x), out, rows,
+        n_chunks, lc, lc, chunk_cols, m, 1, stream);
+  return launch<P, float, 1>(values, cols, static_cast<const float*>(x), out,
+                             rows, n_chunks, lc, lc, chunk_cols, m, 1,
+                             stream);
 }
 
 
 // --------------------------------------------------------------------------
-// The streaming body of kernels 1-4 (see the note at the head).
+// The streaming body of kernels 1-4 and 6 (see the note at the head).
 // --------------------------------------------------------------------------
 constexpr int kStreamThreads = 128;                  // 4 warps a block
 constexpr int kStreamWarps = kStreamThreads / kWarp;
@@ -479,14 +479,17 @@ __device__ __forceinline__ void sum_warps(const float (&part)[kStreamWarps][BT],
 // A row per `wpr` warps (1, 2 or 4), kStreamWarps / wpr rows a block. The
 // row's lanes walk its slots; each warp reduces its partial sums by
 // shuffles, and with wpr > 1 the first warp of the row adds the other
-// warps' partials from shared memory in warp order. Every thread reaches
-// every barrier: a team past the last row walks nothing.
-template <int P, int BT, int U>
+// warps' partials from shared memory in warp order. The row's first lane
+// stores the sum, times scale[r / group_rows] when scale is not null, plus
+// residual[r, b] when RES. Every thread reaches every barrier: a team past
+// the last row walks nothing.
+template <int P, int BT, int U, bool RES>
 __global__ void __launch_bounds__(kStreamThreads)
 espim_spmv_stream_kernel(const void* __restrict__ values,
                          const int* __restrict__ cols,
                          const float* __restrict__ x,
                          const float* __restrict__ scale,
+                         const float* __restrict__ residual,
                          float* __restrict__ out, int rows, int n_chunks,
                          int lc, int lv, int chunk_cols, int m, int b,
                          int group_rows, int mode, int wpr) {
@@ -515,8 +518,12 @@ espim_spmv_stream_kernel(const void* __restrict__ values,
       const float sr = scale ? scale[r / group_rows] : 1.0f;
       float* o = out + r * b + b0;
 #pragma unroll
-      for (int j = 0; j < BT; ++j)
-        if (j < nb) o[j] = scale ? acc[j] * sr : acc[j];
+      for (int j = 0; j < BT; ++j) {
+        if (j < nb) {
+          const float y = scale ? acc[j] * sr : acc[j];
+          o[j] = RES ? y + residual[r * b + b0 + j] : y;
+        }
+      }
     }
   }
 }
@@ -625,18 +632,19 @@ int stream_mode(const void* values, const int* cols, const float* x, int lc,
   return (vec ? kVecPlanes : 0) | (vx ? kVecX : 0);
 }
 
-template <int P, int BT, int U>
+template <int P, int BT, int U, bool RES = false>
 int launch_stream_tile(const void* values, const int* cols, const float* x,
-                       const float* scale, float* out, int rows, int n_chunks,
-                       int lc, int lv, int chunk_cols, int m, int b,
-                       int group_rows, int mode, int wpr, void* stream) {
+                       const float* scale, const float* residual, float* out,
+                       int rows, int n_chunks, int lc, int lv, int chunk_cols,
+                       int m, int b, int group_rows, int mode, int wpr,
+                       void* stream) {
   const int per_block = kStreamWarps / wpr;
   const dim3 grid(static_cast<unsigned>(
       (static_cast<long long>(rows) + per_block - 1) / per_block));
-  espim_spmv_stream_kernel<P, BT, U>
+  espim_spmv_stream_kernel<P, BT, U, RES>
       <<<grid, kStreamThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-          values, cols, x, scale, out, rows, n_chunks, lc, lv, chunk_cols, m,
-          b, group_rows, mode, wpr);
+          values, cols, x, scale, residual, out, rows, n_chunks, lc, lv,
+          chunk_cols, m, b, group_rows, mode, wpr);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -670,19 +678,19 @@ int by_tile(int b, F&& f) {
   }
 }
 
-// kernels 1 and 2: the tile from B, the slot walk from the shapes and
-// pointers, the warps a row from the rows
-template <int P>
+// kernels 1, 2 and (RES) 6: the tile from B, the slot walk from the shapes
+// and pointers, the warps a row from the rows
+template <int P, bool RES = false>
 int launch_stream(const void* values, const int* cols, const float* x,
-                  const float* scale, float* out, int rows, int n_chunks,
-                  int lc, int lv, int chunk_cols, int m, int b,
-                  int group_rows, void* stream) {
+                  const float* scale, const float* residual, float* out,
+                  int rows, int n_chunks, int lc, int lv, int chunk_cols,
+                  int m, int b, int group_rows, void* stream) {
   const int mode = stream_mode<P>(values, cols, x, lc, lv, b);
   const int wpr = stream_wpr(rows);
   return by_tile(b, [&](auto bt) {
-    return launch_stream_tile<P, decltype(bt)::value, kStreamU>(
-        values, cols, x, scale, out, rows, n_chunks, lc, lv, chunk_cols, m, b,
-        group_rows, mode, wpr, stream);
+    return launch_stream_tile<P, decltype(bt)::value, kStreamU, RES>(
+        values, cols, x, scale, residual, out, rows, n_chunks, lc, lv,
+        chunk_cols, m, b, group_rows, mode, wpr, stream);
   });
 }
 
@@ -740,7 +748,7 @@ int espim_spmv_batched_f32(const void* values, const void* cols,
                            int lc, int chunk_cols, int m, int b,
                            void* stream) {
   return launch_stream<kF32>(values, static_cast<const int*>(cols),
-                             static_cast<const float*>(x), nullptr,
+                             static_cast<const float*>(x), nullptr, nullptr,
                              static_cast<float*>(out), rows, n_chunks, lc, lc,
                              chunk_cols, m, b, 1, stream);
 }
@@ -750,11 +758,11 @@ int espim_spmv_batched_res_f32(const void* values, const void* cols,
                                const void* x, const void* residual, void* out,
                                int rows, int n_chunks, int lc, int chunk_cols,
                                int m, int b, void* stream) {
-  return launch<kF32>(values, static_cast<const int*>(cols),
-                       static_cast<const float*>(x),
-                       static_cast<const float*>(residual),
-                       static_cast<float*>(out), rows, n_chunks, lc, lc,
-                       chunk_cols, m, b, stream);
+  return launch_stream<kF32, true>(values, static_cast<const int*>(cols),
+                                   static_cast<const float*>(x), nullptr,
+                                   static_cast<const float*>(residual),
+                                   static_cast<float*>(out), rows, n_chunks,
+                                   lc, lc, chunk_cols, m, b, 1, stream);
 }
 
 // codes int8 (R, K, Lc) or nibble-packed uint8 (R, K, lv); scales
@@ -769,10 +777,10 @@ int espim_spmv_batched_quant(const void* codes, int nibble, int lv,
   const float* sc = static_cast<const float*>(scales);
   float* o = static_cast<float*>(out);
   if (nibble)
-    return launch_stream<kNib>(codes, c, xs, sc, o, rows, n_chunks, lc, lv,
-                               chunk_cols, m, b, group_rows, stream);
-  return launch_stream<kI8>(codes, c, xs, sc, o, rows, n_chunks, lc, lc,
-                            chunk_cols, m, b, group_rows, stream);
+    return launch_stream<kNib>(codes, c, xs, sc, nullptr, o, rows, n_chunks,
+                               lc, lv, chunk_cols, m, b, group_rows, stream);
+  return launch_stream<kI8>(codes, c, xs, sc, nullptr, o, rows, n_chunks, lc,
+                            lc, chunk_cols, m, b, group_rows, stream);
 }
 
 // values f32 (2 * Rg, K, Lc) half-major; out (Rg, B)

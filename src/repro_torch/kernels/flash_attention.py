@@ -8,7 +8,9 @@ output in q's dtype; GQA repeats and ``(B, S, H, hd)`` reshapes live in
 the caller.  ``flash_attention_cuda`` takes CUDA tensors only, checks
 them, allocates the output, launches on the current stream, raises if
 the launch was refused, and adds one to ``LAUNCHES["flash_attention"]``.
-The kernel runs scalar fp32 FMAs (see the source's header note).
+bf16 inputs run on the tensor cores (the wgmma + TMA body), fp32 inputs
+on scalar fp32 FMAs: dispatch by dtype inside the C entry point (see the
+source's header note).
 """
 from __future__ import annotations
 
@@ -62,8 +64,9 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         int(q.dtype == torch.bfloat16), bh, s, hd, int(causal),
         1.0 / math.sqrt(hd), torch.cuda.current_stream(q.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"flash_attention launch failed: cudaError {rc}")
+    if rc != 0:     # a cudaError_t; 900: no tensor-map encoder; 1000 +
+        # a CUresult: the CUDA driver refused a tensor map
+        raise RuntimeError(f"flash_attention launch failed: rc {rc}")
     LAUNCHES["flash_attention"] += 1
     return out
 

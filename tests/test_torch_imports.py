@@ -52,7 +52,9 @@ def test_no_source_imports_jax_or_repro():
                                           ROOT / "examples" /
                                           "quickstart_torch.py",
                                           ROOT / "scripts" /
-                                          "spmv_tile_ab.py"]
+                                          "spmv_tile_ab.py",
+                                          ROOT / "scripts" /
+                                          "attn_tile_ab.py"]
     assert len(files) > 20
     for f in files:
         hit = _FORBIDDEN.search(f.read_text())

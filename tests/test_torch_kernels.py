@@ -298,11 +298,13 @@ def test_plain_layout_matches_reference(batched):
             op(v, c, _t(x), impl=impl)
 
 
-@pytest.mark.parametrize("b", [1, 4])
+@pytest.mark.parametrize("b", GLU_BATCHES)
 def test_residual_matches_reference_and_pallas(b):
     """``tests/test_autotune.py:291-300``: the fp residual epilogue against
     the reference's ref lowering (bit-exact there: the same sums) and its
-    Pallas kernel (1e-5)."""
+    Pallas kernel (1e-5), at every batch tile the streaming body that runs
+    it on the card instantiates (1, 2, 4, 8), a remainder (3) and tiles of
+    8 (13)."""
     rng = np.random.default_rng(11)
     rg, m = 64, 256
     w = (rng.standard_normal((2 * rg, m))
@@ -419,6 +421,29 @@ def test_flash_attention_bf16_matches_reference_and_pallas():
                                    atol=5e-2)
 
 
+@pytest.mark.parametrize("hd", [32, 64])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_bf16_ragged_matches_reference_and_pallas(hd,
+                                                                  causal):
+    """bf16 at the other head widths the kernel is built for (32: 64-byte
+    swizzle, 64: 128-byte) and a ragged S = 200, against the reference's
+    oracle and its Pallas kernel at 5e-2; the output stays bf16."""
+    rng = np.random.default_rng(hd + causal)
+    q, k, v = (rng.standard_normal((2, 200, hd)).astype(np.float32)
+               for _ in range(3))
+    got = flash_attention(*(_t(a).to(torch.bfloat16) for a in (q, k, v)),
+                          causal=causal)
+    assert got.dtype == torch.bfloat16 and got.shape == (2, 200, hd)
+    jq, jk, jv = (jnp.asarray(a, jnp.bfloat16) for a in (q, k, v))
+    f32 = [a.astype(jnp.float32) for a in (jq, jk, jv)]
+    for want in (_flash_oracle(*f32, causal),
+                 flash_attention_pallas(jq, jk, jv, causal=causal, blk_q=64,
+                                        blk_k=64)):
+        np.testing.assert_allclose(got.float().numpy(),
+                                   np.asarray(want, np.float32), rtol=5e-2,
+                                   atol=5e-2)
+
+
 def test_new_wrappers_reject_cpu_tensors_and_dispatch():
     """Kernels 5-8's wrappers launch on CUDA tensors or raise; their ops
     take the plain version for CPU tensors and refuse impl='cuda'."""
@@ -464,7 +489,9 @@ def test_every_source_has_a_hashed_library(name):
 
 
 # __global__ functions of the port's sources that are not SpMV kernels
-NOT_SPMV_KERNELS = ("dense_mv_kernel", "flash_attention_kernel")
+NOT_SPMV_KERNELS = ("dense_mv_kernel", "flash_attention_kernel",
+                    "flash_attention_mma_kernel",
+                    "flash_attention_wgmma_kernel")
 
 
 def _global_kernels(source):
