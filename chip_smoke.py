@@ -21,31 +21,34 @@ kernels — then checks them:
    and through their plain versions, from the same packs and cache; then
    one decode step's host time, and from ``torch.profiler``'s device
    kernel spans the device-busy share and the SpMV share of device time;
-4. projection: ``ESPIMGroupLinear`` over layer 0's wq/wk/wv and
+4. SpMV kernels: the five kernels on the streaming body (1-4 and the
+   residual kernel 6) against their plain versions at the engine packs'
+   full-width bucket shapes (plus int4 planes, one QKV and one gate+up
+   bucket with an odd Lc), B in {1, 2, 3, 4, 8, 13}, each launched twice
+   for identical bits; then kernels 1-4 timed per layer at B in {1, 4},
+   and each bucket launch of kernels 1-4 and 6 at B = 4 on its own (a
+   graph of an L2-evicting read and the launch, less the read): rows, K,
+   Lc, µs and GB/s.  This runs before any flash attention launch, so the
+   timings do not depend on what the attention kernels leave behind;
+5. projection: ``ESPIMGroupLinear`` over layer 0's wq/wk/wv and
    ``ESPIMLinear`` over its w_down at 90% sparsity, fp32 and int8, each
    called with a 1-D x (kernel 5 / kernel 2) and with (4, n_in)
    (kernels 1 / 2), against ``impl="ref"`` and the dense pruned
    (dequantized) fp32 product; then the dense datapath once; counters
    zeroed before the phase and read after, and kernel 5 must launch;
-5. ops: the residual epilogue over the fp32 engine's attn_out and down
+6. ops: the residual epilogue over the fp32 engine's attn_out and down
    buckets, ``ops.dense_mv`` and ``flash_attention`` at the shapes of
-   step 6, counters zeroed before and read after;
-6. kernels: each of the eight kernels against its plain version, every
-   check also launched twice for identical bits — the five kernels on
-   the streaming body (1-4 and the residual kernel 6) at the engine
-   packs' full-width bucket shapes (plus int4 planes, one QKV and one
-   gate+up bucket with an odd Lc), B in {1, 2, 3, 4, 8, 13}; the
-   unbatched kernel on the projection packs in fp32 and bf16; the
-   residual kernel also per call at B in {1, 4}; dense MV at
+   step 7, counters zeroed before and read after;
+7. kernels 5-8 against their plain versions, each launched twice for
+   identical bits: the unbatched kernel on the projection packs in fp32
+   and bf16; the residual kernel per call at B in {1, 4}; dense MV at
    (4096, 4096) and (4096, 11008) in fp32 and bf16; flash attention at
    BH = 32, hd = 128, S in {77, 512, 2048}, and at hd 32 and 64 with a
-   ragged S = 200, causal or not, fp32 and bf16 — with its time, the
-   plain version's, a library call of the same function that the port
-   never makes (each timed by CUDA events around replays of a captured
-   CUDA graph), and the least time the card could take; then each
-   bucket launch of kernels 1-4 and 6 at B = 4 on its own (a graph of an
-   L2-evicting read and the launch, less the read): rows, K, Lc, µs and
-   GB/s.
+   ragged S = 200, causal or not, fp32 and bf16 (bf16 also within a
+   bound on the relative L2 error of the whole output) — each with its
+   time, the plain version's, a library call of the same function that
+   the port never makes (each timed by CUDA events around replays of a
+   captured CUDA graph), and the least time the card could take.
 
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``.  Exits non-zero, with no result,
@@ -105,6 +108,12 @@ SPMV_KERNEL_NAMES = ("espim_spmv_kernel", "espim_spmv_stream_kernel",
 # (tests/test_kernels.py:36,84, tests/test_flash_kernel.py:32,43)
 ALLCLOSE_TOL = {"espim_spmv/bf16": 3e-2, "dense_mv/bf16": 5e-2,
                 "flash_attention/fp32": 2e-5, "flash_attention/bf16": 5e-2}
+# bf16 attention is also held as a whole, ||kernel - plain||_2 /
+# ||plain||_2: at S = 2048 softmax averages hundreds of keys, the outputs
+# spread only ~0.04 and the elementwise limit above can pass a body that
+# dropped a key tile.  The bound sits between sound runs' readings and a
+# planted dropped key tile's (PERF.md)
+REL_L2_TOL = {"flash_attention/bf16": 1e-2}
 LOGIT_COS_MIN = 0.999
 # bf16 activations between layers: an fp32 sum-order difference flips a
 # q/k/v element by one bf16 ulp (2^-8 of it) now and then, and the flips
@@ -755,16 +764,25 @@ def dense_from_weights(torch, w):
                             accumulate=True)
 
 
+def rel_l2(got, want) -> float:
+    """||got - want||_2 / ||want||_2 over the whole output."""
+    got, want = got.float(), want.float()
+    return float((got - want).norm() / want.norm().clamp_min(1e-30))
+
+
 def _within(kernel: str, variant: str, got, want) -> tuple[bool, float]:
-    """(passes, max|got - want|) under the kernel's stated tolerance."""
+    """(passes, max|got - want|) under the kernel's stated tolerances."""
     got, want = got.float(), want.float()
     diff = (got - want).abs()
     err = float(diff.max()) if diff.numel() else 0.0
-    tol = ALLCLOSE_TOL.get(f"{kernel}/{variant.split()[0]}")
+    key = f"{kernel}/{variant.split()[0]}"
+    tol = ALLCLOSE_TOL.get(key)
     if tol is not None:
         ok = bool((diff <= tol + tol * want.abs()).all())
     else:
         ok = err <= KERNEL_REL_TOL * float(want.abs().max()) + KERNEL_ABS_TOL
+    if key in REL_L2_TOL:
+        ok = ok and rel_l2(got, want) <= REL_L2_TOL[key]
     return (ok and got.shape == want.shape
             and bool(got.isfinite().all())), err
 
@@ -992,13 +1010,18 @@ def phase_new_kernels(ctx, groups, launches_main) -> list:
             got, again = c["run"](None), c["run"](None)
             want = c["run"]("ref")
             ok, err = _within(kernel, variant, got, want)
+            rel = rel_l2(got, want)
             need(ok, f"{kernel} {variant} case {i}: max|kernel-plain| "
-                 f"{err:.3e} out of tolerance")
+                 f"{err:.3e}, rel L2 {rel:.3e}: out of tolerance")
             need(torch.equal(got, again), f"{kernel} {variant} case {i}: "
                  "two launches on the same inputs gave different bits")
             worst[kernel] = max(worst.get(kernel, 0.0), err)
+            if kernel == "flash_attention":
+                log(f"[kernels] flash_attention {variant}: max|kernel-plain| "
+                    f"{err:.3e}, rel L2 {rel:.3e}")
             rows.append({"kernel": kernel, "variant": variant, "case": i,
                          "shape": list(got.shape), "max_abs_err": err,
+                         "rel_l2": rel,
                          "max_abs_plain": float(want.float().abs().max())})
         t_k = timer(lambda cases=cases: [c["run"](None) for c in cases])
         t_p = timer(lambda cases=cases: [c["run"]("ref") for c in cases],
@@ -1096,13 +1119,13 @@ def run(ctx) -> list:
         "int8": decode_parity(ctx, "int8", cfg, params, sparse8),
         "fp32": decode_parity(ctx, "fp32", cfg_fp, params_fp, sparse_fp)}
     report["decode_step"] = decode_step_profile(ctx, cfg, params, sparse8)
+    entries = phase_kernels(ctx, sparse8, sparse_fp, launches_main)
     proj = phase_projection(ctx, params)
     groups = new_kernel_cases(ctx, proj, sparse_fp)
     launches_main["espim_spmv"] = proj["launches"]["espim_spmv"]
     launches_main.update({k: v for k, v in phase_ops(ctx, groups).items()
                           if k in ("espim_spmv_batched_res", "dense_mv",
                                    "flash_attention")})
-    entries = phase_kernels(ctx, sparse8, sparse_fp, launches_main)
     return entries + phase_new_kernels(ctx, groups, launches_main)
 
 

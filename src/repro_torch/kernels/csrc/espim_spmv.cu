@@ -99,7 +99,7 @@
 // lead lane writes acc[j] + residual[r * B + b0 + j], so kernels 1-2's
 // instantiations (RES false) keep their code. On the fp32 attn_out + down
 // buckets at B = 4 it went from 248.4 us on the warp-per-row body to
-// 63.3 us (bound 24.0, addmm 54.8; NVIDIA H100 80GB HBM3, 700 W, PERF.md).
+// 62.3 us (bound 24.0, addmm 54.5; NVIDIA H100 80GB HBM3, 700 W, PERF.md).
 //
 // The warp-per-row body (espim_spmv_kernel) serves only kernel 5, the
 // unbatched espim_spmv: the warp's lanes stride over the row's slots one

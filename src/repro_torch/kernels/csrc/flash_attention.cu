@@ -15,9 +15,8 @@
 // runs on the tensor cores; fp32 inputs keep the scalar body (wgmma has no
 // fp32 form, and TF32 would miss the fp32 tolerance of 2e-5).
 //
-// Three bodies; the entry point launches the wgmma body for bf16 and the
-// scalar one for fp32 (dispatch by dtype). The others are kept for
-// scripts/attn_tile_ab.py, which times all three.
+// Two bodies, chosen by dtype: the wgmma body for bf16, the scalar one for
+// fp32.
 //
 // wgmma + TMA (flash_attention_wgmma_kernel<HD, BK, STAGES, NWG>): a block
 // takes one (head, tile of 64 * NWG queries); NWG consumer warpgroups own
@@ -62,23 +61,21 @@
 //     the plain nvcc line needs no -lcuda) and passed as __grid_constant__
 //     kernel parameters; the three encodes cost 0.2 us of host time (the
 //     A/B), so they are not cached.
-// mma.sync (flash_attention_mma_kernel<HD, BK>): the staging body, FA2
-// style: 4 warps x 16 query rows a block, k and v tiles of BK keys
-// double-buffered by cp.async in row-padded shared memory, fragments by
-// ldmatrix (.trans for v), m16n8k16 bf16 products; the same masking and
-// softmax code.
-// scalar (flash_attention_kernel<T, HD>): fp32 FMAs, 8 warps x 8 query
-// rows, k and v tiles of 32 keys widened to fp32 in shared memory.
+// scalar (flash_attention_kernel<HD>): fp32 FMAs, 8 warps x 8 query rows,
+// k and v tiles of 32 keys in shared memory.
 //
 // The A/B (scripts/attn_tile_ab.py; NVIDIA H100 80GB HBM3, 700 W; us at
 // BH 32, hd 128, bf16; PERF.md): at S = 2048 the wgmma body with key tiles
 // of 128, 2 stages and 2 consumer warpgroups is the fastest of its eight
-// (key tile, stages, warpgroups) variants, causal 95.1 (mma.sync 167.2,
-// scalar 2141.0, SDPA 80.8) and full 158.2 (mma.sync 310.1, SDPA 117.1);
-// at S = 512 causal the 64-key, 1-warpgroup variant is 11% faster (15.1
-// against 17.3: twice the blocks where the 128-query grid fills the card
-// once), and at S = 77 every variant and SDPA take 8-9. One variant serves
-// every shape: 128 / 2 / 2 has the least sum over chip_smoke's shapes.
+// (key tile, stages, warpgroups) variants, causal 95.1 (the scalar body
+// 2086.1, SDPA 80.3) and full 157.8 (SDPA 115.6); at S = 512 causal the
+// 64-key, 1-warpgroup variant is 15% faster (14.6 against 17.2: twice the
+// blocks where the 128-query grid fills the card once), and at S = 77
+// every variant and SDPA take 7-9. One variant serves every shape:
+// 128 / 2 / 2 has the least sum over chip_smoke's shapes. An FA2-style
+// mma.sync body (4 warps x 16 rows, cp.async double buffering, ldmatrix),
+// the staging step before wgmma, took 1.75x (causal) and 1.95x (full) the
+// wgmma body's time at S = 2048 and was removed after that A/B.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -97,7 +94,7 @@ constexpr int kErrNoEncoder = 900;
 constexpr int kErrEncode = 1000;
 
 // --------------------------------------------------------------------------
-// The scalar body: fp32 inputs (and, for the A/B only, bf16).
+// The scalar body: fp32 inputs.
 // --------------------------------------------------------------------------
 namespace scalar {
 
@@ -105,20 +102,6 @@ constexpr int kWarps = 8;
 constexpr int kBQ = 64;                // query rows per block
 constexpr int kRows = kBQ / kWarps;    // query rows per warp
 constexpr int kBK = 32;                // keys per tile, one per lane
-
-__device__ __forceinline__ float load(const float* p, long long i) {
-  return __ldg(p + i);
-}
-__device__ __forceinline__ float load(const unsigned short* p, long long i) {
-  return __uint_as_float(static_cast<unsigned>(__ldg(p + i)) << 16);
-}
-__device__ __forceinline__ void store(float* p, long long i, float v) {
-  p[i] = v;
-}
-__device__ __forceinline__ void store(unsigned short* p, long long i,
-                                      float v) {
-  p[i] = __bfloat16_as_ushort(__float2bfloat16_rn(v));
-}
 
 __device__ __forceinline__ float warp_max(float v) {
   for (int off = kWarp / 2; off > 0; off >>= 1)
@@ -139,11 +122,12 @@ constexpr int smem_bytes() {
 
 }  // namespace scalar
 
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(kWarp * scalar::kWarps)
-flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ out, int seq,
-                       int causal, float scale) {
+flash_attention_kernel(const float* __restrict__ q,
+                       const float* __restrict__ k,
+                       const float* __restrict__ v, float* __restrict__ out,
+                       int seq, int causal, float scale) {
   using namespace scalar;
   constexpr int KS = HD + 4;           // padded k row stride, floats
   constexpr int DPL = HD / kWarp;      // output columns per lane
@@ -161,7 +145,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int e = tid; e < kBQ * HD; e += blockDim.x) {
     const int r = e / HD;
     qs[e] = q0 + r < seq
-        ? load(q, base + static_cast<long long>(q0) * HD + e) * scale
+        ? __ldg(q + base + static_cast<long long>(q0) * HD + e) * scale
         : 0.0f;
   }
   float m[kRows], l[kRows], acc[kRows][DPL];
@@ -181,8 +165,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int d = e - j * HD;
       const bool in = k0 + j < seq;
       const long long g = base + static_cast<long long>(k0) * HD + e;
-      ks[j * KS + d] = in ? load(k, g) : 0.0f;
-      vs[e] = in ? load(v, g) : 0.0f;
+      ks[j * KS + d] = in ? __ldg(k + g) : 0.0f;
+      vs[e] = in ? __ldg(v + g) : 0.0f;
     }
     __syncthreads();
 
@@ -256,14 +240,14 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const long long o = base + static_cast<long long>(qpos) * HD + lane;
 #pragma unroll
     for (int i = 0; i < DPL; ++i)
-      store(out, o + i * kWarp, acc[r][i] / denom);
+      out[o + i * kWarp] = acc[r][i] / denom;
   }
 }
 
 // --------------------------------------------------------------------------
-// What the two tensor-core bodies share: a warp's 16-row slab of a score or
-// output tile in the accumulator fragment of mma.sync m16n8 (which wgmma's
-// m64nN fragment repeats once per warp). For a tile of N columns a thread
+// The wgmma body's fragment helpers: a warp's 16-row slab of a score or
+// output tile in wgmma's m64nN accumulator fragment (mma.sync's m16n8
+// fragment, repeated once per warp). For a tile of N columns a thread
 // holds f[4 * j + e], j < N / 8: row (lane / 4) + 8 * (e / 2) of the slab,
 // column 8 * j + 2 * (lane % 4) + (e % 2). A row lives in the 4 lanes of a
 // quad.
@@ -350,7 +334,7 @@ __device__ __forceinline__ void softmax_step(float (&s)[NK / 2], float (&m)[2],
 }
 
 // the probabilities of keys 16 kb .. 16 kb + 15 as the bf16 A fragment of
-// an m16k16 product (mma.sync's, and wgmma's with A in registers)
+// an m16k16 product (wgmma's A operand in registers)
 template <int NK>
 __device__ __forceinline__ void p_fragment(const float (&s)[NK / 2], int kb,
                                            uint32_t (&a)[4]) {
@@ -391,177 +375,6 @@ template <int NK>
 __device__ __forceinline__ bool tile_needs_mask(int key0, int first_row,
                                                 int seq, int causal) {
   return key0 + NK > seq || (causal && key0 + NK - 1 > first_row);
-}
-
-// --------------------------------------------------------------------------
-// The mma.sync body (bf16; the A/B's staging body): 4 warps x 16 query rows
-// a block, k and v tiles of BK keys double-buffered by cp.async in
-// row-padded shared memory, fragments by ldmatrix (.trans for v).
-// --------------------------------------------------------------------------
-namespace mma {
-
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * kWarp;
-constexpr int kBQ = 16 * kWarps;
-
-template <int HD>
-__host__ __device__ constexpr int row_stride() {   // bf16 elements, padded
-  return HD + 8;                       // put ldmatrix's 8 rows on 8 bank sets
-}
-template <int HD, int BK>
-constexpr int smem_bytes() {
-  return (kBQ + 4 * BK) * row_stride<HD>() * 2;
-}
-
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(dst), "l"(src), "r"(valid ? 16 : 0) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, "
-               "[%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr) : "memory");
-}
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t addr,
-                                              uint32_t (&r)[4]) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 "
-               "{%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr) : "memory");
-}
-
-// d[0..3] += a (16 x 16) * (b0, b1) (16 x 8), bf16 in, fp32 accumulate
-__device__ __forceinline__ void mma16816(float* d, const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-               "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-               "{%0, %1, %2, %3};\n"
-               : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0),
-                 "r"(b1));
-}
-
-// rows row0 .. row0 + ROWS - 1 of one head's (seq, HD) matrix into a
-// row-padded tile at dst, rows at or past seq zero-filled
-template <int HD, int ROWS>
-__device__ __forceinline__ void load_rows(uint32_t dst,
-                                          const __nv_bfloat16* head, int row0,
-                                          int seq) {
-  constexpr int kChunks = HD / 8;      // 16-byte pieces a row
-  for (int i = threadIdx.x; i < ROWS * kChunks; i += kThreads) {
-    const int r = i / kChunks;
-    const int c = i - r * kChunks;
-    const bool in = row0 + r < seq;
-    const __nv_bfloat16* src =
-        head + static_cast<long long>(in ? row0 + r : 0) * HD + 8 * c;
-    cp_async16(dst + 2 * (r * row_stride<HD>() + 8 * c), src, in);
-  }
-}
-
-}  // namespace mma
-
-template <int HD, int BK>
-__global__ void __launch_bounds__(mma::kThreads)
-flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                           const __nv_bfloat16* __restrict__ k,
-                           const __nv_bfloat16* __restrict__ v,
-                           __nv_bfloat16* __restrict__ out, int seq,
-                           int causal, float scale_log2) {
-  using namespace mma;
-  constexpr int RS = row_stride<HD>();
-  constexpr uint32_t kTile = BK * RS * 2;        // bytes of one k or v tile
-  extern __shared__ __align__(16) unsigned char smem[];
-  const uint32_t qs = smem_addr(smem);           // [kBQ][RS]
-  const uint32_t kvs = qs + kBQ * RS * 2;        // stage t: k, then v
-  const int warp = threadIdx.x / kWarp;
-  const int lane = threadIdx.x % kWarp;
-  const int n_qt = (seq + kBQ - 1) / kBQ;
-  const int q0 = (causal ? n_qt - 1 - static_cast<int>(blockIdx.y)
-                         : static_cast<int>(blockIdx.y)) * kBQ;
-  const long long hoff = static_cast<long long>(blockIdx.x) * seq * HD;
-  const int k_end = causal ? min(seq, q0 + kBQ) : seq;
-  const int n_kt = (k_end + BK - 1) / BK;
-  const int first = q0 + 16 * warp;              // the warp's first row
-  const int row = first + lane / 4;
-
-  load_rows<HD, kBQ>(qs, q + hoff, q0, seq);
-  load_rows<HD, BK>(kvs, k + hoff, 0, seq);
-  load_rows<HD, BK>(kvs + kTile, v + hoff, 0, seq);
-  cp_async_commit();
-
-  uint32_t qf[HD / 16][4];
-  float o[HD / 2], m[2] = {kNegInf, kNegInf}, l[2] = {0.0f, 0.0f};
-#pragma unroll
-  for (int i = 0; i < HD / 2; ++i) o[i] = 0.0f;
-
-  for (int j = 0; j < n_kt; ++j) {
-    if (j + 1 < n_kt) {                          // prefetch tile j + 1
-      const uint32_t nxt = kvs + ((j + 1) & 1) * 2 * kTile;
-      load_rows<HD, BK>(nxt, k + hoff, (j + 1) * BK, seq);
-      load_rows<HD, BK>(nxt + kTile, v + hoff, (j + 1) * BK, seq);
-    }
-    cp_async_commit();
-    cp_async_wait<1>();                          // tile j (and q) landed
-    __syncthreads();
-    if (j == 0) {
-#pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk)
-        ldsm_x4(qs + 2 * ((16 * warp + lane % 8 + 8 * ((lane / 8) % 2)) * RS +
-                          16 * kk + 8 * (lane / 16)),
-                qf[kk]);
-    }
-    const int key0 = j * BK;
-    if (!causal || key0 <= first + 15) {
-      const uint32_t ks = kvs + (j & 1) * 2 * kTile;
-      const uint32_t vs = ks + kTile;
-      float s[BK / 2];
-#pragma unroll
-      for (int i = 0; i < BK / 2; ++i) s[i] = 0.0f;
-#pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk) {
-#pragma unroll
-        for (int nb = 0; nb < BK / 16; ++nb) {
-          uint32_t b[4];
-          ldsm_x4(ks + 2 * ((16 * nb + lane % 8 + 8 * (lane / 16)) * RS +
-                            16 * kk + 8 * ((lane / 8) % 2)),
-                  b);
-          mma16816(&s[8 * nb], qf[kk], b[0], b[1]);
-          mma16816(&s[8 * nb + 4], qf[kk], b[2], b[3]);
-        }
-      }
-      scale_and_mask<BK>(s, scale_log2,
-                         tile_needs_mask<BK>(key0, first, seq, causal), key0,
-                         row, seq, causal);
-      softmax_step<BK, HD>(s, m, l, o);
-#pragma unroll
-      for (int kb = 0; kb < BK / 16; ++kb) {
-        uint32_t a[4];
-        p_fragment<BK>(s, kb, a);
-#pragma unroll
-        for (int nb = 0; nb < HD / 16; ++nb) {
-          uint32_t b[4];
-          ldsm_x4_trans(vs + 2 * ((16 * kb + lane % 8 + 8 * ((lane / 8) % 2)) *
-                                      RS +
-                                  16 * nb + 8 * (lane / 16)),
-                        b);
-          mma16816(&o[8 * nb], a, b[0], b[1]);
-          mma16816(&o[8 * nb + 4], a, b[2], b[3]);
-        }
-      }
-    }
-    __syncthreads();                             // stage j & 1 is free
-  }
-  store_rows<HD>(o, l, out + hoff, row, seq);
 }
 
 // --------------------------------------------------------------------------
@@ -984,35 +797,19 @@ int allow_smem(K* kernel, int bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
 }
 
-template <typename T, int HD>
+template <int HD>
 int launch_scalar(const void* q, const void* k, const void* v, void* out,
                   int bh, int seq, int causal, float scale, void* stream) {
   constexpr int bytes = scalar::smem_bytes<HD>();
-  static const int attr = allow_smem(flash_attention_kernel<T, HD>, bytes);
+  static const int attr = allow_smem(flash_attention_kernel<HD>, bytes);
   if (attr != 0) return attr;
   const dim3 grid((seq + scalar::kBQ - 1) / scalar::kBQ, bh);
-  flash_attention_kernel<T, HD>
+  flash_attention_kernel<HD>
       <<<grid, kWarp * scalar::kWarps, bytes,
          static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const T*>(q), static_cast<const T*>(k),
-          static_cast<const T*>(v), static_cast<T*>(out), seq, causal, scale);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <int HD, int BK>
-int launch_mma(const void* q, const void* k, const void* v, void* out, int bh,
-               int seq, int causal, float scale, void* stream) {
-  constexpr int bytes = mma::smem_bytes<HD, BK>();
-  static const int attr =
-      allow_smem(flash_attention_mma_kernel<HD, BK>, bytes);
-  if (attr != 0) return attr;
-  const dim3 grid(bh, (seq + mma::kBQ - 1) / mma::kBQ);
-  flash_attention_mma_kernel<HD, BK>
-      <<<grid, mma::kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const __nv_bfloat16*>(q),
-          static_cast<const __nv_bfloat16*>(k),
-          static_cast<const __nv_bfloat16*>(v),
-          static_cast<__nv_bfloat16*>(out), seq, causal, scale * kLog2e);
+          static_cast<const float*>(q), static_cast<const float*>(k),
+          static_cast<const float*>(v), static_cast<float*>(out), seq, causal,
+          scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1065,14 +862,11 @@ int flash_attention(const void* q, const void* k, const void* v, void* out,
     case 128 * 2 + 1:
       return launch_bf16<128>(q, k, v, out, bh, seq, causal, scale, stream);
     case 32 * 2:
-      return launch_scalar<float, 32>(q, k, v, out, bh, seq, causal, scale,
-                                      stream);
+      return launch_scalar<32>(q, k, v, out, bh, seq, causal, scale, stream);
     case 64 * 2:
-      return launch_scalar<float, 64>(q, k, v, out, bh, seq, causal, scale,
-                                      stream);
+      return launch_scalar<64>(q, k, v, out, bh, seq, causal, scale, stream);
     case 128 * 2:
-      return launch_scalar<float, 128>(q, k, v, out, bh, seq, causal, scale,
-                                       stream);
+      return launch_scalar<128>(q, k, v, out, bh, seq, causal, scale, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

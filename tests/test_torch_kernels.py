@@ -444,6 +444,47 @@ def test_flash_attention_bf16_ragged_matches_reference_and_pallas(hd,
                                    atol=5e-2)
 
 
+def _attention_bf16_p(q, k, v, causal, drop=None):
+    """Attention as the wgmma body computes it, in plain PyTorch: fp32
+    scores and softmax state, P rounded to bf16 before P.V, the output in
+    bf16; ``drop`` = (first, end) keys left out, a planted fault."""
+    s, hd = q.shape[1], q.shape[2]
+    scores = (q.float() / np.sqrt(hd)) @ k.float().transpose(1, 2)
+    pos = torch.arange(s)
+    keep = pos[None, :] <= pos[:, None] if causal else torch.ones(
+        s, s, dtype=torch.bool)
+    if drop is not None:
+        keep = keep & ((pos < drop[0]) | (pos >= drop[1]))[None, :]
+    scores = scores.masked_fill(~keep, -1e30)
+    p = torch.exp(scores - scores.amax(-1, keepdim=True))
+    out = (p.to(torch.bfloat16).float() @ v.float()) / p.sum(-1, keepdim=True)
+    return out.to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_check_catches_a_dropped_key_tile(causal):
+    """``chip_smoke``'s bf16 attention check at S = 2048, hd = 128: the
+    output the wgmma body computes (P in bf16) passes it, and the output
+    of a body that skipped the last key tile of 128 fails it, through the
+    relative L2 bound (causal: every element stays within the elementwise
+    5e-2 + 5e-2 |plain|, since only the last 128 rows lose a few keys)."""
+    smoke = _chip_smoke()
+    bound = smoke.REL_L2_TOL["flash_attention/bf16"]
+    rng = np.random.default_rng(15 + causal)
+    q, k, v = (_t(rng.standard_normal((1, 2048, 128)).astype(np.float32))
+               .to(torch.bfloat16) for _ in range(3))
+    want = PR.flash_attention_ref(q, k, v, causal)
+    sound = _attention_bf16_p(q, k, v, causal)
+    assert smoke._within("flash_attention", "bf16", sound, want)[0]
+    assert smoke.rel_l2(sound, want) < bound / 2
+    faulty = _attention_bf16_p(q, k, v, causal, drop=(1920, 2048))
+    if causal:                  # the elementwise limit alone passes it
+        diff = (faulty.float() - want.float()).abs()
+        assert bool((diff <= 5e-2 + 5e-2 * want.float().abs()).all())
+    assert not smoke._within("flash_attention", "bf16", faulty, want)[0]
+    assert smoke.rel_l2(faulty, want) > bound
+
+
 def test_new_wrappers_reject_cpu_tensors_and_dispatch():
     """Kernels 5-8's wrappers launch on CUDA tensors or raise; their ops
     take the plain version for CPU tensors and refuse impl='cuda'."""
@@ -490,8 +531,18 @@ def test_every_source_has_a_hashed_library(name):
 
 # __global__ functions of the port's sources that are not SpMV kernels
 NOT_SPMV_KERNELS = ("dense_mv_kernel", "flash_attention_kernel",
-                    "flash_attention_mma_kernel",
                     "flash_attention_wgmma_kernel")
+
+
+def _chip_smoke():
+    """``chip_smoke.py`` as a module (it imports no torch at load)."""
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
 
 
 def _global_kernels(source):
@@ -509,16 +560,8 @@ def test_every_spmv_kernel_counts_in_the_profilers_spmv_share():
     one, and every other source's kernel must be listed as not an SpMV
     and match none, so renaming or adding a kernel cannot silently move
     its time out of (or into) the share."""
-    import importlib.util
-    from pathlib import Path
-
     from repro_torch.kernels import build as B
-    root = Path(__file__).resolve().parents[1]
-    spec = importlib.util.spec_from_file_location("chip_smoke",
-                                                  root / "chip_smoke.py")
-    smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(smoke)
-    names = smoke.SPMV_KERNEL_NAMES
+    names = _chip_smoke().SPMV_KERNEL_NAMES
     found = {}
     for lib, src in B.SOURCES.items():
         for k in _global_kernels(src):
