@@ -12,7 +12,8 @@ kernels — then checks them:
 
 1. build: nvcc the kernels, print the build time and ptxas' report, and
    the tensor-core instructions in the flash library's SASS (HGMMA for
-   wgmma, HMMA for mma.sync); fails if its bf16 body holds neither;
+   wgmma, HMMA for mma.sync); fails if its bf16 (wgmma) body holds no
+   HGMMA or its fp32 (3xTF32) body no HMMA;
 2. engine: 8 requests through the int8 engine (kernels 2 and 4), then 4
    through a 1-layer fp engine (kernels 1 and 3), each trace served 3
    times; every launch counter is zeroed just before each serve and read
@@ -24,7 +25,8 @@ kernels — then checks them:
 4. SpMV kernels: the five kernels on the streaming body (1-4 and the
    residual kernel 6) against their plain versions at the engine packs'
    full-width bucket shapes (plus int4 planes, one QKV and one gate+up
-   bucket with an odd Lc), B in {1, 2, 3, 4, 8, 13}, each launched twice
+   bucket with an odd Lc, and kernels 1, 3 and 6 on the fp32 packs'
+   planes cast to bf16), B in {1, 2, 3, 4, 8, 13}, each launched twice
    for identical bits; then kernels 1-4 timed per layer at B in {1, 4},
    and each bucket launch of kernels 1-4 and 6 at B = 4 on its own (a
    graph of an L2-evicting read and the launch, less the read): rows, K,
@@ -41,11 +43,12 @@ kernels — then checks them:
    step 7, counters zeroed before and read after;
 7. kernels 5-8 against their plain versions, each launched twice for
    identical bits: the unbatched kernel on the projection packs in fp32
-   and bf16; the residual kernel per call at B in {1, 4}; dense MV at
-   (4096, 4096) and (4096, 11008) in fp32 and bf16; flash attention at
-   BH = 32, hd = 128, S in {77, 512, 2048}, and at hd 32 and 64 with a
-   ragged S = 200, causal or not, fp32 and bf16 (bf16 also within a
-   bound on the relative L2 error of the whole output) — each with its
+   and bf16; the residual kernel per call at B in {1, 4} (and on bf16
+   planes at B = 4); dense MV at (4096, 4096), (4096, 11008) and
+   (11008, 4096) in fp32 and bf16; flash attention at BH = 32, hd = 128,
+   S in {77, 512, 2048}, and at hd 32, 64 and 80 (zero-padded to 128)
+   with a ragged S = 200, causal or not, fp32 and bf16 (bf16 also within
+   a bound on the relative L2 error of the whole output) — each with its
    time, the plain version's, a library call of the same function that
    the port never makes (each timed by CUDA events around replays of a
    captured CUDA graph), and the least time the card could take.
@@ -80,15 +83,19 @@ PROJ_SPARSITY = 0.9                     # the projection phase's pruning
 FLASH_BH, FLASH_HD = 32, 128            # llama7b's heads at B = 1
 FLASH_SEQS = (77, 512, 2048)
 # the other head widths the kernel is built for, at a ragged S: every
-# instantiation, and both swizzle widths of the bf16 body, run on the card
-FLASH_RAGGED_SEQ, FLASH_OTHER_HDS = 200, (32, 64)
-DENSE_SHAPES = ((4096, 4096), (4096, 11008))
+# instantiation, and both swizzle widths of the bf16 body, run on the card;
+# hd 80 (zamba2-2.7b's) runs zero-padded to 128
+FLASH_RAGGED_SEQ, FLASH_OTHER_HDS = 200, (32, 64, 80)
+# llama's square projections, w_down's and the gate/up projections' shapes
+DENSE_SHAPES = ((4096, 4096), (4096, 11008), (11008, 4096))
 # data-sheet memory bandwidth, bytes/s, by card name (NVIDIA data sheets)
 _BANDWIDTH = (("H200", 4.8e12), ("H100 NVL", 3.9e12), ("H100 PCIe", 2.0e12),
               ("H100", 3.35e12))
-# H100 SXM data sheet peaks: float32 outside the tensor cores, and bf16
-# on the tensor cores (the bound of bf16 attention)
-PEAKS = {"fp32": 67e12, "bf16_tensor": 989e12}
+# H100 SXM data sheet peaks: float32 outside the tensor cores, bf16 on the
+# tensor cores (the bound of bf16 attention), and TF32 on the tensor cores
+# over the three products of a 3xTF32 split (the bound of fp32 attention,
+# whose body runs them)
+PEAKS = {"fp32": 67e12, "bf16_tensor": 989e12, "tf32x3_tensor": 495e12 / 3}
 KERNEL_REL_TOL, KERNEL_ABS_TOL = 1e-5, 1e-6
 # kernels 1-4 and 6 (the streaming body) are checked at every batch tile
 # (1, 2, 4, 8), a tile's remainder (3) and the loop over tiles of 8 (13),
@@ -262,13 +269,12 @@ def phase_build(report: dict) -> None:
     for fn, n in sass.items():
         log(f"[build] flash_attention SASS {fn}: HGMMA {n['HGMMA']}, "
             f"HMMA {n['HMMA']}")
-    # the fp32 body is flash_attention_kernel; every other is bf16
-    bf16 = {fn: n for fn, n in sass.items()
-            if "flash_attention_kernel" not in fn}
-    need(bool(bf16) and all(n["HGMMA"] + n["HMMA"] > 0
-                            for n in bf16.values()),
-         "[build] a bf16 flash_attention body holds no tensor-core "
-         "instruction (HGMMA / HMMA)")
+    # the bf16 body runs wgmma (HGMMA), the fp32 body mma.sync (HMMA)
+    for body, op in (("flash_attention_wgmma_kernel", "HGMMA"),
+                     ("flash_attention_tf32_kernel", "HMMA")):
+        found = [n[op] for fn, n in sass.items() if body in fn]
+        need(bool(found) and all(found),
+             f"[build] a {body} instance holds no {op} instruction")
 
 
 def _counter_modules():
@@ -518,12 +524,14 @@ def kernel_cases(ctx, sparse8, sparse_fp):
                                       cols=cols, cc=g["chunk_cols"],
                                       m=g["n_cols"], **planes))
     # int4 planes for kernels 2 and 4: the int8 codes requantized to
-    # [-7, 7] and nibble-packed (the plane the int4 serving path gathers)
-    extra = []
-    # kernel 6: the fp32 attn_out and down buckets with a packed-order
-    # residual for each checked batch
+    # [-7, 7] and nibble-packed (the plane the int4 serving path gathers);
+    # bf16 planes for kernels 1 and 3: the fp32 values rounded to bf16
+    extra = [dict(c, variant="bf16", values=c["values"].to(torch.bfloat16))
+             for c in cases if c["variant"] == "fp32"]
+    # kernel 6: the fp32 and bf16 attn_out and down buckets with a
+    # packed-order residual for each checked batch
     gen = None
-    for c in cases:
+    for c in cases + extra:
         if (c["kernel"], c["group"]) not in (("espim_spmv_batched",
                                               "attn_out"),
                                              ("espim_spmv_batched", "down")):
@@ -663,7 +671,7 @@ def phase_kernels(ctx, sparse8, sparse_fp, launches_main) -> list:
                        and c["kernel"] != "espim_spmv_batched_res"}):
         sel = [c for c in cases if (c["kernel"], c["variant"]) == key]
         n_layers = len({c["layer"] for c in sel})
-        src = sparse_fp if key[1] == "fp32" else sparse8
+        src = sparse_fp if key[1] in ("fp32", "bf16") else sparse8
         for b in TIME_BATCHES:
             def launch_all(impl, sel=sel, b=b):
                 for c in sel:
@@ -906,8 +914,9 @@ def new_kernel_cases(ctx, proj, sparse_fp) -> list:
                           + w.cols.shape[0] * 4),
                 "flops": 2 * w.cols.numel(), "peak": "fp32"})
         groups.append(("espim_spmv", label, cases))
-    # kernel 6: the fp32 engine's attn_out and down buckets + residual
-    for b in (1, 4):
+    # kernel 6: the fp32 engine's attn_out and down buckets + residual; at
+    # B = 4 also on their values cast to bf16
+    for b, dt in ((1, torch.float32), (4, torch.float32), (4, bf)):
         cases = []
         for gname in ("attn_out", "down"):
             g = sparse_fp["groups"][gname]
@@ -917,7 +926,7 @@ def new_kernel_cases(ctx, proj, sparse_fp) -> list:
             rb = torch.randn((b, wb.shape[1]), generator=gen,
                              device=dev).to(bf)
             for bi, bk in enumerate(g["buckets"]):
-                vals, cols = bk["values"][0], bk["cols"][0]
+                vals, cols = bk["values"][0].to(dt), bk["cols"][0]
                 res = torch.randn((cols.shape[0], b), generator=gen,
                                   device=dev)
                 cases.append({
@@ -930,10 +939,12 @@ def new_kernel_cases(ctx, proj, sparse_fp) -> list:
                     "library": ((lambda rb=rb, xb=xb, wb=wb:
                                  torch.addmm(rb, xb, wb)) if bi == 0
                                 else None),
-                    "bytes": (vals.numel() * 4 + cols.numel() * 4
-                              + x.numel() * 4 + 2 * res.numel() * 4),
+                    "bytes": (vals.numel() * vals.element_size()
+                              + cols.numel() * 4 + x.numel() * 4
+                              + 2 * res.numel() * 4),
                     "flops": 2 * cols.numel() * b, "peak": "fp32"})
-        groups.append(("espim_spmv_batched_res", f"fp32 B={b}", cases))
+        groups.append(("espim_spmv_batched_res",
+                       f"{'bf16' if dt == bf else 'fp32'} B={b}", cases))
     # kernel 7: dense MV
     for r, c in DENSE_SHAPES:
         for dt, label in ((torch.float32, "fp32"), (bf, "bf16")):
@@ -968,7 +979,7 @@ def new_kernel_cases(ctx, proj, sparse_fp) -> list:
                                         is_causal=cz)),
                         "bytes": 4 * q.numel() * q.element_size(),
                         "flops": 4 * FLASH_BH * hd * pairs,
-                        "peak": "fp32" if label == "fp32"
+                        "peak": "tf32x3_tensor" if label == "fp32"
                         else "bf16_tensor"}]))
     return groups
 
@@ -1049,7 +1060,8 @@ def phase_new_kernels(ctx, groups, launches_main) -> list:
             f"{r['achieved_TFLOPs']:.2f} TFLOP/s)")
     main_variant = {"espim_spmv": "fp32",
                     "espim_spmv_batched_res": "fp32 B=4",
-                    "dense_mv": "fp32 {}x{}".format(*DENSE_SHAPES[-1]),
+                    # w_down's shape, 4096 x 11008
+                    "dense_mv": "fp32 {}x{}".format(*DENSE_SHAPES[1]),
                     "flash_attention": f"bf16 S={FLASH_SEQS[-1]} causal"}
     log(f"[kernels] kernels 5-8: {len(rows)} checks within their "
         f"tolerances, each bit-identical across two launches; worst "

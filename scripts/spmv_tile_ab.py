@@ -10,12 +10,12 @@ library that instantiates variants the port itself does not launch:
   1-2 and 6 before the streaming body) at batch tiles 1, 4 and 8;
 * the streaming body (``espim_spmv_stream_kernel``, kernels 1-2) at
   several (U groups in flight a lane, warps a row), beside the port's own
-  entry points (``espim_spmv_batched_f32``, ``espim_spmv_batched_quant``),
+  entry points (``espim_spmv_batched_fp``, ``espim_spmv_batched_quant``),
   which pick U and the warps a row themselves;
 * its GLU variant (``espim_spmv_stream_glu_kernel``, kernels 3-4) in
   design a (a team walks the gate row, then the up row) and design b
   (half the team's warps on each row) at several (U, warps a pair),
-  beside the port's own entry points (``espim_spmv_batched_glu_f32``,
+  beside the port's own entry points (``espim_spmv_batched_glu_fp``,
   ``espim_spmv_batched_quant_glu``).
 
 With ``--baseline`` it also builds another copy of ``espim_spmv.cu``
@@ -61,8 +61,8 @@ FAMILIES = {"spmv": {"f32": "espim_spmv_batched",
                      "int8": "espim_spmv_batched_quant"},
             "glu": {"f32": "espim_spmv_batched_glu",
                     "int8": "espim_spmv_batched_quant_glu"}}
-ENTRY_POINTS = ("espim_spmv_batched_f32", "espim_spmv_batched_quant",
-                "espim_spmv_batched_glu_f32", "espim_spmv_batched_quant_glu")
+ENTRY_POINTS = ("espim_spmv_batched_fp", "espim_spmv_batched_quant",
+                "espim_spmv_batched_glu_fp", "espim_spmv_batched_quant_glu")
 
 
 def shim_source() -> str:
@@ -186,14 +186,14 @@ def entry_call(lib, family, plane, c, v, x, out, b, stream) -> int:
     r, k, lc = c["cols"].shape
     cp, xp, op = c["cols"].data_ptr(), x.data_ptr(), out.data_ptr()
     if family == "spmv" and plane == "f32":
-        return lib.espim_spmv_batched_f32(v, cp, xp, op, r, k, lc, c["cc"],
-                                          c["m"], b, stream)
+        return lib.espim_spmv_batched_fp(v, 0, cp, xp, op, r, k, lc, c["cc"],
+                                         c["m"], b, stream)
     if family == "spmv":
         return lib.espim_spmv_batched_quant(v, 0, lc, cp, None, 1, xp, op, r,
                                             k, lc, c["cc"], c["m"], b, stream)
     if plane == "f32":
-        return lib.espim_spmv_batched_glu_f32(v, cp, xp, op, r // 2, k, lc,
-                                              c["cc"], c["m"], b, 0, stream)
+        return lib.espim_spmv_batched_glu_fp(v, 0, cp, xp, op, r // 2, k, lc,
+                                             c["cc"], c["m"], b, 0, stream)
     return lib.espim_spmv_batched_quant_glu(v, 0, lc, cp,
                                             c["srow"].data_ptr(), xp, op,
                                             r // 2, k, lc, c["cc"], c["m"], b,

@@ -40,14 +40,14 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "espim_spmv": {
         "espim_spmv": [_P, _I, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P],
-        "espim_spmv_batched_res_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                       _I, _I, _P],
-        "espim_spmv_batched_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                                   _P],
+        "espim_spmv_batched_res_fp": [_P, _I, _P, _P, _P, _P, _I, _I, _I,
+                                      _I, _I, _I, _P],
+        "espim_spmv_batched_fp": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I,
+                                  _I, _P],
         "espim_spmv_batched_quant": [_P, _I, _I, _P, _P, _I, _P, _P, _I, _I,
                                      _I, _I, _I, _I, _P],
-        "espim_spmv_batched_glu_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                       _I, _I, _P],
+        "espim_spmv_batched_glu_fp": [_P, _I, _P, _P, _P, _I, _I, _I, _I,
+                                      _I, _I, _I, _P],
         "espim_spmv_batched_quant_glu": [_P, _I, _I, _P, _P, _P, _P, _I, _I,
                                          _I, _I, _I, _I, _I, _P],
     },

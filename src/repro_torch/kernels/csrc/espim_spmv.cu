@@ -3,20 +3,22 @@
 // Replace six Pallas kernels of the JAX package
 // (src/repro/kernels/espim_spmv.py):
 //   espim_spmv                   <- espim_spmv_pallas (_spmv_kernel)
-//   espim_spmv_batched_f32       <- espim_spmv_batched_pallas (_spmv_batched_kernel)
-//   espim_spmv_batched_res_f32   <- espim_spmv_batched_res_pallas
+//   espim_spmv_batched_fp        <- espim_spmv_batched_pallas (_spmv_batched_kernel)
+//   espim_spmv_batched_res_fp    <- espim_spmv_batched_res_pallas
 //                                   (_spmv_batched_res_kernel)
 //   espim_spmv_batched_quant     <- espim_spmv_batched_quant_pallas
 //                                   (_spmv_batched_quant_kernel, _spmv_batched_q4_kernel)
-//   espim_spmv_batched_glu_f32   <- espim_spmv_batched_glu_pallas (_glu_kernel)
+//   espim_spmv_batched_glu_fp    <- espim_spmv_batched_glu_pallas (_glu_kernel)
 //   espim_spmv_batched_quant_glu <- espim_spmv_batched_quant_glu_pallas (_glu_quant_kernel)
 //
 // What they compute, with planes (R, K, Lc) and chunk-local column ids:
 //   y[r, b] = sum_k sum_l v[r, k, l] * x[k * chunk_cols + cols[r, k, l], b]
-// where v is fp32, bf16 (the unbatched kernel only), int8 codes, or int4
-// codes packed two to a byte (slot 2j in the low nibble of byte j,
-// Lv = ceil(Lc / 2) bytes per chunk row). The unbatched kernel takes x (M,)
-// in fp32 or bf16. The residual kernel adds residual[r, b] (packed row
+// where v is fp32, bf16 (the unbatched kernel and the three _fp kernels,
+// which take a values_bf16 flag; a bf16 value widens to fp32 exactly, as
+// the reference's in-kernel cast does), int8 codes, or int4 codes packed
+// two to a byte (slot 2j in the low nibble of byte j, Lv = ceil(Lc / 2)
+// bytes per chunk row). The unbatched kernel takes x (M,) in fp32 or bf16;
+// the batched kernels take x (M, B) in fp32 (the wrapper widens a bf16 x). The residual kernel adds residual[r, b] (packed row
 // order) to the reduced sum before the one store, the reference's order
 // (_spmv_batched_res_kernel: sum, then residual). The quant kernel
 // multiplies by scale[r / group_rows] after the reduce unless scale is null
@@ -38,10 +40,10 @@
 // Two bodies.
 //
 // The streaming body serves kernels 1-4 and 6: espim_spmv_stream_kernel
-// runs espim_spmv_batched_f32 and espim_spmv_batched_quant (the decode
+// runs espim_spmv_batched_fp and espim_spmv_batched_quant (the decode
 // path's QKV / O / down buckets) and, with its RES flag,
-// espim_spmv_batched_res_f32; espim_spmv_stream_glu_kernel runs
-// espim_spmv_batched_glu_f32 and espim_spmv_batched_quant_glu (its
+// espim_spmv_batched_res_fp; espim_spmv_stream_glu_kernel runs
+// espim_spmv_batched_glu_fp and espim_spmv_batched_quant_glu (its
 // gate+up buckets). Those launches are short (32 to ~12k rows of 8-22
 // chunks x Lc 80-88 slots) and the warp-per-row body below was
 // latency-bound on them, not byte-bound (3.3-3.5x slower on kernels 1-2's
@@ -51,8 +53,8 @@
 // streaming body keeps plane bytes in flight and its chains short:
 //   - a lane owns groups of 4 consecutive slots; it loads a group's 4
 //     column ids as one 16-byte load and its 4 values as one load (16 B
-//     fp32, 4 B int8, 2 B int4), and issues U groups' loads before the
-//     first gather that needs them. The planes are loaded with
+//     fp32, 8 B bf16, 4 B int8, 2 B int4), and issues U groups' loads
+//     before the first gather that needs them. The planes are loaded with
 //     L1::no_allocate, so L1 keeps the x rows the gathers hit.
 //   - the batch tile BT equals B (instantiated for 1, 2, 4, 8; larger B
 //     loops over tiles of 8): BT accumulators a lane, BT * log2(32)
@@ -268,6 +270,13 @@ __device__ __forceinline__ int4 ld_plane16(const void* p) {
       : "l"(p));
   return r;
 }
+__device__ __forceinline__ uint2 ld_plane8(const void* p) {
+  uint2 r;
+  asm("ld.global.nc.L1::no_allocate.v2.u32 {%0, %1}, [%2];"
+      : "=r"(r.x), "=r"(r.y)
+      : "l"(p));
+  return r;
+}
 __device__ __forceinline__ unsigned ld_plane4(const void* p) {
   unsigned r;
   asm("ld.global.nc.L1::no_allocate.u32 %0, [%1];" : "=r"(r) : "l"(p));
@@ -292,6 +301,17 @@ struct Group<kF32> {
   }
   __device__ static float get(const T& w, int i) {
     return __int_as_float(i == 0 ? w.x : i == 1 ? w.y : i == 2 ? w.z : w.w);
+  }
+};
+template <>
+struct Group<kBF16> {
+  using T = uint2;
+  __device__ static T load(const void* v, long long s0) {
+    return ld_plane8(static_cast<const unsigned short*>(v) + s0);
+  }
+  __device__ static float get(const T& w, int i) {  // slot 2j: low half
+    const unsigned word = i < 2 ? w.x : w.y;
+    return __uint_as_float((i & 1) ? word & 0xffff0000u : word << 16);
   }
 };
 template <>
@@ -625,7 +645,7 @@ template <int P>
 int stream_mode(const void* values, const int* cols, const float* x, int lc,
                 int lv, int b) {
   const int bt = stream_tile(b);
-  const unsigned vbytes = P == kF32 ? 16 : P == kI8 ? 4 : 2;
+  const unsigned vbytes = P == kF32 ? 16 : P == kBF16 ? 8 : P == kI8 ? 4 : 2;
   const bool vec = lc % 4 == 0 && (P != kNib || 2 * lv == lc) &&
                    aligned(cols, 16) && aligned(values, vbytes);
   const bool vx = b % bt == 0 && aligned(x, 4 * (bt < 4 ? bt : 4));
@@ -742,27 +762,40 @@ int espim_spmv(const void* values, int values_bf16, const void* cols,
                                 chunk_cols, m, stream);
 }
 
-// values f32 (R, K, Lc); out (R, B)
-int espim_spmv_batched_f32(const void* values, const void* cols,
-                           const void* x, void* out, int rows, int n_chunks,
-                           int lc, int chunk_cols, int m, int b,
-                           void* stream) {
-  return launch_stream<kF32>(values, static_cast<const int*>(cols),
-                             static_cast<const float*>(x), nullptr, nullptr,
-                             static_cast<float*>(out), rows, n_chunks, lc, lc,
-                             chunk_cols, m, b, 1, stream);
+// values f32 or bf16 (values_bf16 = 1) (R, K, Lc); x f32 (M, B);
+// out (R, B)
+int espim_spmv_batched_fp(const void* values, int values_bf16,
+                          const void* cols, const void* x, void* out,
+                          int rows, int n_chunks, int lc, int chunk_cols,
+                          int m, int b, void* stream) {
+  const int* c = static_cast<const int*>(cols);
+  const float* xs = static_cast<const float*>(x);
+  float* o = static_cast<float*>(out);
+  if (values_bf16)
+    return launch_stream<kBF16>(values, c, xs, nullptr, nullptr, o, rows,
+                                n_chunks, lc, lc, chunk_cols, m, b, 1, stream);
+  return launch_stream<kF32>(values, c, xs, nullptr, nullptr, o, rows,
+                             n_chunks, lc, lc, chunk_cols, m, b, 1, stream);
 }
 
-// values f32 (R, K, Lc); residual f32 (R, B) in packed row order; out (R, B)
-int espim_spmv_batched_res_f32(const void* values, const void* cols,
-                               const void* x, const void* residual, void* out,
-                               int rows, int n_chunks, int lc, int chunk_cols,
-                               int m, int b, void* stream) {
-  return launch_stream<kF32, true>(values, static_cast<const int*>(cols),
-                                   static_cast<const float*>(x), nullptr,
-                                   static_cast<const float*>(residual),
-                                   static_cast<float*>(out), rows, n_chunks,
-                                   lc, lc, chunk_cols, m, b, 1, stream);
+// values f32 or bf16 (values_bf16 = 1) (R, K, Lc); residual f32 (R, B) in
+// packed row order; out (R, B)
+int espim_spmv_batched_res_fp(const void* values, int values_bf16,
+                              const void* cols, const void* x,
+                              const void* residual, void* out, int rows,
+                              int n_chunks, int lc, int chunk_cols, int m,
+                              int b, void* stream) {
+  const int* c = static_cast<const int*>(cols);
+  const float* xs = static_cast<const float*>(x);
+  const float* res = static_cast<const float*>(residual);
+  float* o = static_cast<float*>(out);
+  if (values_bf16)
+    return launch_stream<kBF16, true>(values, c, xs, nullptr, res, o, rows,
+                                      n_chunks, lc, lc, chunk_cols, m, b, 1,
+                                      stream);
+  return launch_stream<kF32, true>(values, c, xs, nullptr, res, o, rows,
+                                   n_chunks, lc, lc, chunk_cols, m, b, 1,
+                                   stream);
 }
 
 // codes int8 (R, K, Lc) or nibble-packed uint8 (R, K, lv); scales
@@ -783,14 +816,20 @@ int espim_spmv_batched_quant(const void* codes, int nibble, int lv,
                             lc, chunk_cols, m, b, group_rows, stream);
 }
 
-// values f32 (2 * Rg, K, Lc) half-major; out (Rg, B)
-int espim_spmv_batched_glu_f32(const void* values, const void* cols,
-                               const void* x, void* out, int rows_g,
-                               int n_chunks, int lc, int chunk_cols, int m,
-                               int b, int act, void* stream) {
-  return launch_glu<kF32>(values, static_cast<const int*>(cols),
-                          static_cast<const float*>(x), nullptr,
-                          static_cast<float*>(out), rows_g, n_chunks, lc, lc,
+// values f32 or bf16 (values_bf16 = 1) (2 * Rg, K, Lc) half-major;
+// out (Rg, B)
+int espim_spmv_batched_glu_fp(const void* values, int values_bf16,
+                              const void* cols, const void* x, void* out,
+                              int rows_g, int n_chunks, int lc,
+                              int chunk_cols, int m, int b, int act,
+                              void* stream) {
+  const int* c = static_cast<const int*>(cols);
+  const float* xs = static_cast<const float*>(x);
+  float* o = static_cast<float*>(out);
+  if (values_bf16)
+    return launch_glu<kBF16>(values, c, xs, nullptr, o, rows_g, n_chunks, lc,
+                             lc, chunk_cols, m, b, act, stream);
+  return launch_glu<kF32>(values, c, xs, nullptr, o, rows_g, n_chunks, lc, lc,
                           chunk_cols, m, b, act, stream);
 }
 

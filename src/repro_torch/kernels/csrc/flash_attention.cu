@@ -2,31 +2,28 @@
 //
 // Replaces flash_attention_pallas (_flash_kernel,
 // src/repro/kernels/flash_attention.py:27-64, pallas_call at :99): q, k, v
-// (BH, S, hd) in fp32 or bf16, hd in {32, 64, 128}, out (BH, S, hd) in
-// q's dtype; scores of q * (1 / sqrt(hd)) against k; keys at k_pos >= S
-// masked, and keys after the query (k_pos > q_pos) masked when causal;
-// masked scores are -1e30, as in the reference; the running max m, sum l
-// and output acc are fp32, and out = acc / max(l, 1e-30). Device memory
-// sees only the q, k, v and out streams.
+// (BH, S, hd) in fp32 or bf16, hd in {32, 64, 128} (the wrapper zero-pads
+// a narrower head up to the next of them and passes the true hd's scale),
+// out (BH, S, hd) in q's dtype; scores of q * scale against k; keys at
+// k_pos >= S masked, and keys after the query (k_pos > q_pos) masked when
+// causal; masked scores are -1e30, as in the reference; the running max
+// m, sum l and output acc are fp32, and out = acc / max(l, 1e-30). Device
+// memory sees only the q, k, v and out streams.
 //
 // Bound: operations at long S: 4 * S^2 * hd flops per head (half when
 // causal) against 4 * S * hd elements of traffic, ~S / 2 flops a byte in
-// bf16, far above the card's ~295 (989 TFLOP/s over 3.35 TB/s). So bf16
-// runs on the tensor cores; fp32 inputs keep the scalar body (wgmma has no
-// fp32 form, and TF32 would miss the fp32 tolerance of 2e-5).
+// bf16, far above the card's ~295 (989 TFLOP/s over 3.35 TB/s). So both
+// bodies run on the tensor cores, chosen by dtype.
 //
-// Two bodies, chosen by dtype: the wgmma body for bf16, the scalar one for
-// fp32.
-//
-// wgmma + TMA (flash_attention_wgmma_kernel<HD, BK, STAGES, NWG>): a block
-// takes one (head, tile of 64 * NWG queries); NWG consumer warpgroups own
-// 64 query rows each, and one producer warp issues every load. The q tile
-// is loaded once; k and v tiles of BK keys stream through a ring of STAGES
-// stages, each a TMA load (cp.async.bulk.tensor, 3-D map (hd, S, BH): rows
-// past S read as zeros, never the next head) completing on a `full`
-// mbarrier; each consumer warp arrives on the stage's `empty` mbarrier
-// when done, and the producer waits on it before reloading the stage (the
-// reference's grid pipelining, as a ring inside the block).
+// wgmma + TMA (flash_attention_wgmma_kernel<HD, BK, STAGES, NWG>, bf16): a
+// block takes one (head, tile of 64 * NWG queries); NWG consumer
+// warpgroups own 64 query rows each, and one producer warp issues every
+// load. The q tile is loaded once; k and v tiles of BK keys stream through
+// a ring of STAGES stages, each a TMA load (cp.async.bulk.tensor, 3-D map
+// (hd, S, BH): rows past S read as zeros, never the next head) completing
+// on a `full` mbarrier; each consumer warp arrives on the stage's `empty`
+// mbarrier when done, and the producer waits on it before reloading the
+// stage (the reference's grid pipelining, as a ring inside the block).
 //   - Tiles in shared memory are TMA boxes of 64 columns (hd 64, 128:
 //     128-byte swizzle) or 32 (hd 32: 64-byte swizzle), the swizzle span;
 //     a tile of hd 128 is two boxes side by side. The TMA swizzle mode and
@@ -61,21 +58,31 @@
 //     the plain nvcc line needs no -lcuda) and passed as __grid_constant__
 //     kernel parameters; the three encodes cost 0.2 us of host time (the
 //     A/B), so they are not cached.
-// scalar (flash_attention_kernel<HD>): fp32 FMAs, 8 warps x 8 query rows,
-// k and v tiles of 32 keys in shared memory.
+// 3xTF32 mma.sync (flash_attention_tf32_kernel<HD, BK, NW>, fp32): wgmma
+// has no fp32 form, and one TF32 product (10 mantissa bits) misses the
+// fp32 tolerance of 2e-5. Each operand is split into hi + lo, both tf32,
+// and a product is lo * hi + hi * lo + hi * hi, summed in fp32: ~21 bits
+// of each operand, at a third of the 495 TFLOP/s TF32 rate. mma.sync, not
+// wgmma, because wgmma transposes only 16-bit operands in shared memory
+// and v would need a transpose; mma.sync fragments are loaded by the
+// threads, in any layout. The details are at the kernel; its softmax,
+// masks, causal order and fixed sum order are the wgmma body's.
 //
 // The A/B (scripts/attn_tile_ab.py; NVIDIA H100 80GB HBM3, 700 W; us at
-// BH 32, hd 128, bf16; PERF.md): at S = 2048 the wgmma body with key tiles
+// BH 32, hd 128; PERF.md). bf16: at S = 2048 the wgmma body with key tiles
 // of 128, 2 stages and 2 consumer warpgroups is the fastest of its eight
-// (key tile, stages, warpgroups) variants, causal 95.1 (the scalar body
-// 2086.1, SDPA 80.3) and full 157.8 (SDPA 115.6); at S = 512 causal the
-// 64-key, 1-warpgroup variant is 15% faster (14.6 against 17.2: twice the
-// blocks where the 128-query grid fills the card once), and at S = 77
-// every variant and SDPA take 7-9. One variant serves every shape:
-// 128 / 2 / 2 has the least sum over chip_smoke's shapes. An FA2-style
-// mma.sync body (4 warps x 16 rows, cp.async double buffering, ldmatrix),
-// the staging step before wgmma, took 1.75x (causal) and 1.95x (full) the
-// wgmma body's time at S = 2048 and was removed after that A/B.
+// (key tile, stages, warpgroups) variants, causal 95.1 (the scalar body it
+// replaced 2086.1, SDPA 80.3) and full 157.8 (SDPA 115.6); at S = 512
+// causal the 64-key, 1-warpgroup variant is 15% faster (14.6 against
+// 17.2: twice the blocks where the 128-query grid fills the card once),
+// and at S = 77 every variant and SDPA take 7-9. One variant serves every
+// shape: 128 / 2 / 2 has the least sum over chip_smoke's shapes. fp32: the
+// 3xTF32 body with key tiles of 64 and 8 warps (128 queries a block, so
+// half the k and v re-reads of 4 warps) takes 610 at S = 2048 causal (the
+// scalar body it replaced 2137, SDPA 905) and 1183-1199 full (SDPA 1551);
+// a register-tiled SIMT candidate (each thread a 4 x 4 block of scores,
+// q, k and v vectors from shared memory) took 1128-1166 causal and was
+// removed, as were the scalar body and an FA2-style bf16 mma.sync body.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -93,154 +100,305 @@ constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kErrNoEncoder = 900;
 constexpr int kErrEncode = 1000;
 
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// a key tile needs the element mask when it reaches past the sequence or,
+// causal, past the first query row of the slab starting at `first_row`
+template <int NK>
+__device__ __forceinline__ bool tile_needs_mask(int key0, int first_row,
+                                                int seq, int causal) {
+  return key0 + NK > seq || (causal && key0 + NK - 1 > first_row);
+}
+
+// 16 bytes global -> shared through L2 only; `bytes` 0 zero-fills
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// wait until at most N of this thread's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// k and v rows key0 .. key0 + BK - 1 of one head (base) into a stage: k
+// at ks with rows SK floats apart, v at vs with rows SV floats apart; rows
+// past seq are zero-filled. Every thread of the block copies 16-byte
+// chunks and commits one group.
+template <int HD, int BK, int THREADS, int SK, int SV>
+__device__ __forceinline__ void load_kv(float* ks, float* vs,
+                                        const float* __restrict__ k,
+                                        const float* __restrict__ v,
+                                        long long base, int key0, int seq) {
+  constexpr int kChunks = BK * HD / 4;
+  for (int c = threadIdx.x; c < kChunks; c += THREADS) {
+    const int r = c / (HD / 4);
+    const int col = 4 * (c % (HD / 4));
+    const bool in = key0 + r < seq;
+    const long long g =
+        base + static_cast<long long>(in ? key0 + r : 0) * HD + col;
+    cp_async16(smem_addr(ks + r * SK + col), k + g, in ? 16 : 0);
+    cp_async16(smem_addr(vs + r * SV + col), v + g, in ? 16 : 0);
+  }
+  cp_async_commit();
+}
+
 // --------------------------------------------------------------------------
-// The scalar body: fp32 inputs.
+// The 3xTF32 body: fp32 inputs.
 // --------------------------------------------------------------------------
-namespace scalar {
+namespace tf32 {
 
-constexpr int kWarps = 8;
-constexpr int kBQ = 64;                // query rows per block
-constexpr int kRows = kBQ / kWarps;    // query rows per warp
-constexpr int kBK = 32;                // keys per tile, one per lane
-
-__device__ __forceinline__ float warp_max(float v) {
-  for (int off = kWarp / 2; off > 0; off >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
-}
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int off = kWarp / 2; off > 0; off >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
+// x = hi + lo + a rest below 2^-21 |x|: hi is x rounded to tf32 (10
+// mantissa bits; half up on the magnitude, by integer ops), lo the exact
+// remainder x - hi, left in fp32: the tensor core reads a tf32 operand's
+// top 19 bits and ignores the low 13, so lo is cut to tf32 there. (cvt.rna
+// compiles to ~4 instructions with its special-value checks, and rounding
+// lo as well changes nothing that the fp32 tolerance sees: the A/B.)
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
 }
 
-template <int HD>
-constexpr int smem_bytes() {
-  return (kBQ * HD + kBK * (HD + 4) + kBK * HD + kBQ * kBK) *
-         static_cast<int>(sizeof(float));
+// d += a (16 x 8, row-major fragment) * b (8 x 8, col-major fragment), tf32
+// products summed in fp32. Not volatile: a pure function of its operands,
+// so the compiler may interleave independent products.
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-}  // namespace scalar
+// d[d0 + i] += a * b[i] for N independent products from split operands
+// (b[i] = {hi0, hi1, lo0, lo1}): the small cross terms of every product
+// first, then hi * hi (lo * lo, below 2^-22 of a product, is dropped);
+// term-major, so N products are in flight between two dependent ones
+template <int N, int M>
+__device__ __forceinline__ void mma3(float (&d)[M][4], int d0,
+                                     const uint32_t (&ahi)[4],
+                                     const uint32_t (&alo)[4],
+                                     const uint32_t (&b)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) mma(d[d0 + i], alo, b[i][0], b[i][1]);
+#pragma unroll
+  for (int i = 0; i < N; ++i) mma(d[d0 + i], ahi, b[i][2], b[i][3]);
+#pragma unroll
+  for (int i = 0; i < N; ++i) mma(d[d0 + i], ahi, b[i][0], b[i][1]);
+}
 
-template <int HD>
-__global__ void __launch_bounds__(kWarp * scalar::kWarps)
-flash_attention_kernel(const float* __restrict__ q,
-                       const float* __restrict__ k,
-                       const float* __restrict__ v, float* __restrict__ out,
-                       int seq, int causal, float scale) {
-  using namespace scalar;
-  constexpr int KS = HD + 4;           // padded k row stride, floats
-  constexpr int DPL = HD / kWarp;      // output columns per lane
+template <int HD, int BK, int NW>
+struct Config {
+  static constexpr int kBQ = 16 * NW;            // query rows a block
+  static constexpr int kThreads = kWarp * NW;
+  // floats a q or k row (64-bit fragment loads: 8 rows hit 32 banks) and
+  // a v row (32-bit loads of rows 2 t, 2 t + 1: 32 banks)
+  static constexpr int kSK = HD + 8, kSV = HD + 4;
+  static constexpr int kStage = BK * (kSK + kSV);   // floats, k then v
+  // q (pre-scaled), then 2 stages of k and v
+  static constexpr int kSmem = (kBQ * kSK + 2 * kStage) * 4;
+};
+
+}  // namespace tf32
+
+// 3xTF32 on the tensor cores: a block takes one (head, tile of 16 * NW
+// queries), a warp 16 query rows. q (pre-scaled) sits in shared memory for
+// the whole block; k and v tiles of BK keys stream through two stages by
+// cp.async (tile j + 1 in flight while tile j is consumed). Rows are
+// padded (Config::kSK, kSV), so every fragment load hits 32 distinct
+// banks. S = Q K^T and O += P V are m16n8k8 TF32 mma.sync on operands
+// split into hi + lo (tf32::split, tf32::mma3), which keeps each product
+// to about fp32 precision; every warp splits the fragments it loads. A
+// thread holds, of a 16-row slab, rows g = lane / 4 and g + 8 at columns
+// 2 t, 2 t + 1 (t = lane % 4) of every 8-column block: the quad holds a
+// row, and the row max is two shuffles. P feeds P V from those registers:
+// within a block of 8 keys, A column t is key 2 t and column t + 4 key
+// 2 t + 1, and the V fragment loads rows 2 t and 2 t + 1 to match (the
+// sum over keys is order-free up to rounding, and the order is fixed).
+// Softmax in the exp2 domain (q pre-scaled by log2(e) / sqrt(hd), as the
+// wgmma body), with the reference's -1e30 masks and fp32 m, l, o.
+template <int HD, int BK, int NW>
+__global__ void __launch_bounds__(kWarp * NW)
+flash_attention_tf32_kernel(const float* __restrict__ q,
+                            const float* __restrict__ k,
+                            const float* __restrict__ v,
+                            float* __restrict__ out, int seq, int causal,
+                            float scale_log2) {
+  using C = tf32::Config<HD, BK, NW>;
+  constexpr int NB = BK / 8;                     // 8-key blocks a tile
+  constexpr int HG = 4;                          // hd blocks a P V group
   extern __shared__ __align__(16) unsigned char smem[];
-  float* qs = reinterpret_cast<float*>(smem);   // [kBQ][HD], pre-scaled
-  float* ks = qs + kBQ * HD;           // [kBK][KS]
-  float* vs = ks + kBK * KS;           // [kBK][HD]
-  float* ps = vs + kBK * HD;           // [kBQ][kBK] probabilities
-  const int tid = threadIdx.x;
-  const int lane = tid & (kWarp - 1);
-  const int r0 = (tid / kWarp) * kRows;     // this warp's first tile row
-  const int q0 = blockIdx.x * kBQ;
-  const long long base = static_cast<long long>(blockIdx.y) * seq * HD;
+  float* qs = reinterpret_cast<float*>(smem);    // [kBQ][kSK]
+  float* ring = qs + C::kBQ * C::kSK;            // stage s at s kStage
+  const int warp = threadIdx.x / kWarp;
+  const int lane = threadIdx.x % kWarp;
+  const int g = lane / 4, t = lane % 4;
+  const int n_qt = (seq + C::kBQ - 1) / C::kBQ;
+  const int q0 = (causal ? n_qt - 1 - static_cast<int>(blockIdx.y)
+                         : static_cast<int>(blockIdx.y)) * C::kBQ;
+  const long long base = static_cast<long long>(blockIdx.x) * seq * HD;
+  const int first = q0 + 16 * warp;              // the warp's first row
+  const int k_end = causal ? min(seq, q0 + C::kBQ) : seq;
+  const int n_kt = (k_end + BK - 1) / BK;
+  const int wk_end = first >= seq ? 0 : causal ? min(seq, first + 16) : seq;
 
-  for (int e = tid; e < kBQ * HD; e += blockDim.x) {
-    const int r = e / HD;
-    qs[e] = q0 + r < seq
-        ? __ldg(q + base + static_cast<long long>(q0) * HD + e) * scale
-        : 0.0f;
+  if (n_kt > 0)
+    load_kv<HD, BK, C::kThreads, C::kSK, C::kSV>(
+        ring, ring + BK * C::kSK, k, v, base, 0, seq);
+  for (int c = threadIdx.x; c < C::kBQ * HD / 4; c += C::kThreads) {
+    const int r = c / (HD / 4), col = 4 * (c % (HD / 4));
+    float4 x = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (q0 + r < seq) {
+      x = __ldg(reinterpret_cast<const float4*>(
+          q + base + static_cast<long long>(q0 + r) * HD + col));
+      x.x *= scale_log2;
+      x.y *= scale_log2;
+      x.z *= scale_log2;
+      x.w *= scale_log2;
+    }
+    *reinterpret_cast<float4*>(qs + r * C::kSK + col) = x;
   }
-  float m[kRows], l[kRows], acc[kRows][DPL];
+  const float* qw = qs + (16 * warp + g) * C::kSK + 2 * t;   // row g
+  float o[HD / 8][4], m[2] = {kNegInf, kNegInf}, l[2] = {0.0f, 0.0f};
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    m[r] = kNegInf;
-    l[r] = 0.0f;
+  for (int h = 0; h < HD / 8; ++h)
 #pragma unroll
-    for (int i = 0; i < DPL; ++i) acc[r][i] = 0.0f;
-  }
+    for (int e = 0; e < 4; ++e) o[h][e] = 0.0f;
 
-  const int k_end = causal ? min(seq, q0 + kBQ) : seq;
-  for (int k0 = 0; k0 < k_end; k0 += kBK) {
-    __syncthreads();                   // previous tile consumed, q staged
-    for (int e = tid; e < kBK * HD; e += blockDim.x) {
-      const int j = e / HD;
-      const int d = e - j * HD;
-      const bool in = k0 + j < seq;
-      const long long g = base + static_cast<long long>(k0) * HD + e;
-      ks[j * KS + d] = in ? __ldg(k + g) : 0.0f;
-      vs[e] = in ? __ldg(v + g) : 0.0f;
+  for (int j = 0; j < n_kt; ++j) {
+    if (j + 1 < n_kt) {
+      float* next = ring + ((j + 1) & 1) * C::kStage;
+      load_kv<HD, BK, C::kThreads, C::kSK, C::kSV>(
+          next, next + BK * C::kSK, k, v, base, (j + 1) * BK, seq);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
-    __syncthreads();
-
-    // scores of the warp's rows against key k0 + lane
-    float s[kRows];
+    __syncthreads();                             // tile j (and q) are in
+    const int key0 = j * BK;
+    if (key0 < wk_end) {
+      const float* ks = ring + (j & 1) * C::kStage;
+      const float* vs = ks + BK * C::kSK;
+      // S = Q K^T over hd blocks of 8, A column t / t + 4 being hd 2 t /
+      // 2 t + 1 of the block on both sides (the sum over hd is order-free
+      // up to rounding, and the order is fixed), so each fragment pair is
+      // one 64-bit load: A (rows g, g + 8) from q, B (k = hd, n = key) =
+      // k[key 8 n + g][8 kk + 2 t, + 1]
+      float s[NB][4];
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) s[r] = 0.0f;
-    const float* kr = ks + lane * KS;
-#pragma unroll 4
-    for (int d = 0; d < HD; d += 4) {
-      const float4 kv = *reinterpret_cast<const float4*>(kr + d);
+      for (int n = 0; n < NB; ++n)
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const float4 qv =
-            *reinterpret_cast<const float4*>(qs + (r0 + r) * HD + d);
-        s[r] = fmaf(qv.x, kv.x, s[r]);
-        s[r] = fmaf(qv.y, kv.y, s[r]);
-        s[r] = fmaf(qv.z, kv.z, s[r]);
-        s[r] = fmaf(qv.w, kv.w, s[r]);
-      }
-    }
-    const int kpos = k0 + lane;
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const int qpos = q0 + r0 + r;
-      const bool keep = kpos < seq && (!causal || qpos >= kpos);
-      const float sv = keep ? s[r] : kNegInf;
-      const float m_new = fmaxf(m[r], warp_max(sv));
-      const float p = expf(sv - m_new);
-      const float corr = expf(m[r] - m_new);
-      l[r] = l[r] * corr + warp_sum(p);
-      m[r] = m_new;
-#pragma unroll
-      for (int i = 0; i < DPL; ++i) acc[r][i] *= corr;
-      ps[(r0 + r) * kBK + lane] = p;
-    }
-    __syncwarp();
-
-    // acc[r][i] += sum_j p[r][j] * v[j][lane + 32 i]
+        for (int e = 0; e < 4; ++e) s[n][e] = 0.0f;
 #pragma unroll 2
-    for (int j = 0; j < kBK; j += 4) {
-      float4 pv[kRows];
+      for (int kk = 0; kk < HD / 8; ++kk) {
+        uint32_t ahi[4], alo[4], b[NB][4];
+        const float2 q0v = *reinterpret_cast<const float2*>(qw + 8 * kk);
+        const float2 q1v =
+            *reinterpret_cast<const float2*>(qw + 8 * C::kSK + 8 * kk);
+        tf32::split(q0v.x, ahi[0], alo[0]);
+        tf32::split(q1v.x, ahi[1], alo[1]);
+        tf32::split(q0v.y, ahi[2], alo[2]);
+        tf32::split(q1v.y, ahi[3], alo[3]);
 #pragma unroll
-      for (int r = 0; r < kRows; ++r)
-        pv[r] = *reinterpret_cast<const float4*>(ps + (r0 + r) * kBK + j);
+        for (int n = 0; n < NB; ++n) {
+          const float2 kv = *reinterpret_cast<const float2*>(
+              ks + (8 * n + g) * C::kSK + 8 * kk + 2 * t);
+          tf32::split(kv.x, b[n][0], b[n][2]);
+          tf32::split(kv.y, b[n][1], b[n][3]);
+        }
+        tf32::mma3(s, 0, ahi, alo, b);
+      }
+      if (tile_needs_mask<BK>(key0, first, seq, causal)) {
 #pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        const float* vr = vs + (j + jj) * HD + lane;
-        float vv[DPL];
+        for (int n = 0; n < NB; ++n)
 #pragma unroll
-        for (int i = 0; i < DPL; ++i) vv[i] = vr[i * kWarp];
+          for (int e = 0; e < 4; ++e) {
+            const int key = key0 + 8 * n + 2 * t + (e & 1);
+            const int row = first + g + 8 * (e >> 1);
+            if (key >= seq || (causal && key > row)) s[n][e] = kNegInf;
+          }
+      }
+      // online softmax on rows g (e 0, 1) and g + 8 (e 2, 3)
+      float mx[2] = {m[0], m[1]}, corr[2], sum[2] = {0.0f, 0.0f};
 #pragma unroll
-        for (int r = 0; r < kRows; ++r) {
-          const float p = jj == 0 ? pv[r].x
-                        : jj == 1 ? pv[r].y
-                        : jj == 2 ? pv[r].z : pv[r].w;
+      for (int n = 0; n < NB; ++n) {
+        mx[0] = fmaxf(mx[0], fmaxf(s[n][0], s[n][1]));
+        mx[1] = fmaxf(mx[1], fmaxf(s[n][2], s[n][3]));
+      }
 #pragma unroll
-          for (int i = 0; i < DPL; ++i)
-            acc[r][i] = fmaf(p, vv[i], acc[r][i]);
+      for (int h = 0; h < 2; ++h) {
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+        corr[h] = exp2_approx(m[h] - mx[h]);
+        m[h] = mx[h];
+      }
+#pragma unroll
+      for (int n = 0; n < NB; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[n][e] = exp2_approx(s[n][e] - mx[e >> 1]);
+          sum[e >> 1] += s[n][e];
+        }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) l[h] = l[h] * corr[h] + sum[h];
+#pragma unroll
+      for (int h = 0; h < HD / 8; ++h) {
+        o[h][0] *= corr[0];
+        o[h][1] *= corr[0];
+        o[h][2] *= corr[1];
+        o[h][3] *= corr[1];
+      }
+      // O += P V: A = P (columns t, t + 4 = keys 2 t, 2 t + 1 of block n),
+      // B (k = key, n = hd) = v[key 8 n + 2 t (+ 1)][8 h + g], HG hd blocks
+      // at a time
+#pragma unroll
+      for (int n = 0; n < NB; ++n) {
+        uint32_t ahi[4], alo[4];
+        tf32::split(s[n][0], ahi[0], alo[0]);
+        tf32::split(s[n][2], ahi[1], alo[1]);
+        tf32::split(s[n][1], ahi[2], alo[2]);
+        tf32::split(s[n][3], ahi[3], alo[3]);
+        const float* vr = vs + (8 * n + 2 * t) * C::kSV + g;
+#pragma unroll
+        for (int h0 = 0; h0 < HD / 8; h0 += HG) {
+          uint32_t b[HG][4];
+#pragma unroll
+          for (int i = 0; i < HG; ++i) {
+            tf32::split(vr[8 * (h0 + i)], b[i][0], b[i][2]);
+            tf32::split(vr[C::kSV + 8 * (h0 + i)], b[i][1], b[i][3]);
+          }
+          tf32::mma3(o, h0, ahi, alo, b);
         }
       }
     }
-    __syncwarp();
+    __syncthreads();                             // stage j & 1 is free
   }
 
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    const int qpos = q0 + r0 + r;
-    if (qpos >= seq) continue;
-    const float denom = fmaxf(l[r], 1e-30f);
-    const long long o = base + static_cast<long long>(qpos) * HD + lane;
+  for (int h = 0; h < 2; ++h) {
+    float tl = l[h];
+    tl += __shfl_xor_sync(0xffffffffu, tl, 1);
+    tl += __shfl_xor_sync(0xffffffffu, tl, 2);
+    const float denom = fmaxf(tl, 1e-30f);
+    const int row = first + g + 8 * h;
+    if (row >= seq) continue;
+    float* dst = out + base + static_cast<long long>(row) * HD + 2 * t;
 #pragma unroll
-    for (int i = 0; i < DPL; ++i)
-      out[o + i * kWarp] = acc[r][i] / denom;
+    for (int c = 0; c < HD / 8; ++c)
+      *reinterpret_cast<float2*>(dst + 8 * c) =
+          make_float2(o[c][2 * h] / denom, o[c][2 * h + 1] / denom);
   }
 }
 
@@ -252,20 +410,11 @@ flash_attention_kernel(const float* __restrict__ q,
 // column 8 * j + 2 * (lane % 4) + (e % 2). A row lives in the 4 lanes of a
 // quad.
 // --------------------------------------------------------------------------
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 
 // raw scores -> the exp2 domain (times log2(e) / sqrt(hd)); when `mask`,
 // keys at or past seq, and keys after the row's query when causal, become
@@ -369,13 +518,6 @@ __device__ __forceinline__ void store_rows(const float (&o)[HD / 2],
   }
 }
 
-// a key tile needs the element mask when it reaches past the sequence or,
-// causal, past the first query row of the slab starting at `first_row`
-template <int NK>
-__device__ __forceinline__ bool tile_needs_mask(int key0, int first_row,
-                                                int seq, int causal) {
-  return key0 + NK > seq || (causal && key0 + NK - 1 > first_row);
-}
 
 // --------------------------------------------------------------------------
 // The wgmma + TMA body (bf16; the entry point's). NWG consumer warpgroups
@@ -797,19 +939,19 @@ int allow_smem(K* kernel, int bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
 }
 
-template <int HD>
-int launch_scalar(const void* q, const void* k, const void* v, void* out,
-                  int bh, int seq, int causal, float scale, void* stream) {
-  constexpr int bytes = scalar::smem_bytes<HD>();
-  static const int attr = allow_smem(flash_attention_kernel<HD>, bytes);
+template <int HD, int BK, int NW>
+int launch_tf32(const void* q, const void* k, const void* v, void* out,
+                int bh, int seq, int causal, float scale, void* stream) {
+  using C = tf32::Config<HD, BK, NW>;
+  static const int attr =
+      allow_smem(flash_attention_tf32_kernel<HD, BK, NW>, C::kSmem);
   if (attr != 0) return attr;
-  const dim3 grid((seq + scalar::kBQ - 1) / scalar::kBQ, bh);
-  flash_attention_kernel<HD>
-      <<<grid, kWarp * scalar::kWarps, bytes,
-         static_cast<cudaStream_t>(stream)>>>(
+  const dim3 grid(bh, (seq + C::kBQ - 1) / C::kBQ);
+  flash_attention_tf32_kernel<HD, BK, NW>
+      <<<grid, C::kThreads, C::kSmem, static_cast<cudaStream_t>(stream)>>>(
           static_cast<const float*>(q), static_cast<const float*>(k),
           static_cast<const float*>(v), static_cast<float*>(out), seq, causal,
-          scale);
+          scale * kLog2e);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -844,13 +986,24 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out,
                                                scale, stream);
 }
 
+// the fp32 body and its (key tile, warps): the A/B in PERF.md
+constexpr int kF32BK = 64, kF32NW = 8;
+
+template <int HD>
+int launch_fp32(const void* q, const void* k, const void* v, void* out,
+                int bh, int seq, int causal, float scale, void* stream) {
+  return launch_tf32<HD, kF32BK, kF32NW>(q, k, v, out, bh, seq, causal, scale,
+                                         stream);
+}
+
 }  // namespace
 
 extern "C" {
 
 // q, k, v, out (BH, S, hd) contiguous, fp32 (bf16 = 0) or bf16 (bf16 = 1);
-// hd in {32, 64, 128}; scale = 1 / sqrt(hd). bf16 runs the wgmma body,
-// fp32 the scalar one.
+// hd in {32, 64, 128} (the wrapper zero-pads a narrower head); scale: the
+// softmax scale, 1 / sqrt(hd) of the true hd. bf16 runs the wgmma body,
+// fp32 the 3xTF32 one.
 int flash_attention(const void* q, const void* k, const void* v, void* out,
                     int bf16, int bh, int seq, int hd, int causal,
                     float scale, void* stream) {
@@ -862,11 +1015,11 @@ int flash_attention(const void* q, const void* k, const void* v, void* out,
     case 128 * 2 + 1:
       return launch_bf16<128>(q, k, v, out, bh, seq, causal, scale, stream);
     case 32 * 2:
-      return launch_scalar<32>(q, k, v, out, bh, seq, causal, scale, stream);
+      return launch_fp32<32>(q, k, v, out, bh, seq, causal, scale, stream);
     case 64 * 2:
-      return launch_scalar<64>(q, k, v, out, bh, seq, causal, scale, stream);
+      return launch_fp32<64>(q, k, v, out, bh, seq, causal, scale, stream);
     case 128 * 2:
-      return launch_scalar<128>(q, k, v, out, bh, seq, causal, scale, stream);
+      return launch_fp32<128>(q, k, v, out, bh, seq, causal, scale, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

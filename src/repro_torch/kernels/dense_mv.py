@@ -51,8 +51,9 @@ def dense_mv_cuda(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         return out
     if c == 0:
         return out.zero_()
-    # 16-byte loads need every row start 16-byte aligned
-    vec = int(c * w.element_size() % 16 == 0 and w.data_ptr() % 16 == 0)
+    # 16-byte loads need every row start, and x, 16-byte aligned
+    vec = int(c * w.element_size() % 16 == 0 and w.data_ptr() % 16 == 0
+              and x.data_ptr() % 16 == 0)
     rc = load_library("dense_mv").dense_mv(
         w.data_ptr(), int(w.dtype == torch.bfloat16), x.data_ptr(),
         int(x.dtype == torch.bfloat16), out.data_ptr(), r, c, vec,

@@ -20,9 +20,12 @@ plain versions live in ``kernels/ref.py``; ``kernels/ops.py`` picks
 between the two by the tensors' device.  All six are bound by the bytes
 of the value and index planes (see the source's header note).  Kernels
 1-4 (``espim_spmv_batched_cuda``, ``espim_spmv_batched_quant_cuda`` and
-their GLU forms) run the source's streaming body, whose C launcher picks
-the batch tile from B and the vector or scalar slot walk from Lc and the
-planes' alignment; any width, alignment and B >= 1 is taken.
+their GLU forms) and kernel 6 (the residual form) run the source's
+streaming body, whose C launcher picks the batch tile from B and the
+vector or scalar slot walk from Lc and the planes' alignment; any width,
+alignment and B >= 1 is taken.  Kernels 1, 3 and 6 take float32 or
+bfloat16 value planes (bf16 widened to f32 in the kernel) and x in f32
+(a bf16 x is widened exactly by the wrapper).
 """
 from __future__ import annotations
 
@@ -133,22 +136,31 @@ def espim_spmv_cuda(values: torch.Tensor, cols: torch.Tensor,
     return out
 
 
+def _fp_values(values: torch.Tensor, cols: torch.Tensor) -> int:
+    """1 for a bf16 value plane, 0 for float32 (the batched kernels widen
+    bf16 values to f32 in the kernel, as the reference casts them)."""
+    _need(values.dtype in (torch.float32, torch.bfloat16)
+          and values.shape == cols.shape,
+          f"values must be float32 or bfloat16 {tuple(cols.shape)}, got "
+          f"{values.dtype}{tuple(values.shape)}")
+    return int(values.dtype == torch.bfloat16)
+
+
 def espim_spmv_batched_cuda(values: torch.Tensor, cols: torch.Tensor,
                             x: torch.Tensor, *, chunk_cols: int
                             ) -> torch.Tensor:
-    """y (R, B) f32 = chunked-ELL(values f32, cols) @ x (M, B)."""
+    """y (R, B) f32 = chunked-ELL(values f32 | bf16, cols) @ x (M, B); a
+    bf16 x is widened to f32."""
     xc, stream = _common(values, cols, x, chunk_cols)
-    _need(values.dtype == torch.float32 and values.shape == cols.shape,
-          f"values must be float32 {tuple(cols.shape)}, got "
-          f"{values.dtype}{tuple(values.shape)}")
+    vbf16 = _fp_values(values, cols)
     r, k, lc = cols.shape
     m, b = xc.shape
     out = torch.empty((r, b), dtype=torch.float32, device=cols.device)
     if r == 0 or b == 0:
         return out
-    rc = load_library().espim_spmv_batched_f32(
-        values.data_ptr(), cols.data_ptr(), xc.data_ptr(), out.data_ptr(),
-        r, k, lc, int(chunk_cols), m, b, stream)
+    rc = load_library().espim_spmv_batched_fp(
+        values.data_ptr(), vbf16, cols.data_ptr(), xc.data_ptr(),
+        out.data_ptr(), r, k, lc, int(chunk_cols), m, b, stream)
     _check_rc(rc, "espim_spmv_batched")
     LAUNCHES["espim_spmv_batched"] += 1
     return out
@@ -157,14 +169,12 @@ def espim_spmv_batched_cuda(values: torch.Tensor, cols: torch.Tensor,
 def espim_spmv_batched_res_cuda(values: torch.Tensor, cols: torch.Tensor,
                                 x: torch.Tensor, residual: torch.Tensor, *,
                                 chunk_cols: int) -> torch.Tensor:
-    """y (R, B) f32 = chunked-ELL(values f32, cols) @ x (M, B) + residual,
-    the residual (R, B) f32 in packed row order, added in the same
-    launch after each row's reduce."""
+    """y (R, B) f32 = chunked-ELL(values f32 | bf16, cols) @ x (M, B) +
+    residual, the residual (R, B) f32 in packed row order, added in the
+    same launch after each row's reduce."""
     xc, stream = _common(values, cols, x, chunk_cols,
                          extra=(("residual", residual),))
-    _need(values.dtype == torch.float32 and values.shape == cols.shape,
-          f"values must be float32 {tuple(cols.shape)}, got "
-          f"{values.dtype}{tuple(values.shape)}")
+    vbf16 = _fp_values(values, cols)
     r, k, lc = cols.shape
     m, b = xc.shape
     _need(residual.dtype == torch.float32
@@ -174,8 +184,8 @@ def espim_spmv_batched_res_cuda(values: torch.Tensor, cols: torch.Tensor,
     out = torch.empty((r, b), dtype=torch.float32, device=cols.device)
     if r == 0 or b == 0:
         return out
-    rc = load_library().espim_spmv_batched_res_f32(
-        values.data_ptr(), cols.data_ptr(), xc.data_ptr(),
+    rc = load_library().espim_spmv_batched_res_fp(
+        values.data_ptr(), vbf16, cols.data_ptr(), xc.data_ptr(),
         residual.data_ptr(), out.data_ptr(), r, k, lc, int(chunk_cols), m, b,
         stream)
     _check_rc(rc, "espim_spmv_batched_res")
@@ -224,11 +234,10 @@ def _act_id(act: str) -> int:
 def espim_spmv_batched_glu_cuda(values: torch.Tensor, cols: torch.Tensor,
                                 x: torch.Tensor, *, chunk_cols: int,
                                 act: str = "silu") -> torch.Tensor:
-    """act(gate) * up (Rg, B) f32 from a half-major f32 gate+up pack."""
+    """act(gate) * up (Rg, B) f32 from a half-major f32 or bf16 gate+up
+    pack."""
     xc, stream = _common(values, cols, x, chunk_cols)
-    _need(values.dtype == torch.float32 and values.shape == cols.shape,
-          f"values must be float32 {tuple(cols.shape)}, got "
-          f"{values.dtype}{tuple(values.shape)}")
+    vbf16 = _fp_values(values, cols)
     rg = _halves(cols)
     _, k, lc = cols.shape
     m, b = xc.shape
@@ -236,9 +245,9 @@ def espim_spmv_batched_glu_cuda(values: torch.Tensor, cols: torch.Tensor,
     out = torch.empty((rg, b), dtype=torch.float32, device=cols.device)
     if rg == 0 or b == 0:
         return out
-    rc = load_library().espim_spmv_batched_glu_f32(
-        values.data_ptr(), cols.data_ptr(), xc.data_ptr(), out.data_ptr(),
-        rg, k, lc, int(chunk_cols), m, b, act_id, stream)
+    rc = load_library().espim_spmv_batched_glu_fp(
+        values.data_ptr(), vbf16, cols.data_ptr(), xc.data_ptr(),
+        out.data_ptr(), rg, k, lc, int(chunk_cols), m, b, act_id, stream)
     _check_rc(rc, "espim_spmv_batched_glu")
     LAUNCHES["espim_spmv_batched_glu"] += 1
     return out

@@ -272,7 +272,8 @@ def pack_to_device(pack: ELLPack | ELLChunkedPack, dtype=torch.float32,
     if autotune:
         raise NotImplementedError(
             "pack_to_device(autotune=True) is not ported yet: the Hopper "
-            "schedule space and plan cache are ROADMAP Queue 1 item 8")
+            "schedule space and plan cache are ROADMAP Queue 1, "
+            "'Autotune'")
     dev = resolve_device(device)
     tr = get_tracer()
     with tr.span("pack.to_device", cat="pack",

@@ -207,13 +207,16 @@ NEG_INF = -1e30     # the reference kernel's mask value
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        causal: bool = True) -> torch.Tensor:
+                        causal: bool = True, scale: float | None = None
+                        ) -> torch.Tensor:
     """Attention over (BH, S, hd) by a plain masked softmax in float32:
-    scores of q·(1/sqrt(hd)) against k, keys after the query masked when
-    ``causal`` (q_pos >= k_pos kept), softmax, times v; the output is cast
-    to q's dtype, as the kernel's is."""
+    scores of q·scale (default 1/sqrt(hd)) against k, keys after the
+    query masked when ``causal`` (q_pos >= k_pos kept), softmax, times v;
+    the output is cast to q's dtype, as the kernel's is."""
     s, hd = q.shape[1], q.shape[2]
-    scores = (q.float() * (1.0 / math.sqrt(hd))) @ k.float().transpose(1, 2)
+    if scale is None:
+        scale = 1.0 / math.sqrt(hd)
+    scores = (q.float() * scale) @ k.float().transpose(1, 2)
     if causal:
         pos = torch.arange(s, device=q.device)
         scores = scores.masked_fill(pos[None, :] > pos[:, None], NEG_INF)

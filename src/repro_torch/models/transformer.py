@@ -37,7 +37,8 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
     if cfg.family != "dense" or cfg.norm != "rmsnorm":
         raise NotImplementedError(
             f"the port serves the dense rmsnorm decoder family; {cfg.name} "
-            f"is {cfg.family}/{cfg.norm} (ROADMAP Queue 1 item 10)")
+            f"is {cfg.family}/{cfg.norm} (ROADMAP Queue 1, 'The other "
+            "model families')")
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
     n, d, f, hd = cfg.n_layers, cfg.d_model, cfg.d_ff, cfg.hd

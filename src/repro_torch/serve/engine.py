@@ -16,7 +16,7 @@ for finite values; a slot whose logits are not finite is torn down as
 Every exit funnels through one ``_teardown`` so no path can leak paged
 blocks; ``check_arena()`` proves it.
 
-Not ported yet (ROADMAP Queue 1 item 7): quarantine with a dense
+Not ported yet (ROADMAP Queue 1, "Robustness"): quarantine with a dense
 fallback, retries, the watchdog, deadlines, cancel, preemption,
 watermarks, snapshot and restore.
 """
@@ -99,11 +99,11 @@ class ServeEngine:
             raise NotImplementedError(
                 "the port serves the ESPIM-format path only: pass "
                 "sparse=sparsify_model(...) (dense serving is ROADMAP "
-                "Queue 1 item 3)")
+                "Queue 1, 'The dense serving mode')")
         if cfg.family != "dense":
             raise NotImplementedError(
-                f"family {cfg.family!r} is not ported (ROADMAP Queue 1 "
-                "item 10)")
+                f"family {cfg.family!r} is not ported (ROADMAP Queue 1, "
+                "'The other model families')")
         self.device = resolve_device(device)
         self.tracer = tt.get_tracer()
         self.flight = flightrec.get_recorder()

@@ -444,6 +444,111 @@ def test_flash_attention_bf16_ragged_matches_reference_and_pallas(hd,
                                    atol=5e-2)
 
 
+# bf16 value planes on the batched kernels (kernels 1, 3 and 6 take them
+# on the card; each activation of the GLU at one of the batches)
+BF16_BATCHES = [1, 3, 4, 13]
+
+
+@pytest.mark.parametrize("epilogue,act,b", [
+    *[pytest.param(e, None, b, id=f"{e}-b{b}") for e in ("plain", "residual")
+      for b in BF16_BATCHES],
+    *[pytest.param("glu", a, b, id=f"glu-{a}-b{b}")
+      for a, b in zip(ACTS, BF16_BATCHES)]])
+def test_bf16_planes_match_pallas(epilogue, act, b):
+    """``ops.espim_spmv_batched`` on a bf16 value plane (plain, residual
+    and GLU epilogues) against the reference's Pallas kernels in interpret
+    mode on the same bf16 pack (which cast the values to f32 in the
+    kernel), within the JAX package's bf16 tolerance of 3e-2."""
+    rng = np.random.default_rng(20 + b)
+    w = magnitude_prune(rng.standard_normal((128, 300)).astype(np.float32),
+                        0.85)
+    pack = pack_ell_chunked(w, chunk_cols=128)
+    vals = np.asarray(pack.values, np.float32)
+    cols = np.asarray(pack.cols, np.int32)
+    x = (rng.standard_normal((300, b)) / 8).astype(np.float32)
+    jv, jc, jx = (jnp.asarray(vals, jnp.bfloat16), jnp.asarray(cols),
+                  jnp.asarray(x))
+    tv, tc, tx = _t(vals).to(torch.bfloat16), _t(cols), _t(x)
+    kw = dict(chunk_cols=128, block_r=64, block_l=32)
+    if epilogue == "plain":
+        got = ops.espim_spmv_batched(tv, tc, tx, chunk_cols=128)
+        want = espim_spmv_batched_pallas(jv, jc, jx, **kw)
+    elif epilogue == "residual":
+        res = rng.standard_normal((pack.r_pad, b)).astype(np.float32)
+        got = ops.espim_spmv_batched(tv, tc, tx, chunk_cols=128,
+                                     epilogue="residual", residual=_t(res))
+        want = espim_spmv_batched_res_pallas(jv, jc, jx, jnp.asarray(res),
+                                             **kw)
+    else:
+        got = ops.espim_spmv_batched(tv, tc, tx, chunk_cols=128,
+                                     epilogue="glu", act=act)
+        want = espim_spmv_batched_glu_pallas(jv, jc, jx, act=act, **kw)
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=3e-2,
+                               atol=3e-2)
+
+
+def test_espim_matvec_bf16_pack_with_2d_x_matches_pallas():
+    """The case that raised on the card before bf16 planes reached the
+    batched kernels: ``espim_matvec`` on a bf16 ``pack_to_device`` pack
+    of a 200 x 500 matrix at 90% sparsity, x (500, 4), against the
+    reference's ``espim_matvec(impl="pallas")`` on its bf16 pack of the
+    same matrix, within 3e-2."""
+    from repro.core import sparse_format as RSF
+
+    from repro_torch.core import sparse_format as PSF
+    rng = np.random.default_rng(7)
+    w = magnitude_prune(rng.standard_normal((200, 500)).astype(np.float32),
+                        0.9)
+    x = rng.standard_normal((500, 4)).astype(np.float32)
+    got = ops.espim_matvec(
+        ops.pack_to_device(PSF.pack_ell_chunked(w, chunk_cols=128),
+                           dtype=torch.bfloat16, device="cpu"), _t(x))
+    want = RO.espim_matvec(
+        RO.pack_to_device(RSF.pack_ell_chunked(w, chunk_cols=128),
+                          dtype=jnp.bfloat16), jnp.asarray(x),
+        impl="pallas")
+    assert got.shape == (200, 4) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=3e-2,
+                               atol=3e-2)
+
+
+@pytest.mark.parametrize("hd", [48, 80, 96])
+@pytest.mark.parametrize("causal", [True, False])
+def test_head_padding_matches_pallas(hd, causal):
+    """The kernel's wrapper zero-pads a head width it is not built for up
+    to the next one (48 -> 64, 80 and 96 -> 128) and passes the softmax
+    scale of the true hd: run through the plain version, the padded
+    attention equals ``flash_attention_pallas`` at that hd within 2e-5."""
+    from repro_torch.kernels.flash_attention import pad_heads
+    rng = np.random.default_rng(hd + causal)
+    q, k, v = (rng.standard_normal((2, 40, hd)).astype(np.float32)
+               for _ in range(3))
+    seen = []
+
+    def plain(qp, kp, vp, cz, scale):
+        seen.append((qp.shape[-1], scale))
+        return PR.flash_attention_ref(qp, kp, vp, cz, scale=scale)
+
+    got = pad_heads(plain, _t(q), _t(k), _t(v), causal)
+    assert seen == [({48: 64}.get(hd, 128), 1.0 / np.sqrt(hd))]
+    assert got.shape == (2, 40, hd) and got.is_contiguous()
+    want = flash_attention_pallas(*(jnp.asarray(a) for a in (q, k, v)),
+                                  causal=causal, blk_q=64, blk_k=64)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5,
+                               atol=2e-5)
+
+
+def test_head_width_above_the_widest_built_raises():
+    """hd > 128 has no width to pad to: the error names the widths the
+    kernel is built for."""
+    from repro_torch.kernels.flash_attention import HEAD_DIMS, pad_heads
+    q = torch.zeros((1, 8, 160))
+    with pytest.raises(ValueError, match=r"hd in \(32, 64, 128\)"):
+        pad_heads(lambda *a: a[0], q, q, q, True)
+    assert HEAD_DIMS == (32, 64, 128)
+
+
 def _attention_bf16_p(q, k, v, causal, drop=None):
     """Attention as the wgmma body computes it, in plain PyTorch: fp32
     scores and softmax state, P rounded to bf16 before P.V, the output in
@@ -530,7 +635,7 @@ def test_every_source_has_a_hashed_library(name):
 
 
 # __global__ functions of the port's sources that are not SpMV kernels
-NOT_SPMV_KERNELS = ("dense_mv_kernel", "flash_attention_kernel",
+NOT_SPMV_KERNELS = ("dense_mv_kernel", "flash_attention_tf32_kernel",
                     "flash_attention_wgmma_kernel")
 
 

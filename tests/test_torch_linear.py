@@ -112,7 +112,7 @@ def test_corrupted_pack_raises_as_reference_does(corrupt):
 
 def test_pack_to_device_autotune_is_not_ported():
     pack = PSF.pack_ell_chunked(_matrix(), chunk_cols=128)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+    with pytest.raises(NotImplementedError, match="Queue 1, 'Autotune'"):
         ops.pack_to_device(pack, autotune=True, device="cpu")
 
 
@@ -184,6 +184,39 @@ def test_espim_group_linear_matches_reference(quant, shape):
     for name in got:
         assert got[name].shape == shape[:-1] + (named[name].shape[0],)
         _near(got[name], want[name])
+
+
+@pytest.mark.parametrize("layer", ["linear", "group"])
+def test_bf16_layers_with_2d_x_match_pallas(layer):
+    """``ESPIMLinear`` / ``ESPIMGroupLinear.from_dense(dtype=bfloat16)``
+    with a 2-D x (the batched kernels' bf16 value planes on the card)
+    against the reference's layers at ``impl="pallas"`` (interpret mode),
+    within the JAX package's bf16 tolerance of 3e-2."""
+    rng = np.random.default_rng(8)
+    kw = dict(prune_sparsity=0.9, chunk_cols=128)
+    x = rng.standard_normal((4, 256)).astype(np.float32)
+    if layer == "linear":
+        w = rng.standard_normal((200, 256)).astype(np.float32)
+        mod = ESPIMLinear.from_dense(w, dtype=torch.bfloat16, device="cpu",
+                                     **kw)
+        ref = RLIN.ESPIMLinear.from_dense(w, dtype=jnp.bfloat16, **kw)
+        got, want = {"y": mod(torch.from_numpy(x))}, {
+            "y": ref(jnp.asarray(x), impl="pallas")}
+    else:
+        named = {"wq": rng.standard_normal((256, 256)).astype(np.float32),
+                 "wk": rng.standard_normal((64, 256)).astype(np.float32),
+                 "wv": rng.standard_normal((64, 256)).astype(np.float32)}
+        mod = ESPIMGroupLinear.from_dense(named, dtype=torch.bfloat16,
+                                          device="cpu", **kw)
+        ref = RLIN.ESPIMGroupLinear.from_dense(named, dtype=jnp.bfloat16,
+                                               **kw)
+        got, want = mod(torch.from_numpy(x)), ref(jnp.asarray(x),
+                                                  impl="pallas")
+    assert mod.weights.values.dtype == torch.bfloat16
+    for name in got:
+        assert got[name].dtype == torch.float32
+        np.testing.assert_allclose(got[name].numpy(), np.asarray(want[name]),
+                                   rtol=3e-2, atol=3e-2)
 
 
 def test_layers_keep_their_planes_as_buffers():
