@@ -7,8 +7,9 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
 library per source, one nvcc each, all started together) and drives the
 port's paths at the full width of ``llama7b-espim`` (random weights from
 ``--seed``): int8 ESPIM decode through ``ServeEngine`` (depth cut to 2
-layers), the standalone projection layers, and the ops of the other
-kernels — then checks them:
+layers), the standalone projection layers, the dense serving mode and the
+fault ladder's dense rungs, and the ops of the other kernels — then
+checks them:
 
 1. build: nvcc the kernels, print the build time and ptxas' report, and
    the tensor-core instructions in the flash library's SASS (HGMMA for
@@ -38,10 +39,23 @@ kernels — then checks them:
    (kernels 1 / 2), against ``impl="ref"`` and the dense pruned
    (dequantized) fp32 product; then the dense datapath once; counters
    zeroed before the phase and read after, and kernel 5 must launch;
-6. ops: the residual epilogue over the fp32 engine's attn_out and down
+6. dense: ``ServeEngine(sparse=None)`` over the unpruned bf16 params of
+   the 2-layer model, bf16 and int8 KV cache, the same trace 3 times
+   after a warm-up, every launch counter zero after each serve; 4
+   teacher-forced fp32 dense decode steps at B=4 (the 1-layer model) on
+   the card against the CPU, and int8-KV against bf16-KV logits on the
+   card; the dense step profiled as in step 3 at B in {1, 4}, the int8
+   sparse step at B=1, and one line setting the two side by side; the
+   quarantine drill (the int8 engine's decode swapped at tick 5 for one
+   over packs with a NaN row scale: every request finishes, some on the
+   dense fallback, none failed, no block leaked; how many tokens equal
+   the no-fault run's is reported, not required); degrade at load (a
+   flipped code bit raises by default and with
+   ``on_verify_failure="degrade"`` the engine serves dense);
+7. ops: the residual epilogue over the fp32 engine's attn_out and down
    buckets, ``ops.dense_mv`` and ``flash_attention`` at the shapes of
-   step 7, counters zeroed before and read after;
-7. kernels 5-8 against their plain versions, each launched twice for
+   step 8, counters zeroed before and read after;
+8. kernels 5-8 against their plain versions, each launched twice for
    identical bits: the unbatched kernel on the projection packs in fp32
    and bf16; the residual kernel per call at B in {1, 4} (and on bf16
    planes at B = 4); dense MV at (4096, 4096), (4096, 11008) and
@@ -105,6 +119,7 @@ STREAM_KERNELS = ("espim_spmv_batched", "espim_spmv_batched_quant",
                   "espim_spmv_batched_glu", "espim_spmv_batched_quant_glu",
                   "espim_spmv_batched_res")
 CHECK_BATCHES = (1, 2, 3, 4, 8, 13)
+TOP_KERNELS = 8                 # a step profile lists the kernels taking most
 TIME_BATCHES = (1, 4)
 # the SpMV kernels' names in a profiler trace: espim_spmv.cu's
 # warp-per-row body and the streaming body's two kernels
@@ -122,6 +137,12 @@ ALLCLOSE_TOL = {"espim_spmv/bf16": 3e-2, "dense_mv/bf16": 5e-2,
 # planted dropped key tile's (PERF.md)
 REL_L2_TOL = {"flash_attention/bf16": 1e-2}
 LOGIT_COS_MIN = 0.999
+# the dense step in fp32 on the card against the CPU: cuBLAS and the CPU
+# sum each product in another order, |diff| ~1e-6 of |logits| a layer
+DENSE_LOGIT_REL_TOL = 1e-4
+# int8 against bf16 KV cache logits, max|diff| / max|bf16|: the JAX
+# package's own bound (tests/test_kv_quant.py:33)
+KV_QUANT_REL_TOL = 5e-2
 # bf16 activations between layers: an fp32 sum-order difference flips a
 # q/k/v element by one bf16 ulp (2^-8 of it) now and then, and the flips
 # propagate through the later layers and steps
@@ -299,12 +320,18 @@ def layer_slice(params: dict, n: int) -> dict:
     return out
 
 
-def serve(engine_mod, eng, prompts, max_new: int):
+def serve(engine_mod, eng, prompts, max_new: int, inject=None):
+    """Submit ``prompts`` and run the engine until all have finished ->
+    (requests, stats, wall seconds).  ``inject=(n, fn)`` calls
+    ``fn(eng)`` after the n-th tick."""
     reqs = [engine_mod.Request(rid=i, prompt=p, max_new_tokens=max_new)
             for i, p in enumerate(prompts)]
     for r in reqs:
         eng.submit(r)
     t0 = time.perf_counter()
+    if inject is not None:
+        eng.run(max_steps=inject[0])
+        inject[1](eng)
     stats = eng.run()
     return reqs, stats, time.perf_counter() - t0
 
@@ -312,8 +339,9 @@ def serve(engine_mod, eng, prompts, max_new: int):
 def drive_engine(ctx, label, cfg, params, sparse, prompts, kernels) -> dict:
     """Warm up, then ``ENGINE_RUNS`` times: zero the launch counters, serve
     ``prompts``, read the counters; every kernel in ``kernels`` must have
-    launched in every run.  Reports each run's tok/s, TTFT and TPOT p50,
-    their medians, and the last run's launch counts."""
+    launched in every run, and a dense engine (``sparse=None``) must have
+    launched none.  Reports each run's tok/s, TTFT and TPOT p50, their
+    medians, and the last run's launch counts and outputs."""
     from repro_torch.serve import engine as E
     from repro_torch.serve.scheduler import latency_summary
     torch = ctx["torch"]
@@ -333,8 +361,18 @@ def drive_engine(ctx, label, cfg, params, sparse, prompts, kernels) -> dict:
                  f"[{label}] request {r.rid} sampled an id outside the vocab")
         need(stats.requests_completed == len(prompts),
              f"[{label}] {stats.requests_completed}/{len(prompts)} completed")
+        # a measured serve runs its own datapath only: no slot went to
+        # the dense fallback (the quarantine drill has its own engine)
+        need(stats.quarantines == stats.requests_degraded
+             == stats.degraded_tokens == 0,
+             f"[{label}] {stats.quarantines} quarantines, "
+             f"{stats.requests_degraded} degraded requests, "
+             f"{stats.degraded_tokens} degraded tokens")
         for k in kernels:
             need(launches[k] > 0, f"[{label}] kernel {k} never launched")
+        if sparse is None:
+            need(not any(launches.values()),
+                 f"[{label}] the dense engine launched kernels {launches}")
         eng.check_arena()
         lat = latency_summary(stats.requests)      # exact percentiles
         runs.append({"tokens": stats.tokens_generated, "wall_s": wall,
@@ -342,7 +380,7 @@ def drive_engine(ctx, label, cfg, params, sparse, prompts, kernels) -> dict:
                      "ttft_p50_s": lat["ttft_s"]["p50"],
                      "tpot_p50_s": lat["tpot_s"]["p50"]})
     rec = {"requests": len(prompts), "tokens": stats.tokens_generated,
-           "runs": runs,
+           "runs": runs, "outputs": [r.output for r in reqs],
            **{k: statistics.median(r[k] for r in runs)
               for k in ("tok_per_s", "ttft_p50_s", "tpot_p50_s")},
            "decode_steps": stats.decode_steps,
@@ -406,12 +444,12 @@ def decode_parity(ctx, label, cfg, params, sparse, steps=4, b=4) -> dict:
     return {"min_logit_cosine": worst_cos, "kv_rel_err": kv}
 
 
-def decode_step_profile(ctx, cfg, params, sparse, b=4, reps=10) -> dict:
+def decode_step_profile(ctx, label, cfg, step_fn, b=4, reps=10) -> dict:
     """Where a decode step's time goes: host-clock time of one
-    ``decode_step_sparse`` call (synchronised), and, from
-    ``torch.profiler`` over ``reps`` steps, the device-busy share and the
-    SpMV kernels' share of device time."""
-    from repro_torch.core.sparse_model import decode_step_sparse
+    ``step_fn(cache, batch)`` call (synchronised), and, from
+    ``torch.profiler`` over ``reps`` steps, the device-busy share, the
+    device kernels per step, the SpMV kernels' share of device time and
+    the device µs per step of the kernels that take the most."""
     from repro_torch.models.transformer import init_cache
     torch, dev = ctx["torch"], ctx["device"]
     cache = init_cache(cfg, b, 64, device=dev)
@@ -419,8 +457,7 @@ def decode_step_profile(ctx, cfg, params, sparse, b=4, reps=10) -> dict:
     batch = {"tokens": torch.ones((b, 1), dtype=torch.int32, device=dev)}
 
     def step():
-        return decode_step_sparse(cfg, params, sparse, cache, batch,
-                                  impl=ctx["impl"], device=dev)
+        return step_fn(cache, batch)
 
     step()
     walls = []
@@ -430,7 +467,7 @@ def decode_step_profile(ctx, cfg, params, sparse, b=4, reps=10) -> dict:
         step()
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
-    rec = {"B": b, "layers": cfg.n_layers, "cache_len": 32,
+    rec = {"step": label, "B": b, "layers": cfg.n_layers, "cache_len": 32,
            "step_ms": statistics.median(walls), "device_busy_share": None,
            "spmv_share_of_device": None, "device_ms_per_step": None,
            "kernels_per_step": None}
@@ -445,14 +482,18 @@ def decode_step_profile(ctx, cfg, params, sparse, b=4, reps=10) -> dict:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     # device kernels only: a CPU op's device time repeats its kernels'
-    spans, spmv_us = [], 0.0
+    spans, spmv_us, by_name = [], 0.0, {}
     for e in prof.events():
         if (e.device_type != DeviceType.CUDA
                 or getattr(e, "is_user_annotation", False)):
             continue
         spans.append((e.time_range.start, e.time_range.end))
+        us = e.time_range.elapsed_us()
+        name = e.name[:60]
+        cnt, tot = by_name.get(name, (0, 0.0))
+        by_name[name] = (cnt + 1, tot + us)
         if any(n in e.name for n in SPMV_KERNEL_NAMES):
-            spmv_us += e.time_range.elapsed_us()
+            spmv_us += us
     busy_us, reach = 0.0, float("-inf")          # union of kernel spans
     for start, end in sorted(spans):
         if end > reach:
@@ -462,14 +503,34 @@ def decode_step_profile(ctx, cfg, params, sparse, b=4, reps=10) -> dict:
         rec.update(device_ms_per_step=busy_us / 1e3 / reps,
                    device_busy_share=busy_us / 1e3 / wall_ms,
                    spmv_share_of_device=spmv_us / busy_us,
-                   kernels_per_step=len(spans) / reps)
-    log(f"[step] decode_step_sparse B={b}, {cfg.n_layers} layers: "
+                   kernels_per_step=len(spans) / reps,
+                   top_kernels=[{"name": n, "per_step": c / reps,
+                                 "us_per_step": t / reps}
+                                for n, (c, t) in sorted(
+                                    by_name.items(),
+                                    key=lambda kv: -kv[1][1])[:TOP_KERNELS]])
+    log(f"[step] {label} B={b}, {cfg.n_layers} layers: "
         f"{rec['step_ms']:.2f} ms per step (host clock); device busy "
         f"{rec['device_busy_share']}, device ms/step "
         f"{rec['device_ms_per_step']}, SpMV share of device time "
         f"{rec['spmv_share_of_device']}, kernels per step "
         f"{rec['kernels_per_step']} (profiler, device kernels only)")
+    for k in rec.get("top_kernels", ()):
+        log(f"[step]   {k['us_per_step']:7.1f} us/step in "
+            f"{k['per_step']:g} launches: {k['name']}")
     return rec
+
+
+def sparse_step(ctx, cfg, params, sparse):
+    from repro_torch.core.sparse_model import decode_step_sparse
+    return lambda cache, batch: decode_step_sparse(
+        cfg, params, sparse, cache, batch, impl=ctx["impl"],
+        device=ctx["device"])
+
+
+def dense_step(cfg, params):
+    from repro_torch.models.transformer import decode_step
+    return lambda cache, batch: decode_step(cfg, params, cache, batch)
 
 
 def _nibble_pack(torch, codes):
@@ -884,6 +945,210 @@ def phase_projection(ctx, params) -> dict:
             "dense": {n: dense[(n, "fp32")] for n in ("qkv", "down")}}
 
 
+# --------------------------------------------------------------------------
+# the dense serving mode and the fault ladder's dense rungs
+# --------------------------------------------------------------------------
+def _cast_tree(tree: dict, **to) -> dict:
+    return {k: (_cast_tree(v, **to) if isinstance(v, dict) else v.to(**to))
+            for k, v in tree.items()}
+
+
+def _roll(torch, cfg, params, toks, device):
+    """Teacher-forced dense decode of ``toks`` (B, S) from an empty cache
+    -> float32 logits (B, S, V)."""
+    from repro_torch.models.transformer import decode_step, init_cache
+    cache = init_cache(cfg, toks.shape[0], toks.shape[1] + 4, device=device)
+    outs = []
+    for s in range(toks.shape[1]):
+        lg, cache = decode_step(cfg, params, cache,
+                                {"tokens": toks[:, s:s + 1].to(device)})
+        outs.append(lg[:, 0].float())
+    return torch.stack(outs, 1)
+
+
+def dense_parity(ctx, cfg, params, cfg_fp, params_fp, steps=4, b=4) -> dict:
+    """Teacher-forced dense decode at B = 4 on the card against the CPU, in
+    fp32 (the fp engine's 1-layer config, its params cast to fp32); then
+    the int8 KV cache against the bf16 one on the card (the 2-layer bf16
+    model, 8 steps)."""
+    torch, dev = ctx["torch"], ctx["device"]
+    gen = torch.Generator().manual_seed(ctx["seed"] + 7)
+    toks = torch.randint(0, cfg.vocab_size, (b, 2 * steps), generator=gen,
+                         dtype=torch.int32)
+    cfg32 = cfg_fp.replace(param_dtype="float32", compute_dtype="float32")
+    p32 = _cast_tree(params_fp, dtype=torch.float32)
+    card = _roll(torch, cfg32, p32, toks[:, :steps], dev).cpu()
+    cpu = _roll(torch, cfg32, _cast_tree(p32, device="cpu"),
+                toks[:, :steps], "cpu")
+    del p32
+    err = float((card - cpu).abs().max())
+    scale = float(cpu.abs().max())
+    need(bool(torch.isfinite(card).all())
+         and err <= DENSE_LOGIT_REL_TOL * scale,
+         f"[dense] card vs CPU fp32 logits max|diff| {err:.3e} > "
+         f"{DENSE_LOGIT_REL_TOL}*{scale:.3e}")
+    lg16 = _roll(torch, cfg, params, toks, dev)
+    lg8 = _roll(torch, cfg.replace(kv_cache_dtype="int8"), params, toks, dev)
+    kv_err = float((lg8 - lg16).abs().max() / lg16.abs().max())
+    need(0 < kv_err < KV_QUANT_REL_TOL,
+         f"[dense] int8-KV vs bf16-KV logits max|diff|/max|bf16| "
+         f"{kv_err:.3e} not in (0, {KV_QUANT_REL_TOL})")
+    log(f"[dense] {steps} teacher-forced steps B={b}, fp32 "
+        f"{cfg32.n_layers} layer, card vs CPU: max|diff| {err:.3e} "
+        f"(<= {DENSE_LOGIT_REL_TOL} * max|cpu| {scale:.3f}); int8 vs bf16 "
+        f"KV, {cfg.n_layers} layers, {2 * steps} steps on the card: "
+        f"max|diff|/max|bf16| {kv_err:.3e} (< {KV_QUANT_REL_TOL})")
+    return {"card_vs_cpu_max_abs": err, "cpu_max_abs": scale,
+            "int8_vs_bf16_kv_rel": kv_err}
+
+
+def _clone_groups(sparse: dict) -> tuple[dict, dict]:
+    """A structural copy of a sparse dict (the tensors shared) and its
+    first group's first bucket, for one plane to be swapped."""
+    out = dict(sparse)
+    out["groups"] = {n: dict(g, buckets=[dict(b) for b in g["buckets"]])
+                     for n, g in sparse["groups"].items()}
+    out.update(out["groups"])
+    return out, out["groups"][next(iter(out["groups"]))]["buckets"][0]
+
+
+def _need_clean_finish(label, eng, reqs) -> None:
+    for r in reqs:
+        need(len(r.output) == MAX_NEW,
+             f"[{label}] request {r.rid} produced {len(r.output)} tokens")
+    need(eng.stats.requests_completed == len(reqs)
+         and eng.stats.requests_failed == 0,
+         f"[{label}] {eng.stats.requests_completed} completed, "
+         f"{eng.stats.requests_failed} failed of {len(reqs)}")
+    eng.check_arena()
+    need(eng.cache.free_blocks == eng.cache.num_blocks,
+         f"[{label}] {eng.cache.num_blocks - eng.cache.free_blocks} blocks "
+         "leaked")
+
+
+def quarantine_drill(ctx, cfg, params, sparse8, prompts, baseline) -> dict:
+    """The int8 engine with its decode closure swapped at tick 5 for one
+    over a copy of the packs whose first retained row scale is NaN (the
+    engine's own packs stay clean): every poisoned slot is quarantined and
+    finishes on the dense fallback over the pruned copy."""
+    import numpy as np
+
+    from repro_torch.serve import engine as E
+    from repro_torch.serve.serve_step import serve_step_sparse_fn
+    bad, bk = _clone_groups(sparse8)
+    cell = tuple(int(i) for i in np.argwhere(np.asarray(bk["valid"]))[0])
+    srow = bk["srow"].clone()
+    srow[cell[:2]] = float("nan")
+    bk["srow"] = srow
+    eng = E.ServeEngine(cfg, params, sparse=sparse8, device=ctx["device"],
+                        **ENGINE_KW)
+
+    def poison(e):
+        e._decode = E._finite_step(
+            lambda p, c, b: serve_step_sparse_fn(
+                cfg, p, bad, c, b, temperature=e.temperature,
+                impl=ctx["impl"], generator=e._gen, device=e.device))
+
+    reqs, _, wall = serve(E, eng, prompts, MAX_NEW, inject=(5, poison))
+    _need_clean_finish("quarantine", eng, reqs)
+    st = eng.stats
+    need(st.quarantines >= 1 and st.degraded_tokens >= 1,
+         f"[quarantine] {st.quarantines} quarantines, "
+         f"{st.degraded_tokens} degraded tokens")
+    agree = sum(a == b for r, base in zip(reqs, baseline)
+                for a, b in zip(r.output, base))
+    states = st.latency_summary()["states"]
+    log(f"[quarantine] poison at tick 5: {st.quarantines} quarantines, "
+        f"{st.degraded_tokens} of {st.tokens_generated} tokens from the "
+        f"dense fallback, states {states}, 0 failed, arena clean; "
+        f"{agree}/{st.tokens_generated} tokens equal the no-fault run's; "
+        f"{wall:.2f} s")
+    return {"quarantines": st.quarantines,
+            "degraded_tokens": st.degraded_tokens,
+            "tokens": st.tokens_generated, "states": states,
+            "tokens_equal_no_fault": agree, "wall_s": wall}
+
+
+def degrade_at_load(ctx, cfg, params, sparse8, prompts) -> dict:
+    """One bit flipped in a value plane: the default engine refuses the
+    packs, and ``on_verify_failure="degrade"`` serves the pruned dense
+    copy, launching no ESPIM kernel."""
+    from repro_torch.core.integrity import PackIntegrityError
+    from repro_torch.serve import engine as E
+    torch = ctx["torch"]
+    bad, bk = _clone_groups(sparse8)
+    q = bk["q"].clone()
+    flat = q.view(torch.uint8).view(-1)
+    flat[0] = flat[0] ^ 1
+    bk["q"] = q
+    try:
+        E.ServeEngine(cfg, params, sparse=bad, device=ctx["device"],
+                      **ENGINE_KW)
+        raised = False
+    except PackIntegrityError:
+        raised = True
+    need(raised, "[degrade] a flipped code bit passed pack verification")
+    eng = E.ServeEngine(cfg, params, sparse=bad, device=ctx["device"],
+                        on_verify_failure="degrade", **ENGINE_KW)
+    need(eng.sparse is None and eng.stats.degraded_to_dense,
+         "[degrade] the engine did not fall back to the dense copy")
+    reset_launches()
+    reqs, _, wall = serve(E, eng, prompts, MAX_NEW)
+    launches = read_launches()
+    need(not any(launches.values()),
+         f"[degrade] the degraded engine launched kernels {launches}")
+    _need_clean_finish("degrade", eng, reqs)
+    log(f"[degrade] flipped code bit: PackIntegrityError by default; with "
+        f"on_verify_failure='degrade' {len(reqs)} requests served dense in "
+        f"{wall:.2f} s, no kernel launched, arena clean")
+    return {"requests": len(reqs), "wall_s": wall}
+
+
+def _fmt(x, spec: str, unit: str = "") -> str:
+    return "not measured" if x is None else format(x, spec) + unit
+
+
+def phase_dense(ctx, cfg, params, cfg_fp, params_fp, sparse8, prompts,
+                eng8) -> None:
+    """The dense engine (bf16 and int8 KV) over the unpruned params, its
+    step beside the int8 sparse step, card-vs-CPU parity, then the
+    quarantine drill and degrade at load."""
+    report = ctx["report"]
+    rec = {"engine": {kv: drive_engine(
+        ctx, f"dense {kv} KV", cfg.replace(kv_cache_dtype=kv), params, None,
+        prompts, ()) for kv in ("bfloat16", "int8")}}
+    rec["parity"] = dense_parity(ctx, cfg, params, cfg_fp, params_fp)
+    steps = {("sparse", 4): report["decode_step"]}
+    for b in (4, 1):
+        steps[("dense", b)] = decode_step_profile(
+            ctx, "decode_step dense bf16", cfg, dense_step(cfg, params), b=b)
+    steps[("sparse", 1)] = decode_step_profile(
+        ctx, "decode_step_sparse int8", cfg,
+        sparse_step(ctx, cfg, params, sparse8), b=1)
+    rec["steps"] = {f"{k} B={b}": r for (k, b), r in steps.items()}
+    parts = []
+    for b in (1, 4):
+        sp, de = steps[("sparse", b)], steps[("dense", b)]
+        parts.append(
+            f"B={b}: host {sp['step_ms']:.2f} vs {de['step_ms']:.2f} ms, "
+            f"device {_fmt(sp['device_ms_per_step'], '.3f', ' ms')} vs "
+            f"{_fmt(de['device_ms_per_step'], '.3f', ' ms')}, busy "
+            f"{_fmt(sp['device_busy_share'], '.1%')} vs "
+            f"{_fmt(de['device_busy_share'], '.1%')}, kernels "
+            f"{_fmt(sp['kernels_per_step'], 'g')} vs "
+            f"{_fmt(de['kernels_per_step'], 'g')}")
+    dense16 = rec["engine"]["bfloat16"]
+    log(f"[sparse-vs-dense] int8 sparse vs dense bf16 step, {cfg.n_layers} "
+        f"layers, cache 32: " + "; ".join(parts)
+        + f"; engine TPOT p50 {eng8['tpot_p50_s'] * 1e3:.2f} vs "
+        f"{dense16['tpot_p50_s'] * 1e3:.2f} ms, {eng8['tok_per_s']:.1f} vs "
+        f"{dense16['tok_per_s']:.1f} tok/s")
+    rec["quarantine"] = quarantine_drill(ctx, cfg, params, sparse8, prompts,
+                                         eng8["outputs"])
+    rec["degrade"] = degrade_at_load(ctx, cfg, params, sparse8, prompts[:4])
+    report["dense"] = rec
+
+
 def new_kernel_cases(ctx, proj, sparse_fp) -> list:
     """Timing groups of kernels 5-8: (kernel, variant, cases), each case
     {"run": impl -> tensor, "library": () -> tensor, "bytes", "flops",
@@ -1079,7 +1344,7 @@ def run(ctx) -> list:
     """All phases after the build; returns the kernels line's entries."""
     from repro_torch.configs.registry import get_config
     from repro_torch.core.sparse_model import sparse_stats, sparsify_model
-    from repro_torch.models.transformer import init_params
+    from repro_torch.models.factory import init_params
     torch, dev, report = ctx["torch"], ctx["device"], ctx["report"]
     cfg = get_config(ARCH).replace(n_layers=N_LAYERS_INT8)
     log(f"[model] {cfg.name}: d_model {cfg.d_model}, {cfg.n_heads} heads, "
@@ -1130,9 +1395,12 @@ def run(ctx) -> list:
     report["parity"] = {
         "int8": decode_parity(ctx, "int8", cfg, params, sparse8),
         "fp32": decode_parity(ctx, "fp32", cfg_fp, params_fp, sparse_fp)}
-    report["decode_step"] = decode_step_profile(ctx, cfg, params, sparse8)
+    report["decode_step"] = decode_step_profile(
+        ctx, "decode_step_sparse int8", cfg,
+        sparse_step(ctx, cfg, params, sparse8))
     entries = phase_kernels(ctx, sparse8, sparse_fp, launches_main)
     proj = phase_projection(ctx, params)
+    phase_dense(ctx, cfg, params, cfg_fp, params_fp, sparse8, prompts, eng8)
     groups = new_kernel_cases(ctx, proj, sparse_fp)
     launches_main["espim_spmv"] = proj["launches"]["espim_spmv"]
     launches_main.update({k: v for k, v in phase_ops(ctx, groups).items()

@@ -620,10 +620,11 @@ def decode_step_sparse(cfg: ModelConfig, params: dict, sparse: dict,
     h = T.embed_tokens(cfg, params, tokens)
 
     def attn_step(lp, hn, kc, vc):
-        return T.attn_decode_apply(cfg, lp["attn"], hn, kc, vc, cache["len"])
+        return T.attn_decode_apply(cfg, lp["attn"], hn, kc, vc,
+                                   cache["len"])[:3]
 
     def attn_core(q, k, v, kc, vc):
-        return T.attn_decode_core(cfg, q, k, v, kc, vc, cache["len"])
+        return T.attn_decode_core(cfg, q, k, v, kc, vc, cache["len"])[:3]
 
     h, k_new, v_new = _layer_stack(cfg, params, sparse, cache, h, attn_step,
                                    attn_core, impl, epilogue=epilogue)
@@ -649,10 +650,10 @@ def prefill_chunk_sparse(cfg: ModelConfig, params: dict, sparse: dict,
     h = T.embed_tokens(cfg, params, tokens)
 
     def attn_step(lp, hn, kc, vc):
-        return T.attn_prefill_apply(cfg, lp["attn"], hn, kc, vc, start)
+        return T.attn_prefill_apply(cfg, lp["attn"], hn, kc, vc, start)[:3]
 
     def attn_core(q, k, v, kc, vc):
-        return T.attn_prefill_core(cfg, q, k, v, kc, vc, start)
+        return T.attn_prefill_core(cfg, q, k, v, kc, vc, start)[:3]
 
     h, k_new, v_new = _layer_stack(cfg, params, sparse, cache, h, attn_step,
                                    attn_core, impl, proj_path=proj_path,

@@ -68,45 +68,55 @@ def apply_rope(q, k, positions, theta: float = 1e4):
 
 
 def _attend(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
-            visible: torch.Tensor) -> torch.Tensor:
+            visible: torch.Tensor, k_scale: torch.Tensor | None = None,
+            v_scale: torch.Tensor | None = None) -> torch.Tensor:
     """Shared body: q (B, C, H, hd) over caches (B, S, KV, hd) with a
     (B, C, S) visibility mask; the cache is contracted un-repeated
-    against (KV, rep)-factored q, softmax in float32."""
+    against (KV, rep)-factored q, softmax in float32.  With an int8
+    cache, the (B, S, KV) scales fold in exactly: q.(k*s) = (q.k)*s into
+    the scores, sum_s (p*s_v).v into the probabilities."""
     b, c, h, hd = q.shape
     kvh = k_cache.shape[2]
     rep = h // kvh
     qg = q.reshape(b, c, kvh, rep, hd).float() / math.sqrt(hd)
     s = torch.einsum("bqkrd,bskd->bkrqs", qg, k_cache.float())
+    if k_scale is not None:
+        s = s * k_scale.float().permute(0, 2, 1)[:, :, None, None, :]
     s = torch.where(visible[:, None, None], s,
                     torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1)
+    if v_scale is not None:
+        p = p * v_scale.float().permute(0, 2, 1)[:, :, None, None, :]
     out = torch.einsum("bkrqs,bskd->bqkrd", p, v_cache.float())
     return out.reshape(b, c, h, hd).to(q.dtype)
 
 
 def attention_decode(q: torch.Tensor, k_cache: torch.Tensor,
-                     v_cache: torch.Tensor, cache_len) -> torch.Tensor:
+                     v_cache: torch.Tensor, cache_len,
+                     k_scale: torch.Tensor | None = None,
+                     v_scale: torch.Tensor | None = None) -> torch.Tensor:
     """Single-step decode attention: q (B, 1, H, hd) over caches
-    (B, S_max, KV, hd); entries at index >= cache_len ((B,) or scalar)
-    are masked."""
+    (B, S_max, KV, hd) — bf16, or int8 with (B, S_max, KV) scales;
+    entries at index >= cache_len ((B,) or scalar) are masked."""
     s_max = k_cache.shape[1]
     pos = torch.arange(s_max, device=q.device)
     lens = torch.as_tensor(cache_len, device=q.device)
     lens = lens[:, None] if lens.dim() == 1 else lens.reshape(1, 1)
     visible = (pos[None, :] < lens)[:, None, :]          # (B|1, 1, S)
     visible = visible.expand(q.shape[0], 1, s_max)
-    return _attend(q, k_cache, v_cache, visible)
+    return _attend(q, k_cache, v_cache, visible, k_scale, v_scale)
 
 
 def attention_prefill(q: torch.Tensor, k_cache: torch.Tensor,
-                      v_cache: torch.Tensor, q_pos: torch.Tensor
-                      ) -> torch.Tensor:
+                      v_cache: torch.Tensor, q_pos: torch.Tensor,
+                      k_scale: torch.Tensor | None = None,
+                      v_scale: torch.Tensor | None = None) -> torch.Tensor:
     """Chunked-prefill attention: q (B, C, H, hd) over caches holding the
     chunk's K/V at ``q_pos`` (B, C); key j is visible to query i iff
-    j <= q_pos[i]."""
+    j <= q_pos[i].  Scales as ``attention_decode``."""
     pos = torch.arange(k_cache.shape[1], device=q.device)
     visible = pos[None, None, :] <= q_pos[:, :, None]    # (B, C, S)
-    return _attend(q, k_cache, v_cache, visible)
+    return _attend(q, k_cache, v_cache, visible, k_scale, v_scale)
 
 
 def act_fn(name: str):

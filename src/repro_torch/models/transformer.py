@@ -1,7 +1,9 @@
-"""The dense decoder pieces the sparse decode path runs, mirroring
-``src/repro/models/transformer.py``: parameter init, embedding and logits,
-the QKV projection, norms, and the projection-free attention cores (RoPE
-+ cache write + attention) the packed QKV / O groups wrap.
+"""The dense decoder, mirroring ``src/repro/models/transformer.py``:
+parameter init, the KV cache (compute dtype or int8 with per-token,
+per-head scales), embedding and logits, the QKV projection, norms, the
+projection-free attention cores (RoPE + cache write + attention) the
+packed QKV / O groups wrap, and the dense ``decode_step`` /
+``prefill_chunk`` the dense serving mode runs.
 
 Params are the reference's dict layout: layer leaves stacked along a
 leading layer axis, projections stored (d_in, d_out).
@@ -14,10 +16,10 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 
-__all__ = ["init_params", "init_cache", "embed_tokens",
-           "logits_from_hidden", "attn_decode_core", "attn_decode_apply",
-           "attn_prefill_core", "attn_prefill_apply", "splice_rows",
-           "mlp_apply"]
+__all__ = ["init_params", "init_cache", "decode_step", "prefill_chunk",
+           "embed_tokens", "logits_from_hidden", "attn_decode_core",
+           "attn_decode_apply", "attn_prefill_core", "attn_prefill_apply",
+           "splice_rows", "mlp_apply"]
 
 
 def _normal(gen, shape, scale, dtype, device):
@@ -75,15 +77,24 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
 
 def init_cache(cfg: ModelConfig, batch_size: int, max_len: int,
                device=None) -> dict:
-    """Zero KV cache (L, B, max_len, KV, hd) in the compute dtype
-    (``device="meta"`` gives the shapes without allocating)."""
+    """Zero KV cache (L, B, max_len, KV, hd) in the compute dtype, or int8
+    with (L, B, max_len, KV) bf16 ``k_scale`` / ``v_scale`` when
+    ``cfg.kv_cache_dtype == "int8"`` (``device="meta"`` gives the shapes
+    without allocating)."""
     dev = resolve_device(device)
-    if cfg.kv_cache_dtype == "int8":
-        raise NotImplementedError("int8 KV cache is not ported yet")
     shape = (cfg.n_layers, batch_size, max_len, cfg.n_kv_heads, cfg.hd)
+    lens = torch.zeros((batch_size,), dtype=torch.int32, device=dev)
+    if cfg.kv_cache_dtype == "int8":
+        return {"k": torch.zeros(shape, dtype=torch.int8, device=dev),
+                "v": torch.zeros(shape, dtype=torch.int8, device=dev),
+                "k_scale": torch.zeros(shape[:-1], dtype=torch.bfloat16,
+                                       device=dev),
+                "v_scale": torch.zeros(shape[:-1], dtype=torch.bfloat16,
+                                       device=dev),
+                "len": lens}
     return {"k": torch.zeros(shape, dtype=cfg.cdtype, device=dev),
             "v": torch.zeros(shape, dtype=cfg.cdtype, device=dev),
-            "len": torch.zeros((batch_size,), dtype=torch.int32, device=dev)}
+            "len": lens}
 
 
 def embed_tokens(cfg: ModelConfig, params: dict, tokens: torch.Tensor):
@@ -117,11 +128,22 @@ def _rope(cfg: ModelConfig, q, k, positions):
     return L.apply_rope(q, k, positions, cfg.rope_theta)
 
 
+def _quantize_kv(x: torch.Tensor):
+    """(B, T, KV, hd) -> (int8 codes, (B, T, KV) bf16 scales): one scale
+    per token and head, max|x| / 127, round half to even."""
+    xf = x.float()
+    scale = torch.clamp_min(xf.abs().amax(dim=-1) / 127.0, 1e-8)
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale.to(torch.bfloat16)
+
+
 def attn_decode_core(cfg: ModelConfig, q, k, v, k_cache, v_cache,
-                     cache_len):
+                     cache_len, k_scale=None, v_scale=None):
     """RoPE + cache write + attention for one decode token on precomputed
-    heads.  q (B, 1, H, hd); k/v (B, 1, KV, hd); caches (B, S_max, KV, hd).
-    Returns (out (B, 1, H, hd) — pre-O-projection, k_cache, v_cache).
+    heads.  q (B, 1, H, hd); k/v (B, 1, KV, hd); caches (B, S_max, KV, hd),
+    int8 with (B, S_max, KV) ``k_scale`` / ``v_scale`` for an int8 cache.
+    Returns (out (B, 1, H, hd) — pre-O-projection, k_cache, v_cache,
+    k_scale, v_scale).
 
     The write is the reference's masked ``where`` into new cache tensors:
     the caller's cache is never modified, so two paths can decode from
@@ -131,20 +153,31 @@ def attn_decode_core(cfg: ModelConfig, q, k, v, k_cache, v_cache,
     s_max = k_cache.shape[1]
     at_pos = (torch.arange(s_max, dtype=torch.int32, device=pos.device)[None]
               == pos[:, None])[..., None, None]           # (B, S, 1, 1)
-    k_cache = torch.where(at_pos, k.to(k_cache.dtype), k_cache)
-    v_cache = torch.where(at_pos, v.to(v_cache.dtype), v_cache)
-    out = L.attention_decode(q, k_cache, v_cache, pos + 1)
-    return out, k_cache, v_cache
+    if k_scale is not None:
+        kq, ks = _quantize_kv(k)
+        vq, vs = _quantize_kv(v)
+        k_cache = torch.where(at_pos, kq, k_cache)
+        v_cache = torch.where(at_pos, vq, v_cache)
+        k_scale = torch.where(at_pos[..., 0], ks, k_scale)
+        v_scale = torch.where(at_pos[..., 0], vs, v_scale)
+    else:
+        k_cache = torch.where(at_pos, k.to(k_cache.dtype), k_cache)
+        v_cache = torch.where(at_pos, v.to(v_cache.dtype), v_cache)
+    out = L.attention_decode(q, k_cache, v_cache, pos + 1,
+                             k_scale=k_scale, v_scale=v_scale)
+    return out, k_cache, v_cache, k_scale, v_scale
 
 
-def attn_decode_apply(cfg: ModelConfig, p, x, k_cache, v_cache, cache_len):
-    """One-token decode through the dense attention weights ``p``."""
+def attn_decode_apply(cfg: ModelConfig, p, x, k_cache, v_cache, cache_len,
+                      k_scale=None, v_scale=None):
+    """One-token decode through the dense attention weights ``p``.
+    Returns (out (B, 1, D), k_cache, v_cache, k_scale, v_scale)."""
     b = x.shape[0]
     q, k, v = _qkv(cfg, p, x)
-    out, k_cache, v_cache = attn_decode_core(cfg, q, k, v, k_cache, v_cache,
-                                             cache_len)
+    out, k_cache, v_cache, k_scale, v_scale = attn_decode_core(
+        cfg, q, k, v, k_cache, v_cache, cache_len, k_scale, v_scale)
     out = L.dense(out.reshape(b, 1, cfg.n_heads * cfg.hd), p["wo"])
-    return out, k_cache, v_cache
+    return out, k_cache, v_cache, k_scale, v_scale
 
 
 def splice_rows(cache: torch.Tensor, rows: torch.Tensor,
@@ -165,28 +198,41 @@ def splice_rows(cache: torch.Tensor, rows: torch.Tensor,
                        gathered.to(cache.dtype), cache)
 
 
-def attn_prefill_core(cfg: ModelConfig, q, k, v, k_cache, v_cache, start):
+def attn_prefill_core(cfg: ModelConfig, q, k, v, k_cache, v_cache, start,
+                      k_scale=None, v_scale=None):
     """RoPE + cache splice + attention for a prefill chunk on precomputed
     heads.  q (B, C, H, hd); k/v (B, C, KV, hd); start (B,).  Returns
-    (out (B, C, H, hd) — pre-O-projection, k_cache, v_cache)."""
+    (out (B, C, H, hd) — pre-O-projection, k_cache, v_cache, k_scale,
+    v_scale)."""
     c = q.shape[1]
     pos = (start.to(torch.int32)[:, None]
            + torch.arange(c, dtype=torch.int32, device=start.device)[None])
     q, k = _rope(cfg, q, k, pos)
-    k_cache = splice_rows(k_cache, k, start)
-    v_cache = splice_rows(v_cache, v, start)
-    out = L.attention_prefill(q, k_cache, v_cache, pos)
-    return out, k_cache, v_cache
+    if k_scale is not None:
+        kq, ks = _quantize_kv(k)
+        vq, vs = _quantize_kv(v)
+        k_cache = splice_rows(k_cache, kq, start)
+        v_cache = splice_rows(v_cache, vq, start)
+        k_scale = splice_rows(k_scale, ks, start)
+        v_scale = splice_rows(v_scale, vs, start)
+    else:
+        k_cache = splice_rows(k_cache, k, start)
+        v_cache = splice_rows(v_cache, v, start)
+    out = L.attention_prefill(q, k_cache, v_cache, pos,
+                              k_scale=k_scale, v_scale=v_scale)
+    return out, k_cache, v_cache, k_scale, v_scale
 
 
-def attn_prefill_apply(cfg: ModelConfig, p, x, k_cache, v_cache, start):
-    """Chunked prefill through the dense attention weights ``p``."""
+def attn_prefill_apply(cfg: ModelConfig, p, x, k_cache, v_cache, start,
+                       k_scale=None, v_scale=None):
+    """Chunked prefill through the dense attention weights ``p``.
+    Returns (out (B, C, D), k_cache, v_cache, k_scale, v_scale)."""
     b, c, _ = x.shape
     q, k, v = _qkv(cfg, p, x)
-    out, k_cache, v_cache = attn_prefill_core(cfg, q, k, v, k_cache, v_cache,
-                                              start)
+    out, k_cache, v_cache, k_scale, v_scale = attn_prefill_core(
+        cfg, q, k, v, k_cache, v_cache, start, k_scale, v_scale)
     out = L.dense(out.reshape(b, c, cfg.n_heads * cfg.hd), p["wo"])
-    return out, k_cache, v_cache
+    return out, k_cache, v_cache, k_scale, v_scale
 
 
 def mlp_apply(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
@@ -194,3 +240,61 @@ def mlp_apply(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
         return L.mlp_gated(x, p["w_gate"], p["w_up"], p["w_down"],
                            cfg.activation)
     return L.mlp_relu2(x, p["w_up"], p["w_down"], cfg.activation)
+
+
+def _layer_slice(tree: dict, i: int) -> dict:
+    return {k: (_layer_slice(v, i) if isinstance(v, dict) else v[i])
+            for k, v in tree.items()}
+
+
+def _layer_loop(cfg: ModelConfig, params: dict, cache: dict, h, attn):
+    """The layer loop of ``decode_step`` and ``prefill_chunk`` (a Python
+    loop over the stacked leaves, in place of the reference's scan).
+    ``attn(p, hn, kc, vc, ks, vs)`` is the attention apply with the
+    cache's positions bound; returns (h, {leaf: stacked new cache})."""
+    names = [n for n in ("k", "v", "k_scale", "v_scale") if n in cache]
+    new = {n: [] for n in names}
+    for i in range(cfg.n_layers):
+        lp = _layer_slice(params["layers"], i)
+        kv = [cache[n][i] for n in names] + [None] * (4 - len(names))
+        a, *kv = attn(lp["attn"], _norm(cfg, lp["ln1"], h), *kv)
+        h = h + a
+        h = h + mlp_apply(cfg, lp["mlp"], _norm(cfg, lp["ln2"], h))
+        for n, t in zip(names, kv):
+            new[n].append(t)
+    return h, {n: torch.stack(ts) for n, ts in new.items()}
+
+
+def decode_step(cfg: ModelConfig, params: dict, cache: dict, batch: dict):
+    """One dense decode step: tokens (B, 1) -> logits (B, 1, V) and a new
+    cache (the input cache is not modified; ``len`` advances by one).
+    Runs where ``params`` live."""
+    tokens = batch["tokens"].to(params["embed"].device)
+    h = embed_tokens(cfg, params, tokens)
+
+    def attn(p, hn, kc, vc, ks, vs):
+        return attn_decode_apply(cfg, p, hn, kc, vc, cache["len"], ks, vs)
+
+    h, new = _layer_loop(cfg, params, cache, h, attn)
+    new["len"] = cache["len"] + 1
+    return logits_from_hidden(cfg, params, h), new
+
+
+def prefill_chunk(cfg: ModelConfig, params: dict, cache: dict, batch: dict):
+    """One dense chunked-prefill step: tokens (B, C) land at positions
+    cache["len"]..cache["len"]+C-1; ``batch["n_valid"]`` (B,) marks the
+    real tokens of a padded final chunk and ``len`` advances by it only.
+    Returns full-chunk logits (B, C, V) and the new cache."""
+    tokens = batch["tokens"].to(params["embed"].device)
+    start = cache["len"]
+    n_valid = batch.get("n_valid")
+    if n_valid is None:
+        n_valid = torch.full_like(start, tokens.shape[1])
+    h = embed_tokens(cfg, params, tokens)
+
+    def attn(p, hn, kc, vc, ks, vs):
+        return attn_prefill_apply(cfg, p, hn, kc, vc, start, ks, vs)
+
+    h, new = _layer_loop(cfg, params, cache, h, attn)
+    new["len"] = start + n_valid.to(start.device)
+    return logits_from_hidden(cfg, params, h), new

@@ -1,11 +1,11 @@
 """Paged KV cache: a block-pool arena with per-slot block tables
 (mirrors ``src/repro/serve/paged_cache.py``).
 
-The sequence-indexed leaves (k / v) live in one shared arena of
-``num_blocks`` fixed-size blocks on the device; each slot owns an ordered
-block table mapping logical block -> physical block.  The block allocator
-is host numpy: blocks are drawn lazily as a slot grows and returned when
-the request finishes.  Admission is reservation-based — a request
+The sequence-indexed leaves (k / v, and k_scale / v_scale of an int8
+cache) live in one shared arena of ``num_blocks`` fixed-size blocks on
+the device; each slot owns an ordered block table mapping logical block
+-> physical block.  The block allocator is host numpy: blocks are drawn
+lazily as a slot grows and returned when the request finishes.  Admission is reservation-based — a request
 reserves its worst-case block count before taking a slot, so a mid-flight
 ``ensure`` can never fail.
 
@@ -27,15 +27,16 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import transformer as T
+from repro_torch.models import factory
 
 __all__ = ["PagedKVCache", "ContiguousKVCache", "make_kv_cache"]
 
 
 class _KVCacheBase:
     """Shared bookkeeping: the sequence-indexed (L, B, S, ...) leaves of
-    ``init_cache`` — k and v for the dense family, which has no per-slot
-    recurrent state."""
+    ``init_cache`` — k and v, plus the (L, B, S, KV) k_scale and v_scale
+    of an int8 cache; the dense family has no per-slot recurrent
+    state."""
 
     def __init__(self, cfg: ModelConfig, batch_slots: int, max_len: int,
                  device):
@@ -45,7 +46,8 @@ class _KVCacheBase:
         self.device = torch.device(device)
         # shapes only: the full contiguous cache is never materialized in
         # paged mode
-        proto = T.init_cache(cfg, batch_slots, max_len, device="meta")
+        proto = factory.init_cache(cfg, batch_slots, max_len,
+                                   device="meta")
         self.seq_names = [n for n in proto if n != "len"]
         self.seq_shapes = {n: (tuple(proto[n].shape), proto[n].dtype)
                            for n in self.seq_names}

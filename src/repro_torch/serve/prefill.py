@@ -3,7 +3,8 @@
 
 The ESPIM engine runs the GEMM-shaped prefill chunk through the pruned
 dense copies of every covered projection (``proj_path="dense"``), while
-decode runs the packed SpMV kernels.  Each slot prefills into a private
+decode runs the packed SpMV kernels; the dense engine (``sparse=None``)
+runs the family's ``prefill_chunk``.  Each slot prefills into a private
 (B=1) scratch cache; after every chunk the freshly written K/V rows are
 sliced out for the engine to splice into the slot's pages.  The scratch
 cache starts from one shared zero prototype: the prefill step never
@@ -16,21 +17,22 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import sparse_model
-from repro_torch.models import transformer as T
+from repro_torch.models import factory
 
 __all__ = ["ChunkedPrefiller"]
 
 
 class ChunkedPrefiller:
     def __init__(self, cfg: ModelConfig, chunk: int, max_len: int,
-                 seq_names, sparse: dict,
+                 seq_names, sparse: dict | None = None,
                  impl: str | None = None, device=None):
         self.cfg = cfg
         self.chunk = chunk
         self.device = torch.device(device)
         # scratch length rounded up so the last chunk's pad rows fit
         self.scratch_len = -(-max_len // chunk) * chunk
-        self.proto = T.init_cache(cfg, 1, self.scratch_len, self.device)
+        self.proto = factory.init_cache(cfg, 1, self.scratch_len,
+                                        self.device)
         self.seq_names = list(seq_names)
         self.sparse = sparse
         self.impl = impl
@@ -45,9 +47,13 @@ class ChunkedPrefiller:
         batch = {"tokens": tokens.to(self.device),
                  "n_valid": torch.tensor([n_valid], dtype=torch.int32,
                                          device=self.device)}
-        logits, pf_cache = sparse_model.prefill_chunk_sparse(
-            self.cfg, params, self.sparse, pf_cache, batch, impl=self.impl,
-            device=self.device)
+        if self.sparse is None:
+            logits, pf_cache = factory.prefill_chunk(self.cfg, params,
+                                                     pf_cache, batch)
+        else:
+            logits, pf_cache = sparse_model.prefill_chunk_sparse(
+                self.cfg, params, self.sparse, pf_cache, batch,
+                impl=self.impl, device=self.device)
         return logits, pf_cache, n_valid
 
     def chunk_rows(self, pf_cache: dict, pos: int) -> dict:

@@ -1,13 +1,14 @@
-"""The serving step: one sparse decode step + greedy/temperature sampling
-(mirrors ``src/repro/serve/serve_step.py``)."""
+"""The serving step: one decode step (dense, or through the ESPIM packs) +
+greedy/temperature sampling (mirrors ``src/repro/serve/serve_step.py``)."""
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import sparse_model
+from repro_torch.models import factory
 
-__all__ = ["sample_tokens", "serve_step_sparse_fn"]
+__all__ = ["sample_tokens", "serve_step_fn", "serve_step_sparse_fn"]
 
 
 def sample_tokens(cfg: ModelConfig, last: torch.Tensor, temperature: float,
@@ -27,6 +28,16 @@ def sample_tokens(cfg: ModelConfig, last: torch.Tensor, temperature: float,
     else:
         nxt = torch.argmax(last, dim=-1)
     return nxt.to(torch.int32)
+
+
+def serve_step_fn(cfg: ModelConfig, params: dict, cache: dict, batch: dict,
+                  temperature: float = 0.0,
+                  generator: torch.Generator | None = None):
+    """Dense decode step -> (next_tokens (B, 1), logits (B, 1, V),
+    new_cache); runs where ``params`` live."""
+    logits, cache = factory.decode_step(cfg, params, cache, batch)
+    nxt = sample_tokens(cfg, logits[:, -1, :], temperature, generator)
+    return nxt[:, None], logits, cache
 
 
 def serve_step_sparse_fn(cfg: ModelConfig, params: dict, sparse: dict,

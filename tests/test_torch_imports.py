@@ -30,7 +30,7 @@ def test_importing_every_module_leaves_jax_and_repro_out():
     mods = _port_modules()
     for m in ("kernels.espim_spmv", "kernels.dense_mv",
               "kernels.flash_attention", "core.espim_linear",
-              "core.pim_sim", "core.energy"):
+              "core.pim_sim", "core.energy", "models.factory"):
         assert f"repro_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
