@@ -8,8 +8,8 @@ library per source, one nvcc each, all started together) and drives the
 port's paths at the full width of ``llama7b-espim`` (random weights from
 ``--seed``): int8 ESPIM decode through ``ServeEngine`` (depth cut to 2
 layers), the standalone projection layers, the dense serving mode and the
-fault ladder's dense rungs, and the ops of the other kernels — then
-checks them:
+fault ladder's dense rungs, the engine's fault, crash and overload
+drills, and the ops of the other kernels — then checks them:
 
 1. build: nvcc the kernels, print the build time and ptxas' report, and
    the tensor-core instructions in the flash library's SASS (HGMMA for
@@ -52,10 +52,24 @@ checks them:
    the no-fault run's is reported, not required); degrade at load (a
    flipped code bit raises by default and with
    ``on_verify_failure="degrade"`` the engine serves dense);
-7. ops: the residual epilogue over the fp32 engine's attn_out and down
+7. robustness: the fault drill over its eight kinds on the int8 packs
+   (load faults rejected; no runtime kind fails a request or leaks a
+   block; the guard, the retry and the watchdog trip; the abort cancels
+   one request), the crash drill on the fp32 packs killed at its middle
+   step, preemption on the int8 packs in an arena of the long request's
+   worst case, the overload drill (``check_overload_drill``) and the
+   8-request trace through replay prefill (kernels 2 and 4 rise by the
+   ticks its prompt tokens take); every restored or preempted request
+   completes with at least ``RESUME_EQUAL_MIN`` of its later tokens
+   equal to the uninterrupted run's; each drill must launch its pack's
+   kernels (counters zeroed before, read after).  Then whether kernels
+   1-4 give a column the same bits alone as inside B = 4 (reported),
+   and ``python -m repro_torch.launch.serve`` at llama7b-espim's full
+   depth and width as a subprocess (4 requests, 32 tokens);
+8. ops: the residual epilogue over the fp32 engine's attn_out and down
    buckets, ``ops.dense_mv`` and ``flash_attention`` at the shapes of
-   step 8, counters zeroed before and read after;
-8. kernels 5-8 against their plain versions, each launched twice for
+   step 9, counters zeroed before and read after;
+9. kernels 5-8 against their plain versions, each launched twice for
    identical bits: the unbatched kernel on the projection packs in fp32
    and bf16; the residual kernel per call at B in {1, 4} (and on bf16
    planes at B = 4); dense MV at (4096, 4096), (4096, 11008) and
@@ -76,6 +90,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -147,6 +162,16 @@ KV_QUANT_REL_TOL = 5e-2
 # q/k/v element by one bf16 ulp (2^-8 of it) now and then, and the flips
 # propagate through the later layers and steps
 KV_REL_TOL = 2e-2
+# the robustness phase: a restored or preempted request re-prefills its
+# history through the GEMMs where the uninterrupted run wrote it through
+# the SpMV kernels, so its later tokens are held to a share equal to the
+# uninterrupted run's, not to every token
+RESUME_EQUAL_MIN = 0.9
+INT8_KERNELS = ("espim_spmv_batched_quant", "espim_spmv_batched_quant_glu")
+FP_KERNELS = ("espim_spmv_batched", "espim_spmv_batched_glu")
+# the launcher at llama7b-espim's full depth and width (dense, bf16)
+LAUNCHER_ARGS = ("--arch", ARCH, "--requests", "4", "--max-new-tokens", "8")
+LAUNCHER_TIMEOUT_S = 600
 
 # kernel -> (pallas_call it replaces, Pallas function, port source)
 _SPMV_CU = "src/repro_torch/kernels/csrc/espim_spmv.cu"
@@ -1149,6 +1174,346 @@ def phase_dense(ctx, cfg, params, cfg_fp, params_fp, sparse8, prompts,
     report["dense"] = rec
 
 
+def _drill_launches(label: str, kernels) -> dict:
+    """The launch counts of kernels 1-4 since the last reset; each kernel
+    of the drill's pack must have launched."""
+    launches = {k: v for k, v in read_launches().items()
+                if k in FP_KERNELS + INT8_KERNELS}
+    for k in kernels:
+        need(launches[k] > 0, f"[{label}] kernel {k} never launched")
+    return launches
+
+
+def _share(n_equal: int, n: int) -> float:
+    return n_equal / n if n else 1.0
+
+
+def robust_fault_drill(ctx, cfg, params, sparse8) -> dict:
+    """``run_fault_drill`` over all eight kinds on the int8 packs."""
+    from repro_torch.serve import faults as F
+    reset_launches()
+    t0 = time.perf_counter()
+    d = F.run_fault_drill(cfg, params, sparse8, seed=ctx["seed"],
+                          impl=ctx["impl"], device=ctx["device"])
+    wall = time.perf_counter() - t0
+    launches = _drill_launches("fault drill", INT8_KERNELS)
+    fl = d["faults"]
+    for kind in F.LOAD_FAULTS:
+        need(fl[kind]["rejected_at_load"],
+             f"[fault drill] {kind} was not rejected at load")
+    rows = {}
+    for kind in F.FAULT_KINDS:
+        r = fl[kind]
+        if kind in F.LOAD_FAULTS:
+            rows[kind] = {"rejected_at_load": True}
+            continue
+        need(r["states"].get("failed", 0) == 0,
+             f"[fault drill] {kind}: requests failed: {r['states']}")
+        need(r["leaked_blocks"] == 0,
+             f"[fault drill] {kind}: {r['leaked_blocks']} blocks leaked")
+        rows[kind] = {k: r[k] for k in (
+            "states", "tokens", "degraded_tokens", "quarantines", "retries",
+            "watchdog_flags", "unaffected_parity", "tokens_compared",
+            "tokens_equal_baseline", "wall_s", "recovery_s")}
+    need(fl["nonfinite_logits"]["quarantines"] >= 1,
+         "[fault drill] nonfinite_logits: the guard never tripped")
+    need(fl["transient_step_error"]["retries"] >= 1,
+         "[fault drill] transient_step_error: no retry")
+    need(fl["latency_spike"]["watchdog_flags"] >= 1,
+         "[fault drill] latency_spike: the watchdog stayed silent")
+    need(fl["abort_mid_decode"]["states"].get("cancelled", 0) == 1,
+         f"[fault drill] abort_mid_decode: states "
+         f"{fl['abort_mid_decode']['states']}")
+    log(f"[robust:fault] {len(F.FAULT_KINDS)} kinds on the int8 packs in "
+        f"{wall:.2f} s: load faults rejected; launches {launches}")
+    for kind, r in rows.items():
+        if kind in F.LOAD_FAULTS:
+            continue
+        log(f"[robust:fault]   {kind:22s} states {r['states']}, "
+            f"quarantines {r['quarantines']}, retries {r['retries']}, "
+            f"watchdog {r['watchdog_flags']}, degraded tokens "
+            f"{r['degraded_tokens']}; unaffected parity "
+            f"{r['unaffected_parity']}, {r['tokens_equal_baseline']}/"
+            f"{r['tokens_compared']} tokens equal the baseline's")
+    return {"kinds": rows, "baseline": d["baseline"], "wall_s": wall,
+            "launches": launches}
+
+
+def _need_resumed(label: str, share: float, n_equal: int, n: int) -> None:
+    need(share >= RESUME_EQUAL_MIN,
+         f"[{label}] {n_equal}/{n} tokens after the interruption equal the "
+         f"uninterrupted run's (< {RESUME_EQUAL_MIN:.0%})")
+
+
+def robust_crash_drill(ctx, cfg_fp, params_fp, sparse_fp) -> dict:
+    """``run_crash_drill`` on the 1-layer fp32 packs, killed at the middle
+    step of the uninterrupted run."""
+    import numpy as np
+
+    from repro_torch.serve import engine as E
+    from repro_torch.serve import faults as F
+    kw = dict(batch_slots=2, max_len=64, block_size=8, prefill_chunk=8)
+    # the drill's own trace through one engine gives its step count
+    probe = E.ServeEngine(cfg_fp, params_fp, sparse=sparse_fp,
+                          impl=ctx["impl"], device=ctx["device"], **kw)
+    total = 0
+    reqs = F._drill_requests(cfg_fp, np.random.default_rng(ctx["seed"]), 4,
+                             8)
+    for r in reqs:
+        probe.submit(r)
+    while probe.scheduler.has_pending or any(
+            s is not None for s in probe.slots):
+        probe.step()
+        total += 1
+    reset_launches()
+    t0 = time.perf_counter()
+    d = F.run_crash_drill(cfg_fp, params_fp, sparse_fp, seed=ctx["seed"],
+                          impl=ctx["impl"], device=ctx["device"],
+                          kill_step=total // 2, **kw)
+    wall = time.perf_counter() - t0
+    launches = _drill_launches("crash drill", FP_KERNELS)
+    need(d["total_steps"] == total,
+         f"[crash drill] {d['total_steps']} steps, the probe took {total}")
+    need(d["restored_requests"] >= 1
+         and d["restored_requests"] == d["in_flight_at_kill"],
+         f"[crash drill] restored {d['restored_requests']} of "
+         f"{d['in_flight_at_kill']} in flight")
+    need(d["states"] == {"completed": d["restored_requests"]},
+         f"[crash drill] states {d['states']}")
+    need(d["leaked_blocks"] == 0,
+         f"[crash drill] {d['leaked_blocks']} blocks leaked")
+    share = _share(d["tokens_after_kill_equal"], d["tokens_after_kill"])
+    log(f"[robust:crash] fp32 packs, killed at step {d['kill_step']}/"
+        f"{d['total_steps']}: {d['restored_requests']} restored, states "
+        f"{d['states']}, arena clean; {d['tokens_after_kill_equal']}/"
+        f"{d['tokens_after_kill']} tokens after the kill equal the "
+        f"uninterrupted run's; exact parity {d['exact_parity']}; snapshot "
+        f"{d['snapshot_bytes']} B; recovery {d['recovery_s']:.3f} s; "
+        f"{wall:.2f} s; launches {launches}")
+    _need_resumed("crash drill", share, d["tokens_after_kill_equal"],
+                  d["tokens_after_kill"])
+    rec = {k: d[k] for k in ("kill_step", "total_steps", "in_flight_at_kill",
+                             "restored_requests", "exact_parity", "states",
+                             "leaked_blocks", "snapshot_bytes", "recovery_s",
+                             "first_new_token_s", "tokens_after_kill",
+                             "tokens_after_kill_equal")}
+    return dict(rec, share_equal=share, wall_s=wall, launches=launches)
+
+
+def robust_preemption(ctx, cfg, params, sparse8) -> dict:
+    """The int8 engine with an arena of exactly the long request's
+    worst-case blocks: a short request arriving 3 ticks later preempts
+    it; both finish, against an engine with a roomy arena."""
+    import numpy as np
+
+    from repro_torch.serve import engine as E
+    kw = dict(batch_slots=2, max_len=48, block_size=8, prefill_chunk=8,
+              validate_arena=True, impl=ctx["impl"], device=ctx["device"])
+    rng = np.random.default_rng(ctx["seed"] + 7)
+    prompts = [rng.integers(1, cfg.vocab_size, n).tolist() for n in (6, 4)]
+
+    def run(num_blocks):
+        eng = E.ServeEngine(cfg, params, sparse=sparse8,
+                            num_blocks=num_blocks, **kw)
+        first = {}
+        inner = eng._preempt_slot
+
+        def spy(i):                     # tokens committed at the preempt
+            st = inner(i)
+            first.setdefault(st.req.rid, len(st.req.output))
+            return st
+        eng._preempt_slot = spy
+        reqs = [E.Request(rid=i, prompt=p, max_new_tokens=m)
+                for i, (p, m) in enumerate(zip(prompts, (14, 3)))]
+        eng.submit(reqs[0])
+        for _ in range(3):
+            eng.step()
+        eng.submit(reqs[1])
+        eng.run()
+        return eng, reqs, first
+
+    base, base_reqs, _ = run(None)
+    need(base.stats.preempts == 0, "[preempt] the roomy arena preempted")
+    reset_launches()
+    t0 = time.perf_counter()
+    eng, reqs, first = run(-(-(len(prompts[0]) + 14 + 1) // 8))
+    wall = time.perf_counter() - t0
+    launches = _drill_launches("preempt", INT8_KERNELS)
+    st = eng.stats
+    states = st.latency_summary()["states"]
+    need(st.preempts >= 1, "[preempt] the tight arena never preempted")
+    need(states == {"completed": 2}, f"[preempt] states {states}")
+    eng.check_arena()
+    need(eng.cache.free_blocks == eng.cache.num_blocks,
+         "[preempt] blocks leaked")
+    after = [(a, b) for r, br in zip(reqs, base_reqs) if r.rid in first
+             for a, b in zip(r.output[first[r.rid]:],
+                             br.output[first[r.rid]:])]
+    n_eq = sum(a == b for a, b in after)
+    all_eq = sum(a == b for r, br in zip(reqs, base_reqs)
+                 for a, b in zip(r.output, br.output))
+    n_all = sum(len(r.output) for r in reqs)
+    log(f"[robust:preempt] int8 packs, arena {eng.cache.num_blocks} "
+        f"blocks: {st.preempts} preempts, states {states}, arena clean; "
+        f"{n_eq}/{len(after)} tokens after the preemption equal the "
+        f"roomy run's ({all_eq}/{n_all} of all); {wall:.2f} s; launches "
+        f"{launches}")
+    _need_resumed("preempt", _share(n_eq, len(after)), n_eq, len(after))
+    return {"preempts": st.preempts, "states": states,
+            "num_blocks": eng.cache.num_blocks,
+            "tokens_after_preempt": len(after),
+            "tokens_after_preempt_equal": n_eq, "tokens_equal": all_eq,
+            "tokens": n_all, "wall_s": wall, "launches": launches}
+
+
+def robust_overload_drill(ctx, cfg, params, sparse8) -> dict:
+    """``run_overload_drill`` on the int8 packs: a 2x Poisson burst."""
+    from repro_torch.serve import faults as F
+    reset_launches()
+    t0 = time.perf_counter()
+    d = F.run_overload_drill(cfg, params, sparse8, seed=ctx["seed"],
+                             impl=ctx["impl"], device=ctx["device"])
+    wall = time.perf_counter() - t0
+    launches = _drill_launches("overload drill", INT8_KERNELS)
+    try:
+        F.check_overload_drill(d)
+    except AssertionError as e:
+        raise SmokeFailure(f"[overload drill] {e}") from None
+    log(f"[robust:overload] {d['scale']['n_requests']} requests at "
+        f"{d['factor']}x: {d['sheds']} shed, {d['preempts']} preempted, "
+        f"states {d['states']}, {d['tokens']} tokens, max queue "
+        f"{d['max_queue_depth_seen']}, {d['steps']} steps, goodput under "
+        f"SLO {d['goodput_tok_s_under_slo']:.1f} tok/s; {wall:.2f} s; "
+        f"launches {launches}")
+    return dict({k: d[k] for k in ("states", "tokens", "sheds", "preempts",
+                                   "steps", "max_queue_depth_seen",
+                                   "goodput_tok_s_under_slo", "scale")},
+                wall_s=wall, launches=launches)
+
+
+def robust_replay(ctx, cfg, params, sparse8, prompts, eng8) -> dict:
+    """The 8-request trace through ``prefill_mode="replay"``: every prompt
+    token through the decode step, against the chunked run of the engine
+    phase."""
+    from repro_torch.serve import engine as E
+    from repro_torch.serve.scheduler import latency_summary
+    eng = E.ServeEngine(cfg, params, sparse=sparse8, prefill_mode="replay",
+                        impl=ctx["impl"], device=ctx["device"], **ENGINE_KW)
+    serve(E, eng, [prompts[0][:3]], 2)                 # warm-up request
+    eng.reset_stats()
+    reset_launches()
+    reqs, stats, wall = serve(E, eng, prompts, MAX_NEW)
+    launches = _drill_launches("replay", INT8_KERNELS)
+    _need_clean_finish("replay", eng, reqs)
+    need(stats.prefill_chunks == 0, "[replay] a prefill chunk ran")
+    n_prompt = sum(len(p) for p in prompts)
+    slots = ENGINE_KW["batch_slots"]
+    rise, per_tick = {}, {}
+    for k in INT8_KERNELS:
+        rise[k] = launches[k] - eng8["launches"][k]
+        per_tick[k] = round(eng8["launches_per_decode_step"][k])
+        # a decode tick feeds one token of each of at most `slots` slots,
+        # so the prompt tokens take at least n_prompt / slots more ticks
+        need(rise[k] >= -(-n_prompt // slots) * per_tick[k],
+             f"[replay] kernel {k} rose by {rise[k]} launches for "
+             f"{n_prompt} prompt tokens ({per_tick[k]} a tick)")
+    equal = sum(a == b for r, base in zip(reqs, eng8["outputs"])
+                for a, b in zip(r.output, base))
+    lat = latency_summary(stats.requests)
+    ttft = lat["ttft_s"]["p50"]
+    log(f"[robust:replay] {len(prompts)} requests, {n_prompt} prompt tokens "
+        f"x {cfg.n_layers} layers through decode: {stats.decode_steps} "
+        f"decode steps against {eng8['decode_steps']} chunked; launches "
+        + ", ".join(f"{k} +{rise[k]} ({per_tick[k]} a tick)"
+                    for k in INT8_KERNELS)
+        + f"; {equal}/{stats.tokens_generated} tokens equal the chunked "
+        f"run's; TTFT p50 {ttft * 1e3:.1f} ms against "
+        f"{eng8['ttft_p50_s'] * 1e3:.1f} ms chunked; {wall:.2f} s")
+    return {"decode_steps": stats.decode_steps,
+            "chunked_decode_steps": eng8["decode_steps"],
+            "prompt_tokens": n_prompt, "launches": launches,
+            "launch_rise": rise, "launches_per_tick": per_tick,
+            "tokens_equal_chunked": equal, "tokens": stats.tokens_generated,
+            "ttft_p50_s": ttft, "chunked_ttft_p50_s": eng8["ttft_p50_s"],
+            "tpot_p50_s": lat["tpot_s"]["p50"], "wall_s": wall}
+
+
+def batch_invariance(ctx, sparse8, sparse_fp) -> dict:
+    """Whether kernels 1-4 give a column the same bits at B = 1 as inside
+    B = 4 (the drills' parity assumes greedy decode is batching-
+    independent): every engine-pack case, each of the 4 columns alone."""
+    from repro_torch.kernels import ops
+    torch, dev = ctx["torch"], ctx["device"]
+    gen = torch.Generator(device=dev).manual_seed(ctx["seed"] + 8)
+    out = {}
+    for c in kernel_cases(ctx, sparse8, sparse_fp):
+        if c["kernel"] not in FP_KERNELS + INT8_KERNELS or \
+                c["variant"] not in ("fp32", "int8"):
+            continue
+        x = torch.randn((c["m"], 4), generator=gen, device=dev)
+        y4 = run_case(ops, c, x, ctx["impl"])
+        rec = out.setdefault(c["kernel"], {"columns": 0, "identical": 0,
+                                           "max_abs_diff": 0.0})
+        for j in range(4):
+            y1 = run_case(ops, c, x[:, j:j + 1].contiguous(), ctx["impl"])
+            rec["columns"] += 1
+            rec["identical"] += bool(torch.equal(y1[:, 0], y4[:, j]))
+            rec["max_abs_diff"] = max(rec["max_abs_diff"], float(
+                (y1[:, 0] - y4[:, j]).abs().max()))
+    log("[robust:batch] a column alone (B=1) against inside B=4: "
+        + "; ".join(f"{k} {r['identical']}/{r['columns']} bit-identical, "
+                    f"max|diff| {r['max_abs_diff']:.3e}"
+                    for k, r in out.items()))
+    return out
+
+
+def robust_launcher(ctx) -> dict:
+    """``python -m repro_torch.launch.serve`` at llama7b-espim's full depth
+    and width, as a subprocess of its own."""
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", *LAUNCHER_ARGS]
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                              timeout=LAUNCHER_TIMEOUT_S,
+                              env=dict(os.environ, PYTHONPATH=str(SRC)))
+    except subprocess.TimeoutExpired:
+        raise SmokeFailure(f"[launcher] {' '.join(cmd[1:])} ran past "
+                           f"{LAUNCHER_TIMEOUT_S} s") from None
+    wall = time.perf_counter() - t0
+    need(proc.returncode == 0, f"[launcher] exit {proc.returncode}: "
+         f"{proc.stderr.strip()[-2000:]}")
+    m = re.search(r"completed (\d+) requests, (\d+) tokens in ([\d.]+)s "
+                  r"\(([\d.]+) tok/s", proc.stdout)
+    need(m is not None, f"[launcher] no summary in {proc.stdout!r}")
+    n_req, n_tok = int(m.group(1)), int(m.group(2))
+    need((n_req, n_tok) == (4, 32),
+         f"[launcher] {n_req} requests, {n_tok} tokens (want 4, 32)")
+    log(f"[robust:launcher] {' '.join(cmd[1:])}: {proc.stdout.strip()}; "
+        f"{wall:.1f} s with the process start and the params")
+    return {"requests": n_req, "tokens": n_tok, "serve_s": float(m.group(3)),
+            "tok_per_s": float(m.group(4)), "wall_s": wall,
+            "stdout": proc.stdout.strip()}
+
+
+def phase_robustness(ctx, cfg, params, cfg_fp, params_fp, sparse8,
+                     sparse_fp, prompts, eng8) -> None:
+    """The serving engine's overload, crash and fault ladder on the card:
+    the fault drill (int8), the crash drill (fp32), preemption (int8), the
+    overload drill (int8), replay prefill (int8), the batch-invariance
+    check of kernels 1-4 and the full-depth launcher."""
+    t0 = time.perf_counter()
+    rec = {"fault": robust_fault_drill(ctx, cfg, params, sparse8),
+           "crash": robust_crash_drill(ctx, cfg_fp, params_fp, sparse_fp),
+           "preempt": robust_preemption(ctx, cfg, params, sparse8),
+           "overload": robust_overload_drill(ctx, cfg, params, sparse8),
+           "replay": robust_replay(ctx, cfg, params, sparse8, prompts, eng8),
+           "batch_invariance": batch_invariance(ctx, sparse8, sparse_fp),
+           "launcher": robust_launcher(ctx)}
+    rec["seconds"] = time.perf_counter() - t0
+    log(f"[robust] phase in {rec['seconds']:.1f} s")
+    ctx["report"]["robustness"] = rec
+
+
 def new_kernel_cases(ctx, proj, sparse_fp) -> list:
     """Timing groups of kernels 5-8: (kernel, variant, cases), each case
     {"run": impl -> tensor, "library": () -> tensor, "bytes", "flops",
@@ -1401,6 +1766,8 @@ def run(ctx) -> list:
     entries = phase_kernels(ctx, sparse8, sparse_fp, launches_main)
     proj = phase_projection(ctx, params)
     phase_dense(ctx, cfg, params, cfg_fp, params_fp, sparse8, prompts, eng8)
+    phase_robustness(ctx, cfg, params, cfg_fp, params_fp, sparse8, sparse_fp,
+                     prompts, eng8)
     groups = new_kernel_cases(ctx, proj, sparse_fp)
     launches_main["espim_spmv"] = proj["launches"]["espim_spmv"]
     launches_main.update({k: v for k, v in phase_ops(ctx, groups).items()

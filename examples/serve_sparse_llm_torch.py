@@ -1,0 +1,174 @@
+"""The paper's deployment scenario on the PyTorch/CUDA port, the twin of
+``examples/serve_sparse_llm.py``: serve an LM whose projections were
+magnitude-pruned and packed into the ESPIM format, through the port's
+serving stack — paged KV cache, chunked prefill, and a latency-aware
+scheduler — and compare the sparse projections' outputs against the
+dense-pruned reference.
+
+``--quant {none,int8,int4}`` (default: the config's serving preset,
+int8 for llama7b-espim) re-encodes the packs' value planes and prints
+the weight-bytes/token reduction.  ``--sparse-attn`` serves the whole
+decoder layer from the format — the fused QKV + O pack groups on top of
+the MLP packs — and prints the dense-attention vs whole-layer
+bytes/token delta.  ``--trace out.json`` records every engine phase
+(scheduler / prefill / decode / host sync) as nested spans, writes a
+Perfetto/Chrome trace (``.jsonl``: the plain event log) and prints a
+per-phase breakdown and one timeline strip per request.
+
+Run:  PYTHONPATH=src python examples/serve_sparse_llm_torch.py \\
+          [--quant int4] [--sparse-attn] [--trace out.json] [--device cpu]
+
+On CUDA (the default) decode runs the packed SpMV kernels; on the CPU
+their plain versions.
+"""
+import argparse
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.configs.registry import get_config
+from repro_torch.core.espim_linear import ESPIMGroupLinear
+from repro_torch.core.pruning import magnitude_prune
+from repro_torch.core.sparse_model import sparse_stats, sparsify_model
+from repro_torch.device import resolve_device
+from repro_torch.models import factory
+from repro_torch.serve.engine import Request, ServeEngine
+from repro_torch.telemetry.timeline import (format_timeline,
+                                            timelines_from_tracer)
+from repro_torch.telemetry.trace import Tracer, phase_breakdown
+
+SPARSITY = 0.9
+
+
+def main(argv=None) -> None:
+    cfg = get_config("llama7b-espim", reduced=True)
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--quant", choices=("none", "int8", "int4"),
+                    default=cfg.espim_quant,
+                    help="value-plane encoding for the packed projections "
+                         f"(default: the config preset, {cfg.espim_quant})")
+    ap.add_argument("--sparse-attn", action="store_true",
+                    help="pack q/k/v/o too (fused QKV + O groups) and serve "
+                         "every per-token MV from the compressed format")
+    ap.add_argument("--trace", default=None, metavar="PATH",
+                    help="write a Perfetto/Chrome trace of the serving run; "
+                         ".jsonl paths get the plain event-log format")
+    ap.add_argument("--autotune", action="store_true",
+                    help="tune the SDDS kernel schedule (not ported)")
+    ap.add_argument("--device", default=None,
+                    help="torch device (default cuda)")
+    args = ap.parse_args(argv)
+    if args.autotune:
+        raise NotImplementedError(
+            "schedule autotuning is not ported (ROADMAP Queue 1, "
+            "'Autotune')")
+    dev = resolve_device(args.device)
+    quant = args.quant
+    tracer = Tracer(enabled=args.trace is not None)
+    params = factory.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+
+    # --- flexible dense/sparse projections (Section III-I) -----------------
+    # layer 0's q/k/v as one fused group (shared balance perm, one SpMV
+    # launch for all three), each output against its dense-pruned product
+    print(f"packing layer-0 q/k/v as one fused group at {SPARSITY:.0%} "
+          f"sparsity:")
+    rng = np.random.default_rng(0)
+    named = {name: params["layers"]["attn"][name][0].float().cpu().numpy().T
+             for name in ("wq", "wk", "wv")}
+    group = ESPIMGroupLinear.from_dense(named, prune_sparsity=SPARSITY,
+                                        device=dev)
+    x = rng.standard_normal(cfg.d_model).astype(np.float32)
+    ys = group(torch.as_tensor(x, device=dev))
+    for name, w in named.items():
+        ref = magnitude_prune(w, SPARSITY) @ x
+        print(f"  {name}: max err vs dense-pruned = "
+              f"{np.abs(ys[name].cpu().numpy() - ref).max():.2e} "
+              f"(one launch for all of {'/'.join(group.names)})")
+
+    # --- serving: paged cache + chunked prefill + scheduler -----------------
+    # a mixed-length trace; shortest-prompt-first admits the short prompts
+    # ahead of the long ones, chunked prefill turns each long prompt into
+    # ceil(len/chunk) calls, and all slots share one block-pool KV arena
+    proj = "all" if args.sparse_attn else "mlp"
+    sparse = sparsify_model(cfg, params, SPARSITY, projections=proj,
+                            quant=quant, device=dev)
+    st_all = sparse_stats(sparse)
+    st = st_all["total"]
+    if args.sparse_attn:
+        # whole-layer packed vs MLP-only (which still streams every dense
+        # attention byte per decode token), from this one packing pass
+        attn_w = params["layers"]["attn"]
+        attn_dense = sum(attn_w[n].numel() * attn_w[n].element_size()
+                         for n in ("wq", "wk", "wv", "wo"))
+        mlp_only = attn_dense + sum(
+            st_all[g]["value_plane_bytes"] + st_all[g]["index_plane_bytes"]
+            for g in ("gateup", "down"))
+        print(f"\nsparse-attn: whole-model weight bytes/token "
+              f"{mlp_only} (MLP packs + {attn_dense} dense attention bytes) "
+              f"-> {st['bytes_per_token']} all-packed "
+              f"({mlp_only / st['bytes_per_token']:.2f}x smaller)")
+    if quant != "none":
+        # fp32 values cost 4 bytes/slot — the int32 index plane's size
+        fp_bytes = (2 * st["index_plane_bytes"]
+                    + st["dense_proj_bytes_per_token"])
+        fp_bits = 8.0 * st["index_plane_bytes"] / st["nnz"]
+        print(f"\nquant={quant}: weight bytes/token "
+              f"{fp_bytes} -> {st['bytes_per_token']} "
+              f"({fp_bytes / st['bytes_per_token']:.2f}x smaller; value "
+              f"plane {st['bits_per_nnz']:.1f} bits/nnz vs fp "
+              f"{fp_bits:.1f})")
+
+    prompt_lens = [3, 40, 2, 56, 5, 24, 4, 12]
+    prompts = [rng.integers(1, cfg.vocab_size, size=n).tolist()
+               for n in prompt_lens]
+    eng = ServeEngine(cfg, params, batch_slots=4, max_len=96, sparse=sparse,
+                      device=dev, paged=True, block_size=16,
+                      prefill_chunk=16, policy="sjf", tracer=tracer)
+    reqs = [Request(rid=rid, prompt=p, max_new_tokens=12)
+            for rid, p in enumerate(prompts)]
+    for r in reqs:
+        eng.submit(r)
+    t0 = time.time()
+    stats = eng.run()
+    dt = time.time() - t0
+    lat = stats.latency_summary()
+    print(f"\nserved {stats.requests_completed} requests / "
+          f"{stats.tokens_generated} tokens in {dt:.1f}s "
+          f"({stats.tokens_generated / dt:.1f} tok/s on {dev}; "
+          f"{stats.prefill_chunks} prefill chunks + {stats.decode_steps} "
+          f"decode steps, slot occupancy {stats.slot_occupancy:.0%})")
+    print(f"TTFT p50/p95 = {lat['ttft_s']['p50']:.3f}/"
+          f"{lat['ttft_s']['p95']:.3f}s, "
+          f"TPOT p50 = {lat['tpot_s']['p50'] * 1e3:.1f}ms, "
+          f"queue delay p95 = {lat['queue_delay_s']['p95']:.3f}s "
+          f"(sjf over {len(reqs)} mixed-length prompts, "
+          f"arena {eng.cache.num_blocks} x {eng.cache.block_size}-token "
+          f"blocks)")
+
+    if args.trace:
+        prov = {"backend": dev.type, "quant": quant,
+                "attn": "sparse" if args.sparse_attn else "dense"}
+        if args.trace.endswith(".jsonl"):
+            tracer.write_jsonl(args.trace, provenance=prov)
+        else:
+            tracer.write_chrome_trace(args.trace, provenance=prov)
+        bd = phase_breakdown(tracer, parent="engine.step")
+        phases = ", ".join(f"{k} {v['frac']:.0%}"
+                           for k, v in sorted(bd["phases"].items(),
+                                              key=lambda kv: -kv[1]["frac"]))
+        print(f"\ntrace: {len(tracer.spans())} spans -> {args.trace} "
+              f"(open at https://ui.perfetto.dev)\n"
+              f"engine.step breakdown ({bd['coverage']:.0%} of "
+              f"{bd['wall_us'] / 1e3:.1f}ms step wall): {phases}")
+        # the same trace folded into one lifecycle strip per request:
+        # q=queued, p=prefill, d=decode, .=resident-but-waiting
+        print("\nper-request timelines:")
+        tls = timelines_from_tracer(tracer)
+        for rid in sorted(tls):
+            print(format_timeline(tls[rid]))
+
+
+if __name__ == "__main__":
+    main()

@@ -680,25 +680,78 @@ def _plane_bytes(p: dict) -> tuple:
     return per * n_layers, index_total, [per] * n_layers
 
 
+def _pack_stats(p: dict) -> dict:
+    n_layers = len(p["nnz_per_layer"])
+    padded = p["padded_per_layer"] * n_layers
+    vbytes, ibytes, vbytes_layer = _plane_bytes(p)
+    return {
+        "nnz": int(p["nnz"]),
+        "padded_slots": int(padded),
+        "pad_frac": 1 - p["nnz"] / padded,
+        "pad_frac_per_layer": [
+            1 - int(n) / p["padded_per_layer"]
+            for n in p["nnz_per_layer"]
+        ],
+        "bucket_rows": list(p["bucket_rows"]),
+        "bucket_widths": list(p["widths"]),
+        "single_bucket_pad_frac": 1 - p["nnz"] / max(
+            1, p["plan"].single_bucket_slots * p["buckets"][0]["cols"].shape[2]
+            * p["halves"] * n_layers),
+        "value_plane_bytes": vbytes,
+        "index_plane_bytes": ibytes,
+        "value_plane_bytes_per_layer": vbytes_layer,
+        "bits_per_nnz": 8.0 * vbytes / max(1, int(p["nnz"])),
+        "bits_per_nnz_per_layer": [
+            8.0 * b / max(1, int(n))
+            for b, n in zip(vbytes_layer, p["nnz_per_layer"])
+        ],
+    }
+
+
+def _proj_stats(g: dict, group_stats: dict, proj: str) -> dict:
+    """Per-projection stats inside a group: exact nnz and padded slots
+    (``proj_nnz`` / ``proj_padded``); a quantized value plane is
+    attributed by padded-slot share (scale groups can straddle
+    projections)."""
+    n_layers = len(g["nnz_per_layer"])
+    nnz_l = g["proj_nnz"][proj]
+    padded_l = g["proj_padded"][proj]
+    nnz, padded = int(nnz_l.sum()), int(padded_l.sum())
+    share = padded / max(1, g["padded_per_layer"] * n_layers)
+    vbytes = (int(round(group_stats["value_plane_bytes"] * share))
+              if g["qplanes"] is not None else 4 * padded)
+    return {
+        "nnz": nnz,
+        "padded_slots": padded,
+        "pad_frac": 1 - nnz / max(1, padded),
+        "pad_frac_per_layer": [1 - int(n) / max(1, int(p))
+                               for n, p in zip(nnz_l, padded_l)],
+        "value_plane_bytes": vbytes,
+        "index_plane_bytes": 4 * padded,
+        "bits_per_nnz": 8.0 * vbytes / max(1, nnz),
+    }
+
+
 def sparse_stats(sparse: dict) -> dict:
-    """Per-group and whole-model padding and byte-plane stats: the bytes a
-    decode token streams, by plane (``total.bytes_per_token`` includes the
-    dense bytes of projections no group covers)."""
+    """Whole-model, per-group, per-projection and per-layer padding and
+    byte-plane stats: group entries carry the pack-level figures, each
+    projection its own exact nnz / padded split under its own name
+    (``w_gate``, ``wq``, ...).  ``total.bytes_per_token`` is the bytes a
+    decode token streams, including the dense bytes of projections no
+    group covers."""
     out: dict = {"quant": sparse.get("quant", "none"),
                  "attn_sparse": sparse.get("attn_sparse", False)}
     tot_nnz = tot_padded = tot_value = tot_index = 0
     for name, g in sparse["groups"].items():
+        gs = _pack_stats(g)
+        out[name] = gs
+        for proj in g["projections"]:
+            out[proj] = _proj_stats(g, gs, proj)
         n_layers = len(g["nnz_per_layer"])
-        padded = g["padded_per_layer"] * n_layers
-        vbytes, ibytes, _ = _plane_bytes(g)
-        out[name] = {"nnz": int(g["nnz"]), "padded_slots": int(padded),
-                     "pad_frac": 1 - g["nnz"] / padded,
-                     "value_plane_bytes": vbytes,
-                     "index_plane_bytes": ibytes}
         tot_nnz += g["nnz"]
-        tot_padded += padded
-        tot_value += vbytes
-        tot_index += ibytes
+        tot_padded += g["padded_per_layer"] * n_layers
+        tot_value += gs["value_plane_bytes"]
+        tot_index += gs["index_plane_bytes"]
     dense_bytes = int(sparse.get("dense_proj_bytes", 0))
     out["total"] = {
         "nnz": int(tot_nnz),
@@ -706,6 +759,7 @@ def sparse_stats(sparse: dict) -> dict:
         "pad_frac": 1 - tot_nnz / max(1, tot_padded),
         "value_plane_bytes": int(tot_value),
         "index_plane_bytes": int(tot_index),
+        "bits_per_nnz": 8.0 * tot_value / max(1, tot_nnz),
         "packed_bytes_per_token": int(tot_value + tot_index),
         "dense_proj_bytes_per_token": dense_bytes,
         "bytes_per_token": int(tot_value + tot_index + dense_bytes),

@@ -79,6 +79,7 @@ class PagedKVCache(_KVCacheBase):
         self.n_blocks = np.zeros(batch_slots, np.int32)
         self._resv = np.zeros(batch_slots, np.int64)
         self._free = list(range(num_blocks - 1, -1, -1))
+        self._quarantined: list = []    # fault-drill OOM pressure pool
         self._view = None
         self._view_dirty = True
 
@@ -89,6 +90,10 @@ class PagedKVCache(_KVCacheBase):
     @property
     def free_blocks(self) -> int:
         return len(self._free)
+
+    @property
+    def blocks_in_use(self) -> int:
+        return self.num_blocks - len(self._free)
 
     def reserve(self, slot: int, n_tokens: int) -> bool:
         """Admission control: reserve the worst-case block count for a
@@ -124,17 +129,37 @@ class PagedKVCache(_KVCacheBase):
         self.block_tables[slot] = 0
         self._view_dirty = True
 
+    def quarantine_blocks(self, n: int) -> int:
+        """Fault drill: withhold up to ``n`` free blocks to simulate arena
+        pressure.  Only blocks beyond the outstanding reservations are
+        taken, so admitted requests keep their "ensure cannot fail"
+        guarantee and the pressure lands on admission.  Returns how many
+        were taken."""
+        take = max(0, min(n, len(self._free) - int(self._resv.sum())))
+        for _ in range(take):
+            self._quarantined.append(self._free.pop())
+        return take
+
+    def release_quarantined(self) -> int:
+        n = len(self._quarantined)
+        self._free.extend(self._quarantined)
+        self._quarantined = []
+        return n
+
     def arena_check(self) -> dict:
         """Allocator invariant: every physical block is in exactly one of
-        {free, some slot's table}, and reservations never exceed the free
-        pool.  Raises RuntimeError on violation; returns the accounting."""
+        {free, quarantined, some slot's table}, and reservations never
+        exceed the free pool.  Raises RuntimeError on violation; returns
+        the accounting."""
         allocated = []
         for slot in range(self.b):
             allocated.extend(
                 int(x) for x in
                 self.block_tables[slot, :int(self.n_blocks[slot])])
-        every = allocated + [int(x) for x in self._free]
+        every = (allocated + [int(x) for x in self._free]
+                 + [int(x) for x in self._quarantined])
         acct = {"allocated": len(allocated), "free": len(self._free),
+                "quarantined": len(self._quarantined),
                 "reserved": int(self._resv.sum()),
                 "num_blocks": self.num_blocks}
         if len(every) != self.num_blocks or len(set(every)) != len(every) \
@@ -234,8 +259,15 @@ class ContiguousKVCache(_KVCacheBase):
     def free_slot(self, slot: int) -> None:
         pass                          # stale rows beyond len are masked
 
+    def quarantine_blocks(self, n: int) -> int:
+        return 0                      # no arena to pressure
+
+    def release_quarantined(self) -> int:
+        return 0
+
     def arena_check(self) -> dict:
-        return {"allocated": 0, "free": 0, "reserved": 0, "num_blocks": 0}
+        return {"allocated": 0, "free": 0, "quarantined": 0,
+                "reserved": 0, "num_blocks": 0}
 
     def invalidate_view(self) -> None:
         pass                          # gather_view reads the store directly

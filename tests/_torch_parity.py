@@ -28,3 +28,20 @@ def to_np(x):
     if hasattr(x, "detach"):
         return x.detach().float().numpy()
     return np.asarray(x, np.float32)
+
+
+def drain(eng, reqs, on_step=None, max_steps: int = 2000) -> int:
+    """Submit ``reqs`` and step ``eng`` until its queue and slots are
+    empty, calling ``on_step(eng, step)`` after each tick; returns the
+    ticks taken."""
+    for r in reqs:
+        eng.submit(r)
+    steps = 0
+    while steps < max_steps and (eng.scheduler.has_pending
+                                 or any(s is not None for s in eng.slots)):
+        eng.step()
+        steps += 1
+        if on_step is not None:
+            on_step(eng, steps)
+    assert steps < max_steps, "engine failed to drain"
+    return steps

@@ -30,7 +30,9 @@ def test_importing_every_module_leaves_jax_and_repro_out():
     mods = _port_modules()
     for m in ("kernels.espim_spmv", "kernels.dense_mv",
               "kernels.flash_attention", "core.espim_linear",
-              "core.pim_sim", "core.energy", "models.factory"):
+              "core.pim_sim", "core.energy", "models.factory",
+              "runtime.fault_tolerance", "telemetry.timeline",
+              "serve.snapshot", "serve.faults", "launch.serve"):
         assert f"repro_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
@@ -51,6 +53,8 @@ def test_no_source_imports_jax_or_repro():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
                                           ROOT / "examples" /
                                           "quickstart_torch.py",
+                                          ROOT / "examples" /
+                                          "serve_sparse_llm_torch.py",
                                           ROOT / "scripts" /
                                           "spmv_tile_ab.py",
                                           ROOT / "scripts" /
