@@ -79,7 +79,22 @@ drills, and the ops of the other kernels — then checks them:
    a bound on the relative L2 error of the whole output) — each with its
    time, the plain version's, a library call of the same function that
    the port never makes (each timed by CUDA events around replays of a
-   captured CUDA graph), and the least time the card could take.
+   captured CUDA graph), and the least time the card could take;
+10. autotune, after every counter read (a launch inside a captured timing
+   graph counts once, at capture): no ``ESPIM_IMPL`` pin but ``cuda`` and
+   ``ops.provenance()`` naming backend ``cuda``; layer 0's w_gate (11008 x
+   4096 at 90% sparsity) under every legal schedule of kernels 1-2 (chunk
+   width x warps a row x U; fp32, bf16, int8, int4 planes; B in {1, 4}):
+   integer-valued planes and x give the default schedule's and the plain
+   version's bits, real values stay within the kernels' tolerance; the
+   explicit default schedule gives ``schedule=None``'s bits on every case
+   of step 4; ``autotune_pack`` (fp32, int8; B in {1, 4}) searches, prints
+   the winner's and the default's µs by ``time_launch`` and by ``Timer``,
+   and a second call is a cache hit with 0 benchmarks; every bucket of one
+   int8 engine layer at B = 4 timed over its schedules, default against
+   best; ``pack_to_device(autotune=True)`` attaches the plan and
+   ``espim_matvec`` matches ``impl="ref"``; and
+   ``examples/serve_sparse_llm_torch.py --autotune`` as a subprocess.
 
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``.  Exits non-zero, with no result,
@@ -172,6 +187,11 @@ FP_KERNELS = ("espim_spmv_batched", "espim_spmv_batched_glu")
 # the launcher at llama7b-espim's full depth and width (dense, bf16)
 LAUNCHER_ARGS = ("--arch", ARCH, "--requests", "4", "--max-new-tokens", "8")
 LAUNCHER_TIMEOUT_S = 600
+AUTOTUNE_BATCHES = (1, 4)               # the autotune phase's B
+AUTOTUNE_CANDIDATES = 12                # candidates a search times
+EXAMPLE = ROOT / "examples" / "serve_sparse_llm_torch.py"
+EXAMPLE_ARGS: tuple = ()
+EXAMPLE_TIMEOUT_S = 600
 
 # kernel -> (pallas_call it replaces, Pallas function, port source)
 _SPMV_CU = "src/repro_torch/kernels/csrc/espim_spmv.cu"
@@ -644,26 +664,22 @@ def kernel_cases(ctx, sparse8, sparse_fp):
     return cases + extra
 
 
-def run_case(ops, c, x, impl):
+def run_case(ops, c, x, impl, schedule=None):
+    kw = dict(chunk_cols=c["cc"], impl=impl, schedule=schedule)
     if c["kernel"] == "espim_spmv_batched":
-        return ops.espim_spmv_batched(c["values"], c["cols"], x,
-                                      chunk_cols=c["cc"], impl=impl)
+        return ops.espim_spmv_batched(c["values"], c["cols"], x, **kw)
     if c["kernel"] == "espim_spmv_batched_res":
         return ops.espim_spmv_batched(c["values"], c["cols"], x,
-                                      chunk_cols=c["cc"], impl=impl,
                                       epilogue="residual",
-                                      residual=c["res"][x.shape[1]])
+                                      residual=c["res"][x.shape[1]], **kw)
     if c["kernel"] == "espim_spmv_batched_glu":
         return ops.espim_spmv_batched(c["values"], c["cols"], x,
-                                      chunk_cols=c["cc"], impl=impl,
-                                      epilogue="glu", act="silu")
+                                      epilogue="glu", act="silu", **kw)
     if c["kernel"] == "espim_spmv_batched_quant":
-        return ops.espim_spmv_batched_quant(c["q"], c["cols"], None, x,
-                                            chunk_cols=c["cc"], impl=impl)
+        return ops.espim_spmv_batched_quant(c["q"], c["cols"], None, x, **kw)
     return ops.espim_spmv_batched_quant(c["q"], c["cols"], None, x,
-                                        chunk_cols=c["cc"], impl=impl,
                                         epilogue="glu", act="silu",
-                                        srow=c["srow"])
+                                        srow=c["srow"], **kw)
 
 
 def case_bytes(c, b: int) -> tuple[int, int]:
@@ -1705,6 +1721,407 @@ def phase_new_kernels(ctx, groups, launches_main) -> list:
             for k, v in main_variant.items()]
 
 
+# --------------------------------------------------------------------------
+# autotune: the schedule space, the search and the plan cache on the card
+# --------------------------------------------------------------------------
+def autotune_no_pin(ctx) -> dict:
+    """(g) the phase runs the kernels only without a ``ref`` pin, and the
+    provenance names backend and impl ``cuda``."""
+    from repro_torch.kernels import ops
+    pin = os.environ.get(ops.ENV_IMPL, "").strip()
+    need(pin in ("", "cuda"), f"[autotune] {ops.ENV_IMPL}={pin!r} would hide "
+         "every kernel; unset it (or set cuda)")
+    prov = ops.provenance()
+    need(prov["backend"] == "cuda" and prov["impl"] == "cuda",
+         f"[autotune] provenance {prov}")
+    log(f"[autotune:provenance] {json.dumps(prov)}")
+    return prov
+
+
+def autotune_gate_pack(ctx, params):
+    """Layer 0's w_gate (d_ff x d_model) pruned to ``PROJ_SPARSITY`` and
+    packed as plain ELL, as the reference's serving example tunes it."""
+    from repro_torch.core.pruning import magnitude_prune
+    from repro_torch.core.sparse_format import pack_ell
+    t0 = time.perf_counter()
+    w = magnitude_prune(
+        params["layers"]["mlp"]["w_gate"][0].float().cpu().numpy().T,
+        PROJ_SPARSITY)
+    pack = pack_ell(w)
+    log(f"[autotune] layer-0 w_gate {w.shape[0]}x{w.shape[1]} at "
+        f"{PROJ_SPARSITY:.0%} sparsity packed in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return pack
+
+
+def _unscatter(torch, y, perm, n_rows):
+    out = torch.zeros((n_rows,) + tuple(y.shape[1:]), dtype=y.dtype,
+                      device=y.device)
+    keep = perm >= 0
+    out[perm[keep].long()] = y[keep]
+    return out
+
+
+def _gate_planes(ctx, cp) -> dict:
+    """The chunked gate pack's planes on the card for kernel 1 (fp32 and
+    bf16 values) and kernel 2 (int8 and nibble-packed int4 codes), each
+    integer-valued (sign(w) * (1 + column % 7) for the matrix's global
+    column, so every chunk width holds the same matrix and every sum is
+    exact in fp32) and real-valued (the weights; the codes stay
+    integers)."""
+    torch, dev = ctx["torch"], ctx["device"]
+    cols = torch.tensor(cp.cols, dtype=torch.int32, device=dev)
+    vals = torch.tensor(cp.values, dtype=torch.float32, device=dev)
+    k = torch.arange(cols.shape[1], device=dev).view(1, -1, 1)
+    vint = torch.sign(vals) * (1 + (cols + k * cp.chunk_cols) % 7).float()
+    q8 = vint.to(torch.int8)
+    return {"cols": cols, "perm": torch.tensor(cp.perm, device=dev),
+            "int": {"fp32": vint, "bf16": vint.to(torch.bfloat16),
+                    "int8": q8, "int4": _nibble_pack(torch, q8)},
+            "real": {"fp32": vals, "bf16": vals.to(torch.bfloat16),
+                     "int8": q8, "int4": _nibble_pack(torch, q8)}}
+
+
+def _gate_launch(ops, planes, kind, variant, x, cc, impl, schedule=None):
+    v = planes[kind][variant]
+    if variant in ("fp32", "bf16"):
+        return ops.espim_spmv_batched(v, planes["cols"], x, chunk_cols=cc,
+                                      impl=impl, schedule=schedule)
+    return ops.espim_spmv_batched_quant(v, planes["cols"], None, x,
+                                        chunk_cols=cc, impl=impl,
+                                        schedule=schedule)
+
+
+def autotune_schedules(ctx, pack) -> tuple[dict, dict]:
+    """(a) every legal schedule of kernels 1-2 on the gate pack, at every
+    chunk width, B in ``AUTOTUNE_BATCHES``: on integer-valued planes and x
+    its output, unscattered, has the bits of the default schedule's and of
+    the plain version's; on real values it is within the kernels'
+    tolerance of the plain version.  Returns the report and the chunked
+    packs by width."""
+    from repro_torch.core.sdds import DEFAULT_SCHEDULE, enumerate_schedules
+    from repro_torch.core.sparse_format import chunk_pack
+    from repro_torch.kernels import ops
+    torch, dev = ctx["torch"], ctx["device"]
+    gen = torch.Generator(device=dev).manual_seed(ctx["seed"] + 9)
+    xs = {("int", b): torch.randint(-3, 4, (pack.n_cols, b), generator=gen,
+                                    device=dev).float()
+          for b in AUTOTUNE_BATCHES}
+    xs.update({("real", b): torch.randn((pack.n_cols, b), generator=gen,
+                                        device=dev)
+               for b in AUTOTUNE_BATCHES})
+    scheds = enumerate_schedules(n_cols=pack.n_cols)
+    need(scheds[0] == DEFAULT_SCHEDULE
+         or DEFAULT_SCHEDULE.chunk_cols > pack.n_cols,
+         "[autotune] the default schedule is not the first candidate")
+    widths = list(dict.fromkeys(s.chunk_cols for s in scheds))
+    chunked, base, worst, n_checks = {}, {}, {}, 0
+    t_pack = 0.0
+    for cc in widths:
+        t0 = time.perf_counter()
+        cp = chunked[cc] = chunk_pack(pack, cc)
+        t_pack += time.perf_counter() - t0
+        planes = _gate_planes(ctx, cp)
+        for variant in ("fp32", "bf16", "int8", "int4"):
+            for b in AUTOTUNE_BATCHES:
+                for kind in ("int", "real"):
+                    x = xs[(kind, b)]
+                    plain = _gate_launch(ops, planes, kind, variant, x, cc,
+                                         "ref")
+                    tol = (KERNEL_REL_TOL * float(plain.abs().max())
+                           + KERNEL_ABS_TOL)
+                    un_plain = _unscatter(torch, plain, planes["perm"],
+                                          pack.n_rows)
+                    for s in scheds:
+                        if s.chunk_cols != cc:
+                            continue
+                        got = _gate_launch(ops, planes, kind, variant, x, cc,
+                                           None, s)
+                        what = f"[autotune:a] {variant} {kind} B={b} {s}"
+                        need(bool(torch.isfinite(got).all()), f"{what}: "
+                             "non-finite output")
+                        n_checks += 1
+                        if kind == "int":
+                            un = _unscatter(torch, got, planes["perm"],
+                                            pack.n_rows)
+                            base.setdefault((variant, b), un)
+                            need(torch.equal(un, un_plain), f"{what}: bits "
+                                 "differ from the plain version's")
+                            need(torch.equal(un, base[(variant, b)]),
+                                 f"{what}: bits differ from the default "
+                                 "schedule's")
+                            continue
+                        err = float((got - plain).abs().max())
+                        need(err <= tol, f"{what}: max|kernel-plain| "
+                             f"{err:.3e} > {tol:.3e}")
+                        key = f"{variant} B={b}"
+                        worst[key] = max(worst.get(key, 0.0), err)
+    log(f"[autotune:a] {len(scheds)} legal schedules of kernels 1-2 over "
+        f"chunk widths {widths} (chunk pass {t_pack:.1f} s): {n_checks} "
+        "launches; every integer-valued one bit-identical to the default "
+        "schedule and the plain version; every real-valued one within "
+        f"{KERNEL_REL_TOL}*max|plain| + {KERNEL_ABS_TOL} (worst "
+        + ", ".join(f"{k} {v:.2e}" for k, v in worst.items()) + ")")
+    return ({"schedules": len(scheds), "chunk_widths": widths,
+             "launches": n_checks, "chunk_pass_s": t_pack,
+             "worst_real_err": worst}, chunked)
+
+
+def autotune_explicit_default(ctx, sparse8, sparse_fp) -> dict:
+    """(b) ``schedule=KernelSchedule(512, 0, 2)`` gives the bits of
+    ``schedule=None`` on every kernel 1-4 and 6 case of the kernels
+    phase, at every ``CHECK_BATCHES`` B."""
+    from repro_torch.core.sdds import KernelSchedule
+    from repro_torch.kernels import ops
+    torch, dev = ctx["torch"], ctx["device"]
+    explicit = KernelSchedule(512, 0, 2)
+    cases = kernel_cases(ctx, sparse8, sparse_fp)
+    gen = torch.Generator(device=dev).manual_seed(ctx["seed"] + 2)
+    xs = {(m, b): torch.randn((m, b), generator=gen, device=dev)
+          for m in {c["m"] for c in cases} for b in CHECK_BATCHES}
+    n = 0
+    for c in cases:
+        for b in CHECK_BATCHES:
+            x = xs[(c["m"], b)]
+            got = run_case(ops, c, x, None, schedule=explicit)
+            want = run_case(ops, c, x, None)
+            need(torch.equal(got, want),
+                 f"[autotune:b] {c['kernel']} {c['variant']} "
+                 f"{c['group']}/b{c['bucket']} B={b}: the explicit default "
+                 "schedule's bits differ from schedule=None's")
+            n += 1
+    kernels = sorted({c["kernel"] for c in cases})
+    log(f"[autotune:b] {explicit}: {n} cases of {', '.join(kernels)} "
+        "bit-identical to schedule=None")
+    return {"checks": n, "kernels": kernels}
+
+
+def _timings(ctx, fn, flush) -> dict:
+    """µs of ``fn`` by ``time_launch`` (best and p50 of its samples), by
+    ``Timer`` (median), and by ``Timer`` with L2 cold: a graph of the
+    L2-evicting read ``flush`` (``(read, its µs)``) and the launch, less
+    the read, as ``bucket_times`` times a bucket."""
+    from repro_torch.telemetry.profile import time_launch
+    t = time_launch(fn, iters=5, warmup=1)
+    need(t.clock == "device", f"[autotune] time_launch used the {t.clock} "
+         "clock on a CUDA launch")
+    read, read_us = flush
+    return {"time_launch_best_us": t.best_us,
+            "time_launch_p50_us": t.p50_us,
+            "timer_us": ctx["timer"](fn) * 1e3,
+            "timer_cold_us": ctx["timer"](lambda: (read(), fn())) * 1e3
+            - read_us}
+
+
+def autotune_search(ctx, pack, chunked) -> dict:
+    """(c) ``autotune_pack`` on the gate pack, fp32 and int8, B in
+    ``AUTOTUNE_BATCHES``, each with a fresh in-memory ``PlanCache``: the
+    plan, the candidates timed, the winner's and the default's µs (by
+    ``time_launch`` and by ``Timer``); then the same call again must be a
+    cache hit with 0 benchmarks.  Returns the report and the caches."""
+    from repro_torch.autotune import (PlanCache, autotune_pack,
+                                      reset_search_stats, search_stats)
+    from repro_torch.autotune.tuner import _launch_fn, _resolve_impl
+    from repro_torch.core.sdds import DEFAULT_SCHEDULE
+    from repro_torch.core.sparse_format import chunk_pack
+    torch, dev = ctx["torch"], ctx["device"]
+    impl = _resolve_impl(ctx["impl"], dev)
+    buf = torch.ones(32 << 20, device=dev)      # 128 MB: evicts the 50 MB L2
+    flush = (buf.sum, ctx["timer"](buf.sum) * 1e3)
+    out, caches = {}, {}
+    for quant in (None, "int8"):
+        for b in AUTOTUNE_BATCHES:
+            label = f"{quant or 'fp32'} B={b}"
+            cache = caches[(quant, b)] = PlanCache()
+            reset_search_stats()
+            t0 = time.perf_counter()
+            plan = autotune_pack(pack, b=b, quant=quant, cache=cache,
+                                 max_candidates=AUTOTUNE_CANDIDATES,
+                                 iters=5, warmup=1)
+            search_s = time.perf_counter() - t0
+            n_bench = search_stats["benchmarks"]
+            need(plan.source == "search" and n_bench == plan.candidates > 0,
+                 f"[autotune:c] {label}: {plan}")
+            again = autotune_pack(pack, b=b, quant=quant, cache=cache,
+                                  max_candidates=AUTOTUNE_CANDIDATES)
+            need(again.source == "cache" and again.candidates == 0
+                 and search_stats["benchmarks"] == n_bench
+                 and again.schedule == plan.schedule,
+                 f"[autotune:c] {label}: the second call was not a cache "
+                 f"hit with 0 benchmarks ({again}, {search_stats})")
+            x = torch.randn((pack.n_cols, b), device=dev,
+                            generator=torch.Generator(device=dev).manual_seed(
+                                ctx["seed"] + 12))
+            s_w = plan.schedule
+            cc_d = DEFAULT_SCHEDULE.chunk_cols
+            for cc in (s_w.chunk_cols, cc_d):
+                if cc not in chunked:
+                    chunked[cc] = chunk_pack(pack, cc)
+            win = _timings(ctx, _launch_fn(chunked[s_w.chunk_cols], x, s_w,
+                                             impl, quant), flush)
+            dflt = _timings(ctx, _launch_fn(chunked[cc_d], x,
+                                              DEFAULT_SCHEDULE, impl, quant),
+                              flush)
+            out[label] = {"plan": plan.to_provenance(),
+                          "search_s": search_s, "winner": win,
+                          "default": dflt}
+            log(f"[autotune:c] {label}: plan chunk_cols={s_w.chunk_cols} "
+                f"warps_per_row={s_w.warps_per_row} u={s_w.u} "
+                f"({plan.candidates} candidates timed, search "
+                f"{search_s:.1f} s, search best {plan.best_us:.1f} us); "
+                f"winner {win['time_launch_best_us']:.1f} / "
+                f"{win['time_launch_p50_us']:.1f} us (time_launch best / "
+                f"p50), {win['timer_us']:.1f} us (Timer), "
+                f"{win['timer_cold_us']:.1f} us (Timer, L2 cold); default "
+                f"{dflt['time_launch_best_us']:.1f} / "
+                f"{dflt['time_launch_p50_us']:.1f} us, "
+                f"{dflt['timer_us']:.1f} us, {dflt['timer_cold_us']:.1f} "
+                "us; second call: cache hit, 0 benchmarks")
+    reset_search_stats()
+    return out, caches
+
+
+def autotune_buckets(ctx, sparse8, sparse_fp) -> dict:
+    """(d) each bucket of layer 0 of the int8 engine packs at B = 4 over
+    its legal schedules (chunked packs: warps a row and U move; the
+    gate+up buckets run the GLU kernel, U = 2 only), timed by
+    ``time_launch``: default against best µs a bucket, and their sums."""
+    from repro_torch.core.sdds import (KernelSchedule, enumerate_schedules,
+                                       fill_warps_per_row)
+    from repro_torch.kernels import ops
+    from repro_torch.telemetry.profile import time_launch
+    torch, dev = ctx["torch"], ctx["device"]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    cases = [c for c in kernel_cases(ctx, sparse8, sparse_fp)
+             if c["layer"] == 0 and c["variant"] == "int8"]
+    gen = torch.Generator(device=dev).manual_seed(ctx["seed"] + 10)
+    xs = {m: torch.randn((m, 4), generator=gen, device=dev)
+          for m in {c["m"] for c in cases}}
+    rows, sum_d, sum_b = [], 0.0, 0.0
+    for c in cases:
+        glu = "glu" in c["kernel"]
+        cc = c["cc"]
+        launch_rows = c["cols"].shape[0] // (2 if glu else 1)
+        scheds = [s for s in enumerate_schedules(
+            n_cols=c["m"], epilogue="glu" if glu else None,
+            chunk_cols_options=(cc,)) if s.chunk_cols == cc]
+        default = KernelSchedule(cc, 0, 2)
+        fill = fill_warps_per_row(launch_rows, sms)
+        # an explicit warps a row equal to the fill rule's launches what 0
+        # does: time each launch once
+        scheds = [default] + [s for s in scheds if s != default
+                              and s.warps_per_row != fill]
+        times = {}
+        for s in scheds:
+            t = time_launch(lambda s=s: run_case(ops, c, xs[c["m"]], None,
+                                                 schedule=s),
+                            iters=5, warmup=1)
+            times[(s.warps_per_row, s.u)] = t.best_us
+        d_us = times[(0, 2)]
+        (bw, bu), b_us = min(times.items(), key=lambda kv: kv[1])
+        sum_d += d_us
+        sum_b += b_us
+        r, k, lc = c["cols"].shape
+        rows.append({"kernel": c["kernel"], "group": c["group"],
+                     "bucket": c["bucket"], "rows": r, "K": k, "Lc": lc,
+                     "fill_wpr": fill, "default_us": d_us, "best_us": b_us,
+                     "best": {"warps_per_row": bw, "u": bu},
+                     "us": {f"{w},{u}": t for (w, u), t in times.items()}})
+        log(f"[autotune:d] {c['kernel']:28s} {c['group']:8s}/b{c['bucket']} "
+            f"rows {r:5d} K {k:2d} Lc {lc:3d}: default (fill {fill}, u 2) "
+            f"{d_us:6.1f} us, best (wpr {bw}, u {bu}) {b_us:6.1f} us "
+            f"({b_us / d_us:.3f}x) of {len(times)} schedules")
+    log(f"[autotune:d] layer 0, B=4: sum of defaults {sum_d:.1f} us, sum of "
+        f"bests {sum_b:.1f} us ({sum_b / sum_d:.3f}x)")
+    return {"buckets": rows, "default_sum_us": sum_d, "best_sum_us": sum_b}
+
+
+def autotune_pack_matvec(ctx, pack, caches) -> dict:
+    """(e) ``pack_to_device(autotune=True)`` attaches the plan (from the
+    search's warm cache), and ``espim_matvec`` on the tuned weights, at
+    a 1-D and a (n_in, 4) x, matches ``impl="ref"``."""
+    from repro_torch.autotune import TunedPlan
+    from repro_torch.kernels import ops
+    torch, dev = ctx["torch"], ctx["device"]
+    gen = torch.Generator(device=dev).manual_seed(ctx["seed"] + 11)
+    x = torch.randn((pack.n_cols, 4), generator=gen, device=dev)
+    out = {}
+    for quant in (None, "int8"):
+        w = ops.pack_to_device(pack, quant=quant, autotune=True,
+                               tune={"b": 4, "cache": caches[(quant, 4)]})
+        plan = w.schedule
+        need(isinstance(plan, TunedPlan) and plan.source == "cache"
+             and w.chunk_cols == plan.schedule.chunk_cols,
+             f"[autotune:e] {quant}: plan {plan}, chunk_cols {w.chunk_cols}")
+        errs = []
+        for xx in (x[:, 0], x):
+            got = ops.espim_matvec(w, xx)
+            want = ops.espim_matvec(w, xx, impl="ref")
+            err = float((got - want).abs().max())
+            tol = KERNEL_REL_TOL * float(want.abs().max()) + KERNEL_ABS_TOL
+            need(got.shape == want.shape and err <= tol,
+                 f"[autotune:e] {quant} x{tuple(xx.shape)}: max|kernel-ref| "
+                 f"{err:.3e} > {tol:.3e}")
+            errs.append(err)
+        out[quant or "fp32"] = {"plan": plan.to_provenance(),
+                                "max_abs_err": errs}
+        log(f"[autotune:e] pack_to_device(autotune=True, quant={quant}): "
+            f"plan {plan.schedule} from the {plan.source}; espim_matvec "
+            f"1-D / B=4 within tolerance of impl='ref' (max err "
+            f"{errs[0]:.2e} / {errs[1]:.2e})")
+    return out
+
+
+def autotune_example(ctx) -> dict:
+    """(f) ``examples/serve_sparse_llm_torch.py --autotune`` at its
+    reduced config, as a subprocess."""
+    cmd = [sys.executable, str(EXAMPLE), "--autotune", *EXAMPLE_ARGS]
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                              timeout=EXAMPLE_TIMEOUT_S,
+                              env=dict(os.environ, PYTHONPATH=str(SRC)))
+    except subprocess.TimeoutExpired:
+        raise SmokeFailure(f"[autotune:f] the example ran past "
+                           f"{EXAMPLE_TIMEOUT_S} s") from None
+    wall = time.perf_counter() - t0
+    need(proc.returncode == 0, f"[autotune:f] exit {proc.returncode}: "
+         f"{proc.stderr.strip()[-2000:]}")
+    hit = re.search(r"re-tuned: source=cache \(0 benchmarks", proc.stdout)
+    eq = re.search(r"(\d+)/(\d+) greedy tokens equal", proc.stdout)
+    tune = re.search(r"searched: (.*)", proc.stdout)
+    served = re.search(r"autotuned engine (.*)", proc.stdout)
+    need(bool(hit and eq and tune and served),
+         f"[autotune:f] the example's output lacks its autotune lines: "
+         f"{proc.stdout[-2000:]!r}")
+    log(f"[autotune:f] {EXAMPLE.relative_to(ROOT)} --autotune: "
+        f"{tune.group(1)}; re-tuned from the cache with 0 benchmarks; "
+        f"{served.group(1)} ({wall:.1f} s with the process start)")
+    return {"wall_s": wall, "searched": tune.group(1),
+            "served": served.group(1), "tokens_equal": int(eq.group(1)),
+            "tokens": int(eq.group(2))}
+
+
+def phase_autotune(ctx, params, sparse8, sparse_fp) -> dict:
+    """The schedule space, the search and the plan cache on the card, (a)
+    to (g); after every other phase's counter reads (a launch captured in
+    a timing graph counts once, at capture)."""
+    t0 = time.perf_counter()
+    rep = {"provenance": autotune_no_pin(ctx)}
+    pack = autotune_gate_pack(ctx, params)
+    rep["schedules"], chunked = autotune_schedules(ctx, pack)
+    rep["explicit_default"] = autotune_explicit_default(ctx, sparse8,
+                                                        sparse_fp)
+    rep["search"], caches = autotune_search(ctx, pack, chunked)
+    rep["buckets"] = autotune_buckets(ctx, sparse8, sparse_fp)
+    rep["pack"] = autotune_pack_matvec(ctx, pack, caches)
+    rep["example"] = autotune_example(ctx)
+    rep["seconds"] = time.perf_counter() - t0
+    log(f"[autotune] phase {rep['seconds']:.1f} s")
+    ctx["report"]["autotune"] = rep
+    return rep
+
+
 def run(ctx) -> list:
     """All phases after the build; returns the kernels line's entries."""
     from repro_torch.configs.registry import get_config
@@ -1773,7 +2190,9 @@ def run(ctx) -> list:
     launches_main.update({k: v for k, v in phase_ops(ctx, groups).items()
                           if k in ("espim_spmv_batched_res", "dense_mv",
                                    "flash_attention")})
-    return entries + phase_new_kernels(ctx, groups, launches_main)
+    entries += phase_new_kernels(ctx, groups, launches_main)
+    phase_autotune(ctx, params, sparse8, sparse_fp)
+    return entries
 
 
 def main(argv=None) -> int:

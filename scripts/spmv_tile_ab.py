@@ -10,17 +10,19 @@ library that instantiates variants the port itself does not launch:
   1-2 and 6 before the streaming body) at batch tiles 1, 4 and 8;
 * the streaming body (``espim_spmv_stream_kernel``, kernels 1-2) at
   several (U groups in flight a lane, warps a row), beside the port's own
-  entry points (``espim_spmv_batched_fp``, ``espim_spmv_batched_quant``),
-  which pick U and the warps a row themselves;
+  entry points (``espim_spmv_batched_fp``, ``espim_spmv_batched_quant``)
+  at their default schedule (the fill rule's warps a row, U = 2);
 * its GLU variant (``espim_spmv_stream_glu_kernel``, kernels 3-4) in
   design a (a team walks the gate row, then the up row) and design b
   (half the team's warps on each row) at several (U, warps a pair),
   beside the port's own entry points (``espim_spmv_batched_glu_fp``,
-  ``espim_spmv_batched_quant_glu``).
+  ``espim_spmv_batched_quant_glu``) at their default schedule.
 
 With ``--baseline`` it also builds another copy of ``espim_spmv.cu``
 (say, the parent commit's) as it stands and times its four batched entry
-points as the variant "baseline", in the same process and rounds.
+points as the variant "baseline", in the same process and rounds (a
+source whose entry points predate the schedule's ``wpr`` and ``u``
+arguments is called without them).
 
 Then times each on one layer's launches of kernels 1-4 (the fp32
 engine's QKV / O / down and gate+up buckets, and the int8 engine's) of
@@ -119,6 +121,15 @@ def shim_source() -> str:
     return "\n".join(lines)
 
 
+# the default schedule's (wpr, u) as the entry points take them
+DEFAULT_SCHED = (0, 2)
+
+
+def takes_schedule(cu: Path) -> bool:
+    """Whether a source's batched entry points take ``wpr`` and ``u``."""
+    return "int wpr, int u" in cu.read_text()
+
+
 def build_libs(out_dir: Path, baseline: Path | None):
     """nvcc the shim and, with ``baseline``, that source as it stands, both
     at once; returns (shim library, baseline library or None, seconds,
@@ -143,10 +154,14 @@ def build_libs(out_dir: Path, baseline: Path | None):
     build_s = time.perf_counter() - t0
     P, I = ctypes.c_void_p, ctypes.c_int
     libs = {}
-    for k, (_, path) in jobs.items():
+    for k, (cu, path) in jobs.items():
         lib = libs[k] = ctypes.CDLL(str(path))
+        sched = k == "shim" or takes_schedule(cu)
         for fn in ENTRY_POINTS:
-            getattr(lib, fn).argtypes = _SIGNATURES["espim_spmv"][fn]
+            argtypes = _SIGNATURES["espim_spmv"][fn]
+            # without the schedule: the same less (wpr, u) before stream
+            getattr(lib, fn).argtypes = (argtypes if sched else
+                                         argtypes[:-3] + argtypes[-1:])
             getattr(lib, fn).restype = I
     shim = libs["shim"]
     shim.ab_old.argtypes = [I, I, P, P, P, P, I, I, I, I, I, I, P]
@@ -180,24 +195,28 @@ def launch_us(torch, timer, run, n) -> list:
             for i in range(n)]
 
 
-def entry_call(lib, family, plane, c, v, x, out, b, stream) -> int:
-    """One launch through a library's own entry point (its tile, U, warps
-    a row and design)."""
+def entry_call(lib, family, plane, c, v, x, out, b, stream,
+               sched=DEFAULT_SCHED) -> int:
+    """One launch through a library's own entry point (its tile and
+    design) at the schedule ``sched`` — (wpr, u), or () for a source that
+    predates the schedule's arguments."""
     r, k, lc = c["cols"].shape
     cp, xp, op = c["cols"].data_ptr(), x.data_ptr(), out.data_ptr()
     if family == "spmv" and plane == "f32":
         return lib.espim_spmv_batched_fp(v, 0, cp, xp, op, r, k, lc, c["cc"],
-                                         c["m"], b, stream)
+                                         c["m"], b, *sched, stream)
     if family == "spmv":
         return lib.espim_spmv_batched_quant(v, 0, lc, cp, None, 1, xp, op, r,
-                                            k, lc, c["cc"], c["m"], b, stream)
+                                            k, lc, c["cc"], c["m"], b, *sched,
+                                            stream)
     if plane == "f32":
         return lib.espim_spmv_batched_glu_fp(v, 0, cp, xp, op, r // 2, k, lc,
-                                             c["cc"], c["m"], b, 0, stream)
+                                             c["cc"], c["m"], b, 0, *sched,
+                                             stream)
     return lib.espim_spmv_batched_quant_glu(v, 0, lc, cp,
                                             c["srow"].data_ptr(), xp, op,
                                             r // 2, k, lc, c["cc"], c["m"], b,
-                                            0, stream)
+                                            0, *sched, stream)
 
 
 def main(argv=None) -> int:
@@ -223,6 +242,8 @@ def main(argv=None) -> int:
     lib, base, build_s, regs = build_libs(
         ROOT / "build" / "repro_torch" / "ab",
         Path(args.baseline) if args.baseline else None)
+    base_sched = (DEFAULT_SCHED if args.baseline
+                  and takes_schedule(Path(args.baseline)) else ())
     print(f"[ab] {name} ({card}); shim built in {build_s:.1f} s", flush=True)
     for ln in regs:
         print(f"[ab]   {ln}")
@@ -261,9 +282,12 @@ def main(argv=None) -> int:
                 if key not in outs:
                     outs[key] = torch.empty((rows_out, b), device=dev)
                 x, o = xs[(c["m"], b)], outs[key]
-                if kind in ("port", "baseline"):
-                    rc = entry_call(lib if kind == "port" else base, family,
-                                    plane, c, v, x, o, b, stream)
+                if kind == "port":
+                    rc = entry_call(lib, family, plane, c, v, x, o, b,
+                                    stream)
+                elif kind == "baseline":
+                    rc = entry_call(base, family, plane, c, v, x, o, b,
+                                    stream, base_sched)
                 elif kind == "old":
                     rc = lib.ab_old(pi, var, v, c["cols"].data_ptr(),
                                     x.data_ptr(), o.data_ptr(), r, k, lc,

@@ -38,7 +38,6 @@ executes the dataflow and checks it against a numpy dot product.
 from __future__ import annotations
 
 import dataclasses
-import math
 from collections import deque
 
 import numpy as np
@@ -61,6 +60,12 @@ __all__ = [
     "decoder_layer_groups",
     "KernelSchedule",
     "DEFAULT_SCHEDULE",
+    "WARPS_PER_ROW",
+    "STREAM_U",
+    "EPILOGUE_U",
+    "FILL_WARPS",
+    "fill_warps_per_row",
+    "schedule_us",
     "schedule_legal",
     "enumerate_schedules",
 ]
@@ -575,29 +580,54 @@ def decoder_layer_groups(gated: bool = True, attn: bool = True,
 # Kernel schedule space (the autotuner's candidate set — DESIGN.md §15)
 #
 # SDDS's premise is that every scheduling decision can be made offline
-# because the sparsity is static.  The TPU adaptation has four such
-# decisions left as hand-picked constants: the column-chunk width (x-slab
-# VMEM residency and the chunk pass itself), the kernel's row/width block
-# sizes, and the gather formulation.  ``KernelSchedule`` names one point in
-# that space; ``enumerate_schedules`` + ``schedule_legal`` produce the
-# candidate set the autotuner ranks and benchmarks.
+# because the sparsity is static.  On Hopper the streaming SpMV kernels
+# (kernels 1-4 and 6, ``kernels/csrc/espim_spmv.cu``) leave three such
+# decisions: the column-chunk width (the offline chunk pass), the warps
+# that walk one row (or, for the GLU kernels, one gate+up pair) and U,
+# the groups of 4 slots a lane keeps in flight.  ``KernelSchedule`` names
+# one point in that space; ``enumerate_schedules`` + ``schedule_legal``
+# produce the candidate set the autotuner ranks and benchmarks.
 # --------------------------------------------------------------------------
+WARPS_PER_ROW = (0, 1, 2, 4)    # 0 = the launcher's fill rule (stream_wpr)
+STREAM_U = (1, 2, 4)            # U built for kernels 1 and 2
+EPILOGUE_U = (2,)               # U built for kernels 3, 4 (GLU) and 6 (res)
+FILL_WARPS = 32                 # warps an SM the fill rule aims at (kFillWarps)
+
+
+def fill_warps_per_row(rows: int, sms: int) -> int:
+    """The launcher's fill rule (``stream_wpr`` in ``espim_spmv.cu``):
+    4, 2 or 1 warps a row, the most that keep ``rows`` x warps within
+    ``FILL_WARPS`` warps an SM over ``sms`` SMs."""
+    fill = sms * FILL_WARPS
+    return 4 if 4 * rows <= fill else 2 if 2 * rows <= fill else 1
+
+
+def schedule_us(epilogue: str | None = None) -> tuple:
+    """The U values the kernels are built for: kernels 1-2 (``epilogue``
+    None) take ``STREAM_U``, the GLU and residual kernels ``EPILOGUE_U``."""
+    if epilogue not in (None, "glu", "residual"):
+        raise ValueError(f"unknown epilogue {epilogue!r}")
+    return STREAM_U if epilogue is None else EPILOGUE_U
+
+
 @dataclasses.dataclass(frozen=True)
 class KernelSchedule:
-    """One candidate SDDS kernel schedule for the chunked-ELL SpMV.
+    """One candidate SDDS kernel schedule for the chunked-ELL SpMV on
+    Hopper.
 
     ``chunk_cols`` is the offline chunk pass's slab width (re-chunking the
-    pack is part of applying the schedule); ``block_r``/``block_l`` are the
-    Pallas grid block sizes; ``gather`` picks the vectorized block-wide
-    gather or the serial per-l loop.  On the ``ref`` lowering only
-    ``chunk_cols`` is live — the rest ride along so one plan record covers
-    both backends.
+    pack is part of applying the schedule, never a launch knob);
+    ``warps_per_row`` is the warps that walk one row (one gate+up pair for
+    the GLU kernels): 1, 2 or 4, or 0 for the launcher's fill rule
+    (``fill_warps_per_row``); ``u`` is the groups of 4 slots a lane keeps
+    in flight.  The default is exactly the launch the kernels make with no
+    schedule.  On the ``ref`` lowering, and on the unbatched kernel 5 (the
+    warp-per-row body), only ``chunk_cols`` is live.
     """
 
     chunk_cols: int = 512
-    block_r: int = 128
-    block_l: int = 128
-    gather: str = "block"
+    warps_per_row: int = 0
+    u: int = 2
 
     def fingerprint(self) -> str:
         return plan_fingerprint(self)
@@ -605,66 +635,54 @@ class KernelSchedule:
     def effective_key(self, impl: str) -> tuple:
         """The knobs that actually change the launched computation for
         ``impl`` — candidates identical under this key are deduplicated
-        before benchmarking (the ref lowering ignores the block sizes)."""
+        before benchmarking.  ``ref`` (and kernel 5, which launches the
+        same under every schedule of one ``chunk_cols``) reads only
+        ``chunk_cols``; the streaming kernels read all three."""
         if impl == "ref":
             return ("ref", self.chunk_cols)
-        return ("pallas", self.chunk_cols, self.block_r, self.block_l,
-                self.gather)
+        return ("cuda", self.chunk_cols, self.warps_per_row, self.u)
 
 
 DEFAULT_SCHEDULE = KernelSchedule()
 
 
-def schedule_legal(s: KernelSchedule, *, r_pad: int, n_cols: int,
-                   quant: str | None = None) -> bool:
-    """Candidate legality for a pack of ``r_pad`` packed rows over
-    ``n_cols`` input columns, mirroring the kernels' own constraints:
+def schedule_legal(s: KernelSchedule, *, n_cols: int,
+                   epilogue: str | None = None) -> bool:
+    """Candidate legality for a pack over ``n_cols`` input columns,
+    launched by the kernel of ``epilogue`` (None: kernels 1-2; ``"glu"``:
+    3-4, where ``warps_per_row`` counts warps a pair; ``"residual"``: 6):
 
-    * the row block must shrink to a sublane-aligned divisor of R_pad
-      (``_pad_inputs`` raises below gcd 8);
+    * ``warps_per_row`` in ``WARPS_PER_ROW`` (0 = the fill rule);
+    * ``u`` among the values the kernel is built for (``schedule_us``):
+      the GLU and residual kernels are built for U = 2 only;
     * ``chunk_cols`` must be positive and is capped at ``n_cols`` by the
-      chunk pass, so wider candidates collapse onto the single-chunk one;
-    * nibble-packed int4 planes need an even ``block_l`` so nibble pairs
-      never straddle blocks (the kernel rounds up — an odd candidate is
-      just a duplicate of its even neighbour, so reject it);
-    * ``gather`` must name a kernel formulation.
+      chunk pass, so wider candidates collapse onto the single-chunk one.
+
+    The TPU's sublane rule (a row block of gcd >= 8 with R_pad) has no
+    counterpart: a Hopper launch takes any row count.
     """
-    if s.chunk_cols <= 0 or s.block_r <= 0 or s.block_l <= 0:
+    if s.chunk_cols <= 0 or s.chunk_cols > max(1, n_cols):
         return False
-    if s.gather not in ("block", "loop"):
-        return False
-    if math.gcd(r_pad, s.block_r) < 8:
-        return False
-    if s.chunk_cols > max(1, n_cols):
-        return False        # collapses onto the chunk_cols == n_cols point
-    if quant == "int4" and s.block_l % 2:
-        return False
-    return True
+    return (s.warps_per_row in WARPS_PER_ROW
+            and s.u in schedule_us(epilogue))
 
 
-def enumerate_schedules(*, r_pad: int, n_cols: int, quant: str | None = None,
-                        chunk_cols_options=(256, 512, 1024),
-                        block_r_options=(64, 128),
-                        block_l_options=(64, 128, 256),
-                        gathers=("block", "loop")) -> list:
+def enumerate_schedules(*, n_cols: int, epilogue: str | None = None,
+                        chunk_cols_options=(256, 512, 1024)) -> list:
     """All legal candidates over the knob grid, default schedule first.
     ``chunk_cols == n_cols`` (single chunk) is always included — on small
     matrices it is often the only legal slab width."""
     ccs = sorted({min(cc, max(1, n_cols))
                   for cc in (*chunk_cols_options, n_cols)})
-    out = []
-    for cc in ccs:
-        for br in block_r_options:
-            for bl in block_l_options:
-                for g in gathers:
-                    s = KernelSchedule(chunk_cols=cc, block_r=br,
-                                       block_l=bl, gather=g)
-                    if schedule_legal(s, r_pad=r_pad, n_cols=n_cols,
-                                      quant=quant):
-                        out.append(s)
-    default = DEFAULT_SCHEDULE
-    if schedule_legal(default, r_pad=r_pad, n_cols=n_cols, quant=quant):
-        out = [default] + [s for s in out if s != default]
+    # the default's knobs lead within each chunk width (ties in the
+    # tuner's cost model keep this order)
+    d = DEFAULT_SCHEDULE
+    ws = sorted(WARPS_PER_ROW, key=lambda w: (w != d.warps_per_row, w))
+    us = sorted(schedule_us(epilogue), key=lambda u: (u != d.u, u))
+    out = [KernelSchedule(chunk_cols=cc, warps_per_row=w, u=u)
+           for cc in ccs for w in ws for u in us]
+    if schedule_legal(d, n_cols=n_cols, epilogue=epilogue):
+        out = [d] + [s for s in out if s != d]
     return out
 
 

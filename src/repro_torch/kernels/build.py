@@ -41,15 +41,15 @@ _SIGNATURES = {
     "espim_spmv": {
         "espim_spmv": [_P, _I, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P],
         "espim_spmv_batched_res_fp": [_P, _I, _P, _P, _P, _P, _I, _I, _I,
-                                      _I, _I, _I, _P],
+                                      _I, _I, _I, _I, _I, _P],
         "espim_spmv_batched_fp": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I,
-                                  _I, _P],
+                                  _I, _I, _I, _P],
         "espim_spmv_batched_quant": [_P, _I, _I, _P, _P, _I, _P, _P, _I, _I,
-                                     _I, _I, _I, _I, _P],
+                                     _I, _I, _I, _I, _I, _I, _P],
         "espim_spmv_batched_glu_fp": [_P, _I, _P, _P, _P, _I, _I, _I, _I,
-                                      _I, _I, _I, _P],
+                                      _I, _I, _I, _I, _I, _P],
         "espim_spmv_batched_quant_glu": [_P, _I, _I, _P, _P, _P, _P, _I, _I,
-                                         _I, _I, _I, _I, _I, _P],
+                                         _I, _I, _I, _I, _I, _I, _I, _P],
     },
     "dense_mv": {
         "dense_mv": [_P, _I, _P, _I, _P, _I, _I, _I, _P],

@@ -56,6 +56,8 @@
 //     fp32, 8 B bf16, 4 B int8, 2 B int4), and issues U groups' loads
 //     before the first gather that needs them. The planes are loaded with
 //     L1::no_allocate, so L1 keeps the x rows the gathers hit.
+//     U is the schedule's (core/sdds.KernelSchedule.u): 1, 2 or 4 for
+//     kernels 1-2, 2 for kernels 3, 4 and 6; the wrappers' default is 2.
 //   - the batch tile BT equals B (instantiated for 1, 2, 4, 8; larger B
 //     loops over tiles of 8): BT accumulators a lane, BT * log2(32)
 //     shuffles a warp, and one x row of BT floats is one 4/8/16-byte load
@@ -65,8 +67,9 @@
 //     20-22 groups a chunk do not fill a warp, so the walk is flat and
 //     each lane carries its (chunk base, offset) forward by a compare and
 //     subtract: no per-slot division.
-//   - a warp a row, or 2 or 4 warps of one block when the launch has few
-//     rows (stream_wpr): a small bucket of long rows (down: 22 chunks) was
+//   - a warp a row, or 2 or 4 warps of one block, as the schedule says
+//     (KernelSchedule.warps_per_row); its default 0 asks for the fill
+//     rule, 2 or 4 warps when the launch has few rows (stream_wpr): a small bucket of long rows (down: 22 chunks) was
 //     a few long dependent chains on an idle card, while a large bucket
 //     already fills the card and only pays the extra reduce. The warps'
 //     partial sums meet in shared memory and are added in warp order (no
@@ -78,12 +81,13 @@
 //   - widths or pointers that do not meet the vector alignment (Lc not a
 //     multiple of 4, a plane not aligned) take a scalar slot walk inside
 //     the same kernel; the host picks the walk from the shapes and
-//     pointers (stream_mode), the tile from B and the warps a row from
-//     the rows.
+//     pointers (stream_mode) and the tile from B; the warps a row and U
+//     come from the entry point's wpr and u arguments (0 and 2 launch
+//     what the kernels launched before they took a schedule).
 // The GLU variant's output row r needs gate row r and up row r + Rg of the
 // same half-major plane. A team of 1, 2 or 4 warps owns a pair, and the
-// warps a pair come from stream_wpr over the pairs, the pairs counting as
-// rows (the engines' gate+up buckets hold 384-6944 pairs; on 132 SMs
+// warps a pair come from the schedule, its fill rule running stream_wpr
+// over the pairs, the pairs counting as rows (the engines' gate+up buckets hold 384-6944 pairs; on 132 SMs
 // those over 2112 take one warp a pair). It walks the gate row, reduces
 // it and parks the sum in shared memory, then walks the up row with the
 // same BT accumulator registers (design "a"; only BT accumulators are
@@ -668,12 +672,11 @@ int launch_stream_tile(const void* values, const int* cols, const float* x,
   return static_cast<int>(cudaGetLastError());
 }
 
-// groups of 4 slots in flight a lane (the A/B in PERF.md)
-constexpr int kStreamU = 2;
-
-// warps a row: as many (1, 2 or 4) as keep rows * warps within kFillWarps
-// an SM, so a launch of few rows still fills the card while a large one
-// keeps whole rows per warp (the A/B in PERF.md)
+// warps a row when the schedule leaves it to the launcher (wpr 0): as
+// many (1, 2 or 4) as keep rows * warps within kFillWarps an SM, so a
+// launch of few rows still fills the card while a large one keeps whole
+// rows per warp (the A/B in PERF.md; core/sdds.fill_warps_per_row is its
+// Python twin)
 constexpr int kFillWarps = 32;
 inline int stream_wpr(int rows) {
   int dev = 0, sms = 0;
@@ -681,6 +684,13 @@ inline int stream_wpr(int rows) {
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   const long long fill = 1LL * sms * kFillWarps;
   return 4LL * rows <= fill ? 4 : 2LL * rows <= fill ? 2 : 1;
+}
+
+// the schedule's warps a row (0: the fill rule), or 0 when it is not 1, 2
+// or 4
+inline int resolve_wpr(int wpr, int rows) {
+  if (wpr == 0) return stream_wpr(rows);
+  return wpr == 1 || wpr == 2 || wpr == 4 ? wpr : 0;
 }
 
 // f(std::integral_constant<int, BT>()) for the batch tile BT of B
@@ -698,19 +708,38 @@ int by_tile(int b, F&& f) {
   }
 }
 
+// f(std::integral_constant<int, U>()) for the schedule's U groups of 4
+// slots in flight a lane: U in {1, 2, 4} when ALL_U (kernels 1 and 2, the
+// ones the autotuner measures), else U = 2 only (kernels 3, 4 and 6, which
+// keep their template count); any other U is refused
+template <bool ALL_U, typename F>
+int by_u(int u, F&& f) {
+  if (u == 2) return f(std::integral_constant<int, 2>());
+  if constexpr (ALL_U) {
+    if (u == 1) return f(std::integral_constant<int, 1>());
+    if (u == 4) return f(std::integral_constant<int, 4>());
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 // kernels 1, 2 and (RES) 6: the tile from B, the slot walk from the shapes
-// and pointers, the warps a row from the rows
+// and pointers, the warps a row and U from the schedule
 template <int P, bool RES = false>
 int launch_stream(const void* values, const int* cols, const float* x,
                   const float* scale, const float* residual, float* out,
                   int rows, int n_chunks, int lc, int lv, int chunk_cols,
-                  int m, int b, int group_rows, void* stream) {
+                  int m, int b, int group_rows, int wpr, int u,
+                  void* stream) {
   const int mode = stream_mode<P>(values, cols, x, lc, lv, b);
-  const int wpr = stream_wpr(rows);
+  const int w = resolve_wpr(wpr, rows);
+  if (w == 0) return static_cast<int>(cudaErrorInvalidValue);
   return by_tile(b, [&](auto bt) {
-    return launch_stream_tile<P, decltype(bt)::value, kStreamU, RES>(
-        values, cols, x, scale, residual, out, rows, n_chunks, lc, lv,
-        chunk_cols, m, b, group_rows, mode, wpr, stream);
+    return by_u<!RES>(u, [&](auto uu) {
+      return launch_stream_tile<P, decltype(bt)::value, decltype(uu)::value,
+                                RES>(values, cols, x, scale, residual, out,
+                                     rows, n_chunks, lc, lv, chunk_cols, m, b,
+                                     group_rows, mode, w, stream);
+    });
   });
 }
 
@@ -734,14 +763,18 @@ int launch_glu_tile(const void* values, const int* cols, const float* x,
 template <int P>
 int launch_glu(const void* values, const int* cols, const float* x,
                const float* srow, float* out, int rows_g, int n_chunks,
-               int lc, int lv, int chunk_cols, int m, int b, int act,
-               void* stream) {
+               int lc, int lv, int chunk_cols, int m, int b, int act, int wpr,
+               int u, void* stream) {
   const int mode = stream_mode<P>(values, cols, x, lc, lv, b);
-  const int wpr = stream_wpr(rows_g);
+  const int w = resolve_wpr(wpr, rows_g);
+  if (w == 0) return static_cast<int>(cudaErrorInvalidValue);
   return by_tile(b, [&](auto bt) {
-    return launch_glu_tile<P, decltype(bt)::value, kStreamU, false>(
-        values, cols, x, srow, out, rows_g, n_chunks, lc, lv, chunk_cols, m,
-        b, mode, wpr, act, stream);
+    return by_u<false>(u, [&](auto uu) {
+      return launch_glu_tile<P, decltype(bt)::value, decltype(uu)::value,
+                             false>(values, cols, x, srow, out, rows_g,
+                                    n_chunks, lc, lv, chunk_cols, m, b, mode,
+                                    w, act, stream);
+    });
   });
 }
 
@@ -767,15 +800,17 @@ int espim_spmv(const void* values, int values_bf16, const void* cols,
 int espim_spmv_batched_fp(const void* values, int values_bf16,
                           const void* cols, const void* x, void* out,
                           int rows, int n_chunks, int lc, int chunk_cols,
-                          int m, int b, void* stream) {
+                          int m, int b, int wpr, int u, void* stream) {
   const int* c = static_cast<const int*>(cols);
   const float* xs = static_cast<const float*>(x);
   float* o = static_cast<float*>(out);
   if (values_bf16)
     return launch_stream<kBF16>(values, c, xs, nullptr, nullptr, o, rows,
-                                n_chunks, lc, lc, chunk_cols, m, b, 1, stream);
+                                n_chunks, lc, lc, chunk_cols, m, b, 1, wpr, u,
+                                stream);
   return launch_stream<kF32>(values, c, xs, nullptr, nullptr, o, rows,
-                             n_chunks, lc, lc, chunk_cols, m, b, 1, stream);
+                             n_chunks, lc, lc, chunk_cols, m, b, 1, wpr, u,
+                             stream);
 }
 
 // values f32 or bf16 (values_bf16 = 1) (R, K, Lc); residual f32 (R, B) in
@@ -784,7 +819,7 @@ int espim_spmv_batched_res_fp(const void* values, int values_bf16,
                               const void* cols, const void* x,
                               const void* residual, void* out, int rows,
                               int n_chunks, int lc, int chunk_cols, int m,
-                              int b, void* stream) {
+                              int b, int wpr, int u, void* stream) {
   const int* c = static_cast<const int*>(cols);
   const float* xs = static_cast<const float*>(x);
   const float* res = static_cast<const float*>(residual);
@@ -792,10 +827,10 @@ int espim_spmv_batched_res_fp(const void* values, int values_bf16,
   if (values_bf16)
     return launch_stream<kBF16, true>(values, c, xs, nullptr, res, o, rows,
                                       n_chunks, lc, lc, chunk_cols, m, b, 1,
-                                      stream);
+                                      wpr, u, stream);
   return launch_stream<kF32, true>(values, c, xs, nullptr, res, o, rows,
-                                   n_chunks, lc, lc, chunk_cols, m, b, 1,
-                                   stream);
+                                   n_chunks, lc, lc, chunk_cols, m, b, 1, wpr,
+                                   u, stream);
 }
 
 // codes int8 (R, K, Lc) or nibble-packed uint8 (R, K, lv); scales
@@ -804,16 +839,17 @@ int espim_spmv_batched_quant(const void* codes, int nibble, int lv,
                              const void* cols, const void* scales,
                              int group_rows, const void* x, void* out,
                              int rows, int n_chunks, int lc, int chunk_cols,
-                             int m, int b, void* stream) {
+                             int m, int b, int wpr, int u, void* stream) {
   const int* c = static_cast<const int*>(cols);
   const float* xs = static_cast<const float*>(x);
   const float* sc = static_cast<const float*>(scales);
   float* o = static_cast<float*>(out);
   if (nibble)
     return launch_stream<kNib>(codes, c, xs, sc, nullptr, o, rows, n_chunks,
-                               lc, lv, chunk_cols, m, b, group_rows, stream);
+                               lc, lv, chunk_cols, m, b, group_rows, wpr, u,
+                               stream);
   return launch_stream<kI8>(codes, c, xs, sc, nullptr, o, rows, n_chunks, lc,
-                            lc, chunk_cols, m, b, group_rows, stream);
+                            lc, chunk_cols, m, b, group_rows, wpr, u, stream);
 }
 
 // values f32 or bf16 (values_bf16 = 1) (2 * Rg, K, Lc) half-major;
@@ -821,16 +857,16 @@ int espim_spmv_batched_quant(const void* codes, int nibble, int lv,
 int espim_spmv_batched_glu_fp(const void* values, int values_bf16,
                               const void* cols, const void* x, void* out,
                               int rows_g, int n_chunks, int lc,
-                              int chunk_cols, int m, int b, int act,
-                              void* stream) {
+                              int chunk_cols, int m, int b, int act, int wpr,
+                              int u, void* stream) {
   const int* c = static_cast<const int*>(cols);
   const float* xs = static_cast<const float*>(x);
   float* o = static_cast<float*>(out);
   if (values_bf16)
     return launch_glu<kBF16>(values, c, xs, nullptr, o, rows_g, n_chunks, lc,
-                             lc, chunk_cols, m, b, act, stream);
+                             lc, chunk_cols, m, b, act, wpr, u, stream);
   return launch_glu<kF32>(values, c, xs, nullptr, o, rows_g, n_chunks, lc, lc,
-                          chunk_cols, m, b, act, stream);
+                          chunk_cols, m, b, act, wpr, u, stream);
 }
 
 // codes int8 / nibble uint8 (2 * Rg, K, Lc | lv); srow (2 * Rg,) f32;
@@ -839,16 +875,17 @@ int espim_spmv_batched_quant_glu(const void* codes, int nibble, int lv,
                                  const void* cols, const void* srow,
                                  const void* x, void* out, int rows_g,
                                  int n_chunks, int lc, int chunk_cols, int m,
-                                 int b, int act, void* stream) {
+                                 int b, int act, int wpr, int u,
+                                 void* stream) {
   const int* c = static_cast<const int*>(cols);
   const float* xs = static_cast<const float*>(x);
   const float* sr = static_cast<const float*>(srow);
   float* o = static_cast<float*>(out);
   if (nibble)
     return launch_glu<kNib>(codes, c, xs, sr, o, rows_g, n_chunks, lc, lv,
-                            chunk_cols, m, b, act, stream);
+                            chunk_cols, m, b, act, wpr, u, stream);
   return launch_glu<kI8>(codes, c, xs, sr, o, rows_g, n_chunks, lc, lc,
-                         chunk_cols, m, b, act, stream);
+                         chunk_cols, m, b, act, wpr, u, stream);
 }
 
 }  // extern "C"

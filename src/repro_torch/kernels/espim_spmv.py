@@ -23,7 +23,12 @@ of the value and index planes (see the source's header note).  Kernels
 their GLU forms) and kernel 6 (the residual form) run the source's
 streaming body, whose C launcher picks the batch tile from B and the
 vector or scalar slot walk from Lc and the planes' alignment; any width,
-alignment and B >= 1 is taken.  Kernels 1, 3 and 6 take float32 or
+alignment and B >= 1 is taken.  Their wrappers take the schedule's
+``wpr`` (warps a row, a pair for the GLU kernels; 0 = the launcher's
+fill rule) and ``u`` (groups of 4 slots in flight a lane: 1, 2 or 4 for
+kernels 1-2, 2 for kernels 3, 4 and 6); the defaults 0 and 2 launch what
+the kernels launched before they took a schedule, and any other value
+raises (``core/sdds.schedule_legal``).  Kernels 1, 3 and 6 take float32 or
 bfloat16 value planes (bf16 widened to f32 in the kernel) and x in f32
 (a bf16 x is widened exactly by the wrapper).
 """
@@ -31,6 +36,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core.sdds import WARPS_PER_ROW, schedule_us
 from repro_torch.kernels.build import load_library
 
 __all__ = ["LAUNCHES", "reset_launches", "ACT_IDS", "espim_spmv_cuda",
@@ -103,6 +109,18 @@ def _codes_layout(codes: torch.Tensor, cols: torch.Tensor) -> tuple[int, int]:
     return 1, lv
 
 
+def _schedule(wpr: int, u: int, epilogue: str | None = None) -> tuple:
+    """The (wpr, u) the C launcher takes; raises on a value no kernel is
+    built for (an illegal schedule never becomes the default)."""
+    if wpr not in WARPS_PER_ROW:
+        raise ValueError(f"warps a row must be one of {WARPS_PER_ROW}, "
+                         f"got {wpr}")
+    if u not in schedule_us(epilogue):
+        raise ValueError(f"u={u} is not built for this kernel (u in "
+                         f"{schedule_us(epilogue)})")
+    return int(wpr), int(u)
+
+
 def _check_rc(rc: int, name: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {rc}")
@@ -147,10 +165,11 @@ def _fp_values(values: torch.Tensor, cols: torch.Tensor) -> int:
 
 
 def espim_spmv_batched_cuda(values: torch.Tensor, cols: torch.Tensor,
-                            x: torch.Tensor, *, chunk_cols: int
-                            ) -> torch.Tensor:
+                            x: torch.Tensor, *, chunk_cols: int,
+                            wpr: int = 0, u: int = 2) -> torch.Tensor:
     """y (R, B) f32 = chunked-ELL(values f32 | bf16, cols) @ x (M, B); a
     bf16 x is widened to f32."""
+    sched = _schedule(wpr, u)
     xc, stream = _common(values, cols, x, chunk_cols)
     vbf16 = _fp_values(values, cols)
     r, k, lc = cols.shape
@@ -160,7 +179,7 @@ def espim_spmv_batched_cuda(values: torch.Tensor, cols: torch.Tensor,
         return out
     rc = load_library().espim_spmv_batched_fp(
         values.data_ptr(), vbf16, cols.data_ptr(), xc.data_ptr(),
-        out.data_ptr(), r, k, lc, int(chunk_cols), m, b, stream)
+        out.data_ptr(), r, k, lc, int(chunk_cols), m, b, *sched, stream)
     _check_rc(rc, "espim_spmv_batched")
     LAUNCHES["espim_spmv_batched"] += 1
     return out
@@ -168,10 +187,12 @@ def espim_spmv_batched_cuda(values: torch.Tensor, cols: torch.Tensor,
 
 def espim_spmv_batched_res_cuda(values: torch.Tensor, cols: torch.Tensor,
                                 x: torch.Tensor, residual: torch.Tensor, *,
-                                chunk_cols: int) -> torch.Tensor:
+                                chunk_cols: int, wpr: int = 0, u: int = 2
+                                ) -> torch.Tensor:
     """y (R, B) f32 = chunked-ELL(values f32 | bf16, cols) @ x (M, B) +
     residual, the residual (R, B) f32 in packed row order, added in the
     same launch after each row's reduce."""
+    sched = _schedule(wpr, u, "residual")
     xc, stream = _common(values, cols, x, chunk_cols,
                          extra=(("residual", residual),))
     vbf16 = _fp_values(values, cols)
@@ -187,7 +208,7 @@ def espim_spmv_batched_res_cuda(values: torch.Tensor, cols: torch.Tensor,
     rc = load_library().espim_spmv_batched_res_fp(
         values.data_ptr(), vbf16, cols.data_ptr(), xc.data_ptr(),
         residual.data_ptr(), out.data_ptr(), r, k, lc, int(chunk_cols), m, b,
-        stream)
+        *sched, stream)
     _check_rc(rc, "espim_spmv_batched_res")
     LAUNCHES["espim_spmv_batched_res"] += 1
     return out
@@ -196,10 +217,12 @@ def espim_spmv_batched_res_cuda(values: torch.Tensor, cols: torch.Tensor,
 def espim_spmv_batched_quant_cuda(codes: torch.Tensor, cols: torch.Tensor,
                                   scales: torch.Tensor | None,
                                   x: torch.Tensor, *, chunk_cols: int,
-                                  group_rows: int = 1) -> torch.Tensor:
+                                  group_rows: int = 1, wpr: int = 0,
+                                  u: int = 2) -> torch.Tensor:
     """y (R, B) f32 from int8 / nibble-packed codes; times
     ``scales[r // group_rows]`` after the reduce, or unscaled (the
     code-domain accumulator) when ``scales`` is None."""
+    sched = _schedule(wpr, u)
     xc, stream = _common(codes, cols, x, chunk_cols,
                          extra=(("scales", scales),))
     nibble, lv = _codes_layout(codes, cols)
@@ -218,7 +241,7 @@ def espim_spmv_batched_quant_cuda(codes: torch.Tensor, cols: torch.Tensor,
         codes.data_ptr(), nibble, lv, cols.data_ptr(),
         None if scales is None else scales.data_ptr(), max(1, group_rows),
         xc.data_ptr(), out.data_ptr(), r, k, lc, int(chunk_cols), m, b,
-        stream)
+        *sched, stream)
     _check_rc(rc, "espim_spmv_batched_quant")
     LAUNCHES["espim_spmv_batched_quant"] += 1
     return out
@@ -233,9 +256,11 @@ def _act_id(act: str) -> int:
 
 def espim_spmv_batched_glu_cuda(values: torch.Tensor, cols: torch.Tensor,
                                 x: torch.Tensor, *, chunk_cols: int,
-                                act: str = "silu") -> torch.Tensor:
+                                act: str = "silu", wpr: int = 0, u: int = 2
+                                ) -> torch.Tensor:
     """act(gate) * up (Rg, B) f32 from a half-major f32 or bf16 gate+up
-    pack."""
+    pack; ``wpr`` counts warps a pair."""
+    sched = _schedule(wpr, u, "glu")
     xc, stream = _common(values, cols, x, chunk_cols)
     vbf16 = _fp_values(values, cols)
     rg = _halves(cols)
@@ -247,7 +272,8 @@ def espim_spmv_batched_glu_cuda(values: torch.Tensor, cols: torch.Tensor,
         return out
     rc = load_library().espim_spmv_batched_glu_fp(
         values.data_ptr(), vbf16, cols.data_ptr(), xc.data_ptr(),
-        out.data_ptr(), rg, k, lc, int(chunk_cols), m, b, act_id, stream)
+        out.data_ptr(), rg, k, lc, int(chunk_cols), m, b, act_id, *sched,
+        stream)
     _check_rc(rc, "espim_spmv_batched_glu")
     LAUNCHES["espim_spmv_batched_glu"] += 1
     return out
@@ -256,9 +282,12 @@ def espim_spmv_batched_glu_cuda(values: torch.Tensor, cols: torch.Tensor,
 def espim_spmv_batched_quant_glu_cuda(codes: torch.Tensor,
                                       cols: torch.Tensor, srow: torch.Tensor,
                                       x: torch.Tensor, *, chunk_cols: int,
-                                      act: str = "silu") -> torch.Tensor:
+                                      act: str = "silu", wpr: int = 0,
+                                      u: int = 2) -> torch.Tensor:
     """act(srow·gate) * (srow·up) (Rg, B) f32 from a half-major int8 /
-    nibble-packed gate+up pack and per-row scales ``srow`` (2*Rg,)."""
+    nibble-packed gate+up pack and per-row scales ``srow`` (2*Rg,);
+    ``wpr`` counts warps a pair."""
+    sched = _schedule(wpr, u, "glu")
     xc, stream = _common(codes, cols, x, chunk_cols, extra=(("srow", srow),))
     nibble, lv = _codes_layout(codes, cols)
     rg = _halves(cols)
@@ -274,7 +303,7 @@ def espim_spmv_batched_quant_glu_cuda(codes: torch.Tensor,
     rc = load_library().espim_spmv_batched_quant_glu(
         codes.data_ptr(), nibble, lv, cols.data_ptr(), srow.data_ptr(),
         xc.data_ptr(), out.data_ptr(), rg, k, lc, int(chunk_cols), m, b,
-        act_id, stream)
+        act_id, *sched, stream)
     _check_rc(rc, "espim_spmv_batched_quant_glu")
     LAUNCHES["espim_spmv_batched_quant_glu"] += 1
     return out

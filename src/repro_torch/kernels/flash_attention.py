@@ -22,7 +22,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.build import load_library
-from repro_torch.kernels.ops import _use_kernel
+from repro_torch.kernels.ops import _resolve, _use_kernel
 
 __all__ = ["LAUNCHES", "reset_launches", "HEAD_DIMS", "pad_heads",
            "flash_attention_cuda", "flash_attention"]
@@ -108,6 +108,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """(BH, S, hd) attention: the kernel for CUDA tensors (``impl=None``
     or ``"cuda"``), the plain masked softmax for CPU tensors or
     ``impl="ref"``."""
-    if _use_kernel(impl, q, k, v):
+    if _use_kernel(_resolve(impl), q, k, v):
         return flash_attention_cuda(q, k, v, causal=causal)
     return _ref.flash_attention_ref(q, k, v, causal)

@@ -32,7 +32,9 @@ def test_importing_every_module_leaves_jax_and_repro_out():
               "kernels.flash_attention", "core.espim_linear",
               "core.pim_sim", "core.energy", "models.factory",
               "runtime.fault_tolerance", "telemetry.timeline",
-              "serve.snapshot", "serve.faults", "launch.serve"):
+              "serve.snapshot", "serve.faults", "launch.serve",
+              "telemetry.profile", "telemetry.regression", "autotune.cache",
+              "autotune.tuner"):
         assert f"repro_torch.{m}" in mods
     code = (
         "import importlib, sys\n"

@@ -110,10 +110,19 @@ def test_corrupted_pack_raises_as_reference_does(corrupt):
         0, 0, 0] == packs[0].cols[0, 0, 0]
 
 
-def test_pack_to_device_autotune_is_not_ported():
+def test_pack_to_device_autotune_returns_a_plan():
+    """``autotune=True`` tunes on the given device and attaches the plan;
+    the chunked pack keeps its own width, and the weights still match the
+    reference's upload."""
+    from repro_torch.autotune import PlanCache, TunedPlan
     pack = PSF.pack_ell_chunked(_matrix(), chunk_cols=128)
-    with pytest.raises(NotImplementedError, match="Queue 1, 'Autotune'"):
-        ops.pack_to_device(pack, autotune=True, device="cpu")
+    w = ops.pack_to_device(pack, autotune=True, device="cpu",
+                           tune={"b": 2, "cache": PlanCache(), "iters": 1})
+    assert isinstance(w.schedule, TunedPlan)
+    assert w.schedule.source == "search"
+    assert w.schedule.schedule.chunk_cols == w.chunk_cols == 128
+    want = RO.pack_to_device(RSF.pack_ell_chunked(_matrix(), chunk_cols=128))
+    assert np.array_equal(_bits(w.values), _bits(want.values))
 
 
 @pytest.mark.parametrize("quant", QUANTS)

@@ -2,8 +2,8 @@
 launcher (``python -m repro_torch.launch.serve``, the twin of
 ``repro.launch.serve``) and the serving example
 (``examples/serve_sparse_llm_torch.py``, the twin of
-``examples/serve_sparse_llm.py``) with its default quant and with
-``--quant int4 --sparse-attn``.  Without ``--device`` both ask for CUDA
+``examples/serve_sparse_llm.py``) with its default quant, with
+``--quant int4 --sparse-attn`` and with ``--autotune``.  Without ``--device`` both ask for CUDA
 and raise here, as every entry point of the port does."""
 import importlib.util
 from pathlib import Path
@@ -57,6 +57,13 @@ def test_example_runs_to_its_end(argv, capsys, tmp_path):
     assert Path(trace).stat().st_size > 0
 
 
-def test_example_autotune_is_not_ported():
-    with pytest.raises(NotImplementedError, match="'Autotune'"):
-        _example().main(["--autotune", "--device", "cpu"])
+def test_example_autotune_runs_to_its_end(capsys):
+    """``--autotune`` searches the layer-0 gate matrix, re-tunes it off
+    the warm cache with zero benchmarks, and serves a second engine under
+    the tuned chunking with every greedy token equal to the default's."""
+    _example().main(["--autotune", "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "autotune (256x128 gate matrix, quant=int8, on cpu):" in out
+    assert "re-tuned: source=cache (0 benchmarks" in out
+    assert "autotuned engine (chunk_cols=" in out
+    assert "96/96 greedy tokens equal the default engine's" in out
