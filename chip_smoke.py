@@ -9,7 +9,8 @@ port's paths at the full width of ``llama7b-espim`` (random weights from
 ``--seed``): int8 ESPIM decode through ``ServeEngine`` (depth cut to 2
 layers), the standalone projection layers, the dense serving mode and the
 fault ladder's dense rungs, the engine's fault, crash and overload
-drills, and the ops of the other kernels — then checks them:
+drills, the ops of the other kernels, and the other model families at
+their own published widths — then checks them:
 
 1. build: nvcc the kernels, print the build time and ptxas' report, and
    the tensor-core instructions in the flash library's SASS (HGMMA for
@@ -80,7 +81,26 @@ drills, and the ops of the other kernels — then checks them:
    time, the plain version's, a library call of the same function that
    the port never makes (each timed by CUDA events around replays of a
    captured CUDA graph), and the least time the card could take;
-10. autotune, after every counter read (a launch inside a captured timing
+10. families: each other family's assigned arch at its published widths
+   and vocab, bf16 params from ``init_params`` with the float32 leaves
+   kept (phi3.5-moe at 2 of 32 layers, zamba2 at 12 of 54, qwen2-vl-2b,
+   whisper-small and rwkv6-1.6b whole): (a) ``prefill_fn`` (kernel 8 in
+   every forward and in Whisper's encoder; its counter zeroed before
+   and read after, and it must read one launch per equal-length
+   attention) against teacher-forced decode in fp32, within 5e-5 of
+   max|forward| (MoE with a capacity factor that drops nothing; Whisper
+   primed from seeded frames; rwkv6 at 4 layers, its whole depth
+   reported beside a float64 control); (b) decode at depth 1 (zamba2:
+   6) on the card against the CPU in fp32; (c) rwkv6 and zamba2 through
+   the serving prefiller's chunks against token replay; (d) kernel 8 at
+   the slice's shapes (Whisper's encoder at S = 1500, hd 64, full; the
+   GQA forwards of phi3.5 and qwen2-vl and zamba2's hd 80, causal, S =
+   512) against its plain version, fp32 and bf16, timed beside SDPA and
+   the bound; (e) ``ServeEngine(sparse=None)`` on the 8-request trace,
+   replay or chunked prefill as the family has it, and one decode
+   step's profile; (f) the launcher for each family (phi3.5 at 2
+   layers), all five as subprocesses at once;
+11. autotune, after every counter read (a launch inside a captured timing
    graph counts once, at capture): no ``ESPIM_IMPL`` pin but ``cuda`` and
    ``ops.provenance()`` naming backend ``cuda``; layer 0's w_gate (11008 x
    4096 at 90% sparsity) under every legal schedule of kernels 1-2 (chunk
@@ -192,6 +212,34 @@ AUTOTUNE_CANDIDATES = 12                # candidates a search times
 EXAMPLE = ROOT / "examples" / "serve_sparse_llm_torch.py"
 EXAMPLE_ARGS: tuple = ()
 EXAMPLE_TIMEOUT_S = 600
+# the families phase: each family's assigned arch at its published widths
+# and vocab, bf16 params with the float32 leaves kept, depth cut where
+# the weights or the phase's time force it: (arch, depth of the phase's
+# model or None for whole, depth of the card-vs-CPU check, depth of the
+# fp32 decode-vs-forward and chunked-vs-replay checks or None for the
+# phase's).  rwkv6 with random weights amplifies a rounding difference
+# ~1.5x a layer, and its WKV recurrence stays float32 at any model dtype
+# (as the reference's), so at 24 layers forward and decode differ by
+# ~1e-2 of max|logits| even with every other op in float64 (reported by
+# the phase); its fp32 checks run at 4 layers
+FAMILIES = (("phi3.5-moe-42b-a6.6b", 2, 1, None),
+            ("qwen2-vl-2b", None, 1, None),
+            ("whisper-small", None, 1, None),
+            ("rwkv6-1.6b", None, 1, 4),
+            ("zamba2-2.7b", 12, 6, None))
+FAMILY_B, FAMILY_S = 2, 8               # teacher-forced tokens of (a)
+FAMILY_CPU_STEPS = 4                    # decode steps of (b)
+# (a) and (c): the JAX package's decode-vs-forward bound,
+# max|got - want| / max|want| (tests/test_models_smoke.py:64)
+FAMILY_REL_TOL = 5e-5
+FAMILY_PROMPT = 21                      # (c): two chunks of 16, one padded
+FAMILY_CHUNK = 16
+FAMILY_ENGINE_RUNS = 1                  # measured serves a family
+FAMILY_FLASH_SEQ = 512                  # (d): the forwards' S
+# (f): the launcher per family; phi3.5-moe's 32 layers (84 GB in bf16)
+# do not fit the card, so it serves 2
+FAMILY_LAUNCHER_LAYERS = {"phi3.5-moe-42b-a6.6b": 2}
+FAMILY_LAUNCHER_ARGS = ("--requests", "4", "--max-new-tokens", "8")
 
 # kernel -> (pallas_call it replaces, Pallas function, port source)
 _SPMV_CU = "src/repro_torch/kernels/csrc/espim_spmv.cu"
@@ -381,8 +429,10 @@ def serve(engine_mod, eng, prompts, max_new: int, inject=None):
     return reqs, stats, time.perf_counter() - t0
 
 
-def drive_engine(ctx, label, cfg, params, sparse, prompts, kernels) -> dict:
-    """Warm up, then ``ENGINE_RUNS`` times: zero the launch counters, serve
+def drive_engine(ctx, label, cfg, params, sparse, prompts, kernels,
+                 runs: int = None) -> dict:
+    """Warm up, then ``runs`` (``ENGINE_RUNS``) times: zero the launch
+    counters, serve
     ``prompts``, read the counters; every kernel in ``kernels`` must have
     launched in every run, and a dense engine (``sparse=None``) must have
     launched none.  Reports each run's tok/s, TTFT and TPOT p50, their
@@ -393,8 +443,9 @@ def drive_engine(ctx, label, cfg, params, sparse, prompts, kernels) -> dict:
     eng = E.ServeEngine(cfg, params, sparse=sparse, device=ctx["device"],
                         **ENGINE_KW)
     serve(E, eng, [prompts[0][:3]], 2)                 # warm-up request
+    n_runs = runs or ENGINE_RUNS
     runs = []
-    for _ in range(ENGINE_RUNS):
+    for _ in range(n_runs):
         eng.reset_stats()
         reset_launches()
         reqs, stats, wall = serve(E, eng, prompts, MAX_NEW)
@@ -439,7 +490,7 @@ def drive_engine(ctx, label, cfg, params, sparse, prompts, kernels) -> dict:
         return "/".join(format(r[key] * scale, fmt) for r in runs)
 
     log(f"[engine:{label}] {len(prompts)} requests, "
-        f"{stats.tokens_generated} tokens per run, {ENGINE_RUNS} runs: "
+        f"{stats.tokens_generated} tokens per run, {n_runs} runs: "
         f"{spread('tok_per_s', 1, '.1f')} tok/s; TTFT p50 "
         f"{spread('ttft_p50_s', 1e3, '.1f')} ms; TPOT p50 "
         f"{spread('tpot_p50_s', 1e3, '.2f')} ms; {stats.decode_steps} decode "
@@ -495,7 +546,7 @@ def decode_step_profile(ctx, label, cfg, step_fn, b=4, reps=10) -> dict:
     ``torch.profiler`` over ``reps`` steps, the device-busy share, the
     device kernels per step, the SpMV kernels' share of device time and
     the device µs per step of the kernels that take the most."""
-    from repro_torch.models.transformer import init_cache
+    from repro_torch.models.factory import init_cache
     torch, dev = ctx["torch"], ctx["device"]
     cache = init_cache(cfg, b, 64, device=dev)
     cache["len"] = torch.full((b,), 32, dtype=torch.int32, device=dev)
@@ -989,16 +1040,13 @@ def phase_projection(ctx, params) -> dict:
 # --------------------------------------------------------------------------
 # the dense serving mode and the fault ladder's dense rungs
 # --------------------------------------------------------------------------
-def _cast_tree(tree: dict, **to) -> dict:
-    return {k: (_cast_tree(v, **to) if isinstance(v, dict) else v.to(**to))
-            for k, v in tree.items()}
-
-
-def _roll(torch, cfg, params, toks, device):
-    """Teacher-forced dense decode of ``toks`` (B, S) from an empty cache
-    -> float32 logits (B, S, V)."""
-    from repro_torch.models.transformer import decode_step, init_cache
-    cache = init_cache(cfg, toks.shape[0], toks.shape[1] + 4, device=device)
+def _roll(torch, cfg, params, toks, device, cache=None):
+    """Teacher-forced decode of ``toks`` (B, S) from an empty cache (or
+    ``cache``, e.g. Whisper's primed one) -> float32 logits (B, S, V)."""
+    from repro_torch.models.factory import decode_step, init_cache
+    if cache is None:
+        cache = init_cache(cfg, toks.shape[0], toks.shape[1] + 4,
+                           device=device)
     outs = []
     for s in range(toks.shape[1]):
         lg, cache = decode_step(cfg, params, cache,
@@ -1012,14 +1060,15 @@ def dense_parity(ctx, cfg, params, cfg_fp, params_fp, steps=4, b=4) -> dict:
     fp32 (the fp engine's 1-layer config, its params cast to fp32); then
     the int8 KV cache against the bf16 one on the card (the 2-layer bf16
     model, 8 steps)."""
+    from repro_torch.convert import cast_params
     torch, dev = ctx["torch"], ctx["device"]
     gen = torch.Generator().manual_seed(ctx["seed"] + 7)
     toks = torch.randint(0, cfg.vocab_size, (b, 2 * steps), generator=gen,
                          dtype=torch.int32)
     cfg32 = cfg_fp.replace(param_dtype="float32", compute_dtype="float32")
-    p32 = _cast_tree(params_fp, dtype=torch.float32)
+    p32 = cast_params(params_fp, dtype=torch.float32)
     card = _roll(torch, cfg32, p32, toks[:, :steps], dev).cpu()
-    cpu = _roll(torch, cfg32, _cast_tree(p32, device="cpu"),
+    cpu = _roll(torch, cfg32, cast_params(p32, device="cpu"),
                 toks[:, :steps], "cpu")
     del p32
     err = float((card - cpu).abs().max())
@@ -1722,6 +1771,377 @@ def phase_new_kernels(ctx, groups, launches_main) -> list:
 
 
 # --------------------------------------------------------------------------
+# the other model families: forward on kernel 8, decode, serving
+# --------------------------------------------------------------------------
+def _depth(cfg, n):
+    """``cfg`` cut to ``n`` layers (Whisper: ``n`` encoder layers too)."""
+    if n is None:
+        return cfg
+    kw = {"n_layers": n}
+    if cfg.encoder_layers:
+        kw["encoder_layers"] = n
+    return cfg.replace(**kw)
+
+
+def _depth_params(params: dict, n) -> dict:
+    """The first ``n`` layers of every stacked layer tree."""
+    def cut(tree):
+        return {k: (cut(v) if isinstance(v, dict) else v[:n])
+                for k, v in tree.items()}
+    return {k: (cut(v) if k in ("layers", "enc_layers", "dec_layers")
+                else v) for k, v in params.items()}
+
+
+def kernel8_expected(cfg) -> int:
+    """Kernel 8 launches of one ``prefill_fn`` (and, for Whisper, one
+    ``prime_cross``): one per equal-length attention of the forward."""
+    if cfg.family == "audio":       # prime_cross's encoder + the forward's
+        return 2 * cfg.encoder_layers + cfg.n_layers
+    if cfg.family == "hybrid":
+        return cfg.n_layers // cfg.attn_every
+    if cfg.family == "ssm":
+        return 0
+    return cfg.n_layers
+
+
+def _primed_cache(cfg, params, b, max_len, frames, device):
+    from repro_torch.models import factory, whisper
+    cache = factory.init_cache(cfg, b, max_len, device=device)
+    if cfg.family == "audio":
+        cache = whisper.prime_cross(cfg, params, cache, frames.to(device))
+    return cache
+
+
+def family_decode_vs_forward(ctx, cfg, params, toks, frames) -> dict:
+    """(a) ``prefill_fn`` (kernel 8) against teacher-forced decode, fp32;
+    kernel 8's counter zeroed before the forward and the priming and
+    read after."""
+    from repro_torch.serve.serve_step import prefill_fn
+    torch, dev = ctx["torch"], ctx["device"]
+    batch = {"tokens": toks.to(dev)}
+    if frames is not None:
+        batch["frames"] = frames.to(dev)
+    reset_launches()
+    fwd = prefill_fn(cfg, params, batch).float()
+    cache = _primed_cache(cfg, params, toks.shape[0], toks.shape[1] + 4,
+                          frames, dev)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    want = kernel8_expected(cfg)
+    need(launches["flash_attention"] == want
+         and sum(launches.values()) == want,
+         f"[families:{cfg.name}] launches {launches}, want kernel 8 "
+         f"{want} times and no other kernel")
+    dec = _roll(torch, cfg, params, toks, dev, cache)
+    err = float((dec - fwd).abs().max() / fwd.abs().max())
+    need(bool(torch.isfinite(fwd).all()) and err <= FAMILY_REL_TOL,
+         f"[families:{cfg.name}] decode vs forward {err:.3e} > "
+         f"{FAMILY_REL_TOL}")
+    return {"rel_err": err, "kernel8_launches": launches["flash_attention"],
+            "kernel8_expected": want}
+
+
+def family_conditioning(ctx, cfg, params, toks) -> dict:
+    """Decode against forward at the model's whole depth, in fp32 and in
+    float64 (reported, not required): how far two orders of the same
+    sums drift apart through the layers.  The float64 run keeps the
+    float32 leaves and rwkv6's float32 WKV recurrence."""
+    from repro_torch.convert import cast_params
+    from repro_torch.serve.serve_step import prefill_fn
+    torch, dev = ctx["torch"], ctx["device"]
+    out = {}
+    for name, dt in (("fp32", "float32"), ("fp64", "float64")):
+        c = cfg.replace(param_dtype=dt, compute_dtype=dt)
+        p = cast_params(params, dtype=getattr(torch, dt))
+        fwd = prefill_fn(c, p, {"tokens": toks.to(dev)}).double()
+        dec = _roll(torch, c, p, toks, dev).double()
+        out[name] = float((dec - fwd).abs().max() / fwd.abs().max())
+        del p
+    return out
+
+
+def family_card_vs_cpu(ctx, cfg, params, toks, frames, depth) -> dict:
+    """(b) teacher-forced fp32 decode at depth ``depth`` on the card and
+    on the CPU."""
+    from repro_torch.convert import cast_params
+    torch, dev = ctx["torch"], ctx["device"]
+    cfg_d, p_d = _depth(cfg, depth), _depth_params(params, depth)
+    toks = toks[:, :FAMILY_CPU_STEPS]
+    out = {}
+    for where, p in ((dev, p_d), ("cpu", cast_params(p_d, device="cpu"))):
+        cache = _primed_cache(cfg_d, p, toks.shape[0], toks.shape[1] + 4,
+                              frames, where)
+        out[str(where)] = _roll(torch, cfg_d, p, toks, where, cache).cpu()
+    card, cpu = out[str(dev)], out["cpu"]
+    err, scale = float((card - cpu).abs().max()), float(cpu.abs().max())
+    need(bool(torch.isfinite(card).all())
+         and err <= DENSE_LOGIT_REL_TOL * scale,
+         f"[families:{cfg.name}] card vs CPU max|diff| {err:.3e} > "
+         f"{DENSE_LOGIT_REL_TOL}*{scale:.3e}")
+    return {"depth": cfg_d.n_layers, "max_abs": err, "cpu_max_abs": scale}
+
+
+def family_chunked_vs_replay(ctx, cfg, params, prompt) -> dict:
+    """(c) the serving prefiller's chunks (the last padded), then one
+    decode step, against token replay: the last prompt position's and the
+    first decode step's logits, fp32."""
+    from repro_torch.models import factory
+    from repro_torch.serve.paged_cache import classify_cache
+    from repro_torch.serve.prefill import ChunkedPrefiller
+    torch, dev = ctx["torch"], ctx["device"]
+    n = FAMILY_PROMPT
+    max_len = n + 8
+    proto = factory.init_cache(cfg, 1, max_len, device="meta")
+    pf = ChunkedPrefiller(cfg, FAMILY_CHUNK, max_len,
+                          *classify_cache(proto, max_len), device=dev)
+    cache, pos = pf.proto, 0
+    while pos < n:
+        logits, cache, n_valid = pf.run_chunk(params, cache, prompt[:n], pos)
+        pos += n_valid
+    got = [logits[:, n_valid - 1].float()]
+    lg, _ = factory.decode_step(cfg, params, cache,
+                                {"tokens": torch.tensor([[prompt[n]]],
+                                                        device=dev)})
+    got.append(lg[:, 0].float())
+    replay = _roll(torch, cfg, params, torch.tensor([prompt[:n + 1]]), dev)
+    errs = [float((g - w).abs().max() / w.abs().max())
+            for g, w in zip(got, (replay[:, n - 1], replay[:, n]))]
+    need(max(errs) <= FAMILY_REL_TOL,
+         f"[families:{cfg.name}] chunked vs replay {errs} > "
+         f"{FAMILY_REL_TOL}")
+    return {"last_prompt_rel": errs[0], "first_decode_rel": errs[1],
+            "chunks": -(-n // FAMILY_CHUNK)}
+
+
+def family_engine(ctx, cfg, params) -> dict:
+    """(e) ``ServeEngine(sparse=None)`` on the smoke trace (bf16, paged,
+    greedy), then one decode step's profile at B = 4."""
+    from repro_torch.models import factory
+    torch = ctx["torch"]
+    rng = torch.Generator().manual_seed(ctx["seed"] + 12)
+    prompts = [torch.randint(1, cfg.vocab_size, (n,), generator=rng).tolist()
+               for n in PROMPT_LENS]
+    eng = drive_engine(ctx, f"{cfg.name} bf16", cfg, params, None, prompts,
+                       (), runs=FAMILY_ENGINE_RUNS)
+    chunked = factory.supports_chunked_prefill(cfg)
+    need((eng["prefill_chunks"] > 0) == chunked,
+         f"[families:{cfg.name}] {eng['prefill_chunks']} prefill chunks; "
+         f"the family prefills by {'chunks' if chunked else 'replay'}")
+    eng["prefill"] = "chunked" if chunked else "replay"
+    step = decode_step_profile(
+        ctx, f"decode_step {cfg.name} bf16", cfg,
+        lambda c, b: factory.decode_step(cfg, params, c, b))
+    return {"engine": {k: v for k, v in eng.items() if k != "outputs"},
+            "step": step}
+
+
+def _fold(torch, t, h):
+    """(B, S, KV, hd) repeated to h heads -> (B·h, S, hd)."""
+    from repro_torch.models.layers import repeat_kv
+    t = repeat_kv(t, h // t.shape[2])
+    return t.transpose(1, 2).reshape(-1, t.shape[1], t.shape[3])
+
+
+def family_kernel8(ctx) -> list:
+    """(d) kernel 8 at this slice's shapes through ``layers.flash_attention``
+    (GQA repeat and head fold included) against the plain version on the
+    repeated heads, twice for identical bits; then the launch alone on
+    the folded heads timed beside the plain version and SDPA."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.ref import flash_attention_ref
+    from repro_torch.models.layers import flash_attention
+    torch, dev, timer, bw = (ctx["torch"], ctx["device"], ctx["timer"],
+                             ctx["bandwidth"])
+    gen = torch.Generator(device=dev).manual_seed(ctx["seed"] + 13)
+    whisper = get_config("whisper-small")
+    shapes = [("whisper encoder", whisper, whisper.encoder_seq, False)]
+    shapes += [(f"{a.split('-')[0]} forward", get_config(a),
+                FAMILY_FLASH_SEQ, True)
+               for a in ("phi3.5-moe-42b-a6.6b", "qwen2-vl-2b",
+                         "zamba2-2.7b")]
+    rows = []
+    for label, cfg, seq, causal in shapes:
+        h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+        for dt, dname in ((torch.float32, "fp32"), (torch.bfloat16, "bf16")):
+            q = torch.randn((1, seq, h, hd), generator=gen, device=dev).to(dt)
+            k, v = (torch.randn((1, seq, kvh, hd), generator=gen,
+                                device=dev).to(dt) for _ in range(2))
+            got = flash_attention(q, k, v, causal=causal)
+            again = flash_attention(q, k, v, causal=causal)
+            qf, kf, vf = (_fold(torch, t, h) for t in (q, k, v))
+            want = flash_attention_ref(qf, kf, vf, causal).reshape(
+                1, h, seq, hd).transpose(1, 2)
+            variant = f"{dname} {label}"
+            ok, err = _within("flash_attention", variant, got, want)
+            rel = rel_l2(got, want)
+            need(ok and torch.equal(got, again),
+                 f"[families] kernel 8 {variant}: max|kernel-plain| "
+                 f"{err:.3e}, rel L2 {rel:.3e}, or two launches differ")
+            t_k = timer(lambda: flash_attention_cuda(qf, kf, vf,
+                                                     causal=causal))
+            t_p = timer(lambda: flash_attention_ref(qf, kf, vf, causal),
+                        reps=3)
+            t_lib = timer(lambda: F.scaled_dot_product_attention(
+                qf[None], kf[None], vf[None], is_causal=causal))
+            pairs = seq * (seq + 1) // 2 if causal else seq * seq
+            nbytes = 4 * qf.numel() * qf.element_size()
+            flops = 4 * h * hd * pairs
+            peak = "tf32x3_tensor" if dname == "fp32" else "bf16_tensor"
+            t_bytes, t_ops = nbytes / bw * 1e3, flops / PEAKS[peak] * 1e3
+            r = {"variant": variant, "BH": h, "S": seq, "hd": hd,
+                 "heads": f"{h}/{kvh}", "causal": causal,
+                 "max_abs_err": err, "rel_l2": rel, "ms": t_k,
+                 "plain_ms": t_p, "library_ms": t_lib,
+                 "bound_ms": max(t_bytes, t_ops),
+                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                 "peak": peak, "bytes": nbytes, "flops": flops}
+            rows.append(r)
+            log(f"[families] kernel 8 {variant:26s} BH {h} ({h}/{kvh}) S "
+                f"{seq} hd {hd} {'causal' if causal else 'full'}: "
+                f"max|diff| {err:.2e}, rel L2 {rel:.2e}; {t_k * 1e3:8.1f} us "
+                f"(plain {t_p * 1e3:8.1f}, SDPA {t_lib * 1e3:7.1f}, bound "
+                f"{r['bound_ms'] * 1e3:6.1f} us by {r['bound_by']})")
+    return rows
+
+
+def family_launchers(ctx) -> dict:
+    """(f) ``python -m repro_torch.launch.serve --arch <arch>`` for every
+    family at once, each a subprocess of its own; all stopped at the
+    time limit."""
+    procs = {}
+    for arch, *_ in FAMILIES:
+        cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+               arch, *FAMILY_LAUNCHER_ARGS]
+        if arch in FAMILY_LAUNCHER_LAYERS:
+            cmd += ["--layers", str(FAMILY_LAUNCHER_LAYERS[arch])]
+        procs[arch] = (cmd, subprocess.Popen(
+            cmd, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True, env=dict(os.environ, PYTHONPATH=str(SRC))))
+    t0, out = time.perf_counter(), {}
+    try:
+        for arch, (cmd, proc) in procs.items():
+            left = LAUNCHER_TIMEOUT_S - (time.perf_counter() - t0)
+            try:
+                stdout, stderr = proc.communicate(timeout=max(1.0, left))
+            except subprocess.TimeoutExpired:
+                raise SmokeFailure(f"[families] {' '.join(cmd[1:])} ran past "
+                                   f"{LAUNCHER_TIMEOUT_S} s") from None
+            need(proc.returncode == 0, f"[families] {' '.join(cmd[3:])}: "
+                 f"exit {proc.returncode}: {stderr.strip()[-2000:]}")
+            m = re.search(r"completed (\d+) requests, (\d+) tokens in "
+                          r"([\d.]+)s \(([\d.]+) tok/s", stdout)
+            need(m is not None and (int(m.group(1)), int(m.group(2)))
+                 == (4, 32), f"[families] {' '.join(cmd[3:])}: {stdout!r}")
+            out[arch] = {"args": cmd[3:], "stdout": stdout.strip(),
+                         "tok_per_s": float(m.group(4))}
+            log(f"[families:launcher] {' '.join(cmd[3:])}: "
+                f"{stdout.strip()}")
+    finally:
+        for _, proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def phase_families(ctx) -> dict:
+    """The other model families on the card, (a) to (f); kernel 8 is the
+    one kernel their path runs (``layers.flash_attention`` in every
+    forward and in Whisper's encoder)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.convert import cast_params
+    from repro_torch.models.factory import init_params
+    torch, dev = ctx["torch"], ctx["device"]
+    t0 = time.perf_counter()
+    rec = {"models": {}}
+    for arch, depth, cpu_depth, check_depth in FAMILIES:
+        t_arch = time.perf_counter()
+        full = get_config(arch)
+        cfg = _depth(full, depth)
+        gen = torch.Generator(device=dev).manual_seed(ctx["seed"] + 11)
+        params = init_params(cfg, gen, device=dev)
+        n_params = sum(t.numel() for t in _leaves(params))
+        cut = ("whole" if depth is None
+               else f"{cfg.n_layers} of {full.n_layers} layers")
+        log(f"[families] {arch} ({cfg.family}): d_model {cfg.d_model}, "
+            f"vocab {cfg.vocab_size}, depth {cut}, {n_params / 1e9:.2f} B "
+            f"params in bf16 with the float32 leaves kept")
+        cfg32 = cfg.replace(param_dtype="float32", compute_dtype="float32")
+        if cfg.family == "moe":
+            # a capacity of every token: the forward drops nothing, as the
+            # JAX package's reduced config (configs/base.py:140-141)
+            cfg32 = cfg32.replace(
+                capacity_factor=cfg.n_experts / cfg.experts_per_token)
+        p32 = cast_params(params, dtype=torch.float32)
+        rng = torch.Generator().manual_seed(ctx["seed"] + 14)
+        toks = torch.randint(1, cfg.vocab_size, (FAMILY_B, FAMILY_S),
+                             generator=rng, dtype=torch.int32)
+        frames = (torch.randn((FAMILY_B, cfg.encoder_seq, cfg.d_model),
+                              generator=rng)
+                  if cfg.family == "audio" else None)
+        r = {"depth": cfg.n_layers, "published_depth": full.n_layers,
+             "params": n_params,
+             "capacity_factor_fp32": cfg32.capacity_factor}
+        cfg_c = _depth(cfg32, check_depth)
+        p_c = _depth_params(p32, check_depth)
+        r["check_depth"] = cfg_c.n_layers
+        r["decode_vs_forward"] = family_decode_vs_forward(ctx, cfg_c, p_c,
+                                                          toks, frames)
+        r["card_vs_cpu"] = family_card_vs_cpu(ctx, cfg32, p32, toks, frames,
+                                              cpu_depth)
+        if cfg.family in ("ssm", "hybrid"):
+            prompt = torch.randint(1, cfg.vocab_size, (FAMILY_PROMPT + 1,),
+                                   generator=rng).tolist()
+            r["chunked_vs_replay"] = family_chunked_vs_replay(ctx, cfg_c,
+                                                              p_c, prompt)
+        if check_depth is not None:
+            r["whole_depth_decode_vs_forward"] = family_conditioning(
+                ctx, cfg32, params, toks)
+        del p32, p_c
+        torch.cuda.empty_cache()
+        r.update(family_engine(ctx, cfg, params))
+        del params
+        torch.cuda.empty_cache()
+        a, b = r["decode_vs_forward"], r["card_vs_cpu"]
+        c, w = r.get("chunked_vs_replay"), r.get("whole_depth_decode_vs_forward")
+        log(f"[families:{arch}] (a) decode vs forward fp32 at "
+            f"{r['check_depth']} layers {a['rel_err']:.2e}"
+            f" (<= {FAMILY_REL_TOL}), kernel 8 launches "
+            f"{a['kernel8_launches']}"
+            + (f" (MoE capacity factor {cfg32.capacity_factor:g}: no drops)"
+               if cfg.family == "moe" else "")
+            + f"; (b) card vs CPU at depth {b['depth']} {b['max_abs']:.2e} "
+            f"(<= {DENSE_LOGIT_REL_TOL} * {b['cpu_max_abs']:.3f})"
+            + (f"; (c) chunked vs replay {c['last_prompt_rel']:.2e} / "
+               f"{c['first_decode_rel']:.2e}" if c else "")
+            + (f"; at the whole {cfg.n_layers} layers (reported) decode vs "
+               f"forward fp32 {w['fp32']:.2e}, float64 {w['fp64']:.2e}"
+               if w else "")
+            + f"; {time.perf_counter() - t_arch:.1f} s")
+        rec["models"][arch] = r
+    total = sum(r["decode_vs_forward"]["kernel8_launches"]
+                for r in rec["models"].values())
+    need(total > 0, "[families] kernel 8 never launched on the path")
+    rec["kernel8_launches"] = total
+    rec["kernel8"] = family_kernel8(ctx)
+    rec["launcher"] = family_launchers(ctx)
+    rec["seconds"] = time.perf_counter() - t0
+    log(f"[families] kernel 8 launched {total} times by the forwards and "
+        f"encodes; phase {rec['seconds']:.1f} s")
+    ctx["report"]["families"] = rec
+    return rec
+
+
+def _leaves(tree: dict):
+    for v in tree.values():
+        yield from (_leaves(v) if isinstance(v, dict) else (v,))
+
+
+# --------------------------------------------------------------------------
 # autotune: the schedule space, the search and the plan cache on the card
 # --------------------------------------------------------------------------
 def autotune_no_pin(ctx) -> dict:
@@ -2191,6 +2611,7 @@ def run(ctx) -> list:
                           if k in ("espim_spmv_batched_res", "dense_mv",
                                    "flash_attention")})
     entries += phase_new_kernels(ctx, groups, launches_main)
+    phase_families(ctx)
     phase_autotune(ctx, params, sparse8, sparse_fp)
     return entries
 

@@ -546,11 +546,6 @@ def _pruned_mlp(cfg: ModelConfig, sparse: dict, wl: dict, hn: torch.Tensor
     return L.mlp_relu2(hn, wl["w_up"], wl["w_down"], cfg.activation)
 
 
-def _layer_slice(tree: dict, i: int) -> dict:
-    return {k: (_layer_slice(v, i) if isinstance(v, dict) else v[i])
-            for k, v in tree.items()}
-
-
 def _layer_stack(cfg: ModelConfig, params: dict, sparse: dict, cache: dict,
                  h, attn_step, attn_core, impl, proj_path: str = "kernel",
                  epilogue: bool = True):
@@ -566,7 +561,7 @@ def _layer_stack(cfg: ModelConfig, params: dict, sparse: dict, cache: dict,
     mlp_sparse = sparse.get("mlp_sparse", "gateup" in sparse["groups"])
     k_new, v_new = [], []
     for i in range(cfg.n_layers):
-        lp = _layer_slice(params["layers"], i)
+        lp = T.layer_slice(params["layers"], i)
         kc, vc = cache["k"][i], cache["v"][i]
         px = (_layer_bufs(sparse, i) if proj_path == "kernel"
               else {n: w[i] for n, w in sparse["pruned"].items()})

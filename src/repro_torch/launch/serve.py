@@ -2,12 +2,14 @@
 random weights (mirrors ``src/repro/launch/serve.py``).
 
 ``python -m repro_torch.launch.serve --arch granite-3-2b --reduced
-    --requests 8 [--device cpu]``
+    --requests 8 [--device cpu] [--layers N]``
 
-Params come from ``factory.init_params`` with a ``torch.Generator``
-seeded 0 on the device; the prompts (4 tokens each) from a second
-generator seeded 1.  Runs on CUDA unless ``--device`` names another
-device.
+Serves any registry arch (every family).  Params come from
+``factory.init_params`` with a ``torch.Generator`` seeded 0 on the
+device; the prompts (4 tokens each) from a second generator seeded 1.
+``--layers N`` cuts the depth to N layers (a model whose weights do not
+fit the card, e.g. phi3.5-moe's 32 layers).  Runs on CUDA unless
+``--device`` names another device.
 """
 from __future__ import annotations
 
@@ -32,10 +34,13 @@ def main(argv=None):
     ap.add_argument("--max-len", type=int, default=128)
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--layers", type=int, default=None)
     args = ap.parse_args(argv)
 
     dev = resolve_device(args.device)
     cfg = get_config(args.arch, reduced=args.reduced)
+    if args.layers is not None:
+        cfg = cfg.replace(n_layers=args.layers)
     params = factory.init_params(
         cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
     eng = ServeEngine(cfg, params, batch_slots=args.slots,

@@ -1,36 +1,53 @@
 """Family dispatch (mirrors ``src/repro/models/factory.py``): one model API
-over the families the port serves.
+over the six families.
 
   init_params(cfg, generator, device) -> params dict (stacked layers)
+  apply_train(cfg, params, batch)     -> (logits, aux_loss)
   init_cache(cfg, B, max_len, device) -> decode cache dict
   decode_step(cfg, params, cache, batch) -> (logits, cache)
   prefill_chunk(cfg, params, cache, batch) -> (logits, cache)
 
-Only the dense family is ported; training's ``apply_train`` / ``loss_fn``
-are not (ROADMAP Queue 1, "Training").
+Training's ``loss_fn`` / ``cross_entropy`` are not ported (ROADMAP Queue
+1, "Training").
 """
 from __future__ import annotations
 
+import torch
+
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import transformer
+from repro_torch.models import mamba, moe, rwkv, transformer, vlm, whisper
 
-__all__ = ["get_family", "init_params", "init_cache", "decode_step",
-           "prefill_chunk", "supports_chunked_prefill"]
+__all__ = ["get_family", "init_params", "apply_train", "init_cache",
+           "decode_step", "prefill_chunk", "supports_chunked_prefill"]
 
-_FAMILIES = {"dense": transformer}
+_FAMILIES = {
+    "dense": transformer,
+    "moe": moe,
+    "vlm": vlm,
+    "hybrid": mamba,
+    "ssm": rwkv,
+    "audio": whisper,
+}
 
 
 def get_family(cfg: ModelConfig):
     try:
         return _FAMILIES[cfg.family]
     except KeyError:
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported (ROADMAP Queue 1, "
-            "'The other model families')") from None
+        raise ValueError(f"unknown model family {cfg.family!r}") from None
 
 
 def init_params(cfg: ModelConfig, generator=None, device=None) -> dict:
     return get_family(cfg).init_params(cfg, generator, device)
+
+
+def apply_train(cfg: ModelConfig, params: dict, batch: dict):
+    """The full-sequence forward -> (logits (B, S, V), aux loss): the MoE
+    load-balance term, a float32 zero for the other families."""
+    out = get_family(cfg).forward(cfg, params, batch)
+    if isinstance(out, tuple):
+        return out
+    return out, torch.zeros((), dtype=torch.float32, device=out.device)
 
 
 def init_cache(cfg: ModelConfig, batch_size: int, max_len: int,
@@ -43,7 +60,8 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict, batch: dict):
 
 
 def supports_chunked_prefill(cfg: ModelConfig) -> bool:
-    """True when the family prefills C tokens per call."""
+    """True when the family prefills C tokens per call (dense, hybrid,
+    ssm); the others prefill by token replay in the engine."""
     return hasattr(get_family(cfg), "prefill_chunk")
 
 
@@ -51,4 +69,9 @@ def prefill_chunk(cfg: ModelConfig, params: dict, cache: dict, batch: dict):
     """Chunked prefill: batch["tokens"] (B, C) lands at cache["len"].. and
     only batch["n_valid"] leading tokens are real.  Returns full-chunk
     logits (B, C, V) and the updated cache (len advanced by n_valid)."""
-    return get_family(cfg).prefill_chunk(cfg, params, cache, batch)
+    mod = get_family(cfg)
+    if not hasattr(mod, "prefill_chunk"):
+        raise NotImplementedError(
+            f"family {cfg.family!r} has no chunked prefill; use token "
+            "replay")
+    return mod.prefill_chunk(cfg, params, cache, batch)

@@ -1,7 +1,9 @@
-"""Model layers the sparse decode path uses, in plain PyTorch ops that
-mirror ``src/repro/models/layers.py``: RMSNorm, dense projections, RoPE,
-decode / chunked-prefill attention with the un-repeated GQA contraction
-and float32 softmax, and the gated MLP.
+"""Model layers, in plain PyTorch ops that mirror
+``src/repro/models/layers.py``: RMSNorm and LayerNorm, dense projections,
+RoPE and Qwen2-VL's M-RoPE, full-sequence attention (``flash_attention``:
+kernel 8 on the card, a chunked online softmax otherwise), decode /
+chunked-prefill attention with the un-repeated GQA contraction and
+float32 softmax, and the MLPs.
 
 Conventions as the reference: activations x (B, S, D); q (B, S, H, hd);
 k/v (B, S, KV, hd); statistics and attention accumulate in float32.
@@ -13,11 +15,13 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import flash_attention as FA
+from repro_torch.kernels.ops import _resolve, _use_kernel
 from repro_torch.kernels.ref import epilogue_act
 
-__all__ = ["rms_norm", "dense", "rope_angles", "apply_rope",
-           "attention_decode", "attention_prefill", "act_fn", "mlp_gated",
-           "mlp_relu2"]
+__all__ = ["rms_norm", "layer_norm", "dense", "rope_angles", "apply_rope",
+           "apply_mrope", "repeat_kv", "flash_attention", "attention_decode",
+           "attention_prefill", "act_fn", "mlp_gated", "mlp_relu2"]
 
 NEG_INF = -1e30
 
@@ -28,6 +32,15 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     out = xf * torch.rsqrt(var + eps)
     return (out * w.float()).to(x.dtype)
+
+
+def layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean((xf - mu) ** 2, dim=-1, keepdim=True)
+    out = (xf - mu) * torch.rsqrt(var + eps)
+    return (out * w.float() + b.float()).to(x.dtype)
 
 
 def dense(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None
@@ -65,6 +78,112 @@ def apply_rope(q, k, positions, theta: float = 1e4):
     """Standard RoPE. positions: (B, S)."""
     cos, sin = rope_angles(positions, q.shape[-1], theta)
     return _rotate(q, cos, sin), _rotate(k, cos, sin)
+
+
+def apply_mrope(q, k, positions3, theta: float, sections=(16, 24, 24)):
+    """Qwen2-VL multimodal RoPE: the rotary half-dim is split into
+    (temporal, height, width) sections, each driven by its own position
+    id.  positions3: (3, B, S).  Sections that do not sum to hd/2 (the
+    default fits hd 128) are derived in proportion, 2:3:3 eighths, the
+    last taking the remainder."""
+    half = q.shape[-1] // 2
+    if sum(sections) != half:
+        base = half // 8
+        sections = (2 * base, 3 * base, half - 5 * base)
+    cos_parts, sin_parts, lo = [], [], 0
+    for i, width in enumerate(sections):
+        exps = torch.arange(lo, lo + width, dtype=torch.float32,
+                            device=q.device) / half
+        freqs = 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
+                                             device=q.device), exps)
+        ang = positions3[i].float()[..., None] * freqs
+        cos_parts.append(torch.cos(ang))
+        sin_parts.append(torch.sin(ang))
+        lo += width
+    cos = torch.cat(cos_parts, dim=-1)
+    sin = torch.cat(sin_parts, dim=-1)
+    return _rotate(q, cos, sin), _rotate(k, cos, sin)
+
+
+def repeat_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:
+    """(B, S, KV, hd) -> (B, S, KV * n_rep, hd), each head repeated."""
+    if n_rep == 1:
+        return k
+    b, s, kv, d = k.shape
+    return k[:, :, :, None, :].expand(b, s, kv, n_rep, d).reshape(
+        b, s, kv * n_rep, d)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, q_chunk: int = 512,
+                    kv_chunk: int = 1024) -> torch.Tensor:
+    """Full-sequence attention: q (B, Sq, H, hd); k/v (B, Skv, KV, hd)
+    with H % KV == 0 -> (B, Sq, H, hd) in q's dtype.  ``causal`` aligns
+    the ends of the two sequences.
+
+    Dispatch by shape: with Sq == Skv (the shape set of
+    ``flash_attention_pallas``) and CUDA tensors, k and v are repeated to
+    H heads, the heads folded into (B·H, S, hd) and kernel 8 launched;
+    any failure of the kernel raises.  Otherwise (the CPU, the
+    ``ESPIM_IMPL=ref`` pin, or unequal lengths: Whisper's
+    teacher-forced cross-attention) the chunked online softmax of the
+    reference runs (``_flash_chunked``)."""
+    b, sq, h, hd = q.shape
+    skv, kvh = k.shape[1], k.shape[2]
+    k = repeat_kv(k, h // kvh)
+    v = repeat_kv(v, h // kvh)
+    if sq == skv and _use_kernel(_resolve(None), q, k, v):
+        def fold(t):
+            return t.transpose(1, 2).reshape(b * h, sq, hd)
+        out = FA.flash_attention_cuda(fold(q), fold(k), fold(v),
+                                      causal=causal)
+        return out.reshape(b, h, sq, hd).transpose(1, 2)
+    return _flash_chunked(q, k, v, causal, q_chunk, kv_chunk)
+
+
+def _flash_chunked(q, k, v, causal: bool, q_chunk: int, kv_chunk: int
+                   ) -> torch.Tensor:
+    """The reference's online softmax over (q chunk, kv chunk) blocks on
+    repeated heads: operands at the model dtype (q pre-scaled and cast
+    back), scores and accumulators in float32, kv padding masked, the
+    causal mask offset by Skv - Sq."""
+    b, sq, h, hd = q.shape
+    skv = k.shape[1]
+    scale = 1.0 / math.sqrt(hd)
+    q_chunk, kv_chunk = min(q_chunk, sq), min(kv_chunk, skv)
+    n_q, n_kv = -(-sq // q_chunk), -(-skv // kv_chunk)
+    qt = F.pad(q, (0, 0, 0, 0, 0, n_q * q_chunk - sq)).transpose(1, 2)
+    kt = F.pad(k, (0, 0, 0, 0, 0, n_kv * kv_chunk - skv)).transpose(1, 2)
+    vt = F.pad(v, (0, 0, 0, 0, 0, n_kv * kv_chunk - skv)).transpose(1, 2)
+    offset = skv - sq
+    dev = q.device
+    blocks = []
+    for qi in range(n_q):
+        qb = qt[:, :, qi * q_chunk:(qi + 1) * q_chunk]
+        qb = (qb.float() * scale).to(q.dtype).float()
+        q_pos = qi * q_chunk + torch.arange(q_chunk, device=dev)
+        m = torch.full((b, h, q_chunk), NEG_INF, device=dev)
+        l_sum = torch.zeros((b, h, q_chunk), device=dev)
+        acc = torch.zeros((b, h, q_chunk, hd), device=dev)
+        for ki in range(n_kv):
+            kb = kt[:, :, ki * kv_chunk:(ki + 1) * kv_chunk].float()
+            vb = vt[:, :, ki * kv_chunk:(ki + 1) * kv_chunk].float()
+            s_ = qb @ kb.transpose(-1, -2)
+            kv_pos = ki * kv_chunk + torch.arange(kv_chunk, device=dev)
+            mask = (kv_pos < skv)[None, :]
+            if causal:
+                mask = mask & (q_pos[:, None] + offset >= kv_pos[None, :])
+            s_ = torch.where(mask, s_, torch.full_like(s_, NEG_INF))
+            m_new = torch.maximum(m, s_.amax(dim=-1))
+            p = torch.exp(s_ - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l_sum = l_sum * corr + p.sum(dim=-1)
+            acc = acc * corr[..., None] + p.to(q.dtype).float() @ vb
+            m = m_new
+        out = acc / torch.clamp_min(l_sum, 1e-30)[..., None]
+        blocks.append(out.to(q.dtype))
+    out = torch.cat(blocks, dim=2).transpose(1, 2)
+    return out[:, :sq]
 
 
 def _attend(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,

@@ -1,9 +1,13 @@
-"""The dense decoder, mirroring ``src/repro/models/transformer.py``:
-parameter init, the KV cache (compute dtype or int8 with per-token,
-per-head scales), embedding and logits, the QKV projection, norms, the
+"""The dense decoder, mirroring ``src/repro/models/transformer.py``, and
+the attention building blocks the MoE / VLM / hybrid / enc-dec families
+reuse: parameter init (``init_attn_layer``, ``init_mlp_layer``,
+``init_norm``), the KV cache (compute dtype or int8 with per-token,
+per-head scales), embedding and logits, the QKV projection, RMSNorm or
+LayerNorm, RoPE / M-RoPE / learned positions, full-sequence attention
+(``attn_apply``: self or cross, through ``layers.flash_attention``), the
 projection-free attention cores (RoPE + cache write + attention) the
-packed QKV / O groups wrap, and the dense ``decode_step`` /
-``prefill_chunk`` the dense serving mode runs.
+packed QKV / O groups wrap, and the dense ``forward``, ``decode_step`` and
+``prefill_chunk``.
 
 Params are the reference's dict layout: layer leaves stacked along a
 leading layer axis, projections stored (d_in, d_out).
@@ -16,63 +20,91 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 
-__all__ = ["init_params", "init_cache", "decode_step", "prefill_chunk",
-           "embed_tokens", "logits_from_hidden", "attn_decode_core",
-           "attn_decode_apply", "attn_prefill_core", "attn_prefill_apply",
-           "splice_rows", "mlp_apply"]
+__all__ = ["init_params", "forward", "init_cache", "decode_step",
+           "prefill_chunk", "init_attn_layer", "init_mlp_layer", "init_norm",
+           "init_embed", "normal", "embed_tokens", "logits_from_hidden", "attn_apply",
+           "attn_decode_core", "attn_decode_apply", "attn_prefill_core",
+           "attn_prefill_apply", "splice_rows", "mlp_apply", "layer_slice"]
 
 
-def _normal(gen, shape, scale, dtype, device):
+def normal(gen, shape, scale, dtype, device):
+    """N(0, scale^2) draws from ``gen`` in float32, cast to ``dtype``."""
     w = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
     return (w * scale).to(dtype)
+
+
+def _generator(generator, dev):
+    if generator is None:
+        generator = torch.Generator(device=dev).manual_seed(0)
+    return generator
+
+
+def init_norm(cfg: ModelConfig, lead: tuple, device) -> dict:
+    """Norm params with leading dims ``lead``: weight ones, and for a
+    LayerNorm a zero bias."""
+    p = {"w": torch.ones(lead + (cfg.d_model,), dtype=cfg.dtype,
+                         device=device)}
+    if cfg.norm == "layernorm":
+        p["b"] = torch.zeros(lead + (cfg.d_model,), dtype=cfg.dtype,
+                             device=device)
+    return p
+
+
+def init_attn_layer(cfg: ModelConfig, gen, lead: tuple, device) -> dict:
+    """Attention projections N(0, 1/d_in) with leading dims ``lead`` (the
+    layer axis, or none for zamba2's shared block); QKV biases zeros."""
+    d, hd, dt = cfg.d_model, cfg.hd, cfg.dtype
+    hq, hkv = cfg.n_heads * hd, cfg.n_kv_heads * hd
+    p = {"wq": normal(gen, lead + (d, hq), d ** -0.5, dt, device),
+         "wk": normal(gen, lead + (d, hkv), d ** -0.5, dt, device),
+         "wv": normal(gen, lead + (d, hkv), d ** -0.5, dt, device),
+         "wo": normal(gen, lead + (hq, d), hq ** -0.5, dt, device)}
+    if cfg.qkv_bias:
+        for name, width in (("bq", hq), ("bk", hkv), ("bv", hkv)):
+            p[name] = torch.zeros(lead + (width,), dtype=dt, device=device)
+    return p
+
+
+def init_mlp_layer(cfg: ModelConfig, gen, lead: tuple, device) -> dict:
+    d, f, dt = cfg.d_model, cfg.d_ff, cfg.dtype
+    names = ("w_gate", "w_up") if cfg.gated_mlp else ("w_up",)
+    p = {n: normal(gen, lead + (d, f), d ** -0.5, dt, device) for n in names}
+    p["w_down"] = normal(gen, lead + (f, d), f ** -0.5, dt, device)
+    return p
+
+
+def init_embed(cfg: ModelConfig, gen, device) -> dict:
+    """The embedding N(0, 0.02^2), the final norm and, untied, the lm_head
+    N(0, 1/d)."""
+    d = cfg.d_model
+    out = {"embed": normal(gen, (cfg.padded_vocab, d), 0.02, cfg.dtype,
+                           device),
+           "final_norm": init_norm(cfg, (), device)}
+    if not cfg.tie_embeddings:
+        out["lm_head"] = normal(gen, (d, cfg.padded_vocab), d ** -0.5,
+                                cfg.dtype, device)
+    return out
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
                 device=None) -> dict:
     """Random params with the reference's init distribution: every
-    projection N(0, 1/d_in), the embedding N(0, 0.02^2), norms ones, QKV
-    biases zeros.  Draws come from ``generator`` (which must live on
-    ``device``), so the numbers are torch's, not jax.random's — tests
-    that compare the two packages convert the reference's params instead
-    (``repro_torch.convert``)."""
+    projection N(0, 1/d_in), the embedding N(0, 0.02^2), norms ones
+    (LayerNorm biases zeros), QKV biases zeros.  Draws come from
+    ``generator`` (which must live on ``device``), so the numbers are
+    torch's, not jax.random's — tests that compare the two packages
+    convert the reference's params instead (``repro_torch.convert``)."""
     dev = resolve_device(device)
-    if cfg.family != "dense" or cfg.norm != "rmsnorm":
-        raise NotImplementedError(
-            f"the port serves the dense rmsnorm decoder family; {cfg.name} "
-            f"is {cfg.family}/{cfg.norm} (ROADMAP Queue 1, 'The other "
-            "model families')")
-    if generator is None:
-        generator = torch.Generator(device=dev).manual_seed(0)
-    n, d, f, hd = cfg.n_layers, cfg.d_model, cfg.d_ff, cfg.hd
-    dt = cfg.dtype
-
-    def proj(d_in, d_out):
-        return _normal(generator, (n, d_in, d_out), d_in ** -0.5, dt, dev)
-
-    attn = {"wq": proj(d, cfg.n_heads * hd), "wk": proj(d, cfg.n_kv_heads * hd),
-            "wv": proj(d, cfg.n_kv_heads * hd), "wo": proj(cfg.n_heads * hd, d)}
-    if cfg.qkv_bias:
-        for name, width in (("bq", cfg.n_heads * hd),
-                            ("bk", cfg.n_kv_heads * hd),
-                            ("bv", cfg.n_kv_heads * hd)):
-            attn[name] = torch.zeros((n, width), dtype=dt, device=dev)
-    if cfg.gated_mlp:
-        mlp = {"w_gate": proj(d, f), "w_up": proj(d, f), "w_down": proj(f, d)}
-    else:
-        mlp = {"w_up": proj(d, f), "w_down": proj(f, d)}
-
-    def norm():
-        return {"w": torch.ones((n, d), dtype=dt, device=dev)}
-
-    params = {
-        "embed": _normal(generator, (cfg.padded_vocab, d), 0.02, dt, dev),
-        "layers": {"ln1": norm(), "attn": attn, "ln2": norm(), "mlp": mlp},
-        "final_norm": {"w": torch.ones((d,), dtype=dt, device=dev)},
-    }
-    if not cfg.tie_embeddings:
-        params["lm_head"] = _normal(generator, (d, cfg.padded_vocab),
-                                    d ** -0.5, dt, dev)
-    return params
+    gen = _generator(generator, dev)
+    n = (cfg.n_layers,)
+    # the layers draw first, then the embedding and lm_head: the order of
+    # the dense family's draws since the first slice, so a seed gives the
+    # same weights (and packs) as before
+    layers = {"ln1": init_norm(cfg, n, dev),
+              "attn": init_attn_layer(cfg, gen, n, dev),
+              "ln2": init_norm(cfg, n, dev),
+              "mlp": init_mlp_layer(cfg, gen, n, dev)}
+    return {"layers": layers, **init_embed(cfg, gen, dev)}
 
 
 def init_cache(cfg: ModelConfig, batch_size: int, max_len: int,
@@ -102,8 +134,8 @@ def embed_tokens(cfg: ModelConfig, params: dict, tokens: torch.Tensor):
 
 
 def _norm(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
-    if cfg.norm != "rmsnorm":
-        raise NotImplementedError(f"norm {cfg.norm!r} is not ported")
+    if cfg.norm == "layernorm":
+        return L.layer_norm(x, p["w"], p["b"], cfg.norm_eps)
     return L.rms_norm(x, p["w"], cfg.norm_eps)
 
 
@@ -122,10 +154,37 @@ def _qkv(cfg: ModelConfig, p: dict, x: torch.Tensor):
     return q, k, v
 
 
-def _rope(cfg: ModelConfig, q, k, positions):
-    if cfg.mrope or cfg.learned_pos:
-        raise NotImplementedError("mrope / learned positions are not ported")
+def _rope(cfg: ModelConfig, q, k, positions, positions3=None):
+    """M-RoPE when the config has it and (3, B, S) ``positions3`` are
+    given, none for learned-position models, else standard RoPE."""
+    if cfg.mrope and positions3 is not None:
+        return L.apply_mrope(q, k, positions3, cfg.rope_theta)
+    if cfg.learned_pos:
+        return q, k
     return L.apply_rope(q, k, positions, cfg.rope_theta)
+
+
+def attn_apply(cfg: ModelConfig, p: dict, x: torch.Tensor, positions, *,
+               causal: bool = True, positions3=None, kv_x=None):
+    """Full attention over a sequence (train / prefill / cross): x (B, S,
+    D) -> (B, S, D).  ``kv_x`` (B, T, D) switches to cross-attention
+    (keys and values from the encoder); RoPE is skipped for it and for
+    learned-position models."""
+    b, s, _ = x.shape
+    if kv_x is None:
+        q, k, v = _qkv(cfg, p, x)
+        q, k = _rope(cfg, q, k, positions, positions3)
+    else:
+        t = kv_x.shape[1]
+        q = L.dense(x, p["wq"], p.get("bq")).reshape(b, s, cfg.n_heads,
+                                                     cfg.hd)
+        k = L.dense(kv_x, p["wk"], p.get("bk")).reshape(b, t, cfg.n_kv_heads,
+                                                        cfg.hd)
+        v = L.dense(kv_x, p["wv"], p.get("bv")).reshape(b, t, cfg.n_kv_heads,
+                                                        cfg.hd)
+    out = L.flash_attention(q, k, v, causal=causal, q_chunk=cfg.q_chunk,
+                            kv_chunk=cfg.kv_chunk)
+    return L.dense(out.reshape(b, s, cfg.n_heads * cfg.hd), p["wo"])
 
 
 def _quantize_kv(x: torch.Tensor):
@@ -138,18 +197,19 @@ def _quantize_kv(x: torch.Tensor):
 
 
 def attn_decode_core(cfg: ModelConfig, q, k, v, k_cache, v_cache,
-                     cache_len, k_scale=None, v_scale=None):
+                     cache_len, k_scale=None, v_scale=None, *,
+                     positions3=None):
     """RoPE + cache write + attention for one decode token on precomputed
     heads.  q (B, 1, H, hd); k/v (B, 1, KV, hd); caches (B, S_max, KV, hd),
-    int8 with (B, S_max, KV) ``k_scale`` / ``v_scale`` for an int8 cache.
-    Returns (out (B, 1, H, hd) — pre-O-projection, k_cache, v_cache,
+    int8 with (B, S_max, KV) ``k_scale`` / ``v_scale`` for an int8 cache;
+    ``positions3`` (3, B, 1) for M-RoPE.  Returns (out (B, 1, H, hd) — pre-O-projection, k_cache, v_cache,
     k_scale, v_scale).
 
     The write is the reference's masked ``where`` into new cache tensors:
     the caller's cache is never modified, so two paths can decode from
     one cache."""
     pos = cache_len.to(torch.int32)
-    q, k = _rope(cfg, q, k, pos[:, None])
+    q, k = _rope(cfg, q, k, pos[:, None], positions3)
     s_max = k_cache.shape[1]
     at_pos = (torch.arange(s_max, dtype=torch.int32, device=pos.device)[None]
               == pos[:, None])[..., None, None]           # (B, S, 1, 1)
@@ -169,13 +229,14 @@ def attn_decode_core(cfg: ModelConfig, q, k, v, k_cache, v_cache,
 
 
 def attn_decode_apply(cfg: ModelConfig, p, x, k_cache, v_cache, cache_len,
-                      k_scale=None, v_scale=None):
+                      k_scale=None, v_scale=None, *, positions3=None):
     """One-token decode through the dense attention weights ``p``.
     Returns (out (B, 1, D), k_cache, v_cache, k_scale, v_scale)."""
     b = x.shape[0]
     q, k, v = _qkv(cfg, p, x)
     out, k_cache, v_cache, k_scale, v_scale = attn_decode_core(
-        cfg, q, k, v, k_cache, v_cache, cache_len, k_scale, v_scale)
+        cfg, q, k, v, k_cache, v_cache, cache_len, k_scale, v_scale,
+        positions3=positions3)
     out = L.dense(out.reshape(b, 1, cfg.n_heads * cfg.hd), p["wo"])
     return out, k_cache, v_cache, k_scale, v_scale
 
@@ -199,15 +260,16 @@ def splice_rows(cache: torch.Tensor, rows: torch.Tensor,
 
 
 def attn_prefill_core(cfg: ModelConfig, q, k, v, k_cache, v_cache, start,
-                      k_scale=None, v_scale=None):
+                      k_scale=None, v_scale=None, *, positions3=None):
     """RoPE + cache splice + attention for a prefill chunk on precomputed
-    heads.  q (B, C, H, hd); k/v (B, C, KV, hd); start (B,).  Returns
+    heads.  q (B, C, H, hd); k/v (B, C, KV, hd); start (B,); ``positions3``
+    (3, B, C) for M-RoPE.  Returns
     (out (B, C, H, hd) — pre-O-projection, k_cache, v_cache, k_scale,
     v_scale)."""
     c = q.shape[1]
     pos = (start.to(torch.int32)[:, None]
            + torch.arange(c, dtype=torch.int32, device=start.device)[None])
-    q, k = _rope(cfg, q, k, pos)
+    q, k = _rope(cfg, q, k, pos, positions3)
     if k_scale is not None:
         kq, ks = _quantize_kv(k)
         vq, vs = _quantize_kv(v)
@@ -224,13 +286,14 @@ def attn_prefill_core(cfg: ModelConfig, q, k, v, k_cache, v_cache, start,
 
 
 def attn_prefill_apply(cfg: ModelConfig, p, x, k_cache, v_cache, start,
-                       k_scale=None, v_scale=None):
+                       k_scale=None, v_scale=None, *, positions3=None):
     """Chunked prefill through the dense attention weights ``p``.
     Returns (out (B, C, D), k_cache, v_cache, k_scale, v_scale)."""
     b, c, _ = x.shape
     q, k, v = _qkv(cfg, p, x)
     out, k_cache, v_cache, k_scale, v_scale = attn_prefill_core(
-        cfg, q, k, v, k_cache, v_cache, start, k_scale, v_scale)
+        cfg, q, k, v, k_cache, v_cache, start, k_scale, v_scale,
+        positions3=positions3)
     out = L.dense(out.reshape(b, c, cfg.n_heads * cfg.hd), p["wo"])
     return out, k_cache, v_cache, k_scale, v_scale
 
@@ -242,24 +305,55 @@ def mlp_apply(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
     return L.mlp_relu2(x, p["w_up"], p["w_down"], cfg.activation)
 
 
-def _layer_slice(tree: dict, i: int) -> dict:
-    return {k: (_layer_slice(v, i) if isinstance(v, dict) else v[i])
+def layer_slice(tree: dict, i) -> dict:
+    """Index every leaf of a stacked params (or cache) tree by ``i``."""
+    return {k: (layer_slice(v, i) if isinstance(v, dict) else v[i])
             for k, v in tree.items()}
 
 
-def _layer_loop(cfg: ModelConfig, params: dict, cache: dict, h, attn):
+def forward(cfg: ModelConfig, params: dict, batch: dict) -> torch.Tensor:
+    """Train / prefill forward: tokens (B, S) [+ positions (B, S)] ->
+    logits (B, S, V); the VLM flavour also takes ``positions3`` (3, B, S)
+    and ``embeddings`` (B, S, D) spliced over the token embeddings where
+    ``vis_mask`` (B, S) is set."""
+    tokens = batch["tokens"].to(params["embed"].device)
+    b, s = tokens.shape
+    positions = batch.get("positions")
+    if positions is None:
+        positions = torch.arange(s, dtype=torch.int32,
+                                 device=tokens.device).expand(b, s)
+    positions3 = batch.get("positions3")
+    h = embed_tokens(cfg, params, tokens)
+    if "embeddings" in batch:
+        vis = batch["embeddings"].to(h.dtype)
+        h = torch.where(batch["vis_mask"][..., None], vis, h)
+    for i in range(cfg.n_layers):
+        lp = layer_slice(params["layers"], i)
+        h = h + attn_apply(cfg, lp["attn"], _norm(cfg, lp["ln1"], h),
+                           positions, positions3=positions3)
+        h = h + mlp_apply(cfg, lp["mlp"], _norm(cfg, lp["ln2"], h))
+    return logits_from_hidden(cfg, params, h)
+
+
+def _layer_loop(cfg: ModelConfig, params: dict, cache: dict, h, attn,
+                mlp=None):
     """The layer loop of ``decode_step`` and ``prefill_chunk`` (a Python
     loop over the stacked leaves, in place of the reference's scan).
     ``attn(p, hn, kc, vc, ks, vs)`` is the attention apply with the
-    cache's positions bound; returns (h, {leaf: stacked new cache})."""
+    cache's positions bound; ``mlp(lp, hn)`` the feed-forward block (the
+    dense MLP unless given: the MoE family passes its own); returns (h,
+    {leaf: stacked new cache})."""
+    if mlp is None:
+        def mlp(lp, hn):
+            return mlp_apply(cfg, lp["mlp"], hn)
     names = [n for n in ("k", "v", "k_scale", "v_scale") if n in cache]
     new = {n: [] for n in names}
     for i in range(cfg.n_layers):
-        lp = _layer_slice(params["layers"], i)
+        lp = layer_slice(params["layers"], i)
         kv = [cache[n][i] for n in names] + [None] * (4 - len(names))
         a, *kv = attn(lp["attn"], _norm(cfg, lp["ln1"], h), *kv)
         h = h + a
-        h = h + mlp_apply(cfg, lp["mlp"], _norm(cfg, lp["ln2"], h))
+        h = h + mlp(lp, _norm(cfg, lp["ln2"], h))
         for n, t in zip(names, kv):
             new[n].append(t)
     return h, {n: torch.stack(ts) for n, ts in new.items()}
@@ -271,9 +365,11 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict, batch: dict):
     Runs where ``params`` live."""
     tokens = batch["tokens"].to(params["embed"].device)
     h = embed_tokens(cfg, params, tokens)
+    positions3 = batch.get("positions3")
 
     def attn(p, hn, kc, vc, ks, vs):
-        return attn_decode_apply(cfg, p, hn, kc, vc, cache["len"], ks, vs)
+        return attn_decode_apply(cfg, p, hn, kc, vc, cache["len"], ks, vs,
+                                 positions3=positions3)
 
     h, new = _layer_loop(cfg, params, cache, h, attn)
     new["len"] = cache["len"] + 1
@@ -291,9 +387,11 @@ def prefill_chunk(cfg: ModelConfig, params: dict, cache: dict, batch: dict):
     if n_valid is None:
         n_valid = torch.full_like(start, tokens.shape[1])
     h = embed_tokens(cfg, params, tokens)
+    positions3 = batch.get("positions3")
 
     def attn(p, hn, kc, vc, ks, vs):
-        return attn_prefill_apply(cfg, p, hn, kc, vc, start, ks, vs)
+        return attn_prefill_apply(cfg, p, hn, kc, vc, start, ks, vs,
+                                  positions3=positions3)
 
     h, new = _layer_loop(cfg, params, cache, h, attn)
     new["len"] = start + n_valid.to(start.device)

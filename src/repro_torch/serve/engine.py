@@ -195,7 +195,7 @@ class ServeEngine:
                 raise ValueError(
                     f"watermarks need 0 <= low < high <= 1, got "
                     f"low={watermark_low} high={watermark_high}")
-        factory.get_family(cfg)        # raises for a family not ported
+        factory.get_family(cfg)        # raises for an unknown family
         self.device = resolve_device(device)
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"params live on {params['embed'].device}, the "
@@ -279,7 +279,8 @@ class ServeEngine:
         if chunked:
             self._prefiller = ChunkedPrefiller(
                 cfg, prefill_chunk, max_len, self.cache.seq_names,
-                sparse=sparse, impl=impl, device=self.device)
+                self.cache.state_names, sparse=sparse, impl=impl,
+                device=self.device)
         if sparse is None:
             self._decode = _finite_step(
                 lambda p, c, b: serve_step_fn(cfg, p, c, b,
@@ -722,6 +723,9 @@ class ServeEngine:
         self.stats.prefill_chunks += 1
         if st.pos < plen:
             return
+        # install the recurrent states (a failed slot's teardown zeroes
+        # them again)
+        self.cache.set_slot_state(i, self._prefiller.state_rows(st.pf_cache))
         st.pf_cache = None
         self.seq_len[i] = plen
         st.phase = "decode"

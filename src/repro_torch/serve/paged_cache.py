@@ -17,6 +17,13 @@ splices a prefill chunk's rows.  The arena is updated in place (the
 reference returns new arrays); the view is a separate tensor, so the two
 never alias.
 
+Recurrent per-slot states (ssm / conv / wkv / tm_x / cm_x, whisper's
+cross caches) are O(1) per slot and stay slot-dense (``classify_cache``):
+a finished prefill installs them (``set_slot_state``), ``apply_decode``
+takes the new states of the committed slots only, ``gather_view`` hands
+them to the step, and ``free_slot`` zeroes them, so a slot's next
+request starts from zero state.
+
 ``ContiguousKVCache`` puts the classic one-arena-per-slot cache behind
 the same interface, so the engine has one code path and paged vs
 contiguous can be held bit-identical.
@@ -29,14 +36,32 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import factory
 
-__all__ = ["PagedKVCache", "ContiguousKVCache", "make_kv_cache"]
+__all__ = ["classify_cache", "PagedKVCache", "ContiguousKVCache",
+           "make_kv_cache"]
+
+# leaves indexed (Lx, B, S, ...) along the decode sequence: pageable
+_SEQ_NAMES = ("k", "v", "k_scale", "v_scale")
+
+
+def classify_cache(proto: dict, max_len: int):
+    """Split an ``init_cache`` dict into its sequence-indexed leaves
+    (pageable) and its per-slot state leaves.  Whisper's cross_k /
+    cross_v are encoder-length and never paged."""
+    seq, state = [], []
+    for name, leaf in proto.items():
+        if name == "len":
+            continue
+        if (name in _SEQ_NAMES and leaf.dim() >= 3
+                and leaf.shape[2] == max_len):
+            seq.append(name)
+        else:
+            state.append(name)
+    return seq, state
 
 
 class _KVCacheBase:
-    """Shared bookkeeping: the sequence-indexed (L, B, S, ...) leaves of
-    ``init_cache`` — k and v, plus the (L, B, S, KV) k_scale and v_scale
-    of an int8 cache; the dense family has no per-slot recurrent
-    state."""
+    """Shared bookkeeping: leaf classification and the slot-dense state
+    leaves (Lx, B, ...) on the device."""
 
     def __init__(self, cfg: ModelConfig, batch_slots: int, max_len: int,
                  device):
@@ -48,12 +73,42 @@ class _KVCacheBase:
         # paged mode
         proto = factory.init_cache(cfg, batch_slots, max_len,
                                    device="meta")
-        self.seq_names = [n for n in proto if n != "len"]
+        self.seq_names, self.state_names = classify_cache(proto, max_len)
         self.seq_shapes = {n: (tuple(proto[n].shape), proto[n].dtype)
                            for n in self.seq_names}
+        self.state = {n: torch.zeros(proto[n].shape, dtype=proto[n].dtype,
+                                     device=self.device)
+                      for n in self.state_names}
 
     def _lens(self, lens) -> torch.Tensor:
         return torch.as_tensor(np.asarray(lens, np.int32), device=self.device)
+
+    def set_slot_state(self, slot: int, state_rows: dict) -> None:
+        """Install a finished prefill's states for one slot: state_rows
+        {name: (Lx, ...)} with the batch dim squeezed out."""
+        for name in self.state_names:
+            if name in state_rows:
+                self.state[name][:, slot] = state_rows[name].to(
+                    self.state[name].dtype)
+
+    def zero_slot_state(self, slot: int) -> None:
+        for name in self.state_names:
+            self.state[name][:, slot] = 0
+
+    def _commit_state(self, new_cache: dict, active) -> None:
+        """The decode step's new states for the committed slots only."""
+        if not self.state_names:
+            return
+        act = torch.as_tensor(np.asarray(active).reshape(-1).astype(bool),
+                              device=self.device)
+        for n, old in self.state.items():
+            m = act.reshape((1, self.b) + (1,) * (old.dim() - 2))
+            self.state[n] = torch.where(m, new_cache[n].to(old.dtype), old)
+
+    def _with_state(self, cache: dict, lens) -> dict:
+        cache.update(self.state)
+        cache["len"] = self._lens(lens)
+        return cache
 
 
 class PagedKVCache(_KVCacheBase):
@@ -127,6 +182,7 @@ class PagedKVCache(_KVCacheBase):
         self.n_blocks[slot] = 0
         self._resv[slot] = 0
         self.block_tables[slot] = 0
+        self.zero_slot_state(slot)
         self._view_dirty = True
 
     def quarantine_blocks(self, n: int) -> int:
@@ -191,14 +247,12 @@ class PagedKVCache(_KVCacheBase):
                 self._view[n] = v.reshape(
                     (arena.shape[0], self.b, self.view_len) + arena.shape[3:])
             self._view_dirty = False
-        cache = dict(self._view)
-        cache["len"] = self._lens(lens)
-        return cache
+        return self._with_state(dict(self._view), lens)
 
     def apply_decode(self, new_cache: dict, lens, active) -> None:
         """Commit one decode tick: each active slot's row written at
-        ``lens[i]`` goes into its page; inactive slots' writes are
-        dropped."""
+        ``lens[i]`` goes into its page and its new states replace the
+        old; inactive slots' writes are dropped."""
         lens = np.asarray(lens)
         active = np.asarray(active).reshape(-1).astype(bool)
         idx = np.nonzero(active)[0]
@@ -216,6 +270,7 @@ class PagedKVCache(_KVCacheBase):
         # the new view holds this tick's writes for every slot; rows of
         # slots not committed sit beyond their len (masked)
         self._view = {n: new_cache[n] for n in self.seq_names}
+        self._commit_state(new_cache, active)
 
     def scatter_chunk(self, slot: int, rows: dict, start: int,
                       count: int) -> None:
@@ -257,7 +312,8 @@ class ContiguousKVCache(_KVCacheBase):
         pass
 
     def free_slot(self, slot: int) -> None:
-        pass                          # stale rows beyond len are masked
+        # stale K/V rows beyond len are masked; states must be zeroed
+        self.zero_slot_state(slot)
 
     def quarantine_blocks(self, n: int) -> int:
         return 0                      # no arena to pressure
@@ -273,9 +329,7 @@ class ContiguousKVCache(_KVCacheBase):
         pass                          # gather_view reads the store directly
 
     def gather_view(self, lens) -> dict:
-        cache = dict(self.store)
-        cache["len"] = self._lens(lens)
-        return cache
+        return self._with_state(dict(self.store), lens)
 
     def apply_decode(self, new_cache: dict, lens, active) -> None:
         lens_t = self._lens(lens).long()
@@ -287,6 +341,7 @@ class ContiguousKVCache(_KVCacheBase):
                        == lens_t[:, None]) & act[:, None])      # (B, S)
             m = at_pos.reshape((1, self.b, s) + (1,) * (old.dim() - 3))
             self.store[n] = torch.where(m, new_cache[n].to(old.dtype), old)
+        self._commit_state(new_cache, active)
 
     def scatter_chunk(self, slot: int, rows: dict, start: int,
                       count: int) -> None:

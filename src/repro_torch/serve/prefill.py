@@ -9,7 +9,9 @@ runs the family's ``prefill_chunk``.  Each slot prefills into a private
 sliced out for the engine to splice into the slot's pages.  The scratch
 cache starts from one shared zero prototype: the prefill step never
 modifies its input cache, so "resetting" a slot's scratch is a reference
-copy, not an allocation.
+copy, not an allocation.  The final chunk also yields the recurrent
+state leaves (ssm / conv / wkv / token-shift), which the engine installs
+in the slot.
 """
 from __future__ import annotations
 
@@ -24,7 +26,7 @@ __all__ = ["ChunkedPrefiller"]
 
 class ChunkedPrefiller:
     def __init__(self, cfg: ModelConfig, chunk: int, max_len: int,
-                 seq_names, sparse: dict | None = None,
+                 seq_names, state_names=(), sparse: dict | None = None,
                  impl: str | None = None, device=None):
         self.cfg = cfg
         self.chunk = chunk
@@ -34,6 +36,7 @@ class ChunkedPrefiller:
         self.proto = factory.init_cache(cfg, 1, self.scratch_len,
                                         self.device)
         self.seq_names = list(seq_names)
+        self.state_names = list(state_names)
         self.sparse = sparse
         self.impl = impl
 
@@ -60,3 +63,8 @@ class ChunkedPrefiller:
         """The K/V rows the chunk just wrote: {name: (Lx, C, ...)}."""
         return {n: pf_cache[n][:, 0, pos:pos + self.chunk]
                 for n in self.seq_names}
+
+    def state_rows(self, pf_cache: dict) -> dict:
+        """The recurrent state leaves after the final chunk:
+        {name: (Lx, ...)} with the B = 1 dim squeezed out."""
+        return {n: pf_cache[n][:, 0] for n in self.state_names}

@@ -1,5 +1,6 @@
 """The serving step: one decode step (dense, or through the ESPIM packs) +
-greedy/temperature sampling (mirrors ``src/repro/serve/serve_step.py``)."""
+greedy/temperature sampling, and the full-sequence prefill forward
+(mirrors ``src/repro/serve/serve_step.py``)."""
 from __future__ import annotations
 
 import torch
@@ -8,7 +9,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import sparse_model
 from repro_torch.models import factory
 
-__all__ = ["sample_tokens", "serve_step_fn", "serve_step_sparse_fn"]
+__all__ = ["sample_tokens", "serve_step_fn", "serve_step_sparse_fn",
+           "prefill_fn"]
 
 
 def sample_tokens(cfg: ModelConfig, last: torch.Tensor, temperature: float,
@@ -52,3 +54,11 @@ def serve_step_sparse_fn(cfg: ModelConfig, params: dict, sparse: dict,
         cfg, params, sparse, cache, batch, impl=impl, device=device)
     nxt = sample_tokens(cfg, logits[:, -1, :], temperature, generator)
     return nxt[:, None], logits, cache
+
+
+def prefill_fn(cfg: ModelConfig, params: dict, batch: dict) -> torch.Tensor:
+    """Full-sequence forward -> logits (B, S, V): the prefill shape, on
+    ``layers.flash_attention`` (kernel 8 on the card).  The serving TTFT
+    path runs ``factory.prefill_chunk`` or token replay instead."""
+    logits, _ = factory.apply_train(cfg, params, batch)
+    return logits

@@ -135,12 +135,22 @@ def _inject_poisoned_decode(eng, sparse_bad):
 # the dense model
 # --------------------------------------------------------------------------
 def test_factory_dispatches_the_dense_family_only(model):
+    """The dense family goes to ``transformer`` alone; the other five
+    have modules of their own (``tests/test_torch_families.py``), the
+    chunked prefill where the reference has it, and an unknown family
+    raises."""
+    from repro_torch.models import transformer
     _, pcfg, _, _ = model
+    assert PF.get_family(pcfg) is transformer
     assert PF.supports_chunked_prefill(pcfg)
-    for fam in ("moe", "hybrid", "ssm"):
-        with pytest.raises(NotImplementedError,
-                           match="other model families"):
-            PF.init_cache(pcfg.replace(family=fam), 1, 8, device="cpu")
+    for fam, chunked in (("moe", False), ("vlm", False), ("audio", False),
+                         ("hybrid", True), ("ssm", True)):
+        mod = PF.get_family(pcfg.replace(family=fam))
+        assert mod is not transformer
+        assert PF.supports_chunked_prefill(pcfg.replace(family=fam)) \
+            == chunked
+    with pytest.raises(ValueError, match="unknown model family"):
+        PF.init_cache(pcfg.replace(family="bogus"), 1, 8, device="cpu")
 
 
 def test_init_cache_int8_matches_reference(model):

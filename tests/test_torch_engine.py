@@ -94,6 +94,6 @@ def test_submit_rejects_infeasible_requests(model):
     eng = PE.ServeEngine(pcfg, tparams, sparse=ps, device="cpu", **KW)
     with pytest.raises(ValueError, match="exceeds max_len"):
         eng.submit(PE.Request(rid=0, prompt=[1] * 48))
-    with pytest.raises(NotImplementedError, match="other model families"):
-        PE.ServeEngine(pcfg.replace(family="moe"), tparams, device="cpu",
+    with pytest.raises(ValueError, match="unknown model family"):
+        PE.ServeEngine(pcfg.replace(family="bogus"), tparams, device="cpu",
                        **KW)

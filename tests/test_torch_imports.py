@@ -34,7 +34,9 @@ def test_importing_every_module_leaves_jax_and_repro_out():
               "runtime.fault_tolerance", "telemetry.timeline",
               "serve.snapshot", "serve.faults", "launch.serve",
               "telemetry.profile", "telemetry.regression", "autotune.cache",
-              "autotune.tuner"):
+              "autotune.tuner", "models.layers", "models.transformer",
+              "models.moe", "models.vlm", "models.whisper", "models.rwkv",
+              "models.mamba", "serve.serve_step", "convert"):
         assert f"repro_torch.{m}" in mods
     code = (
         "import importlib, sys\n"

@@ -275,8 +275,8 @@ def test_constructor_rejects_bad_options(model):
     eng = PE.ServeEngine(pcfg, tparams, watermark_high=0.9, device="cpu",
                          **KW)
     assert eng._wm_low == pytest.approx(0.65)
-    with pytest.raises(NotImplementedError, match="other model families"):
-        PE.ServeEngine(pcfg.replace(family="moe"), tparams,
+    with pytest.raises(ValueError, match="unknown model family"):
+        PE.ServeEngine(pcfg.replace(family="bogus"), tparams,
                        prefill_mode="replay", device="cpu", **KW)
 
 
