@@ -9,8 +9,9 @@ port's paths at the full width of ``llama7b-espim`` (random weights from
 ``--seed``): int8 ESPIM decode through ``ServeEngine`` (depth cut to 2
 layers), the standalone projection layers, the dense serving mode and the
 fault ladder's dense rungs, the engine's fault, crash and overload
-drills, the ops of the other kernels, and the other model families at
-their own published widths — then checks them:
+drills, the ops of the other kernels, the other model families at their
+own published widths, and training (granite-3-2b at its published
+widths and depth) — then checks them:
 
 1. build: nvcc the kernels, print the build time and ptxas' report, and
    the tensor-core instructions in the flash library's SASS (HGMMA for
@@ -116,6 +117,28 @@ their own published widths — then checks them:
    ``espim_matvec`` matches ``impl="ref"``; and
    ``examples/serve_sparse_llm_torch.py --autotune`` as a subprocess.
 
+12. train, after llama7b's params and packs are freed, on one process and
+   a (1, 1) NCCL mesh (``launch.mesh.make_local_mesh``): (g) first,
+   ``layers.flash_attention`` at phi3.5's attention shape in bf16 launches
+   kernel 8 under no_grad and not under grad, whose q/k/v gradients equal
+   the chunked softmax's bits; (a) ``Trainer`` on granite-3-2b at its whole
+   40 layers and published widths (bf16 params, float32 master, remat
+   "full"), 4 steps of B 8 x S 128, no checkpoint: finite loss and grad
+   norm, kernel 8 never launched; the step's ms (median of steps 2-4),
+   tokens/s, peak GB and share of the bf16 peak (8 N tokens + attention
+   FLOPs); (b) one ``train_step_fn`` at 2 of 40 layers, float32, B 2 x S
+   32, on the card against the CPU from the same seed: the loss, the grad
+   norm and every state leaf within ``TRAIN_REL_TOL`` of its max; (d)
+   microbatches 2 against 1 within the same bound, and 3 compressed-grad
+   steps with a finite loss; (e) ``make_train_step`` on the mesh against
+   ``train_step_fn`` in bits, ``espim_matvec_sharded`` (kernel 5 once)
+   against ``ESPIMLinear`` on layer 0's w_down, ``make_serve_step``
+   against ``decode_step`` in bits; (c) at 2 layers in bf16, train 3,
+   save, restore, train 2 against 5 straight, every state leaf and the
+   last loss in bits (deterministic algorithms on; the checkpoint in a
+   temp dir, removed); (f) ``python -m repro_torch.launch.train --arch
+   granite-3-2b --reduced`` for 10 steps, then 12, which resumes at 10.
+
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``.  Exits non-zero, with no result,
 when there is no CUDA device, when the port's sources are missing, or when
@@ -124,7 +147,9 @@ any check fails.  Details go to ``chiprun_out/chip_smoke.json``.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
+import math
 import os
 import re
 import statistics
@@ -240,6 +265,27 @@ FAMILY_FLASH_SEQ = 512                  # (d): the forwards' S
 # do not fit the card, so it serves 2
 FAMILY_LAUNCHER_LAYERS = {"phi3.5-moe-42b-a6.6b": 2}
 FAMILY_LAUNCHER_ARGS = ("--requests", "4", "--max-new-tokens", "8")
+# the train phase: granite-3-2b, the reference launcher's and training
+# test's model (src/repro/launch/train.py:1-2), at its published widths
+TRAIN_ARCH = "granite-3-2b"
+TRAIN_SEQ, TRAIN_BATCH = 128, 8         # (a) and (c): the launcher's shape
+TRAIN_STEPS = 4                         # (a): steps 2-4 are timed
+TRAIN_CHECK_LAYERS = 2                  # (b)-(e): 2 of 40 layers
+TRAIN_CHECK_SEQ, TRAIN_CHECK_BATCH = 32, 2
+# (b), (d): float32 on the card against the CPU, max|diff| / max|CPU| per
+# state leaf, and for the loss and the grad norm: cuBLAS and the CPU sum
+# each product in another order (~1e-6 relative at K <= 8192, as the
+# families' card-vs-CPU read 0.9e-6 to 3.1e-6), and step 1 of AdamW moves
+# a param by lr (3e-6 at step 1 of the default schedule) times a
+# direction g / (|g| + eps), whose error stays below 0.1 even where
+# |g| ~ eps: 3e-7, ~3e-6 of a leaf's max
+TRAIN_REL_TOL = 1e-5
+TRAIN_COMPRESS_STEPS = 3                # (d): steps with compress_grads
+TRAIN_LAUNCHER_ARGS = ("--arch", TRAIN_ARCH, "--reduced")
+TRAIN_LAUNCHER_STEPS = (10, 12)         # (f): fresh, then resumed
+TRAIN_MATVEC_SPARSITY = 0.9             # (e): layer 0's w_down, pruned
+# (g): phi3.5-moe's attention (GQA 32/8, hd 128) at the families' S
+TRAIN_FLASH_SHAPE = (1, FAMILY_FLASH_SEQ, 32, 8, 128)
 
 # kernel -> (pallas_call it replaces, Pallas function, port source)
 _SPMV_CU = "src/repro_torch/kernels/csrc/espim_spmv.cu"
@@ -540,6 +586,43 @@ def decode_parity(ctx, label, cfg, params, sparse, steps=4, b=4) -> dict:
     return {"min_logit_cosine": worst_cos, "kv_rel_err": kv}
 
 
+def device_profile(torch, fn, reps: int) -> dict:
+    """``reps`` calls of ``fn`` under ``torch.profiler``: the host-clock
+    ms of the window (synchronised), the µs the device was busy (the
+    union of device kernel spans: a CPU op's device time repeats its
+    kernels'), the kernel count, {name: (count, µs)}, and the
+    ``TOP_KERNELS`` names taking most per call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    spans, by_name = [], {}
+    for e in prof.events():
+        if (e.device_type != DeviceType.CUDA
+                or getattr(e, "is_user_annotation", False)):
+            continue
+        spans.append((e.time_range.start, e.time_range.end))
+        name = e.name[:60]
+        cnt, tot = by_name.get(name, (0, 0.0))
+        by_name[name] = (cnt + 1, tot + e.time_range.elapsed_us())
+    busy_us, reach = 0.0, float("-inf")
+    for start, end in sorted(spans):
+        if end > reach:
+            busy_us += end - max(start, reach)
+            reach = end
+    top = [{"name": n, "per_step": c / reps, "us_per_step": t / reps}
+           for n, (c, t) in sorted(by_name.items(),
+                                   key=lambda kv: -kv[1][1])[:TOP_KERNELS]]
+    return {"wall_ms": wall_ms, "busy_us": busy_us, "kernels": len(spans),
+            "by_name": by_name, "top": top}
+
+
 def decode_step_profile(ctx, label, cfg, step_fn, b=4, reps=10) -> dict:
     """Where a decode step's time goes: host-clock time of one
     ``step_fn(cache, batch)`` call (synchronised), and, from
@@ -567,44 +650,15 @@ def decode_step_profile(ctx, label, cfg, step_fn, b=4, reps=10) -> dict:
            "step_ms": statistics.median(walls), "device_busy_share": None,
            "spmv_share_of_device": None, "device_ms_per_step": None,
            "kernels_per_step": None}
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            step()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    # device kernels only: a CPU op's device time repeats its kernels'
-    spans, spmv_us, by_name = [], 0.0, {}
-    for e in prof.events():
-        if (e.device_type != DeviceType.CUDA
-                or getattr(e, "is_user_annotation", False)):
-            continue
-        spans.append((e.time_range.start, e.time_range.end))
-        us = e.time_range.elapsed_us()
-        name = e.name[:60]
-        cnt, tot = by_name.get(name, (0, 0.0))
-        by_name[name] = (cnt + 1, tot + us)
-        if any(n in e.name for n in SPMV_KERNEL_NAMES):
-            spmv_us += us
-    busy_us, reach = 0.0, float("-inf")          # union of kernel spans
-    for start, end in sorted(spans):
-        if end > reach:
-            busy_us += end - max(start, reach)
-            reach = end
-    if busy_us > 0:             # else the profiler saw no device time
-        rec.update(device_ms_per_step=busy_us / 1e3 / reps,
-                   device_busy_share=busy_us / 1e3 / wall_ms,
-                   spmv_share_of_device=spmv_us / busy_us,
-                   kernels_per_step=len(spans) / reps,
-                   top_kernels=[{"name": n, "per_step": c / reps,
-                                 "us_per_step": t / reps}
-                                for n, (c, t) in sorted(
-                                    by_name.items(),
-                                    key=lambda kv: -kv[1][1])[:TOP_KERNELS]])
+    prof = device_profile(torch, step, reps)
+    if prof["busy_us"] > 0:     # else the profiler saw no device time
+        spmv_us = sum(t for n, (_, t) in prof["by_name"].items()
+                      if any(k in n for k in SPMV_KERNEL_NAMES))
+        rec.update(device_ms_per_step=prof["busy_us"] / 1e3 / reps,
+                   device_busy_share=prof["busy_us"] / 1e3 / prof["wall_ms"],
+                   spmv_share_of_device=spmv_us / prof["busy_us"],
+                   kernels_per_step=prof["kernels"] / reps,
+                   top_kernels=prof["top"])
     log(f"[step] {label} B={b}, {cfg.n_layers} layers: "
         f"{rec['step_ms']:.2f} ms per step (host clock); device busy "
         f"{rec['device_busy_share']}, device ms/step "
@@ -2542,6 +2596,462 @@ def phase_autotune(ctx, params, sparse8, sparse_fp) -> dict:
     return rep
 
 
+def _tree_rel(got: dict, want: dict) -> tuple[float, str]:
+    """max over leaves of max|got - want| / max|want| (want on the CPU)
+    -> (worst, its leaf)."""
+    from repro_torch.sharding.partition import full_value
+    from repro_torch.tree import flatten
+    worst, name = 0.0, ""
+    for (k, a), (_, b) in zip(flatten(got), flatten(want)):
+        a, b = full_value(a).float().cpu(), full_value(b).float().cpu()
+        err = float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+        if err > worst:
+            worst, name = err, k
+    return worst, name
+
+
+def _tree_equal(got: dict, want: dict) -> list:
+    """The leaves whose bits differ."""
+    from repro_torch.sharding.partition import full_value
+    from repro_torch.tree import flatten
+    return [k for (k, a), (_, b) in zip(flatten(got), flatten(want))
+            if not full_value(a).equal(full_value(b))]
+
+
+def _rel(a, b) -> float:
+    a, b = float(a), float(b)
+    return abs(a - b) / max(abs(b), 1e-30)
+
+
+def train_dispatch(ctx) -> dict:
+    """(g) ``layers.flash_attention`` at phi3.5's attention shape in bf16:
+    under no_grad kernel 8 launches once (and agrees with the chunked
+    softmax within the bf16 tolerance); under grad it does not launch,
+    and the q / k / v gradients equal the chunked path's bits."""
+    from repro_torch.models import layers as L
+    torch, dev = ctx["torch"], ctx["device"]
+    b, s, h, kv, hd = TRAIN_FLASH_SHAPE
+    gen = torch.Generator(device=dev).manual_seed(ctx["seed"] + 21)
+    q, k, v = (torch.randn((b, s, n, hd), generator=gen, device=dev
+                           ).to(torch.bfloat16) for n in (h, kv, kv))
+    reset_launches()
+    with torch.no_grad():
+        fwd = L.flash_attention(q, k, v, causal=True)
+    no_grad = read_launches()["flash_attention"]
+    need(no_grad == 1, f"[train:g] kernel 8 launched {no_grad} times "
+         "under no_grad, not once")
+    with torch.no_grad():
+        chunked = L._flash_chunked(q, L.repeat_kv(k, h // kv),
+                                   L.repeat_kv(v, h // kv), True, 512, 1024)
+    ok, err = _within("flash_attention", "bf16", fwd, chunked)
+    need(ok, f"[train:g] kernel 8 against the chunked softmax: {err:.3e}")
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    w = torch.randn((b, s, h, hd), generator=gen, device=dev)
+    reset_launches()
+    out = L.flash_attention(*leaves, causal=True)
+    grads = torch.autograd.grad((out.float() * w).sum(), leaves)
+    under_grad = read_launches()["flash_attention"]
+    need(under_grad == 0, f"[train:g] kernel 8 launched {under_grad} times "
+         "under grad")
+    ref_leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    ref = L._flash_chunked(ref_leaves[0],
+                           L.repeat_kv(ref_leaves[1], h // kv),
+                           L.repeat_kv(ref_leaves[2], h // kv), True, 512,
+                           1024)
+    want = torch.autograd.grad((ref.float() * w).sum(), ref_leaves)
+    same = [bool(a.equal(b_)) for a, b_ in zip(grads, want)]
+    need(all(same), f"[train:g] q/k/v grads equal to the chunked path's: "
+         f"{same}")
+    return {"shape": TRAIN_FLASH_SHAPE, "launches_no_grad": no_grad,
+            "launches_grad": under_grad, "fwd_vs_chunked_max_abs": err,
+            "grads_equal": same}
+
+
+def train_full_width(ctx, mesh) -> dict:
+    """(a) ``Trainer`` on granite-3-2b at its whole depth and width (bf16
+    params, float32 master, remat "full") on the (1, 1) mesh: finite loss
+    and grad norm, kernel 8 never launched, the step's time, tokens/s,
+    peak memory and share of the bf16 peak."""
+    import tempfile
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.optim.adamw import OptConfig
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    from repro_torch.tree import leaves
+    torch = ctx["torch"]
+    cfg = get_config(TRAIN_ARCH)
+    need(cfg.remat == "full" and cfg.param_dtype == "bfloat16",
+         f"[train:a] {cfg.name} is {cfg.param_dtype}, remat {cfg.remat}")
+    shape = ShapeConfig("train", TRAIN_SEQ, TRAIN_BATCH, "train")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as d:
+        tr = Trainer(cfg, shape, mesh, OptConfig(),
+                     TrainerConfig(ckpt_dir=d, ckpt_every=TRAIN_STEPS + 1,
+                                   log_every=TRAIN_STEPS + 1,
+                                   seed=ctx["seed"]))
+        need(tr.init_or_resume() == ("fresh", 0), "[train:a] not fresh")
+        n_params = sum(t.numel() for t in leaves(tr.state["params"]))
+        state_gb = sum(t.numel() * t.element_size()
+                       for t in leaves(tr.state)) / 1e9
+        log(f"[train:a] {cfg.name}: {cfg.n_layers} layers, d_model "
+            f"{cfg.d_model}, GQA {cfg.n_heads}/{cfg.n_kv_heads}, d_ff "
+            f"{cfg.d_ff}, vocab {cfg.vocab_size}; {n_params / 1e9:.3f} B "
+            f"params, state {state_gb:.1f} GB (bf16 params, float32 "
+            f"master, mu, nu)")
+        reset_launches()
+        secs, losses, gnorms = [], [], []
+        for _ in range(TRAIN_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m = tr.train(1, log=None)
+            losses.append(float(m["loss"]))     # synchronises
+            secs.append(time.perf_counter() - t0)
+            gnorms.append(float(m["grad_norm"]))
+        launches = read_launches()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        split = train_split(ctx, tr)
+        prof = device_profile(torch, lambda: tr.train(1, log=None), 1)
+        del tr, m
+    torch.cuda.empty_cache()
+    need(all(math.isfinite(x) for x in losses + gnorms),
+         f"[train:a] loss {losses}, grad norm {gnorms}")
+    need(launches["flash_attention"] == 0,
+         f"[train:a] kernel 8 launched {launches['flash_attention']} times "
+         "under grad")
+    step_s = statistics.median(secs[1:])
+    tokens = TRAIN_SEQ * TRAIN_BATCH
+    # full remat: forward 2N, its recompute 2N, backward 4N a token; the
+    # chunked attention's QK^T and PV over every (q, kv) block, 4 B S^2 H
+    # hd a layer forward, four times over
+    attn = (16 * TRAIN_BATCH * TRAIN_SEQ ** 2 * cfg.n_heads * cfg.hd
+            * cfg.n_layers)
+    flops = 8 * n_params * tokens + attn
+    share = flops / step_s / PEAKS["bf16_tensor"]
+    rec = {"arch": cfg.name, "layers": cfg.n_layers, "params": n_params,
+           "state_gb": state_gb, "seq": TRAIN_SEQ, "batch": TRAIN_BATCH,
+           "step_s": secs, "step_ms_median_2_4": step_s * 1e3,
+           "tokens_per_s": tokens / step_s, "peak_gb": peak_gb,
+           "flops_per_step": flops, "attention_flops": attn,
+           "share_of_bf16_peak": share, "loss": losses,
+           "grad_norm": gnorms, "launches": launches, "split_ms": split,
+           "device_ms": prof["busy_us"] / 1e3,
+           "device_busy_share": prof["busy_us"] / 1e3 / prof["wall_ms"],
+           "kernels": prof["kernels"], "top_kernels": prof["top"]}
+    log(f"[train:a] {TRAIN_STEPS} steps at B {TRAIN_BATCH} x S "
+        f"{TRAIN_SEQ}: loss {', '.join(f'{x:.4f}' for x in losses)}; grad "
+        f"norm {', '.join(f'{x:.3f}' for x in gnorms)}; step ms "
+        f"{', '.join(f'{x * 1e3:.1f}' for x in secs)} (median of 2-"
+        f"{TRAIN_STEPS} {step_s * 1e3:.1f}), {tokens / step_s:.0f} tokens/s, "
+        f"peak {peak_gb:.2f} GB; {flops / 1e12:.2f} TFLOP a step (8 N "
+        f"tokens + attention {attn / 1e12:.3f}) = {share:.4f} of "
+        f"{PEAKS['bf16_tensor'] / 1e12:.0f} TFLOP/s; kernel 8 launches "
+        f"{launches['flash_attention']}")
+    log(f"[train:a] where a step goes: loss + autograd "
+        f"{split['grads_ms']:.1f} ms, AdamW {split['adamw_ms']:.1f} ms (host "
+        f"clock, synchronised); one profiled step: device busy "
+        f"{rec['device_ms']:.1f} ms of {prof['wall_ms']:.1f} "
+        f"({rec['device_busy_share']:.3f}), {prof['kernels']} kernels")
+    for k in prof["top"]:
+        log(f"[train:a]   {k['us_per_step'] / 1e3:8.2f} ms in "
+            f"{k['per_step']:g} launches: {k['name']}")
+    return rec
+
+
+def train_split(ctx, tr) -> dict:
+    """One more step of trainer ``tr``, its two halves timed apart on the
+    host clock, each synchronised: the loss and its gradients (forward,
+    recompute, backward), then the AdamW update."""
+    from repro_torch.optim.adamw import apply_updates
+    from repro_torch.sharding.partition import full_value
+    from repro_torch.train import train_step as ts
+    from repro_torch.tree import tree_map
+    torch = ctx["torch"]
+    state = tree_map(full_value, tr.state)
+    batch = tr.pipe.batch_at(tr.step)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, _, grads = ts._grads(tr.cfg, state["params"], batch)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    apply_updates(tr.ocfg, state["params"], grads, state["opt"])
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    tr.step += 1
+    return {"grads_ms": (t1 - t0) * 1e3, "adamw_ms": (t2 - t1) * 1e3}
+
+
+def _check_state(ctx, seed: int, compress: bool = False) -> dict:
+    """The checks' train state: granite at full width, 2 layers, float32,
+    on the CPU from ``seed``."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.optim.adamw import OptConfig
+    from repro_torch.train import train_step as ts
+    torch = ctx["torch"]
+    cfg = get_config(TRAIN_ARCH).replace(
+        n_layers=TRAIN_CHECK_LAYERS, param_dtype="float32",
+        compute_dtype="float32")
+    return ts.init_train_state(cfg, OptConfig(),
+                               torch.Generator().manual_seed(seed),
+                               compress_grads=compress, device="cpu")
+
+
+def train_checks(ctx, mesh) -> dict:
+    """(b) one ``train_step_fn`` on the card against the CPU; (d)
+    microbatches 2 against 1 on the card, and compressed grads for 3
+    steps; (e) ``make_train_step`` on the (1, 1) mesh against
+    ``train_step_fn`` in bits, ``espim_matvec_sharded`` (kernel 5 once)
+    against ``ESPIMLinear``, ``make_serve_step`` against ``decode_step``
+    in bits.  Granite at full width, 2 of 40 layers, float32, batch 2 x
+    32."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.espim_linear import (ESPIMLinear,
+                                               espim_matvec_sharded,
+                                               make_sharded_weights)
+    from repro_torch.data.pipeline import SyntheticPipeline
+    from repro_torch.models import factory
+    from repro_torch.optim.adamw import OptConfig
+    from repro_torch.serve.serve_step import make_serve_step
+    from repro_torch.sharding import partition
+    from repro_torch.train import train_step as ts
+    from repro_torch.tree import tree_map
+    torch, dev = ctx["torch"], ctx["device"]
+    cfg = get_config(TRAIN_ARCH).replace(
+        n_layers=TRAIN_CHECK_LAYERS, param_dtype="float32",
+        compute_dtype="float32")
+    ocfg = OptConfig()
+    shape = ShapeConfig("check", TRAIN_CHECK_SEQ, TRAIN_CHECK_BATCH, "train")
+    pipe = SyntheticPipeline.for_model(cfg, shape, seed=ctx["seed"],
+                                       device="cpu")
+    batch = pipe.batch_at(0)
+    gbatch = tree_map(lambda t: t.to(dev), batch)
+    seed = ctx["seed"] + 31
+
+    def on_card(compress=False):
+        return tree_map(lambda t: t.to(dev), _check_state(ctx, seed,
+                                                          compress))
+
+    rec = {}
+    # (b)
+    t0 = time.perf_counter()
+    cpu = _check_state(ctx, seed)
+    cpu, m_cpu = ts.train_step_fn(cfg, ocfg, cpu, batch)
+    cpu_s = time.perf_counter() - t0
+    card, m_card = ts.train_step_fn(cfg, ocfg, on_card(), gbatch)
+    worst, leaf = _tree_rel(card, cpu)
+    b = {"loss_rel": _rel(m_card["loss"], m_cpu["loss"]),
+         "grad_norm_rel": _rel(m_card["grad_norm"], m_cpu["grad_norm"]),
+         "leaf_rel": worst, "worst_leaf": leaf, "cpu_s": cpu_s,
+         "loss": float(m_cpu["loss"]), "grad_norm": float(m_cpu["grad_norm"])}
+    need(max(b["loss_rel"], b["grad_norm_rel"], worst) <= TRAIN_REL_TOL,
+         f"[train:b] card vs CPU: {b}")
+    rec["card_vs_cpu"] = b
+    log(f"[train:b] train_step_fn at {cfg.n_layers} of 40 layers, full "
+        f"width, float32, B {TRAIN_CHECK_BATCH} x S {TRAIN_CHECK_SEQ}: card "
+        f"vs CPU loss {b['loss_rel']:.2e}, grad norm "
+        f"{b['grad_norm_rel']:.2e}, worst state leaf {worst:.2e} ({leaf}) "
+        f"(<= {TRAIN_REL_TOL}); CPU step {cpu_s:.1f} s")
+    del cpu
+    # (d)
+    mb, m_mb = ts.train_step_fn(cfg, ocfg, on_card(), gbatch,
+                                microbatches=2)
+    worst, leaf = _tree_rel(mb, card)
+    d = {"loss_rel": _rel(m_mb["loss"], m_card["loss"]),
+         "grad_norm_rel": _rel(m_mb["grad_norm"], m_card["grad_norm"]),
+         "leaf_rel": worst, "worst_leaf": leaf}
+    need(max(d["loss_rel"], d["grad_norm_rel"], worst) <= TRAIN_REL_TOL,
+         f"[train:d] microbatches 2 vs 1: {d}")
+    del mb
+    comp, losses = on_card(compress=True), []
+    for i in range(TRAIN_COMPRESS_STEPS):
+        comp, m = ts.train_step_fn(cfg, ocfg, comp,
+                                   tree_map(lambda t: t.to(dev),
+                                            pipe.batch_at(i)),
+                                   compress_grads=True)
+        losses.append(float(m["loss"]))
+    need(all(math.isfinite(x) for x in losses),
+         f"[train:d] compressed losses {losses}")
+    d["compressed_losses"] = losses
+    rec["microbatches"] = d
+    del comp
+    log(f"[train:d] microbatches 2 vs 1: loss {d['loss_rel']:.2e}, grad "
+        f"norm {d['grad_norm_rel']:.2e}, worst leaf {worst:.2e} ({leaf}); "
+        f"compress_grads {TRAIN_COMPRESS_STEPS} steps: loss "
+        f"{', '.join(f'{x:.4f}' for x in losses)}")
+    # (e) the train step through the mesh
+    step, pspecs, bspecs = ts.make_train_step(
+        cfg, ocfg, mesh, ts.init_train_state(cfg, ocfg, device="meta"),
+        batch)
+    placed = partition.logical_to_sharding(on_card(), pspecs, mesh)
+    placed, m_mesh = step(placed, partition.logical_to_sharding(
+        batch, bspecs, mesh))
+    differ = _tree_equal(placed, card)
+    need(not differ and bool(m_mesh["loss"].equal(m_card["loss"])),
+         f"[train:e] mesh step vs train_step_fn: leaves differ {differ[:5]}")
+    params = tree_map(partition.full_value, placed["params"])
+    del placed, card
+    torch.cuda.empty_cache()
+    # (e) the sharded matvec: kernel 5 once
+    w = params["layers"]["mlp"]["w_down"][0].T.cpu().numpy()
+    sh = make_sharded_weights(w, 1, prune_sparsity=TRAIN_MATVEC_SPARSITY)
+    x = torch.randn(w.shape[1], generator=torch.Generator(device=dev
+                                                          ).manual_seed(seed),
+                    device=dev)
+    reset_launches()
+    y = espim_matvec_sharded(sh, x, mesh)
+    mv_launches = read_launches()
+    lin = ESPIMLinear.from_dense(w, prune_sparsity=TRAIN_MATVEC_SPARSITY,
+                                 device=dev)
+    ok, mv_err = _within("espim_spmv", "fp32", y, lin(x))
+    need(mv_launches["espim_spmv"] == 1 and sum(mv_launches.values()) == 1,
+         f"[train:e] espim_matvec_sharded launches {mv_launches}")
+    need(ok, f"[train:e] espim_matvec_sharded vs ESPIMLinear {mv_err:.3e}")
+    # (e) the serve step through the mesh
+    cache = factory.init_cache(cfg, TRAIN_CHECK_BATCH, 16, device=dev)
+    sb = {"tokens": gbatch["tokens"][:, :1]}
+    sstep, sp, cs, bs = make_serve_step(cfg, mesh, params, cache, sb)
+    _, logits, new = sstep(partition.logical_to_sharding(params, sp, mesh),
+                           partition.logical_to_sharding(cache, cs, mesh),
+                           partition.logical_to_sharding(sb, bs, mesh))
+    with torch.no_grad():
+        want, want_cache = factory.decode_step(cfg, params, cache, sb)
+    serve_differ = _tree_equal(new, want_cache)
+    need(bool(logits.equal(want)) and not serve_differ,
+         f"[train:e] make_serve_step vs decode_step: cache {serve_differ}")
+    rec["mesh"] = {"train_step_bits_equal": True,
+                   "matvec_launches": mv_launches, "matvec_max_abs": mv_err,
+                   "matvec_shape": list(w.shape),
+                   "serve_step_bits_equal": True}
+    log(f"[train:e] (1, 1) mesh: make_train_step == train_step_fn in bits; "
+        f"espim_matvec_sharded {tuple(w.shape)} at "
+        f"{TRAIN_MATVEC_SPARSITY:.0%} sparsity: kernel 5 launches "
+        f"{mv_launches['espim_spmv']}, vs ESPIMLinear {mv_err:.2e}; "
+        f"make_serve_step == decode_step in bits")
+    return rec
+
+
+def train_resume(ctx, mesh) -> dict:
+    """(c) at 2 layers, full width, bf16: train 3, save, restore, train 2,
+    against 5 straight; every state leaf and the last loss in bits, with
+    deterministic algorithms on (embedding backward accumulates through
+    ``index_put_``, which may use atomics otherwise)."""
+    import tempfile
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.optim.adamw import OptConfig
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    torch = ctx["torch"]
+    cfg = get_config(TRAIN_ARCH).replace(n_layers=TRAIN_CHECK_LAYERS)
+    shape = ShapeConfig("train", TRAIN_SEQ, TRAIN_BATCH, "train")
+    ocfg = OptConfig(warmup_steps=2, decay_steps=100)
+
+    def trainer(d):
+        return Trainer(cfg, shape, mesh, ocfg,
+                       TrainerConfig(ckpt_dir=d, ckpt_every=10 ** 9,
+                                     log_every=10 ** 9, seed=ctx["seed"]))
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        with tempfile.TemporaryDirectory() as d1, \
+                tempfile.TemporaryDirectory() as d2:
+            tr = trainer(d1)
+            tr.init_or_resume()
+            tr.train(3, log=None)
+            t0 = time.perf_counter()
+            tr.save()
+            save_s = time.perf_counter() - t0
+            ckpt_gb = sum(f.stat().st_size
+                          for f in Path(d1).rglob("*")) / 1e9
+            del tr
+            resumed = trainer(d1)
+            t0 = time.perf_counter()
+            kind = resumed.init_or_resume()
+            restore_s = time.perf_counter() - t0
+            m_r = resumed.train(2, log=None)
+            straight = trainer(d2)
+            straight.init_or_resume()
+            m_s = straight.train(5, log=None)
+            differ = _tree_equal(resumed.state, straight.state)
+            same_loss = bool(m_r["loss"].equal(m_s["loss"]))
+            del resumed, straight
+    finally:
+        torch.use_deterministic_algorithms(False)
+    torch.cuda.empty_cache()
+    need(kind == ("resumed", 3), f"[train:c] init_or_resume gave {kind}")
+    need(not differ and same_loss,
+         f"[train:c] resumed vs straight: leaves differ {differ[:5]}, last "
+         f"loss equal {same_loss}")
+    log(f"[train:c] resume at {cfg.n_layers} layers bf16: 3 + save + "
+        f"restore + 2 == 5 straight in bits (every state leaf and the last "
+        f"loss {float(m_s['loss']):.4f}); checkpoint {ckpt_gb:.2f} GB, save "
+        f"{save_s:.1f} s, restore {restore_s:.1f} s")
+    return {"bits_equal": True, "ckpt_gb": ckpt_gb, "save_s": save_s,
+            "restore_s": restore_s, "last_loss": float(m_s["loss"])}
+
+
+def train_launcher(ctx) -> dict:
+    """(f) ``python -m repro_torch.launch.train --arch granite-3-2b
+    --reduced`` as a subprocess for 10 steps into a temp checkpoint dir,
+    then again with ``--steps 12``, which must resume at step 10."""
+    import tempfile
+    out = {}
+    with tempfile.TemporaryDirectory() as d:
+        for steps in TRAIN_LAUNCHER_STEPS:
+            cmd = [sys.executable, "-m", "repro_torch.launch.train",
+                   *TRAIN_LAUNCHER_ARGS, "--steps", str(steps),
+                   "--ckpt-dir", d]
+            t0 = time.perf_counter()
+            try:
+                proc = subprocess.run(
+                    cmd, cwd=ROOT, capture_output=True, text=True,
+                    timeout=LAUNCHER_TIMEOUT_S,
+                    env=dict(os.environ, PYTHONPATH=str(SRC)))
+            except subprocess.TimeoutExpired:
+                raise SmokeFailure(f"[train:f] {' '.join(cmd[3:])} ran past "
+                                   f"{LAUNCHER_TIMEOUT_S} s") from None
+            need(proc.returncode == 0, f"[train:f] {' '.join(cmd[3:])}: "
+                 f"exit {proc.returncode}: {proc.stderr.strip()[-2000:]}")
+            want = ("fresh at step 0" if steps == TRAIN_LAUNCHER_STEPS[0]
+                    else f"resumed at step {TRAIN_LAUNCHER_STEPS[0]}")
+            need(want in proc.stdout and f"done at step {steps}"
+                 in proc.stdout, f"[train:f] {proc.stdout!r}")
+            out[steps] = {"stdout": proc.stdout.strip(),
+                          "seconds": time.perf_counter() - t0}
+            log(f"[train:f] --steps {steps}: "
+                + proc.stdout.strip().replace(d, "<tmp>").replace("\n", " | ")
+                + f" ({out[steps]['seconds']:.1f} s)")
+    return out
+
+
+def phase_train(ctx) -> dict:
+    """12. train: granite-3-2b through ``Trainer`` at full width and depth,
+    then the checks (b)-(g), on one process and a (1, 1) NCCL mesh."""
+    from repro_torch.launch.mesh import make_local_mesh
+    torch = ctx["torch"]
+    t0 = time.perf_counter()
+    live_gb = torch.cuda.memory_allocated() / 1e9
+    log(f"[train] {live_gb:.2f} GB allocated on the card at the start")
+    mesh = make_local_mesh()
+    rec = {"live_gb_at_start": live_gb,
+           "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape))}
+    rec["dispatch"] = train_dispatch(ctx)
+    log("[train:g] layers.flash_attention at phi3.5's attention shape, "
+        "bf16: kernel 8 launches 1 under no_grad, 0 under grad; q/k/v "
+        "grads equal the chunked path's bits")
+    rec["full_width"] = train_full_width(ctx, mesh)
+    rec.update(train_checks(ctx, mesh))
+    rec["resume"] = train_resume(ctx, mesh)
+    rec["launcher"] = train_launcher(ctx)
+    torch.distributed.destroy_process_group()      # make_local_mesh's
+    rec["seconds"] = time.perf_counter() - t0
+    log(f"[train] phase {rec['seconds']:.1f} s")
+    ctx["report"]["train"] = rec
+    return rec
+
+
 def run(ctx) -> list:
     """All phases after the build; returns the kernels line's entries."""
     from repro_torch.configs.registry import get_config
@@ -2613,6 +3123,11 @@ def run(ctx) -> list:
     entries += phase_new_kernels(ctx, groups, launches_main)
     phase_families(ctx)
     phase_autotune(ctx, params, sparse8, sparse_fp)
+    # the train phase needs ~55 GB: free llama7b's params and packs
+    del params, params_fp, sparse8, sparse_fp, proj, groups
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_train(ctx)
     return entries
 
 
@@ -2622,6 +3137,9 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default=str(ROOT / "chiprun_out"))
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
+    # cuBLAS reads this at its first handle: the train phase's resume
+    # drill runs with deterministic algorithms, which require it
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     try:
         import torch
     except ImportError:

@@ -13,8 +13,11 @@ or ``QuantEspimWeights`` view of them.
 
 A 1-D ``x`` takes the unbatched op (the unbatched kernel on fp packs),
 where the reference passes it as one column through the batched op: the
-same sums in another order.  The distributed matvec
-(``make_sharded_weights``, ``espim_matvec_sharded``) is not ported yet.
+same sums in another order.
+
+The distributed matvec (``make_sharded_weights``, ``espim_matvec_sharded``)
+makes each rank of a mesh axis one bank holding a contiguous range of
+packed rows; x is replicated (the broadcast).
 """
 from __future__ import annotations
 
@@ -25,11 +28,14 @@ import torch
 from torch import nn
 
 from repro_torch.core.pruning import magnitude_prune
-from repro_torch.core.sparse_format import pack_ell_chunked
+from repro_torch.core.sparse_format import (chunk_pack, pack_ell,
+                                           pack_ell_chunked, shard_ell)
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
+from repro_torch.kernels import ref as kref
 
-__all__ = ["ESPIMLinear", "ESPIMGroupLinear"]
+__all__ = ["ESPIMLinear", "ESPIMGroupLinear", "make_sharded_weights",
+           "espim_matvec_sharded"]
 
 
 def _host(a) -> np.ndarray:
@@ -191,3 +197,54 @@ class ESPIMGroupLinear(_Packed):
             out[name] = y[r0:r0 + n_out].T.reshape(x.shape[:-1] + (n_out,))
             r0 += n_out
         return out
+
+
+# --------------------------------------------------------------------------
+# Distributed sparse MV (devices as banks)
+# --------------------------------------------------------------------------
+def make_sharded_weights(w, n_shards: int, *,
+                         prune_sparsity: float | None = None,
+                         row_tile: int = 128,
+                         chunk_cols: int = ops.DEFAULT_CHUNK_COLS) -> dict:
+    """Offline: prune, pack, re-layout for ``n_shards`` banks
+    (``shard_ell``: packed rows padded to a multiple of n_shards x
+    row_tile), then chunk the columns so that a bank runs the unbatched
+    kernel.  Host numpy: ``values`` / ``cols`` (S, per, K, Lc), ``perm``
+    (S, per), ``n_rows``, ``n_cols``, ``chunk_cols``."""
+    w = _host(w)
+    if prune_sparsity is not None:
+        w = magnitude_prune(w, prune_sparsity)
+    sh = shard_ell(pack_ell(w, row_tile=row_tile), n_shards)
+    cp = chunk_pack(sh["pack"], chunk_cols)
+    per = sh["perm"].shape[1]
+    k, lc = cp.values.shape[1:]
+    return {"values": cp.values.reshape(n_shards, per, k, lc),
+            "cols": cp.cols.reshape(n_shards, per, k, lc),
+            "perm": sh["perm"], "n_rows": sh["n_rows"],
+            "n_cols": sh["n_cols"], "chunk_cols": cp.chunk_cols}
+
+
+def espim_matvec_sharded(sharded: dict, x: torch.Tensor, mesh,
+                         axis: str = "model", *,
+                         impl: str | None = None) -> torch.Tensor:
+    """y (n_rows,) = W @ x with W's packed rows sharded over ``axis`` of
+    ``mesh`` (a ``DeviceMesh``).  This rank is bank ``coordinate[axis]``:
+    its packed rows go to ``x``'s device and through ``ops.espim_spmv``
+    (kernel 5 on the card); the banks' outputs are all-gathered along
+    ``axis`` (nothing to gather at size 1) and unscattered to row
+    order."""
+    import torch.distributed as dist
+
+    dim = mesh.mesh_dim_names.index(axis)
+    bank = mesh.get_coordinate()[dim]
+    dev = x.device
+    yp = ops.espim_spmv(torch.as_tensor(sharded["values"][bank], device=dev),
+                        torch.as_tensor(sharded["cols"][bank], device=dev),
+                        x, chunk_cols=sharded["chunk_cols"], impl=impl)
+    n_banks = mesh.size(dim)
+    if n_banks > 1:
+        parts = [torch.empty_like(yp) for _ in range(n_banks)]
+        dist.all_gather(parts, yp, group=mesh.get_group(axis))
+        yp = torch.cat(parts)
+    perm = torch.as_tensor(sharded["perm"].reshape(-1), device=dev)
+    return kref.scatter_rows_ref(yp, perm, sharded["n_rows"])

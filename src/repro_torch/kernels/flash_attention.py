@@ -61,7 +61,14 @@ def pad_heads(attend, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
             scale: float) -> torch.Tensor:
-    """One kernel launch on contiguous (BH, S, hd) tensors, hd built."""
+    """One kernel launch on contiguous (BH, S, hd) tensors, hd built.
+    Raises for an input that requires grad under grad mode: the kernel
+    writes through raw pointers, so its output would carry no
+    ``grad_fn`` and cut the graph silently."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError("flash_attention kernel has no backward: call it "
+                           "under torch.no_grad() or on tensors that do not "
+                           "require grad")
     if q.numel() >= 2 ** 31:
         raise ValueError("q too large for 32-bit offsets")
     bh, s, hd = q.shape

@@ -6,9 +6,7 @@ over the six families.
   init_cache(cfg, B, max_len, device) -> decode cache dict
   decode_step(cfg, params, cache, batch) -> (logits, cache)
   prefill_chunk(cfg, params, cache, batch) -> (logits, cache)
-
-Training's ``loss_fn`` / ``cross_entropy`` are not ported (ROADMAP Queue
-1, "Training").
+  loss_fn(cfg, params, batch)         -> (loss, metrics)
 """
 from __future__ import annotations
 
@@ -18,7 +16,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import mamba, moe, rwkv, transformer, vlm, whisper
 
 __all__ = ["get_family", "init_params", "apply_train", "init_cache",
-           "decode_step", "prefill_chunk", "supports_chunked_prefill"]
+           "decode_step", "prefill_chunk", "supports_chunked_prefill",
+           "loss_fn", "cross_entropy", "MOE_AUX_WEIGHT"]
 
 _FAMILIES = {
     "dense": transformer,
@@ -28,6 +27,8 @@ _FAMILIES = {
     "ssm": rwkv,
     "audio": whisper,
 }
+
+MOE_AUX_WEIGHT = 0.01
 
 
 def get_family(cfg: ModelConfig):
@@ -75,3 +76,33 @@ def prefill_chunk(cfg: ModelConfig, params: dict, cache: dict, batch: dict):
             f"family {cfg.family!r} has no chunked prefill; use token "
             "replay")
     return mod.prefill_chunk(cfg, params, cache, batch)
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Token-mean cross-entropy in float32: logits (B, S, V), labels
+    (B, S) int, an optional ``mask`` (B, S) weighting each token (the
+    padded vocab columns take part in the logsumexp, as the
+    reference's)."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.take_along_dim(logits, labels.long()[..., None],
+                                dim=-1)[..., 0]
+    nll = logz - gold
+    if mask is None:
+        mask = torch.ones_like(nll)
+    mask = mask.float()
+    return torch.sum(nll * mask) / torch.clamp_min(torch.sum(mask), 1.0)
+
+
+def loss_fn(cfg: ModelConfig, params: dict, batch: dict):
+    """-> (loss, {"ce", "aux"}): the cross-entropy of ``apply_train``'s
+    logits against ``batch["labels"]`` (``batch["loss_mask"]`` when given)
+    plus ``MOE_AUX_WEIGHT`` times the aux term (zero outside MoE)."""
+    logits, aux = apply_train(cfg, params, batch)
+    labels = batch["labels"].to(logits.device)
+    mask = batch.get("loss_mask")
+    ce = cross_entropy(logits, labels,
+                       None if mask is None else mask.to(logits.device))
+    loss = ce + MOE_AUX_WEIGHT * aux
+    return loss, {"ce": ce, "aux": aux}

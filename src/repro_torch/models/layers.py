@@ -1,7 +1,8 @@
 """Model layers, in plain PyTorch ops that mirror
 ``src/repro/models/layers.py``: RMSNorm and LayerNorm, dense projections,
 RoPE and Qwen2-VL's M-RoPE, full-sequence attention (``flash_attention``:
-kernel 8 on the card, a chunked online softmax otherwise), decode /
+kernel 8 on the card for inference, a chunked online softmax otherwise
+and whenever autograd records), decode /
 chunked-prefill attention with the un-repeated GQA contraction and
 float32 softmax, and the MLPs.
 
@@ -19,11 +20,23 @@ from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels.ops import _resolve, _use_kernel
 from repro_torch.kernels.ref import epilogue_act
 
-__all__ = ["rms_norm", "layer_norm", "dense", "rope_angles", "apply_rope",
-           "apply_mrope", "repeat_kv", "flash_attention", "attention_decode",
-           "attention_prefill", "act_fn", "mlp_gated", "mlp_relu2"]
+__all__ = ["shard_hint", "rms_norm", "layer_norm", "dense", "rope_angles",
+           "apply_rope", "apply_mrope", "repeat_kv", "flash_attention",
+           "attention_decode", "attention_prefill", "act_fn", "mlp_gated",
+           "mlp_relu2"]
 
 NEG_INF = -1e30
+
+
+def shard_hint(x: torch.Tensor, *logical) -> torch.Tensor:
+    """The identity.  The reference's hint pins a loop-carried activation
+    to the ambient mesh so that XLA's sharding propagation does not
+    replicate it; eager PyTorch has no propagation to re-anchor, and the
+    port's forwards never run on DTensors (a sharded train or serve step
+    gathers its params to plain tensors first, ``train.train_step``), so
+    there is nothing to redistribute.  Kept so that code written against
+    the reference's layers reads the same; ``logical`` is ignored."""
+    return x
 
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5
@@ -121,24 +134,33 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     with H % KV == 0 -> (B, Sq, H, hd) in q's dtype.  ``causal`` aligns
     the ends of the two sequences.
 
-    Dispatch by shape: with Sq == Skv (the shape set of
-    ``flash_attention_pallas``) and CUDA tensors, k and v are repeated to
-    H heads, the heads folded into (B·H, S, hd) and kernel 8 launched;
-    any failure of the kernel raises.  Otherwise (the CPU, the
-    ``ESPIM_IMPL=ref`` pin, or unequal lengths: Whisper's
-    teacher-forced cross-attention) the chunked online softmax of the
-    reference runs (``_flash_chunked``)."""
+    Dispatch by shape and grad state: with Sq == Skv (the shape set of
+    ``flash_attention_pallas``), hd up to the widest built width
+    (``FA.HEAD_DIMS``), CUDA tensors and nothing to differentiate, k and
+    v are repeated to H heads, the heads folded into (B·H, S, hd) and
+    kernel 8 launched; any failure of the kernel raises.  Otherwise (the
+    CPU, the ``ESPIM_IMPL=ref`` pin, unequal lengths: Whisper's
+    teacher-forced cross-attention, a wider head, or grad mode on with q,
+    k or v requiring grad: training) the chunked online softmax of the
+    reference runs (``_flash_chunked``).  Kernel 8 has no backward, and
+    the reference differentiates this same chunked softmax."""
     b, sq, h, hd = q.shape
     skv, kvh = k.shape[1], k.shape[2]
     k = repeat_kv(k, h // kvh)
     v = repeat_kv(v, h // kvh)
-    if sq == skv and _use_kernel(_resolve(None), q, k, v):
+    if (sq == skv and hd <= FA.HEAD_DIMS[-1] and not _needs_grad(q, k, v)
+            and _use_kernel(_resolve(None), q, k, v)):
         def fold(t):
             return t.transpose(1, 2).reshape(b * h, sq, hd)
         out = FA.flash_attention_cuda(fold(q), fold(k), fold(v),
                                       causal=causal)
         return out.reshape(b, h, sq, hd).transpose(1, 2)
     return _flash_chunked(q, k, v, causal, q_chunk, kv_chunk)
+
+
+def _needs_grad(*tensors) -> bool:
+    """True when autograd would record an op on ``tensors``."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
 def _flash_chunked(q, k, v, causal: bool, q_chunk: int, kv_chunk: int

@@ -319,14 +319,32 @@ def forward(cfg: ModelConfig, params: dict, batch: dict) -> torch.Tensor:
     positions = torch.arange(s, dtype=torch.int32,
                              device=tokens.device).expand(b, s)
     h = T.embed_tokens(cfg, params, tokens)
+    shared = params.get("shared_attn")
+    layers = T.layer_list(params["layers"], cfg.n_layers)
 
-    def mamba(i, p, hn):
-        return mamba2_apply(cfg, p, hn)[:1]
+    def mamba_body(h, lp):
+        return h + mamba2_apply(cfg, lp["mamba"], T._norm(cfg, lp["ln"], h))[0]
 
-    def attn(app, p, hn):
+    if shared is None:
+        body = T.remat_wrap(cfg, mamba_body)
+        for lp in layers:
+            h = body(h, lp)
+        return T.logits_from_hidden(cfg, params, h)
+
+    def attn(p, hn):
         return (T.attn_apply(cfg, p, hn, positions),)
 
-    h, _, _ = _run(cfg, params, h, mamba, attn)
+    def group_body(h, group):
+        # the reference's remat unit: the shared block, then its group
+        h, _ = _shared_block(cfg, shared, h, attn)
+        for lp in group:
+            h = mamba_body(h, lp)
+        return h
+
+    body = T.remat_wrap(cfg, group_body)
+    every = cfg.attn_every
+    for g in range(_n_apps(cfg)):
+        h = body(h, layers[g * every:(g + 1) * every])
     return T.logits_from_hidden(cfg, params, h)
 
 

@@ -123,12 +123,16 @@ def forward(cfg: ModelConfig, params: dict, batch: dict):
                                  device=tokens.device).expand(b, s)
     h = T.embed_tokens(cfg, params, tokens)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
-    for i in range(cfg.n_layers):
-        lp = T.layer_slice(params["layers"], i)
+
+    def body(h, aux, lp):
         h = h + T.attn_apply(cfg, lp["attn"], T._norm(cfg, lp["ln1"], h),
                              positions)
         y, a = moe_block(cfg, lp["moe"], T._norm(cfg, lp["ln2"], h))
-        h, aux = h + y, aux + a
+        return h + y, aux + a
+
+    body = T.remat_wrap(cfg, body)
+    for lp in T.layer_list(params["layers"], cfg.n_layers):
+        h, aux = body(h, aux, lp)
     return T.logits_from_hidden(cfg, params, h), aux / cfg.n_layers
 
 

@@ -176,9 +176,22 @@ def _run(cfg: ModelConfig, params: dict, cache: dict, tokens, valid=None,
 
 
 def forward(cfg: ModelConfig, params: dict, batch: dict) -> torch.Tensor:
+    """tokens (B, S) -> logits (B, S, V), every layer from zero states."""
     tokens = batch["tokens"].to(params["embed"].device)
-    cache = init_cache(cfg, tokens.shape[0], 0, tokens.device)
-    h, _ = _run(cfg, params, cache, tokens)
+    st = init_cache(cfg, tokens.shape[0], 0, tokens.device)
+    h = T.embed_tokens(cfg, params, tokens)
+
+    def body(h, lp, tm_x, cm_x, wkv):
+        a, _, _ = time_mix_apply(cfg, lp["tm"], T._norm(cfg, lp["ln1"], h),
+                                 tm_x, wkv)
+        h = h + a
+        c, _ = channel_mix_apply(cfg, lp["cm"], T._norm(cfg, lp["ln2"], h),
+                                 cm_x)
+        return h + c
+
+    body = T.remat_wrap(cfg, body)
+    for i, lp in enumerate(T.layer_list(params["layers"], cfg.n_layers)):
+        h = body(h, lp, st["tm_x"][i], st["cm_x"][i], st["wkv"][i])
     return T.logits_from_hidden(cfg, params, h)
 
 

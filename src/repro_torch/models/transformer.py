@@ -6,8 +6,9 @@ per-head scales), embedding and logits, the QKV projection, RMSNorm or
 LayerNorm, RoPE / M-RoPE / learned positions, full-sequence attention
 (``attn_apply``: self or cross, through ``layers.flash_attention``), the
 projection-free attention cores (RoPE + cache write + attention) the
-packed QKV / O groups wrap, and the dense ``forward``, ``decode_step`` and
-``prefill_chunk``.
+packed QKV / O groups wrap, the dense ``forward``, ``decode_step`` and
+``prefill_chunk``, and what every family's full-sequence forward shares
+for training: ``remat_wrap`` around the layer body and ``layer_list``.
 
 Params are the reference's dict layout: layer leaves stacked along a
 leading layer axis, projections stored (d_in, d_out).
@@ -15,6 +16,8 @@ leading layer axis, projections stored (d_in, d_out).
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
@@ -24,7 +27,8 @@ __all__ = ["init_params", "forward", "init_cache", "decode_step",
            "prefill_chunk", "init_attn_layer", "init_mlp_layer", "init_norm",
            "init_embed", "normal", "embed_tokens", "logits_from_hidden", "attn_apply",
            "attn_decode_core", "attn_decode_apply", "attn_prefill_core",
-           "attn_prefill_apply", "splice_rows", "mlp_apply", "layer_slice"]
+           "attn_prefill_apply", "splice_rows", "mlp_apply", "layer_slice",
+           "layer_list", "remat_wrap"]
 
 
 def normal(gen, shape, scale, dtype, device):
@@ -34,8 +38,11 @@ def normal(gen, shape, scale, dtype, device):
 
 
 def _generator(generator, dev):
+    """The caller's generator, else one seeded 0 on ``dev`` (on the CPU
+    for the meta device, which has none and draws nothing)."""
     if generator is None:
-        generator = torch.Generator(device=dev).manual_seed(0)
+        gdev = "cpu" if dev.type == "meta" else dev
+        generator = torch.Generator(device=gdev).manual_seed(0)
     return generator
 
 
@@ -311,6 +318,64 @@ def layer_slice(tree: dict, i) -> dict:
             for k, v in tree.items()}
 
 
+def layer_list(tree: dict, n: int) -> list:
+    """The ``n`` per-layer trees of a stacked tree, each leaf ``unbind``
+    once: the same values as ``layer_slice``, and under autograd one
+    ``stack`` in the backward where ``n`` indexings would each add a
+    zero tensor the size of the whole stacked leaf."""
+    out = [{} for _ in range(n)]
+    for k, v in tree.items():
+        parts = layer_list(v, n) if isinstance(v, dict) else v.unbind(0)
+        for d, part in zip(out, parts):
+            d[k] = part
+    return out
+
+
+def remat_wrap(cfg: ModelConfig, fn):
+    """``fn`` under the config's rematerialisation policy, as the
+    reference wraps a scan body:
+
+    - ``"none"``: ``fn`` itself;
+    - ``"full"``: ``torch.utils.checkpoint`` (non-reentrant), which keeps
+      the body's inputs and recomputes the rest in the backward;
+    - ``"dots"``: the reference's ``checkpoint_dots_with_no_batch_dims``
+      as a selective checkpoint: the outputs of ``aten.mm`` / ``aten.addmm``
+      (the projections, products without batch dims) are saved, the rest
+      (``bmm`` included: attention's batched products) recomputed.
+
+    Recomputation repeats the same ops on the same inputs, so every
+    output and gradient bit is the same under the three policies.
+    Non-reentrant checkpointing runs the body with grad mode as it is,
+    so ``layers.flash_attention`` takes its differentiable path in the
+    forward and in the recompute alike."""
+    if cfg.remat == "none":
+        return fn
+    if cfg.remat == "full":
+        context_fn = None
+    elif cfg.remat == "dots":
+        context_fn = _dots_contexts
+    else:
+        raise ValueError(f"unknown remat policy {cfg.remat!r}")
+
+    def wrapped(*args):
+        if not torch.is_grad_enabled():     # nothing to save or recompute
+            return fn(*args)
+        kw = {} if context_fn is None else {"context_fn": context_fn}
+        return checkpoint(fn, *args, use_reentrant=False, **kw)
+
+    return wrapped
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _dots_contexts():
+    return create_selective_checkpoint_contexts(_dots_policy)
+
+
 def forward(cfg: ModelConfig, params: dict, batch: dict) -> torch.Tensor:
     """Train / prefill forward: tokens (B, S) [+ positions (B, S)] ->
     logits (B, S, V); the VLM flavour also takes ``positions3`` (3, B, S)
@@ -327,11 +392,15 @@ def forward(cfg: ModelConfig, params: dict, batch: dict) -> torch.Tensor:
     if "embeddings" in batch:
         vis = batch["embeddings"].to(h.dtype)
         h = torch.where(batch["vis_mask"][..., None], vis, h)
-    for i in range(cfg.n_layers):
-        lp = layer_slice(params["layers"], i)
+
+    def body(h, lp):
         h = h + attn_apply(cfg, lp["attn"], _norm(cfg, lp["ln1"], h),
                            positions, positions3=positions3)
-        h = h + mlp_apply(cfg, lp["mlp"], _norm(cfg, lp["ln2"], h))
+        return h + mlp_apply(cfg, lp["mlp"], _norm(cfg, lp["ln2"], h))
+
+    body = remat_wrap(cfg, body)
+    for lp in layer_list(params["layers"], cfg.n_layers):
+        h = body(h, lp)
     return logits_from_hidden(cfg, params, h)
 
 

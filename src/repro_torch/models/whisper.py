@@ -71,11 +71,15 @@ def encode(cfg: ModelConfig, params: dict, frames: torch.Tensor
     h = frames.to(cfg.cdtype) + sin[None]
     positions = torch.arange(t, dtype=torch.int32,
                              device=frames.device).expand(b, t)
-    for i in range(cfg.encoder_layers):
-        lp = T.layer_slice(params["enc_layers"], i)
+
+    def body(h, lp):
         h = h + T.attn_apply(cfg, lp["attn"], T._norm(cfg, lp["ln1"], h),
                              positions, causal=False)
-        h = h + T.mlp_apply(cfg, lp["mlp"], T._norm(cfg, lp["ln2"], h))
+        return h + T.mlp_apply(cfg, lp["mlp"], T._norm(cfg, lp["ln2"], h))
+
+    body = T.remat_wrap(cfg, body)
+    for lp in T.layer_list(params["enc_layers"], cfg.encoder_layers):
+        h = body(h, lp)
     return T._norm(cfg, params["enc_norm"], h)
 
 
@@ -94,14 +98,18 @@ def forward(cfg: ModelConfig, params: dict, batch: dict) -> torch.Tensor:
     positions = torch.arange(s, dtype=torch.int32,
                              device=enc.device).expand(b, s)
     h = _embed(cfg, params, tokens, positions[:1])
-    for i in range(cfg.n_layers):
-        lp = T.layer_slice(params["dec_layers"], i)
+
+    def body(h, lp):
         h = h + T.attn_apply(cfg, lp["self_attn"],
                              T._norm(cfg, lp["ln1"], h), positions)
         h = h + T.attn_apply(cfg, lp["cross_attn"],
                              T._norm(cfg, lp["ln_cross"], h), positions,
                              causal=False, kv_x=enc)
-        h = h + T.mlp_apply(cfg, lp["mlp"], T._norm(cfg, lp["ln2"], h))
+        return h + T.mlp_apply(cfg, lp["mlp"], T._norm(cfg, lp["ln2"], h))
+
+    body = T.remat_wrap(cfg, body)
+    for lp in T.layer_list(params["dec_layers"], cfg.n_layers):
+        h = body(h, lp)
     return T.logits_from_hidden(cfg, params, h)
 
 

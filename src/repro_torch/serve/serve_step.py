@@ -1,6 +1,7 @@
 """The serving step: one decode step (dense, or through the ESPIM packs) +
 greedy/temperature sampling, and the full-sequence prefill forward
-(mirrors ``src/repro/serve/serve_step.py``)."""
+(mirrors ``src/repro/serve/serve_step.py``), and the dense step on a
+device mesh (``make_serve_step``)."""
 from __future__ import annotations
 
 import torch
@@ -8,9 +9,11 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import sparse_model
 from repro_torch.models import factory
+from repro_torch.sharding import partition
+from repro_torch.tree import tree_map
 
 __all__ = ["sample_tokens", "serve_step_fn", "serve_step_sparse_fn",
-           "prefill_fn"]
+           "prefill_fn", "make_serve_step"]
 
 
 def sample_tokens(cfg: ModelConfig, last: torch.Tensor, temperature: float,
@@ -62,3 +65,26 @@ def prefill_fn(cfg: ModelConfig, params: dict, batch: dict) -> torch.Tensor:
     path runs ``factory.prefill_chunk`` or token replay instead."""
     logits, _ = factory.apply_train(cfg, params, batch)
     return logits
+
+
+def make_serve_step(cfg: ModelConfig, mesh, params_shapes, cache_shapes,
+                    batch_shapes):
+    """The dense decode step on a ``DeviceMesh`` -> (step, pspecs, cspecs,
+    bspecs): the serve, cache and batch specs of the given shape trees.
+    ``step(params, cache, batch)`` takes them as DTensors placed by those
+    specs, runs ``serve_step_fn`` on their full values on every rank (the
+    model's ops run on plain tensors) and returns (next_tokens, logits,
+    new cache placed by ``cspecs``).  At world size 1 the full values are
+    the DTensors' own tensors, so the step is ``serve_step_fn`` bit for
+    bit."""
+    pspecs = partition.serve_param_pspecs(params_shapes, mesh)
+    cspecs = partition.cache_pspecs(cache_shapes, mesh)
+    bspecs = partition.batch_pspecs(batch_shapes, mesh)
+
+    @torch.no_grad()
+    def step(params: dict, cache: dict, batch: dict):
+        full = tree_map(partition.full_value, [params, cache, batch])
+        nxt, logits, new = serve_step_fn(cfg, *full)
+        return nxt, logits, partition.logical_to_sharding(new, cspecs, mesh)
+
+    return step, pspecs, cspecs, bspecs

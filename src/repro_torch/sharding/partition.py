@@ -1,0 +1,324 @@
+"""Partitioning rules: param / batch / cache trees -> spec trees, and the
+specs as DTensor placements (mirrors ``src/repro/sharding/partition.py``).
+
+Strategy, as the reference's:
+  * TP on ``model`` for head / ffn / vocab dims (column-parallel up / QKV,
+    row-parallel down / out projections, EP for MoE experts);
+  * FSDP on ``data`` for the non-TP weight dim;
+  * batch dims on ``('pod', 'data')`` when the pod axis exists;
+  * an axis is used only where the dim divides by its extent (else the
+    dim is replicated).
+
+The rules are pure functions of the tree's paths and leaf shapes and of a
+mesh *shape*: a torch ``DeviceMesh`` (its ``mesh_dim_names`` and
+``shape``) or a ``MeshShape`` (axis names -> sizes), so specs for a 4x4 or
+2x2x4 mesh need no processes.  A spec is a tuple with one entry per dim:
+``None``, an axis name, or a tuple of names (``("pod", "data")``) — the
+reference's ``PartitionSpec`` as a tuple, a one-name tuple written as the
+name.  ``named`` turns specs into DTensor placements on a real mesh.
+Optimizer state inherits the param spec leaf for leaf.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch.tree import map_with_path, tree_map
+
+__all__ = [
+    "MeshShape", "batch_axes", "mesh_axis_size", "param_pspecs",
+    "serve_param_pspecs", "batch_pspecs", "cache_pspecs",
+    "paged_cache_pspecs", "sparse_pack_pspecs", "named",
+    "logical_to_sharding", "full_value",
+]
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshShape:
+    """A mesh's axis names and sizes, without devices: ``MeshShape.of(
+    data=4, model=4)``."""
+
+    axes: tuple             # ((name, size), ...) in mesh order
+
+    @classmethod
+    def of(cls, **sizes) -> "MeshShape":
+        return cls(tuple(sizes.items()))
+
+    @property
+    def axis_names(self) -> tuple:
+        return tuple(n for n, _ in self.axes)
+
+    @property
+    def shape(self) -> dict:
+        return dict(self.axes)
+
+
+def _axes(mesh) -> dict:
+    """{axis name: size} of a ``MeshShape`` or a ``DeviceMesh``."""
+    if isinstance(mesh, MeshShape):
+        return mesh.shape
+    return dict(zip(mesh.mesh_dim_names, mesh.shape))
+
+
+def mesh_axis_size(mesh, axis) -> int:
+    if axis is None:
+        return 1
+    sizes = _axes(mesh)
+    if isinstance(axis, (tuple, list)):
+        out = 1
+        for a in axis:
+            out *= sizes[a]
+        return out
+    return sizes[axis]
+
+
+def batch_axes(mesh) -> tuple:
+    """The composed data-parallel axis: ('pod', 'data') on multi-pod."""
+    return ("pod", "data") if "pod" in _axes(mesh) else ("data",)
+
+
+def _norm_axis(axis):
+    """A one-name tuple as the name, as ``PartitionSpec`` writes it."""
+    if isinstance(axis, (tuple, list)):
+        axis = tuple(axis)
+        return axis[0] if len(axis) == 1 else axis
+    return axis
+
+
+def _fit(mesh, dim: int, axis):
+    """axis if dim divides by its extent, else None (replicate)."""
+    if axis is None:
+        return None
+    return _norm_axis(axis) if dim % mesh_axis_size(mesh, axis) == 0 else None
+
+
+def _spec(mesh, shape, axes) -> tuple:
+    """A spec, dropping axes that do not divide."""
+    return tuple(_fit(mesh, d, a) for d, a in zip(shape, axes))
+
+
+def _replicated(nd: int) -> tuple:
+    return (None,) * nd
+
+
+# Rules match on exact leaf names / path suffixes (not substrings: "u" is
+# an RWKV leaf and must not swallow "w_up").  Leading layer-stack dims are
+# never sharded.
+_ROW_PARALLEL = ("w_down", "out_proj", "attn/wo", "self_attn/wo",
+                 "cross_attn/wo", "tm/wo", "cm/wv")
+_REPLICATED_LEAVES = {"w", "b", "a_log", "d_skip", "dt_bias", "mix", "w0",
+                      "u", "conv_b", "norm_w", "ln_x", "router"}
+
+
+def _param_rule(path: str, shape, mesh, fsdp: bool, tp) -> tuple:
+    dp = "data" if fsdp else None
+    nd = len(shape)
+    leaf = path.rsplit("/", 1)[-1]
+    stacked = "layers/" in path     # leading dim is the layer stack
+
+    def tail(*axes):
+        return _spec(mesh, shape, (None,) * (nd - len(axes)) + tuple(axes))
+
+    if leaf in _REPLICATED_LEAVES:
+        return _replicated(nd)
+    # head-structured weights never take the wide TP axis (a head_dim
+    # split across devices turns every QK / PV contraction into a
+    # partial-sum all-reduce)
+    headed = any(k in path for k in ("attn/", "tm/", "mamba/", "conv_w"))
+    wtp = "model" if headed else tp
+    # an axis may appear once per spec: FSDP yields to a wide TP that
+    # already uses 'data'
+    wide_uses_data = isinstance(wtp, (tuple, list)) and "data" in wtp
+    dpw = None if wide_uses_data else dp
+    tp_uses_data = isinstance(tp, (tuple, list)) and "data" in tp
+    dpt = None if tp_uses_data else dp
+    # MoE experts: EP on 'model'; the FFN dim takes 'data' (FSDP on d_model
+    # when training, TP on d_ff when serving)
+    if "moe/w_gate" in path or "moe/w_up" in path:    # (L, E, D, F)
+        return tail("model", dp, None if fsdp else "data")
+    if "moe/w_down" in path:                          # (L, E, F, D)
+        return tail("model", None if fsdp else "data", dp)
+    if path.endswith("pos_embed") or path.endswith("embed"):  # (V|S, D)
+        return tail(tp, None)
+    if path.endswith("lm_head"):                      # (D, V)
+        return tail(dpt, tp)
+    if "conv_w" in path:                              # (L, K, C)
+        return tail(None, wtp)
+    if any(path.endswith(k) or f"{k}/" in path for k in _ROW_PARALLEL):
+        return tail(wtp, dpw)                         # (L, F_in, D)
+    if nd >= 3 or (nd == 2 and not stacked):          # column-parallel
+        return tail(dpw, wtp)
+    if nd == 2:                                       # stacked bias (L, F)
+        return tail(wtp)
+    return _replicated(nd)                            # scalars / 1-D
+
+
+def param_pspecs(params_or_shapes, mesh, fsdp: bool = True, tp="model"):
+    """A spec tree matching a params tree (any leaves with ``.shape``:
+    tensors, meta tensors, shape stand-ins).  ``tp`` is the
+    tensor-parallel axis or axis tuple; serving uses ('data', 'model')."""
+    return map_with_path(
+        lambda path, leaf: _param_rule(path, tuple(leaf.shape), mesh, fsdp,
+                                       tp), params_or_shapes)
+
+
+def serve_param_pspecs(params_or_shapes, mesh,
+                       global_batch: int | None = None):
+    """Decode-time layout: no FSDP, TP over (data x model); at
+    global_batch == 1 the contraction dim also shards over 'data'."""
+    tp = tuple(a for a in ("data", "model") if a in _axes(mesh))
+    return param_pspecs(params_or_shapes, mesh, fsdp=global_batch == 1,
+                        tp=tp)
+
+
+def batch_pspecs(batch_tree, mesh):
+    """Every leading batch dim over ('pod', 'data') when divisible;
+    ``positions3`` (3, B, S) on its second dim."""
+    ba = batch_axes(mesh)
+
+    def leaf_spec(leaf):
+        shape = tuple(leaf.shape)
+        nd = len(shape)
+        if nd == 0:
+            return ()
+        if shape[0] == 3 and nd == 3:
+            return _spec(mesh, shape, (None, ba, None))
+        return _spec(mesh, shape, (ba,) + (None,) * (nd - 1))
+
+    return tree_map(leaf_spec, batch_tree)
+
+
+def cache_pspecs(cache_tree, mesh):
+    """Decode caches (L, B, S, KV, hd) and friends: B over the batch axes
+    when divisible; heads over 'model' when divisible, else the sequence
+    / state dim picks 'model' up (and any idle batch axis)."""
+    ba = batch_axes(mesh)
+    names = _axes(mesh)
+
+    def leaf_spec(name, leaf):
+        shape = tuple(leaf.shape)
+        nd = len(shape)
+        if nd <= 1:
+            return _replicated(nd)
+        if name.endswith("len"):
+            return (None,)
+        if nd == 5 or name.endswith("_scale"):
+            # (L, B, S, KV, hd) kv cache / (L, B, H, K, V) wkv state /
+            # (L, B, S, KV) int8-cache scales
+            b, s, kv = shape[1:4]
+            b_ax = _fit(mesh, b, ba)
+            kv_ax = _fit(mesh, kv, "model")
+            leftover = [a for a in ("pod", "data")
+                        if a in names and b_ax is None]
+            if kv_ax is None and "model" in names:
+                leftover.append("model")
+            s_ax = _fit(mesh, s, tuple(leftover)) if leftover else None
+            return (None, b_ax, s_ax, kv_ax) + ((None,) if nd == 5 else ())
+        if nd == 4:     # (L, B, K-1, C) conv state
+            return (None, _fit(mesh, shape[1], ba), None,
+                    _fit(mesh, shape[3], "model"))
+        return _spec(mesh, shape, (None, ba) + (None,) * (nd - 2))
+
+    return map_with_path(leaf_spec, cache_tree)
+
+
+def paged_cache_pspecs(pages_tree, mesh):
+    """Block-pool KV arenas (Lx, num_blocks, block_size, KV[, hd]): the
+    blocks over the batch axes, KV heads over 'model', a block never
+    split."""
+    ba = batch_axes(mesh)
+
+    def leaf_spec(leaf):
+        shape = tuple(leaf.shape)
+        nd = len(shape)
+        if nd < 4:
+            return _replicated(nd)
+        return (None, _fit(mesh, shape[1], ba), None,
+                _fit(mesh, shape[3], "model")) + (None,) * (nd - 4)
+
+    return tree_map(leaf_spec, pages_tree)
+
+
+def sparse_pack_pspecs(sparse: dict, mesh):
+    """Specs for the device planes of a ``sparsify_model`` dict: each
+    bucket's packed-row dim (values / q, cols, srow) over 'model' when
+    divisible — devices as the paper's banks — layer and chunk dims never
+    split, ``perm`` / ``inv_perm`` replicated.  Returns ``{group:
+    {"buckets": [...], "perm", "inv_perm"}}``."""
+    def bucket_spec(b):
+        out = {}
+        for key in ("values", "q", "cols", "srow"):
+            if key in b:
+                shape = tuple(b[key].shape)
+                out[key] = ((None, _fit(mesh, shape[1], "model"))
+                            + (None,) * (len(shape) - 2))
+        return out
+
+    return {name: {"buckets": [bucket_spec(b) for b in g["buckets"]],
+                   "perm": (None, None), "inv_perm": (None, None)}
+            for name, g in sparse["groups"].items()}
+
+
+def named(mesh, spec):
+    """A spec as DTensor placements on ``mesh`` (a ``DeviceMesh``), one per
+    mesh dim: ``Shard(d)`` on each mesh dim whose axis the spec puts on
+    tensor dim d, ``Replicate()`` elsewhere.  A dim split over several
+    axes (``("pod", "data")``) is split major axis first, as the
+    reference's: DTensor splits over the mesh dims in mesh order, so the
+    names must come in that order (raises otherwise).  A tree of specs
+    maps leaf for leaf."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    if isinstance(spec, dict):
+        return {k: named(mesh, v) for k, v in spec.items()}
+    if isinstance(spec, list):
+        return [named(mesh, v) for v in spec]
+    order = list(mesh.mesh_dim_names)
+    placements = [Replicate()] * len(order)
+    for d, axis in enumerate(spec):
+        if axis is None:
+            continue
+        group = (axis,) if isinstance(axis, str) else tuple(axis)
+        idx = [order.index(a) for a in group]
+        if idx != sorted(idx):
+            raise ValueError(f"axes {group} on dim {d} are not in mesh order "
+                             f"{tuple(order)}")
+        for i in idx:
+            placements[i] = Shard(d)
+    return placements
+
+
+def _place(x: torch.Tensor, spec: tuple, mesh):
+    """One leaf on ``mesh`` per ``spec``.  Where every sharded mesh dim
+    has size 1 the local shard is the whole tensor, which becomes the
+    DTensor's local tensor as it is (no copy: a full-width train state
+    fits the card once, not twice); else ``distribute_tensor``."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+
+    placements = named(mesh, spec)
+    x = x.to(mesh.device_type)
+    if all(mesh.size(i) == 1 for i, p in enumerate(placements)
+           if p.is_shard()):
+        return DTensor.from_local(x, mesh, placements, run_check=False)
+    return distribute_tensor(x, mesh, placements)
+
+
+def logical_to_sharding(tree, specs, mesh):
+    """A tree of tensors placed on ``mesh`` (a ``DeviceMesh``) per a spec
+    tree: a tree of DTensors."""
+    return tree_map(lambda x, s: _place(x, s, mesh), tree, specs)
+
+
+def _is_whole(t) -> bool:
+    return tuple(t.to_local().shape) == tuple(t.shape)
+
+
+def full_value(t) -> torch.Tensor:
+    """A DTensor's full value as a plain tensor: its local tensor itself
+    where that is whole (every sharded mesh dim of size 1: no copy, so an
+    in-place update writes the DTensor), else an all-gather; a plain
+    tensor as it is."""
+    if not hasattr(t, "to_local"):
+        return t
+    return t.to_local() if _is_whole(t) else t.full_tensor()

@@ -1,0 +1,201 @@
+"""The training step: loss -> grads (with microbatch accumulation) -> the
+optional int8 error-feedback compression -> clip -> AdamW, and the same
+step on a device mesh (mirrors ``src/repro/train/train_step.py``).
+
+``train_step_fn`` runs on plain tensors: autograd over ``factory.loss_fn``
+in place of ``jax.value_and_grad``, then ``apply_updates`` in place (the
+reference's donated buffers).  The remat policy comes from the model
+config (``transformer.remat_wrap``).
+
+``make_train_step`` gives the step on DTensors placed by the partition
+rules, with the reference's SPMD meaning: the step equals the unsharded
+step on the global batch.
+  * Each rank runs the model on its shard of the batch with full params,
+    gathered from their FSDP / TP placements (the model's ops run on
+    plain tensors: DTensor has no sharding rules for several of them).
+  * The grads are averaged over the data-parallel axes before the global
+    norm, the compression and the update, so every rank computes the
+    same update.
+  * Each rank keeps the shards of the state that its placements say.
+    The update runs on the gathered state and each rank copies its
+    shards back: not the memory of ZeRO (no reduce-scatter, no sharded
+    update), which is still to come.
+A leaf whose local shard is the whole tensor (its sharded mesh dims have
+size 1) is used in place, so at world size 1 the step is
+``train_step_fn`` on the state's own tensors, bit for bit, with no copy
+and no collective.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import factory
+from repro_torch.optim import compression
+from repro_torch.optim.adamw import OptConfig, apply_updates, init_opt_state
+from repro_torch.sharding import partition
+from repro_torch.tree import flatten, map_with_path, tree_map
+
+__all__ = ["make_train_step", "init_train_state", "train_step_fn",
+           "param_state_pspecs"]
+
+
+def init_train_state(cfg: ModelConfig, ocfg: OptConfig, generator=None,
+                     compress_grads: bool = False, device=None) -> dict:
+    """{"params", "opt"[, "ef_error"]}: params from ``factory.init_params``
+    (``device="meta"`` gives the shapes without memory)."""
+    params = factory.init_params(cfg, generator, device)
+    state = {"params": params, "opt": init_opt_state(ocfg, params)}
+    if compress_grads:
+        state["ef_error"] = compression.init_error_state(params)
+    return state
+
+
+def _split_microbatches(batch: dict, n: int) -> list:
+    """The batch as ``n`` microbatches along its batch dim (the second dim
+    of ``positions3`` (3, B, S)), in order."""
+    def re(x):
+        if x.dim() >= 2 and x.shape[0] == 3:   # positions3 (3, B, S)
+            return x.reshape(3, n, x.shape[1] // n, *x.shape[2:]
+                             ).transpose(0, 1)
+        return x.reshape(n, x.shape[0] // n, *x.shape[1:])
+
+    split = tree_map(re, batch)
+    return [tree_map(lambda x, i=i: x[i], split) for i in range(n)]
+
+
+def _grads(cfg: ModelConfig, params: dict, batch: dict):
+    """(loss, metrics, grads) of ``factory.loss_fn`` at ``params``; the
+    grads have the params' dtypes."""
+    live = dict(flatten(tree_map(lambda p: p.detach().requires_grad_(True),
+                                 params)))
+    with torch.enable_grad():
+        loss, metrics = factory.loss_fn(
+            cfg, map_with_path(lambda k, _: live[k], params), batch)
+        gs = torch.autograd.grad(loss, list(live.values()),
+                                 allow_unused=True)
+    by_path = {k: torch.zeros_like(p) if g is None else g
+               for (k, p), g in zip(live.items(), gs)}
+    metrics = {k: v.detach() for k, v in metrics.items()}
+    return (loss.detach(), metrics,
+            map_with_path(lambda k, _: by_path[k], params))
+
+
+def _step(cfg: ModelConfig, ocfg: OptConfig, state: dict, batch: dict,
+          microbatches: int, compress_grads: bool, reduce=None):
+    params = state["params"]
+    if microbatches > 1:
+        grads = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                               device=p.device), params)
+        loss = 0.0
+        for mb in _split_microbatches(batch, microbatches):
+            mb_loss, _, g = _grads(cfg, params, mb)
+            grads = tree_map(lambda a, b: a + b.float(), grads, g)
+            loss = loss + mb_loss
+        grads = tree_map(lambda g: g / microbatches, grads)
+        loss = loss / microbatches
+        metrics = {}
+    else:
+        loss, metrics, grads = _grads(cfg, params, batch)
+    if reduce is not None:
+        loss, grads = reduce(loss, grads)
+
+    if compress_grads:
+        grads, ef = compression.ef_compress_grads(grads, state["ef_error"])
+        with torch.no_grad():
+            tree_map(lambda e, new: e.copy_(new), state["ef_error"], ef)
+
+    _, _, opt_metrics = apply_updates(ocfg, params, grads, state["opt"])
+    return state, {"loss": loss, **metrics, **opt_metrics}
+
+
+def train_step_fn(cfg: ModelConfig, ocfg: OptConfig, state: dict,
+                  batch: dict, microbatches: int = 1,
+                  compress_grads: bool = False):
+    """One step on plain tensors, in place: the state's params, optimizer
+    state (and error-feedback residual) are updated.  Returns (state,
+    metrics): ``loss`` (the microbatch mean), ``ce`` and ``aux`` at one
+    microbatch, ``grad_norm`` and ``lr``.  Microbatch grads are summed in
+    float32 in order, then divided by the count."""
+    return _step(cfg, ocfg, state, batch, microbatches, compress_grads)
+
+
+def param_state_pspecs(state_shapes: dict, mesh) -> dict:
+    """Specs for the whole train state: the optimizer mirrors the
+    params."""
+    pp = partition.param_pspecs(state_shapes["params"], mesh)
+    out = {"params": pp, "opt": {"mu": pp, "nu": pp, "step": ()}}
+    if "master" in state_shapes["opt"]:
+        out["opt"]["master"] = pp
+    if "ef_error" in state_shapes:
+        out["ef_error"] = pp
+    return out
+
+
+def _scatter_back(t, full: torch.Tensor) -> None:
+    """Copy this rank's shards of the updated ``full`` into DTensor
+    ``t`` (every rank holds the same ``full``: a local slice, no
+    communication)."""
+    from torch.distributed.tensor import DTensor, Replicate
+    mesh = t.device_mesh
+    rep = DTensor.from_local(full, mesh, [Replicate()] * mesh.ndim,
+                             run_check=False)
+    t.to_local().copy_(rep.redistribute(mesh, t.placements).to_local())
+
+
+def _data_reduce(mesh):
+    """(loss, grads) -> their means over the mesh's data-parallel axes
+    (all-reduce sums, then one division); the identity where those axes
+    have size 1."""
+    import torch.distributed as dist
+
+    axes = [a for a in partition.batch_axes(mesh)
+            if partition.mesh_axis_size(mesh, a) > 1]
+    if not axes:
+        return None
+    n = partition.mesh_axis_size(mesh, tuple(axes))
+
+    def mean(t):
+        t = t.clone()
+        for a in axes:
+            dist.all_reduce(t, group=mesh.get_group(a))
+        return t / n
+
+    def reduce(loss, grads):
+        return mean(loss), tree_map(mean, grads)
+
+    return reduce
+
+
+def make_train_step(cfg: ModelConfig, ocfg: OptConfig, mesh,
+                    state_shapes: dict, batch_shapes: dict,
+                    microbatches: int = 1, compress_grads: bool = False,
+                    donate: bool = True):
+    """The step on a ``DeviceMesh`` -> (step, pspecs, bspecs).
+
+    ``state_shapes`` / ``batch_shapes`` are trees with the state's and the
+    batch's leaf shapes (e.g. ``init_train_state(..., device="meta")``),
+    from which the specs derive.  ``step(state, batch)`` takes the state
+    and batch as DTensors placed by ``pspecs`` / ``bspecs``
+    (``partition.logical_to_sharding``) and returns (state, metrics).
+    With ``donate`` (the reference's donated buffers) the state's tensors
+    are updated in place and returned; without, the caller's state is
+    left as it was and the step returns a new one."""
+    pspecs = param_state_pspecs(state_shapes, mesh)
+    bspecs = partition.batch_pspecs(batch_shapes, mesh)
+    reduce = _data_reduce(mesh)
+
+    @torch.no_grad()
+    def step(state: dict, batch: dict):
+        if not donate:
+            state = tree_map(lambda t, s: partition._place(
+                partition.full_value(t).clone(), s, mesh), state, pspecs)
+        full = tree_map(partition.full_value, state)
+        local = tree_map(lambda t: t.to_local(), batch)
+        _, metrics = _step(cfg, ocfg, full, local, microbatches,
+                           compress_grads, reduce)
+        tree_map(lambda t, f: None if partition._is_whole(t)
+                 else _scatter_back(t, f), state, full)
+        return state, metrics
+
+    return step, pspecs, bspecs

@@ -317,3 +317,69 @@ def test_flash_attention_dispatches_by_shape(monkeypatch):
     monkeypatch.setattr(FA, "flash_attention_cuda", broken)
     with pytest.raises(RuntimeError, match="rc 700"):
         PL.flash_attention(q, k, k)
+
+
+def _traced_kernel(calls):
+    """A stand-in for kernel 8 that records its calls and computes the
+    chunked softmax on the folded (B·H, S, hd) tensors, under no_grad as
+    the kernel's raw-pointer output carries no graph."""
+    def kernel(q, k, v, *, causal):
+        calls.append(tuple(q.shape))
+        bh, s, hd = q.shape
+        with torch.no_grad():
+            return PL._flash_chunked(
+                *(t.reshape(1, bh, s, hd).transpose(1, 2) for t in (q, k, v)),
+                causal, 512, 1024).transpose(1, 2).reshape(q.shape)
+    return kernel
+
+
+def test_flash_attention_dispatches_by_grad_state(monkeypatch):
+    """Under grad with q, k, v requiring grad the kernel is not called and
+    their gradients equal the chunked path's (kernel 8 has no backward,
+    and its output would carry no graph); under no_grad the kernel runs;
+    the launch itself refuses a tensor that requires grad."""
+    calls = []
+    monkeypatch.setattr(PL, "_use_kernel", lambda impl, *t: True)
+    monkeypatch.setattr(FA, "flash_attention_cuda", _traced_kernel(calls))
+    rng = np.random.default_rng(1)
+    arrs = [rng.standard_normal((2, 7, n, 8)).astype(np.float32)
+            for n in (4, 2, 2)]
+
+    def leaves():
+        return [torch.from_numpy(a).requires_grad_(True) for a in arrs]
+
+    q, k, v = leaves()
+    out = PL.flash_attention(q, k, v, causal=True)
+    assert calls == [] and out.grad_fn is not None
+    w = torch.from_numpy(rng.standard_normal(out.shape).astype(np.float32))
+    got = torch.autograd.grad((out * w).sum(), (q, k, v))
+    q2, k2, v2 = leaves()
+    ref = PL._flash_chunked(q2, PL.repeat_kv(k2, 2), PL.repeat_kv(v2, 2),
+                            True, 512, 1024)
+    want = torch.autograd.grad((ref * w).sum(), (q2, k2, v2))
+    for g, gw in zip(got, want):
+        assert torch.equal(g, gw)
+    assert torch.equal(out, ref)
+    with torch.no_grad():
+        PL.flash_attention(q, k, v, causal=True)
+    assert calls == [(8, 7, 8)]
+    with pytest.raises(RuntimeError, match="no backward"):
+        FA._launch(q, q, q, True, 1.0)
+
+
+def test_flash_attention_wide_heads_take_the_chunked_path(monkeypatch):
+    """hd 160 is wider than any built kernel body: the chunked softmax
+    runs (the reference takes any hd), where the kernel would raise."""
+    calls = []
+    monkeypatch.setattr(PL, "_use_kernel", lambda impl, *t: True)
+    monkeypatch.setattr(FA, "flash_attention_cuda", _traced_kernel(calls))
+    rng = np.random.default_rng(2)
+    q = rng.standard_normal((1, 5, 2, 160)).astype(np.float32)
+    k = rng.standard_normal((1, 5, 1, 160)).astype(np.float32)
+    with torch.no_grad():
+        got = PL.flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                                 torch.from_numpy(k), causal=True)
+    assert calls == []
+    want = RL.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(k),
+                              causal=True)
+    np.testing.assert_allclose(to_np(got), to_np(want), rtol=1e-5, atol=1e-5)

@@ -36,7 +36,11 @@ def test_importing_every_module_leaves_jax_and_repro_out():
               "telemetry.profile", "telemetry.regression", "autotune.cache",
               "autotune.tuner", "models.layers", "models.transformer",
               "models.moe", "models.vlm", "models.whisper", "models.rwkv",
-              "models.mamba", "serve.serve_step", "convert"):
+              "models.mamba", "serve.serve_step", "convert",
+              "sharding.partition", "launch.mesh", "launch.train",
+              "optim.adamw", "optim.compression", "data.pipeline",
+              "train.train_step", "train.trainer", "checkpoint.ckpt",
+              "tree"):
         assert f"repro_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
