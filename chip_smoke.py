@@ -287,6 +287,33 @@ TRAIN_MATVEC_SPARSITY = 0.9             # (e): layer 0's w_down, pruned
 # (g): phi3.5-moe's attention (GQA 32/8, hd 128) at the families' S
 TRAIN_FLASH_SHAPE = (1, FAMILY_FLASH_SEQ, 32, 8, 128)
 
+# the dryrun phase: the dry run's predictions of one train step at (a)'s
+# shape (B 8 x S 128) on a one-rank fake group, each traced in a worker
+# process of its own (a fake group must be its process's default group),
+# against the card: (a) granite-3-2b whole; (b) each other family at a
+# depth that fits the card (phi3.5-moe's 2 layers, as the families
+# phase's; zamba2 at 12 of 54 for time; rwkv6 at 4, whose WKV
+# recurrence runs one token at a time in Python); (c) granite at 4 layers
+# under each remat policy
+DRYRUN_FAMILIES = (("phi3.5-moe-42b-a6.6b", 2), ("qwen2-vl-2b", None),
+                   ("whisper-small", None), ("rwkv6-1.6b", 4),
+                   ("zamba2-2.7b", 12))
+DRYRUN_REMATS = ("none", "dots", "full")
+DRYRUN_REMAT_LAYERS = 4
+DRYRUN_STEPS = 2                        # (b), (c): the second is timed
+# (a): the predicted peak within 15% of the train phase's measured peak,
+# the predicted dot FLOPs within 2% of the products the card's step runs
+# (``torch.utils.flop_counter.FlopCounterMode`` around a real step).  The
+# train phase's 8 N tokens + attention counts 7.6% more: remat's
+# recompute stops early (the w_down product, the last of a layer, is not
+# needed for the backward) and the tied lm_head sits outside the
+# checkpointed layers, 2 (L D F + V D) tokens fewer
+DRYRUN_PEAK_TOL, DRYRUN_FLOP_TOL = 0.15, 0.02
+# (d): the dry run's launcher on a production cell (a fake 256-rank group)
+DRYRUN_CLI = ("-m", "repro_torch.launch.dryrun", "--arch", TRAIN_ARCH,
+              "--shape", "train_4k", "--mesh", "single", "--force")
+DRYRUN_TIMEOUT_S = 900
+
 # kernel -> (pallas_call it replaces, Pallas function, port source)
 _SPMV_CU = "src/repro_torch/kernels/csrc/espim_spmv.cu"
 _KERNELS = {
@@ -2693,8 +2720,9 @@ def train_full_width(ctx, mesh) -> dict:
                                    seed=ctx["seed"]))
         need(tr.init_or_resume() == ("fresh", 0), "[train:a] not fresh")
         n_params = sum(t.numel() for t in leaves(tr.state["params"]))
-        state_gb = sum(t.numel() * t.element_size()
-                       for t in leaves(tr.state)) / 1e9
+        state_bytes = sum(t.numel() * t.element_size()
+                          for t in leaves(tr.state))
+        state_gb = state_bytes / 1e9
         log(f"[train:a] {cfg.name}: {cfg.n_layers} layers, d_model "
             f"{cfg.d_model}, GQA {cfg.n_heads}/{cfg.n_kv_heads}, d_ff "
             f"{cfg.d_ff}, vocab {cfg.vocab_size}; {n_params / 1e9:.3f} B "
@@ -2730,7 +2758,8 @@ def train_full_width(ctx, mesh) -> dict:
     flops = 8 * n_params * tokens + attn
     share = flops / step_s / PEAKS["bf16_tensor"]
     rec = {"arch": cfg.name, "layers": cfg.n_layers, "params": n_params,
-           "state_gb": state_gb, "seq": TRAIN_SEQ, "batch": TRAIN_BATCH,
+           "state_bytes": state_bytes, "state_gb": state_gb,
+           "seq": TRAIN_SEQ, "batch": TRAIN_BATCH,
            "step_s": secs, "step_ms_median_2_4": step_s * 1e3,
            "tokens_per_s": tokens / step_s, "peak_gb": peak_gb,
            "flops_per_step": flops, "attention_flops": attn,
@@ -3052,6 +3081,266 @@ def phase_train(ctx) -> dict:
     return rec
 
 
+# --------------------------------------------------------------------------
+# the dry run's predictions against the card
+# --------------------------------------------------------------------------
+def dryrun_predictions() -> list:
+    """(name, arch, layers or None for whole, remat or None for the
+    config's) of every prediction of the dryrun phase."""
+    return ([("a", TRAIN_ARCH, None, None)]
+            + [(f"b:{a}", a, n, None) for a, n in DRYRUN_FAMILIES]
+            + [(f"c:{r}", TRAIN_ARCH, DRYRUN_REMAT_LAYERS, r)
+               for r in DRYRUN_REMATS])
+
+
+def _dryrun_cfg(arch: str, layers, remat):
+    from repro_torch.configs.registry import get_config
+    cfg = get_config(arch)
+    if layers:
+        cfg = cfg.replace(n_layers=layers)
+    return cfg.replace(remat=remat) if remat else cfg
+
+
+def dryrun_worker(out: str) -> int:
+    """``--dryrun-worker OUT``: every prediction of the dryrun phase, one
+    train step at B 8 x S 128 traced on a one-rank fake group
+    (``launch.dryrun.run``), written to OUT as JSON."""
+    sys.path.insert(0, str(SRC))
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun, specs
+    shape = ShapeConfig("train", TRAIN_SEQ, TRAIN_BATCH, "train")
+    res = {}
+    for name, arch, layers, remat in dryrun_predictions():
+        cfg = _dryrun_cfg(arch, layers, remat)
+        rec = dryrun.run(cfg, shape, (1, 1))
+        batch = sum(t.numel() * t.element_size()
+                    for t in specs.train_batch_specs(cfg, shape).values())
+        rec["state_bytes"] = rec["memory"]["argument_size_in_bytes"] - batch
+        res[name] = rec
+        log(f"[dryrun-worker] {name}: peak "
+            f"{rec['memory']['peak_size_in_bytes'] / 1e9:.2f} GB, "
+            f"{rec['hlo_cost']['dot_flops'] / 1e12:.3f} dot TFLOP, traced "
+            f"in {rec['trace_s']:.1f} s")
+    Path(out).write_text(json.dumps(res))
+    return 0
+
+
+def start_dryrun(ctx) -> None:
+    """Start the dryrun phase's two processes, which run on the host
+    alone: the predictions (``--dryrun-worker``) and (d) the dry run's
+    launcher."""
+    out = Path(ctx["out"]) / "dryrun_predictions.json"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS="1")
+    cmds = {"predict": [sys.executable, str(Path(__file__).resolve()),
+                        "--dryrun-worker", str(out)],
+            "cli": [sys.executable, *DRYRUN_CLI]}
+    ctx["dryrun"] = {"out": out, "t0": time.perf_counter(), "procs": {
+        k: subprocess.Popen(c, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+        for k, c in cmds.items()}}
+    log("[dryrun] started the predictions and the dry run's launcher")
+
+
+def stop_dryrun(ctx) -> None:
+    for proc in ctx.get("dryrun", {}).get("procs", {}).values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def _wait_dryrun(ctx, name: str) -> str:
+    d = ctx["dryrun"]
+    proc = d["procs"][name]
+    left = DRYRUN_TIMEOUT_S - (time.perf_counter() - d["t0"])
+    try:
+        out, _ = proc.communicate(timeout=max(1.0, left))
+    except subprocess.TimeoutExpired:
+        stop_dryrun(ctx)
+        raise SmokeFailure(f"[dryrun] {name} ran past {DRYRUN_TIMEOUT_S} s"
+                           ) from None
+    need(proc.returncode == 0,
+         f"[dryrun] {name}: exit {proc.returncode}: {out[-3000:]}")
+    d[f"{name}_seconds"] = time.perf_counter() - d["t0"]
+    return out
+
+
+def _batch_leaf(torch, name: str, spec, cfg, gen, dev):
+    """A random batch leaf of ``spec``'s shape and dtype."""
+    shape = tuple(spec.shape)
+    if name in ("tokens", "labels"):
+        return torch.randint(0, cfg.vocab_size, shape, generator=gen,
+                             device=dev, dtype=torch.int32)
+    if name == "vis_mask":
+        m = torch.zeros(shape, dtype=torch.bool, device=dev)
+        m[:, :4] = True
+        return m
+    if name == "positions3":
+        return torch.arange(shape[-1], device=dev, dtype=torch.int32
+                            ).expand(shape).contiguous()
+    return torch.randn(shape, generator=gen, device=dev).to(spec.dtype)
+
+
+def card_step(ctx, mesh, cfg) -> dict:
+    """``DRYRUN_STEPS`` train steps of ``cfg`` through ``make_train_step``
+    on the one-rank mesh at B 8 x S 128 (the dry run's step): the peak
+    (reset once the state and batch are made, less what the card held
+    besides them), the last step's ms, loss and grad norm, and kernel 8's
+    launches, and the FLOPs of the last step's products as
+    ``FlopCounterMode`` counts them."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import specs
+    from repro_torch.optim.adamw import OptConfig
+    from repro_torch.sharding import partition
+    from repro_torch.train import train_step as ts
+    from repro_torch.tree import leaves
+    torch, dev = ctx["torch"], ctx["device"]
+    shape = ShapeConfig("train", TRAIN_SEQ, TRAIN_BATCH, "train")
+    ocfg = OptConfig()
+    gen = torch.Generator(device=dev).manual_seed(ctx["seed"] + 31)
+    bspec = specs.train_batch_specs(cfg, shape)
+    step, pspecs, bspecs = ts.make_train_step(
+        cfg, ocfg, mesh, specs.state_specs(cfg, ocfg), bspec)
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    state = partition.logical_to_sharding(
+        ts.init_train_state(cfg, ocfg, gen, device=dev), pspecs, mesh)
+    batch = partition.logical_to_sharding(
+        {k: _batch_leaf(torch, k, t, cfg, gen, dev) for k, t in bspec.items()},
+        bspecs, mesh)
+    args = sum(t.to_local().numel() * t.to_local().element_size()
+               for t in leaves([state, batch]))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    secs = []
+    for _ in range(DRYRUN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+        secs.append(time.perf_counter() - t0)
+    k8 = read_launches()["flash_attention"]
+    counter = FlopCounterMode(display=False)
+    with counter:
+        state, m = step(state, batch)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - before
+    del state, batch, m
+    torch.cuda.empty_cache()
+    return {"layers": cfg.n_layers, "remat": cfg.remat, "args_bytes": args,
+            "peak_bytes": peak, "step_ms": [x * 1e3 for x in secs],
+            "loss": loss, "grad_norm": gnorm, "kernel8_launches": k8,
+            "flops": counter.get_total_flops()}
+
+
+def _vs(card: dict, pred: dict) -> dict:
+    p = pred["memory"]["peak_size_in_bytes"]
+    return {**card, "pred_peak_bytes": p,
+            "pred_args_bytes": pred["memory"]["argument_size_in_bytes"],
+            "peak_pred_over_card": p / card["peak_bytes"],
+            "pred_dot_flops": pred["hlo_cost"]["dot_flops"],
+            "flops_pred_over_card": pred["hlo_cost"]["dot_flops"]
+            / card["flops"], "pred_trace_s": pred["trace_s"]}
+
+
+def phase_dryrun(ctx) -> dict:
+    """13. dryrun: the dry run's predictions of a train step (traced in a
+    worker on a one-rank fake group) against the card: (a) granite-3-2b
+    whole against the train phase's (a): state bytes exactly, the peak
+    within 15%, the dot FLOPs within 2% of the products of a step on the
+    card (``FlopCounterMode``; 8 N tokens + attention reported beside); (b)
+    one step of each other family (finite loss and grad norm, no kernel
+    8 launch under grad) and (c) granite at 4 layers under remat "none",
+    "dots" and "full", each with its step ms and measured against
+    predicted peak; (d) the dry run's launcher on granite-3-2b x train_4k
+    x the 16 x 16 mesh (a fake 256-rank group) exits 0 with status ok."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_local_mesh
+    torch = ctx["torch"]
+    t0 = time.perf_counter()
+    _wait_dryrun(ctx, "predict")
+    pred = json.loads(ctx["dryrun"]["out"].read_text())
+    rec = {"predictions": pred,
+           "predict_seconds": ctx["dryrun"]["predict_seconds"]}
+    # (a)
+    mesh = make_local_mesh()
+    a, full = pred["a"], ctx["report"]["train"]["full_width"]
+    whole = card_step(ctx, mesh, _dryrun_cfg(TRAIN_ARCH, None, None))
+    peak = full["peak_gb"] * 1e9
+    err_peak = a["memory"]["peak_size_in_bytes"] / peak - 1
+    err_flops = a["hlo_cost"]["dot_flops"] / whole["flops"] - 1
+    err_8n = a["hlo_cost"]["dot_flops"] / full["flops_per_step"] - 1
+    rec["a"] = {"state_bytes": [a["state_bytes"], full["state_bytes"]],
+                "peak_bytes": [a["memory"]["peak_size_in_bytes"], peak],
+                "dot_flops": [a["hlo_cost"]["dot_flops"], whole["flops"],
+                              full["flops_per_step"]],
+                "peak_rel_err": err_peak, "flops_rel_err": err_flops,
+                "flops_rel_to_8n": err_8n, "card_step": _vs(whole, a)}
+    log(f"[dryrun:a] {TRAIN_ARCH} whole, B {TRAIN_BATCH} x S {TRAIN_SEQ}: "
+        f"state {a['state_bytes']} bytes predicted, {full['state_bytes']} "
+        f"on the card; peak {a['memory']['peak_size_in_bytes'] / 1e9:.2f} "
+        f"GB predicted, {peak / 1e9:.2f} measured by the train phase "
+        f"({err_peak:+.4f}; this phase's step {whole['peak_bytes'] / 1e9:.2f}"
+        f"); dot FLOPs {a['hlo_cost']['dot_flops'] / 1e12:.4f} T predicted, "
+        f"{whole['flops'] / 1e12:.4f} T counted on the card's step "
+        f"({err_flops:+.5f}), 8 N tokens + attention "
+        f"{full['flops_per_step'] / 1e12:.4f} T ({err_8n:+.4f})")
+    need(a["state_bytes"] == full["state_bytes"],
+         f"[dryrun:a] state bytes {a['state_bytes']} predicted, "
+         f"{full['state_bytes']} on the card")
+    need(abs(err_peak) <= DRYRUN_PEAK_TOL,
+         f"[dryrun:a] peak off by {err_peak:+.3f}")
+    need(abs(err_flops) <= DRYRUN_FLOP_TOL,
+         f"[dryrun:a] dot FLOPs off by {err_flops:+.4f}")
+    rec["b"], rec["c"] = {}, {}
+    runs = ([("b", arch, _dryrun_cfg(arch, n, None), f"b:{arch}")
+             for arch, n in DRYRUN_FAMILIES]
+            + [("c", r, _dryrun_cfg(TRAIN_ARCH, DRYRUN_REMAT_LAYERS, r),
+                f"c:{r}") for r in DRYRUN_REMATS])
+    for part, key, cfg, name in runs:
+        r = _vs(card_step(ctx, mesh, cfg), pred[name])
+        rec[part][key] = r
+        log(f"[dryrun:{part}] {cfg.name} at {cfg.n_layers} layers, remat "
+            f"{cfg.remat}: loss {r['loss']:.4f}, grad norm "
+            f"{r['grad_norm']:.3f}, step {r['step_ms'][-1]:.1f} ms; peak "
+            f"{r['peak_bytes'] / 1e9:.2f} GB on the card, "
+            f"{r['pred_peak_bytes'] / 1e9:.2f} predicted "
+            f"({r['peak_pred_over_card']:.3f}x); dot FLOPs "
+            f"{r['pred_dot_flops'] / 1e12:.4f} T predicted, "
+            f"{r['flops'] / 1e12:.4f} counted ({r['flops_pred_over_card']:.4f}"
+            f"x); kernel 8 launches {r['kernel8_launches']}")
+        need(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"]),
+             f"[dryrun:{part}] {cfg.name}: loss {r['loss']}, grad norm "
+             f"{r['grad_norm']}")
+        need(r["kernel8_launches"] == 0, f"[dryrun:{part}] {cfg.name}: "
+             f"kernel 8 launched {r['kernel8_launches']} times under grad")
+    torch.distributed.destroy_process_group()      # make_local_mesh's
+    # (d)
+    out = _wait_dryrun(ctx, "cli")
+    path = Path(dryrun.cell_path(TRAIN_ARCH, "train_4k", "single"))
+    cell = json.loads(path.read_text())
+    need(cell.get("status") == "ok", f"[dryrun:d] {path.name}: "
+         f"{cell.get('status')}: {cell.get('error', '')}")
+    rec["d"] = {"cell": cell, "stdout": out[-2000:],
+                "seconds": ctx["dryrun"]["cli_seconds"]}
+    m, h = cell["memory"], cell["hlo_cost"]
+    log(f"[dryrun:d] python {' '.join(DRYRUN_CLI)}: exit 0, status ok in "
+        f"{rec['d']['seconds']:.1f} s: per device args "
+        f"{m['argument_size_in_bytes'] / 1e9:.2f} GB, peak "
+        f"{m['peak_size_in_bytes'] / 1e9:.2f} GB, "
+        f"{h['flops'] / 1e12:.1f} TFLOP, collectives "
+        f"{h['collective_total_bytes'] / 1e9:.2f} GB, fits_card "
+        f"{cell['fits_card']}")
+    rec["seconds"] = time.perf_counter() - t0
+    log(f"[dryrun] phase {rec['seconds']:.1f} s (the predictions took "
+        f"{rec['predict_seconds']:.1f} s beside the earlier phases)")
+    ctx["report"]["dryrun"] = rec
+    return rec
+
+
 def run(ctx) -> list:
     """All phases after the build; returns the kernels line's entries."""
     from repro_torch.configs.registry import get_config
@@ -3122,12 +3411,16 @@ def run(ctx) -> list:
                                    "flash_attention")})
     entries += phase_new_kernels(ctx, groups, launches_main)
     phase_families(ctx)
+    # the dry run's processes use the host alone: they overlap the phases
+    # timed on the device clock (autotune) and the train phase
+    start_dryrun(ctx)
     phase_autotune(ctx, params, sparse8, sparse_fp)
     # the train phase needs ~55 GB: free llama7b's params and packs
     del params, params_fp, sparse8, sparse_fp, proj, groups
     gc.collect()
     torch.cuda.empty_cache()
     phase_train(ctx)
+    phase_dryrun(ctx)
     return entries
 
 
@@ -3135,7 +3428,11 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default=str(ROOT / "chiprun_out"))
+    ap.add_argument("--dryrun-worker", metavar="OUT",
+                    help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    if args.dryrun_worker:
+        return dryrun_worker(args.dryrun_worker)
     t_start = time.perf_counter()
     # cuBLAS reads this at its first handle: the train phase's resume
     # drill runs with deterministic algorithms, which require it
@@ -3163,7 +3460,7 @@ def main(argv=None) -> int:
     report = {"card": card, "device": name, "seed": args.seed,
               "torch": torch.__version__, "cuda": torch.version.cuda}
     ctx = {"torch": torch, "device": dev, "seed": args.seed, "impl": None,
-           "report": report, "timer": Timer(torch),
+           "report": report, "timer": Timer(torch), "out": args.out,
            "bandwidth": card_bandwidth(name)}
     log(f"[card] {name} ({card}); torch {torch.__version__} CUDA "
         f"{torch.version.cuda}; data-sheet bandwidth "
@@ -3175,6 +3472,8 @@ def main(argv=None) -> int:
         traceback.print_exc()
         print("FAIL: chip smoke run failed", file=sys.stderr)
         return 1
+    finally:
+        stop_dryrun(ctx)
     report["kernels"] = entries
     report["seconds"] = time.perf_counter() - t_start
     out = Path(args.out)

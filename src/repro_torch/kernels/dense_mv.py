@@ -3,8 +3,11 @@
 (``src/repro/kernels/dense_mv.py``), the Newton-analogue baseline.
 
 ``dense_mv_cuda`` takes CUDA tensors only: it checks device, dtype and
-shape, allocates the output, launches on the current stream, raises if
-the launch was refused, and adds one to ``LAUNCHES["dense_mv"]``.  Its
+shape and calls ``torch.ops.repro_torch.dense_mv`` (``kernels/library.py``),
+whose CUDA implementation allocates the output, launches on the current
+stream, raises if the launch was refused, and adds one to
+``LAUNCHES["dense_mv"]``; on fake tensors its Meta implementation gives
+the output's shape and dtype and launches nothing.  Its
 plain version is ``kernels/ref.dense_mv_ref``; ``kernels/ops.dense_mv``
 picks between the two by the tensors' device.  The kernel is bound by
 the bytes of W (see the source's header note).
@@ -14,6 +17,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.build import load_library
+from repro_torch.kernels.library import define
 
 __all__ = ["LAUNCHES", "reset_launches", "dense_mv_cuda"]
 
@@ -28,23 +32,7 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-def dense_mv_cuda(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """y (R,) f32 = w (R, C) @ x (C,), w and x each f32 or bf16, summed in
-    f32."""
-    for name, t in (("w", w), ("x", x)):
-        if not (t.is_cuda and t.device == w.device):
-            raise ValueError(f"{name} must be a CUDA tensor on {w.device}, "
-                             f"got {t.device}")
-        if t.dtype not in _DTYPES:
-            raise ValueError(f"{name} must be float32 or bfloat16, got "
-                             f"{t.dtype}")
-    if w.dim() != 2 or tuple(x.shape) != (w.shape[1],):
-        raise ValueError(f"need w (R, C) and x (C,), got {tuple(w.shape)} "
-                         f"and {tuple(x.shape)}")
-    if w.numel() >= 2 ** 31:
-        raise ValueError("w too large for 32-bit row offsets")
-    w = w.contiguous()
-    x = x.contiguous()
+def _launch(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     r, c = w.shape
     out = torch.empty((r,), dtype=torch.float32, device=w.device)
     if r == 0:
@@ -62,3 +50,28 @@ def dense_mv_cuda(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         raise RuntimeError(f"dense_mv launch failed: cudaError {rc}")
     LAUNCHES["dense_mv"] += 1
     return out
+
+
+_dense_mv = define(
+    "dense_mv(Tensor w, Tensor x) -> Tensor", _launch,
+    lambda w, x: torch.empty((w.shape[0],), dtype=torch.float32,
+                             device=w.device),
+    lambda w, x: 2 * w.numel())
+
+
+def dense_mv_cuda(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """y (R,) f32 = w (R, C) @ x (C,), w and x each f32 or bf16, summed in
+    f32."""
+    for name, t in (("w", w), ("x", x)):
+        if not (t.is_cuda and t.device == w.device):
+            raise ValueError(f"{name} must be a CUDA tensor on {w.device}, "
+                             f"got {t.device}")
+        if t.dtype not in _DTYPES:
+            raise ValueError(f"{name} must be float32 or bfloat16, got "
+                             f"{t.dtype}")
+    if w.dim() != 2 or tuple(x.shape) != (w.shape[1],):
+        raise ValueError(f"need w (R, C) and x (C,), got {tuple(w.shape)} "
+                         f"and {tuple(x.shape)}")
+    if w.numel() >= 2 ** 31:
+        raise ValueError("w too large for 32-bit row offsets")
+    return _dense_mv(w.contiguous(), x.contiguous())

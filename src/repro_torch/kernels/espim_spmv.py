@@ -14,8 +14,12 @@
   ``espim_spmv_batched_quant_glu_pallas``.
 
 The wrappers take CUDA tensors only: they check device, dtype, shape and
-contiguity, allocate the output, launch on the current stream, raise if
-the launch was refused, and add one to ``LAUNCHES[<kernel>]``.  Their
+contiguity, then call their ``torch.ops.repro_torch`` op
+(``kernels/library.py``), whose CUDA implementation allocates the
+output, launches on the current stream, raises if the launch was
+refused, and adds one to ``LAUNCHES[<kernel>]``; on fake tensors (a dry
+run) the op's Meta implementation gives the output's shape and dtype and
+launches nothing.  Their
 plain versions live in ``kernels/ref.py``; ``kernels/ops.py`` picks
 between the two by the tensors' device.  All six are bound by the bytes
 of the value and index planes (see the source's header note).  Kernels
@@ -38,6 +42,7 @@ import torch
 
 from repro_torch.core.sdds import WARPS_PER_ROW, schedule_us
 from repro_torch.kernels.build import load_library
+from repro_torch.kernels.library import define
 
 __all__ = ["LAUNCHES", "reset_launches", "ACT_IDS", "espim_spmv_cuda",
            "espim_spmv_batched_cuda", "espim_spmv_batched_res_cuda",
@@ -63,11 +68,11 @@ def _need(cond: bool, msg: str) -> None:
 
 
 def _common(values: torch.Tensor, cols: torch.Tensor, x: torch.Tensor,
-            chunk_cols: int, extra=(), batched: bool = True) -> tuple:
+            chunk_cols: int, extra=(), batched: bool = True) -> torch.Tensor:
     """Validate the operands every kernel shares; returns the contiguous
-    x — (M, B) fp32, or for the unbatched kernel (M,) fp32 or bf16 — and
-    the stream handle.  x is copied only when it is not already in that
-    form; the decode path hands every bucket of a group one ready x
+    x — (M, B) fp32, or for the unbatched kernel (M,) fp32 or bf16.  x
+    is copied only when it is not already in that form; the decode path
+    hands every bucket of a group one ready x
     (``sparse_model._col_major``), so it copies nothing here."""
     dev = cols.device
     for name, t in (("values", values), ("cols", cols), ("x", x),
@@ -87,9 +92,11 @@ def _common(values: torch.Tensor, cols: torch.Tensor, x: torch.Tensor,
     _need(max(cols.numel(), x.numel()) < 2 ** 31,
           "plane or x too large for 32-bit slot offsets")
     keep = not batched and x.dtype == torch.bfloat16
-    xc = (x if keep else x.to(torch.float32)).contiguous()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    return xc, stream
+    return (x if keep else x.to(torch.float32)).contiguous()
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
 
 
 def _codes_layout(codes: torch.Tensor, cols: torch.Tensor) -> tuple[int, int]:
@@ -124,6 +131,7 @@ def _schedule(wpr: int, u: int, epilogue: str | None = None) -> tuple:
 def _check_rc(rc: int, name: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {rc}")
+    LAUNCHES[name] += 1
 
 
 def _halves(cols: torch.Tensor) -> int:
@@ -132,36 +140,168 @@ def _halves(cols: torch.Tensor) -> int:
     return cols.shape[0] // 2
 
 
-def espim_spmv_cuda(values: torch.Tensor, cols: torch.Tensor,
-                    x: torch.Tensor, *, chunk_cols: int) -> torch.Tensor:
-    """y (R,) f32 = chunked-ELL(values f32 | bf16, cols) @ x (M,); x in
-    bf16 stays bf16, any other dtype goes in as f32."""
-    xc, stream = _common(values, cols, x, chunk_cols, batched=False)
-    _need(values.dtype in (torch.float32, torch.bfloat16)
-          and values.shape == cols.shape,
-          f"values must be float32 or bfloat16 {tuple(cols.shape)}, got "
-          f"{values.dtype}{tuple(values.shape)}")
+def _out(cols: torch.Tensor, rows: int, x: torch.Tensor | None = None):
+    """The f32 output, (rows,) or (rows, B) for a batched x."""
+    shape = (rows,) if x is None else (rows, x.shape[1])
+    return torch.empty(shape, dtype=torch.float32, device=cols.device)
+
+
+# -- the ops: the CUDA launch and the Meta shape of each kernel ------------
+def _spmv_launch(values, cols, x, chunk_cols):
     r, k, lc = cols.shape
-    out = torch.empty((r,), dtype=torch.float32, device=cols.device)
+    out = _out(cols, r)
     if r == 0:
         return out
     rc = load_library().espim_spmv(
         values.data_ptr(), int(values.dtype == torch.bfloat16),
-        cols.data_ptr(), xc.data_ptr(), int(xc.dtype == torch.bfloat16),
-        out.data_ptr(), r, k, lc, int(chunk_cols), xc.shape[0], stream)
+        cols.data_ptr(), x.data_ptr(), int(x.dtype == torch.bfloat16),
+        out.data_ptr(), r, k, lc, chunk_cols, x.shape[0], _stream(cols))
     _check_rc(rc, "espim_spmv")
-    LAUNCHES["espim_spmv"] += 1
     return out
 
 
-def _fp_values(values: torch.Tensor, cols: torch.Tensor) -> int:
-    """1 for a bf16 value plane, 0 for float32 (the batched kernels widen
-    bf16 values to f32 in the kernel, as the reference casts them)."""
+_spmv = define("espim_spmv(Tensor values, Tensor cols, Tensor x, "
+               "int chunk_cols) -> Tensor", _spmv_launch,
+               lambda values, cols, x, cc: _out(cols, cols.shape[0]),
+               lambda values, cols, x, cc: 2 * cols.numel())
+
+
+def _batched_launch(values, cols, x, chunk_cols, wpr, u):
+    r, k, lc = cols.shape
+    m, b = x.shape
+    out = _out(cols, r, x)
+    if r == 0 or b == 0:
+        return out
+    rc = load_library().espim_spmv_batched_fp(
+        values.data_ptr(), int(values.dtype == torch.bfloat16),
+        cols.data_ptr(), x.data_ptr(), out.data_ptr(), r, k, lc, chunk_cols,
+        m, b, wpr, u, _stream(cols))
+    _check_rc(rc, "espim_spmv_batched")
+    return out
+
+
+def _slots_b(values, cols, x, *rest):
+    return 2 * cols.numel() * x.shape[1]
+
+
+_batched = define("espim_spmv_batched(Tensor values, Tensor cols, Tensor x, "
+                  "int chunk_cols, int wpr, int u) -> Tensor",
+                  _batched_launch,
+                  lambda values, cols, x, *_: _out(cols, cols.shape[0], x),
+                  _slots_b)
+
+
+def _res_launch(values, cols, x, residual, chunk_cols, wpr, u):
+    r, k, lc = cols.shape
+    m, b = x.shape
+    out = _out(cols, r, x)
+    if r == 0 or b == 0:
+        return out
+    rc = load_library().espim_spmv_batched_res_fp(
+        values.data_ptr(), int(values.dtype == torch.bfloat16),
+        cols.data_ptr(), x.data_ptr(), residual.data_ptr(), out.data_ptr(),
+        r, k, lc, chunk_cols, m, b, wpr, u, _stream(cols))
+    _check_rc(rc, "espim_spmv_batched_res")
+    return out
+
+
+_res = define("espim_spmv_batched_res(Tensor values, Tensor cols, Tensor x, "
+              "Tensor residual, int chunk_cols, int wpr, int u) -> Tensor",
+              _res_launch,
+              lambda values, cols, x, *_: _out(cols, cols.shape[0], x),
+              _slots_b)
+
+
+def _quant_launch(codes, cols, scales, x, chunk_cols, group_rows, wpr, u):
+    nibble, lv = _codes_layout(codes, cols)
+    r, k, lc = cols.shape
+    m, b = x.shape
+    out = _out(cols, r, x)
+    if r == 0 or b == 0:
+        return out
+    rc = load_library().espim_spmv_batched_quant(
+        codes.data_ptr(), nibble, lv, cols.data_ptr(),
+        None if scales is None else scales.data_ptr(), group_rows,
+        x.data_ptr(), out.data_ptr(), r, k, lc, chunk_cols, m, b, wpr, u,
+        _stream(cols))
+    _check_rc(rc, "espim_spmv_batched_quant")
+    return out
+
+
+_quant = define("espim_spmv_batched_quant(Tensor codes, Tensor cols, "
+                "Tensor? scales, Tensor x, int chunk_cols, int group_rows, "
+                "int wpr, int u) -> Tensor", _quant_launch,
+                lambda codes, cols, scales, x, *_:
+                _out(cols, cols.shape[0], x),
+                lambda codes, cols, scales, x, *_:
+                2 * cols.numel() * x.shape[1])
+
+
+def _glu_launch(values, cols, x, chunk_cols, act, wpr, u):
+    rg, (_, k, lc) = cols.shape[0] // 2, cols.shape
+    m, b = x.shape
+    out = _out(cols, rg, x)
+    if rg == 0 or b == 0:
+        return out
+    rc = load_library().espim_spmv_batched_glu_fp(
+        values.data_ptr(), int(values.dtype == torch.bfloat16),
+        cols.data_ptr(), x.data_ptr(), out.data_ptr(), rg, k, lc, chunk_cols,
+        m, b, act, wpr, u, _stream(cols))
+    _check_rc(rc, "espim_spmv_batched_glu")
+    return out
+
+
+_glu = define("espim_spmv_batched_glu(Tensor values, Tensor cols, Tensor x, "
+              "int chunk_cols, int act, int wpr, int u) -> Tensor",
+              _glu_launch,
+              lambda values, cols, x, *_: _out(cols, cols.shape[0] // 2, x),
+              _slots_b)
+
+
+def _quant_glu_launch(codes, cols, srow, x, chunk_cols, act, wpr, u):
+    nibble, lv = _codes_layout(codes, cols)
+    rg, (_, k, lc) = cols.shape[0] // 2, cols.shape
+    m, b = x.shape
+    out = _out(cols, rg, x)
+    if rg == 0 or b == 0:
+        return out
+    rc = load_library().espim_spmv_batched_quant_glu(
+        codes.data_ptr(), nibble, lv, cols.data_ptr(), srow.data_ptr(),
+        x.data_ptr(), out.data_ptr(), rg, k, lc, chunk_cols, m, b, act, wpr,
+        u, _stream(cols))
+    _check_rc(rc, "espim_spmv_batched_quant_glu")
+    return out
+
+
+_quant_glu = define("espim_spmv_batched_quant_glu(Tensor codes, Tensor cols, "
+                    "Tensor srow, Tensor x, int chunk_cols, int act, int wpr, "
+                    "int u) -> Tensor", _quant_glu_launch,
+                    lambda codes, cols, srow, x, *_:
+                    _out(cols, cols.shape[0] // 2, x),
+                    lambda codes, cols, srow, x, *_:
+                    2 * cols.numel() * x.shape[1])
+
+
+# -- the wrappers ----------------------------------------------------------
+def espim_spmv_cuda(values: torch.Tensor, cols: torch.Tensor,
+                    x: torch.Tensor, *, chunk_cols: int) -> torch.Tensor:
+    """y (R,) f32 = chunked-ELL(values f32 | bf16, cols) @ x (M,); x in
+    bf16 stays bf16, any other dtype goes in as f32."""
+    xc = _common(values, cols, x, chunk_cols, batched=False)
     _need(values.dtype in (torch.float32, torch.bfloat16)
           and values.shape == cols.shape,
           f"values must be float32 or bfloat16 {tuple(cols.shape)}, got "
           f"{values.dtype}{tuple(values.shape)}")
-    return int(values.dtype == torch.bfloat16)
+    return _spmv(values, cols, xc, int(chunk_cols))
+
+
+def _fp_values(values: torch.Tensor, cols: torch.Tensor) -> None:
+    """The batched kernels take a float32 or bfloat16 value plane (bf16
+    widened to f32 in the kernel, as the reference casts it)."""
+    _need(values.dtype in (torch.float32, torch.bfloat16)
+          and values.shape == cols.shape,
+          f"values must be float32 or bfloat16 {tuple(cols.shape)}, got "
+          f"{values.dtype}{tuple(values.shape)}")
 
 
 def espim_spmv_batched_cuda(values: torch.Tensor, cols: torch.Tensor,
@@ -170,19 +310,9 @@ def espim_spmv_batched_cuda(values: torch.Tensor, cols: torch.Tensor,
     """y (R, B) f32 = chunked-ELL(values f32 | bf16, cols) @ x (M, B); a
     bf16 x is widened to f32."""
     sched = _schedule(wpr, u)
-    xc, stream = _common(values, cols, x, chunk_cols)
-    vbf16 = _fp_values(values, cols)
-    r, k, lc = cols.shape
-    m, b = xc.shape
-    out = torch.empty((r, b), dtype=torch.float32, device=cols.device)
-    if r == 0 or b == 0:
-        return out
-    rc = load_library().espim_spmv_batched_fp(
-        values.data_ptr(), vbf16, cols.data_ptr(), xc.data_ptr(),
-        out.data_ptr(), r, k, lc, int(chunk_cols), m, b, *sched, stream)
-    _check_rc(rc, "espim_spmv_batched")
-    LAUNCHES["espim_spmv_batched"] += 1
-    return out
+    xc = _common(values, cols, x, chunk_cols)
+    _fp_values(values, cols)
+    return _batched(values, cols, xc, int(chunk_cols), *sched)
 
 
 def espim_spmv_batched_res_cuda(values: torch.Tensor, cols: torch.Tensor,
@@ -193,25 +323,15 @@ def espim_spmv_batched_res_cuda(values: torch.Tensor, cols: torch.Tensor,
     residual, the residual (R, B) f32 in packed row order, added in the
     same launch after each row's reduce."""
     sched = _schedule(wpr, u, "residual")
-    xc, stream = _common(values, cols, x, chunk_cols,
-                         extra=(("residual", residual),))
-    vbf16 = _fp_values(values, cols)
-    r, k, lc = cols.shape
-    m, b = xc.shape
+    xc = _common(values, cols, x, chunk_cols,
+                 extra=(("residual", residual),))
+    _fp_values(values, cols)
+    r, b = cols.shape[0], xc.shape[1]
     _need(residual.dtype == torch.float32
           and tuple(residual.shape) == (r, b),
           f"residual must be float32 {(r, b)}, got "
           f"{residual.dtype}{tuple(residual.shape)}")
-    out = torch.empty((r, b), dtype=torch.float32, device=cols.device)
-    if r == 0 or b == 0:
-        return out
-    rc = load_library().espim_spmv_batched_res_fp(
-        values.data_ptr(), vbf16, cols.data_ptr(), xc.data_ptr(),
-        residual.data_ptr(), out.data_ptr(), r, k, lc, int(chunk_cols), m, b,
-        *sched, stream)
-    _check_rc(rc, "espim_spmv_batched_res")
-    LAUNCHES["espim_spmv_batched_res"] += 1
-    return out
+    return _res(values, cols, xc, residual, int(chunk_cols), *sched)
 
 
 def espim_spmv_batched_quant_cuda(codes: torch.Tensor, cols: torch.Tensor,
@@ -223,28 +343,17 @@ def espim_spmv_batched_quant_cuda(codes: torch.Tensor, cols: torch.Tensor,
     ``scales[r // group_rows]`` after the reduce, or unscaled (the
     code-domain accumulator) when ``scales`` is None."""
     sched = _schedule(wpr, u)
-    xc, stream = _common(codes, cols, x, chunk_cols,
-                         extra=(("scales", scales),))
-    nibble, lv = _codes_layout(codes, cols)
-    r, k, lc = cols.shape
+    xc = _common(codes, cols, x, chunk_cols, extra=(("scales", scales),))
+    _codes_layout(codes, cols)
+    r = cols.shape[0]
     if scales is not None:
         _need(scales.dtype == torch.float32 and scales.dim() == 1,
               f"scales must be float32 1-D, got {scales.dtype}")
         _need(group_rows >= 1 and scales.numel() * group_rows >= r,
               f"{scales.numel()} scales x group_rows={group_rows} do not "
               f"cover {r} rows")
-    m, b = xc.shape
-    out = torch.empty((r, b), dtype=torch.float32, device=cols.device)
-    if r == 0 or b == 0:
-        return out
-    rc = load_library().espim_spmv_batched_quant(
-        codes.data_ptr(), nibble, lv, cols.data_ptr(),
-        None if scales is None else scales.data_ptr(), max(1, group_rows),
-        xc.data_ptr(), out.data_ptr(), r, k, lc, int(chunk_cols), m, b,
-        *sched, stream)
-    _check_rc(rc, "espim_spmv_batched_quant")
-    LAUNCHES["espim_spmv_batched_quant"] += 1
-    return out
+    return _quant(codes, cols, scales, xc, int(chunk_cols),
+                  max(1, group_rows), *sched)
 
 
 def _act_id(act: str) -> int:
@@ -261,22 +370,10 @@ def espim_spmv_batched_glu_cuda(values: torch.Tensor, cols: torch.Tensor,
     """act(gate) * up (Rg, B) f32 from a half-major f32 or bf16 gate+up
     pack; ``wpr`` counts warps a pair."""
     sched = _schedule(wpr, u, "glu")
-    xc, stream = _common(values, cols, x, chunk_cols)
-    vbf16 = _fp_values(values, cols)
-    rg = _halves(cols)
-    _, k, lc = cols.shape
-    m, b = xc.shape
-    act_id = _act_id(act)
-    out = torch.empty((rg, b), dtype=torch.float32, device=cols.device)
-    if rg == 0 or b == 0:
-        return out
-    rc = load_library().espim_spmv_batched_glu_fp(
-        values.data_ptr(), vbf16, cols.data_ptr(), xc.data_ptr(),
-        out.data_ptr(), rg, k, lc, int(chunk_cols), m, b, act_id, *sched,
-        stream)
-    _check_rc(rc, "espim_spmv_batched_glu")
-    LAUNCHES["espim_spmv_batched_glu"] += 1
-    return out
+    xc = _common(values, cols, x, chunk_cols)
+    _fp_values(values, cols)
+    _halves(cols)
+    return _glu(values, cols, xc, int(chunk_cols), _act_id(act), *sched)
 
 
 def espim_spmv_batched_quant_glu_cuda(codes: torch.Tensor,
@@ -288,22 +385,11 @@ def espim_spmv_batched_quant_glu_cuda(codes: torch.Tensor,
     nibble-packed gate+up pack and per-row scales ``srow`` (2*Rg,);
     ``wpr`` counts warps a pair."""
     sched = _schedule(wpr, u, "glu")
-    xc, stream = _common(codes, cols, x, chunk_cols, extra=(("srow", srow),))
-    nibble, lv = _codes_layout(codes, cols)
+    xc = _common(codes, cols, x, chunk_cols, extra=(("srow", srow),))
+    _codes_layout(codes, cols)
     rg = _halves(cols)
     _need(srow.dtype == torch.float32 and tuple(srow.shape) == (2 * rg,),
           f"srow must be float32 ({2 * rg},), got "
           f"{srow.dtype}{tuple(srow.shape)}")
-    _, k, lc = cols.shape
-    m, b = xc.shape
-    act_id = _act_id(act)
-    out = torch.empty((rg, b), dtype=torch.float32, device=cols.device)
-    if rg == 0 or b == 0:
-        return out
-    rc = load_library().espim_spmv_batched_quant_glu(
-        codes.data_ptr(), nibble, lv, cols.data_ptr(), srow.data_ptr(),
-        xc.data_ptr(), out.data_ptr(), rg, k, lc, int(chunk_cols), m, b,
-        act_id, *sched, stream)
-    _check_rc(rc, "espim_spmv_batched_quant_glu")
-    LAUNCHES["espim_spmv_batched_quant_glu"] += 1
-    return out
+    return _quant_glu(codes, cols, srow, xc, int(chunk_cols), _act_id(act),
+                      *sched)

@@ -6,8 +6,12 @@ dispatches between it and its plain version as ``kernels/ops`` does.
 Layout as in the reference: q, k, v ``(BH, S, hd)``, float32 or bfloat16,
 output in q's dtype; GQA repeats and ``(B, S, H, hd)`` reshapes live in
 the caller.  ``flash_attention_cuda`` takes CUDA tensors only, checks
-them, allocates the output, launches on the current stream, raises if
-the launch was refused, and adds one to ``LAUNCHES["flash_attention"]``.
+them and calls ``torch.ops.repro_torch.flash_attention``
+(``kernels/library.py``), whose CUDA implementation allocates the
+output, launches on the current stream, raises if the launch was
+refused, and adds one to ``LAUNCHES["flash_attention"]``; on fake
+tensors its Meta implementation gives the output's shape and dtype and
+launches nothing.
 bf16 inputs run on the tensor cores (the wgmma + TMA body), fp32 inputs
 on the fp32 body: dispatch by dtype inside the C entry point (see the
 source's header note).  The kernel is built for hd in ``HEAD_DIMS``; a
@@ -22,6 +26,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.build import load_library
+from repro_torch.kernels.library import define
 from repro_torch.kernels.ops import _resolve, _use_kernel
 
 __all__ = ["LAUNCHES", "reset_launches", "HEAD_DIMS", "pad_heads",
@@ -59,18 +64,8 @@ def pad_heads(attend, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return attend(q, k, v, causal, scale)[..., :hd].contiguous()
 
 
-def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+def _kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
             scale: float) -> torch.Tensor:
-    """One kernel launch on contiguous (BH, S, hd) tensors, hd built.
-    Raises for an input that requires grad under grad mode: the kernel
-    writes through raw pointers, so its output would carry no
-    ``grad_fn`` and cut the graph silently."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise RuntimeError("flash_attention kernel has no backward: call it "
-                           "under torch.no_grad() or on tensors that do not "
-                           "require grad")
-    if q.numel() >= 2 ** 31:
-        raise ValueError("q too large for 32-bit offsets")
     bh, s, hd = q.shape
     out = torch.empty_like(q)
     if bh == 0 or s == 0:
@@ -84,6 +79,34 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
         raise RuntimeError(f"flash_attention launch failed: rc {rc}")
     LAUNCHES["flash_attention"] += 1
     return out
+
+
+def _pairs(s: int, causal: bool) -> int:
+    """(query, key) pairs the softmax visits."""
+    return s * (s + 1) // 2 if causal else s * s
+
+
+_flash = define(
+    "flash_attention(Tensor q, Tensor k, Tensor v, bool causal, "
+    "float scale) -> Tensor", _kernel,
+    lambda q, k, v, causal, scale: torch.empty_like(q),
+    lambda q, k, v, causal, scale: (4 * q.shape[0] * q.shape[2]
+                                    * _pairs(q.shape[1], causal)))
+
+
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+            scale: float) -> torch.Tensor:
+    """One kernel launch on contiguous (BH, S, hd) tensors, hd built.
+    Raises for an input that requires grad under grad mode: the kernel
+    writes through raw pointers, so its output would carry no
+    ``grad_fn`` and cut the graph silently."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError("flash_attention kernel has no backward: call it "
+                           "under torch.no_grad() or on tensors that do not "
+                           "require grad")
+    if q.numel() >= 2 ** 31:
+        raise ValueError("q too large for 32-bit offsets")
+    return _flash(q, k, v, bool(causal), float(scale))
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -10,6 +10,8 @@ each application keeps its own KV cache).  ``a_log``, ``d_skip`` and
 """
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 
@@ -60,12 +62,15 @@ def ssd_chunked(x, dt, a, bmat, cmat, chunk: int = 128, init_state=None):
     cb = torch.repeat_interleave(torch.einsum("bctgn,bcjgn->bcgtj", cc, bc),
                                  rep, dim=2)          # G -> H heads
     cst = cs.permute(0, 1, 3, 2)                   # (B, nc, H, Lc)
-    # exp(cs[t] - cs[j]) overflows above the diagonal: select, never
-    # multiply by a triangle (inf * 0 is NaN)
-    dec = torch.exp(cst[..., :, None] - cst[..., None, :])
+    # exp(cs[t] - cs[j]) overflows above the diagonal: the exponent is
+    # masked to -inf there before the exp, which gives the reference's
+    # values (exp(-inf) = 0) and a zero gradient.  The reference selects
+    # after the exp, whose backward multiplies the inf by the zero it
+    # routes there: NaN grads once a chunk's decay overflows
     tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
                                 device=x.device))
-    dec = torch.where(tri, dec, torch.zeros_like(dec))
+    diff = cst[..., :, None] - cst[..., None, :]
+    dec = torch.exp(torch.where(tri, diff, torch.full_like(diff, -math.inf)))
     dx = dtc[..., None] * xc                       # (B, nc, Lc, H, P)
     y_intra = torch.einsum("bchtj,bcjhp->bcthp", cb * dec, dx)
 

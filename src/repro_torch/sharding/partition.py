@@ -290,10 +290,13 @@ def named(mesh, spec):
 
 
 def _place(x: torch.Tensor, spec: tuple, mesh):
-    """One leaf on ``mesh`` per ``spec``.  Where every sharded mesh dim
-    has size 1 the local shard is the whole tensor, which becomes the
-    DTensor's local tensor as it is (no copy: a full-width train state
-    fits the card once, not twice); else ``distribute_tensor``."""
+    """One leaf on ``mesh`` per ``spec``, from the full value that every
+    rank holds alike.  Where every sharded mesh dim has size 1 the local
+    shard is the whole tensor, which becomes the DTensor's local tensor
+    as it is (no copy: a full-width train state fits the card once, not
+    twice); else ``distribute_tensor`` keeps this rank's shard of its own
+    ``x`` (``src_data_rank=None``: no scatter or broadcast from a source
+    rank)."""
     from torch.distributed.tensor import DTensor, distribute_tensor
 
     placements = named(mesh, spec)
@@ -301,7 +304,7 @@ def _place(x: torch.Tensor, spec: tuple, mesh):
     if all(mesh.size(i) == 1 for i, p in enumerate(placements)
            if p.is_shard()):
         return DTensor.from_local(x, mesh, placements, run_check=False)
-    return distribute_tensor(x, mesh, placements)
+    return distribute_tensor(x, mesh, placements, src_data_rank=None)
 
 
 def logical_to_sharding(tree, specs, mesh):

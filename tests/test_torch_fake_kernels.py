@@ -1,0 +1,214 @@
+"""The hand-written kernels' ``torch.library`` ops under ``FakeTensorMode``
+(``kernels/library.py``): each of the eight launch wrappers, called on
+fake ``cuda`` tensors, gives its plain version's output shape and dtype
+without a card, a data pointer or a launch count; and the cost analysis
+reads each op's FLOPs and bytes equal to ``chip_smoke.py``'s bound
+column at the kernel table's shapes (``PERF.md`` §6)."""
+import contextlib
+import sys
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from torch._subclasses.fake_tensor import FakeTensorMode  # noqa: E402
+
+from repro_torch.kernels import dense_mv as DM  # noqa: E402
+from repro_torch.kernels import espim_spmv as SP  # noqa: E402
+from repro_torch.kernels import flash_attention as FA  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
+from repro_torch.launch.cost_analysis import analyze_step  # noqa: E402
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+import chip_smoke  # noqa: E402
+
+CC = 64
+
+
+def _planes(gen, r, k, lc, dtype=torch.float32):
+    cols = torch.randint(0, CC, (r, k, lc), generator=gen,
+                         dtype=torch.int32)
+    return torch.randn((r, k, lc), generator=gen).to(dtype), cols
+
+
+def _cases():
+    """kernel -> (wrapper on the tensors, plain version on the tensors,
+    the tensors)."""
+    gen = torch.Generator().manual_seed(0)
+    vals, cols = _planes(gen, 8, 3, 5)
+    codes = torch.randint(-127, 128, (8, 3, 5), generator=gen,
+                          dtype=torch.int8)
+    x = torch.randn((3 * CC, 4), generator=gen)
+    x1 = torch.randn((3 * CC,), generator=gen)
+    res = torch.randn((8, 4), generator=gen)
+    srow = torch.rand((8,), generator=gen)
+    w = torch.randn((6, 40), generator=gen)
+    wx = torch.randn((40,), generator=gen)
+    q = torch.randn((2, 9, 80), generator=gen).to(torch.bfloat16)
+    return {
+        "espim_spmv": (
+            lambda v, c, x: SP.espim_spmv_cuda(v, c, x, chunk_cols=CC),
+            lambda v, c, x: ops.espim_spmv(v, c, x, chunk_cols=CC),
+            (vals, cols, x1)),
+        "espim_spmv_batched": (
+            lambda v, c, x: SP.espim_spmv_batched_cuda(v, c, x,
+                                                       chunk_cols=CC),
+            lambda v, c, x: ops.espim_spmv_batched(v, c, x, chunk_cols=CC),
+            (vals, cols, x)),
+        "espim_spmv_batched_res": (
+            lambda v, c, x, r: SP.espim_spmv_batched_res_cuda(
+                v, c, x, r, chunk_cols=CC),
+            lambda v, c, x, r: ops.espim_spmv_batched(
+                v, c, x, chunk_cols=CC, epilogue="residual", residual=r),
+            (vals, cols, x, res)),
+        "espim_spmv_batched_quant": (
+            lambda q, c, x: SP.espim_spmv_batched_quant_cuda(
+                q, c, None, x, chunk_cols=CC),
+            lambda q, c, x: ops.espim_spmv_batched_quant(
+                q, c, None, x, chunk_cols=CC),
+            (codes, cols, x)),
+        "espim_spmv_batched_glu": (
+            lambda v, c, x: SP.espim_spmv_batched_glu_cuda(v, c, x,
+                                                           chunk_cols=CC),
+            lambda v, c, x: ops.espim_spmv_batched(
+                v, c, x, chunk_cols=CC, epilogue="glu", act="silu"),
+            (vals, cols, x)),
+        "espim_spmv_batched_quant_glu": (
+            lambda q, c, s, x: SP.espim_spmv_batched_quant_glu_cuda(
+                q, c, s, x, chunk_cols=CC),
+            lambda q, c, s, x: ops.espim_spmv_batched_quant(
+                q, c, None, x, chunk_cols=CC, epilogue="glu", act="silu",
+                srow=s),
+            (codes, cols, srow, x)),
+        "dense_mv": (DM.dense_mv_cuda, ops.dense_mv, (w, wx)),
+        # hd 80: the wrapper zero-pads to 128 and slices back
+        "flash_attention": (
+            lambda q, k, v: FA.flash_attention_cuda(q, k, v, causal=True),
+            lambda q, k, v: FA.flash_attention(q, k, v, causal=True),
+            (q, q.clone(), q.clone())),
+    }
+
+
+def _indexing():
+    """A CPU-only PyTorch cannot index or slice fake ``cuda`` tensors from
+    Python (the binding takes a CUDA device guard): the dry run's aten
+    indexing there, nothing on a CUDA build."""
+    if torch.backends.cuda.is_built():
+        return contextlib.nullcontext()
+    return dryrun._CudaIndexing()
+
+
+def _launches() -> dict:
+    return {**SP.LAUNCHES, **DM.LAUNCHES, **FA.LAUNCHES}
+
+
+@pytest.mark.parametrize("kernel", sorted(_cases()))
+def test_op_traces_on_fake_cuda_tensors(kernel):
+    wrapper, plain, tensors = _cases()[kernel]
+    want = plain(*tensors)
+    before = _launches()
+    with FakeTensorMode(), _indexing():
+        fakes = [torch.empty(t.shape, dtype=t.dtype, device="cuda")
+                 for t in tensors]
+        got = wrapper(*fakes)
+        assert got.device.type == "cuda"
+    assert tuple(got.shape) == tuple(want.shape)
+    assert got.dtype == want.dtype
+    assert _launches() == before
+    assert kernel in before          # one counter per op
+
+
+def _fake_cost(fn, *shapes):
+    """(flops, bytes) the cost analysis reads of ``fn`` on fake cuda
+    tensors of ``shapes`` ((shape, dtype) pairs)."""
+    with FakeTensorMode():
+        ts = [torch.empty(s, dtype=d, device="cuda") for s, d in shapes]
+        cost = analyze_step(fn, *ts)
+    assert cost.flops == cost.dot_flops
+    assert cost.bytes == cost.dot_bytes
+    return cost.dot_flops, cost.bytes
+
+
+# one full-width llama7b-espim bucket (rows, chunks of 512, Lc) at B = 4
+R, K, LC, M, B = 4096, 8, 56, 4096, 4
+F32, BF16 = torch.float32, torch.bfloat16
+
+
+@pytest.mark.parametrize("kernel", [
+    "espim_spmv_batched", "espim_spmv_batched_quant",
+    "espim_spmv_batched_glu", "espim_spmv_batched_quant_glu",
+    "espim_spmv_batched_res"])
+def test_spmv_cost_equals_the_bound_column(kernel):
+    """Kernels 1-4 and 6 against ``chip_smoke.case_bytes`` at one
+    bucket's shape."""
+    quant = "quant" in kernel
+    planes = {"cols": ((R, K, LC), torch.int32),
+              ("q" if quant else "values"): ((R, K, LC),
+                                             torch.int8 if quant else F32)}
+    if kernel == "espim_spmv_batched_quant_glu":
+        planes["srow"] = ((R,), F32)
+    rows_out = R // 2 if "glu" in kernel else R
+    call = {
+        "espim_spmv_batched": lambda v, c, x: SP.espim_spmv_batched_cuda(
+            v, c, x, chunk_cols=512),
+        "espim_spmv_batched_quant":
+            lambda q, c, x: SP.espim_spmv_batched_quant_cuda(
+                q, c, None, x, chunk_cols=512),
+        "espim_spmv_batched_glu":
+            lambda v, c, x: SP.espim_spmv_batched_glu_cuda(
+                v, c, x, chunk_cols=512),
+        "espim_spmv_batched_quant_glu":
+            lambda q, c, s, x: SP.espim_spmv_batched_quant_glu_cuda(
+                q, c, s, x, chunk_cols=512),
+        "espim_spmv_batched_res":
+            lambda v, c, x, r: SP.espim_spmv_batched_res_cuda(
+                v, c, x, r, chunk_cols=512),
+    }[kernel]
+    order = (["q" if quant else "values", "cols"]
+             + (["srow"] if "srow" in planes else []))
+    shapes = [planes[k] for k in order] + [((M, B), F32)]
+    if kernel == "espim_spmv_batched_res":
+        shapes.append(((R, B), F32))
+    flops, nbytes = _fake_cost(call, *shapes)
+    with FakeTensorMode():
+        case = {k: torch.empty(s, dtype=d, device="cuda")
+                for k, (s, d) in planes.items()}
+        case.update(kernel=kernel, m=M)
+        if kernel == "espim_spmv_batched_res":
+            case["res"] = None
+        want_bytes, want_flops = chip_smoke.case_bytes(case, B)
+    assert flops == want_flops == 2 * R * K * LC * B
+    assert nbytes == want_bytes
+    assert rows_out * B * 4 < nbytes
+
+
+def test_unbatched_spmv_cost_equals_the_bound_column():
+    """Kernel 5, 1-D x (row 5: values + cols + x + y; 2 slots)."""
+    flops, nbytes = _fake_cost(
+        lambda v, c, x: SP.espim_spmv_cuda(v, c, x, chunk_cols=512),
+        ((R, K, LC), F32), ((R, K, LC), torch.int32), ((M,), F32))
+    assert flops == 2 * R * K * LC
+    assert nbytes == R * K * LC * 4 + R * K * LC * 4 + M * 4 + R * 4
+
+
+def test_dense_mv_cost_equals_the_bound_column():
+    """Kernel 7 at row 7's W 4096 x 11008 fp32."""
+    r, c = 4096, 11008
+    flops, nbytes = _fake_cost(DM.dense_mv_cuda, ((r, c), F32), ((c,), F32))
+    assert flops == 2 * r * c
+    assert nbytes == (r * c + c) * 4 + r * 4
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_cost_equals_the_bound_column(causal):
+    """Kernel 8 at row 8's BH 32, hd 128, S 2048, bf16."""
+    bh, s, hd = 32, 2048, 128
+    flops, nbytes = _fake_cost(
+        lambda q, k, v: FA.flash_attention_cuda(q, k, v, causal=causal),
+        *[((bh, s, hd), BF16)] * 3)
+    pairs = s * (s + 1) // 2 if causal else s * s
+    assert flops == 4 * bh * hd * pairs
+    assert nbytes == 4 * bh * s * hd * 2
