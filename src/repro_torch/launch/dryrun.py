@@ -8,8 +8,10 @@ rank count (``launch/mesh.make_production_mesh``: 16 x 16, or 2 x 16 x
 16 with the pod axis), builds the cell's inputs from ``launch/specs`` as
 fake DTensors holding this rank's shards under the port's ``partition``
 rules, and runs the cell's entry point once under ``FakeTensorMode``
-(``train_step.make_train_step``, ``serve_step.prefill_fn`` on the
-gathered params, ``serve_step.make_serve_step``), with the cost analysis
+(``train_step.make_train_step``; for prefill the dense family's
+``transformer.forward_sharded`` under no_grad on the ``param_pspecs``
+shards, the other families' ``serve_step.prefill_fn`` on the gathered
+params; ``serve_step.make_serve_step``), with the cost analysis
 (``launch/cost_analysis.py``) and a memory tracker.  Decode cells take
 the int8 KV cache for every family but ssm, as the reference's.  Each
 cell writes the reference's record: ``memory`` (the inputs' local shards
@@ -53,6 +55,7 @@ from repro_torch.configs.base import SHAPES, ModelConfig, ShapeConfig
 from repro_torch.configs.registry import ASSIGNED, get_config, skip_reason
 from repro_torch.launch import specs as S
 from repro_torch.launch.cost_analysis import CostMode
+from repro_torch.models import factory, transformer
 from repro_torch.optim.adamw import OptConfig
 from repro_torch.serve import serve_step
 from repro_torch.sharding import partition
@@ -137,14 +140,16 @@ def _to(t: torch.Tensor, *args, **kwargs) -> torch.Tensor:
 
 
 class _CudaIndexing(TorchFunctionMode):
-    """``Tensor.__getitem__`` / ``__setitem__`` / ``to`` / ``contiguous``
-    through aten ops, for fake ``cuda`` tensors on a CPU-only PyTorch
+    """``Tensor.__getitem__`` / ``__setitem__`` / ``to`` / ``contiguous`` /
+    ``copy_`` through aten ops, for fake ``cuda`` tensors on a CPU-only PyTorch
     (whose Python bindings of these take a CUDA device guard it was not
     built with)."""
 
     def __torch_function__(self, func, types, args=(), kwargs=None):
         if func is torch.Tensor.to:
             return _to(*args, **(kwargs or {}))
+        if func is torch.Tensor.copy_:
+            return torch.ops.aten.copy_.default(*args, **(kwargs or {}))
         if func is torch.Tensor.contiguous:
             t = args[0]
             return t if t.is_contiguous() else torch.ops.aten.clone.default(
@@ -221,9 +226,14 @@ def _entry(cfg: ModelConfig, shape: ShapeConfig, mesh, ocfg: OptConfig,
     if shape.kind == "prefill":
         @torch.no_grad()
         def prefill(params, batch):
+            local = tree_map(lambda t: t.to_local(), batch)
+            if cfg.family in factory.SHARDED_FAMILIES:
+                # this rank's logits (its batch, its vocab shard)
+                return transformer.forward_sharded(
+                    cfg, tree_map(lambda t: t.to_local(), params), local,
+                    partition.Layout.of(params))
             return serve_step.prefill_fn(
-                cfg, tree_map(partition.full_value, params),
-                tree_map(lambda t: t.to_local(), batch))
+                cfg, tree_map(partition.full_value, params), local)
 
         pspecs = partition.param_pspecs(sp["params"], mesh)
         return prefill, (sp["params"], sp["batch"]), (pspecs, bspecs)

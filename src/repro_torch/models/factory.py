@@ -7,6 +7,11 @@ over the six families.
   decode_step(cfg, params, cache, batch) -> (logits, cache)
   prefill_chunk(cfg, params, cache, batch) -> (logits, cache)
   loss_fn(cfg, params, batch)         -> (loss, metrics)
+
+The families of ``SHARDED_FAMILIES`` (the dense decoder) also run on each
+rank's shards of a mesh (``loss_fn(..., layout=)``, the serve step's
+``transformer.decode_step_sharded``); the others' sharded steps gather
+their params first.
 """
 from __future__ import annotations
 
@@ -14,10 +19,11 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import mamba, moe, rwkv, transformer, vlm, whisper
+from repro_torch.sharding import partition as P
 
 __all__ = ["get_family", "init_params", "apply_train", "init_cache",
            "decode_step", "prefill_chunk", "supports_chunked_prefill",
-           "loss_fn", "cross_entropy", "MOE_AUX_WEIGHT"]
+           "loss_fn", "cross_entropy", "MOE_AUX_WEIGHT", "SHARDED_FAMILIES"]
 
 _FAMILIES = {
     "dense": transformer,
@@ -29,6 +35,8 @@ _FAMILIES = {
 }
 
 MOE_AUX_WEIGHT = 0.01
+# families whose sharded steps run on each rank's shards
+SHARDED_FAMILIES = ("dense",)
 
 
 def get_family(cfg: ModelConfig):
@@ -79,15 +87,32 @@ def prefill_chunk(cfg: ModelConfig, params: dict, cache: dict, batch: dict):
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
-                  mask: torch.Tensor | None = None) -> torch.Tensor:
+                  mask: torch.Tensor | None = None,
+                  mesh=None) -> torch.Tensor:
     """Token-mean cross-entropy in float32: logits (B, S, V), labels
     (B, S) int, an optional ``mask`` (B, S) weighting each token (the
     padded vocab columns take part in the logsumexp, as the
-    reference's)."""
+    reference's).  With a ``mesh`` whose ``model`` axis splits the
+    vocab, ``logits`` are this rank's shard and the form is
+    vocab-parallel: the local max, all-reduced (max); the local sum of
+    exp, all-reduced (sum); the gold logit from the rank that holds it."""
     logits = logits.float()
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.take_along_dim(logits, labels.long()[..., None],
-                                dim=-1)[..., 0]
+    if mesh is None or P.mesh_axis_size(mesh, "model") == 1:
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.take_along_dim(logits, labels.long()[..., None],
+                                    dim=-1)[..., 0]
+    else:
+        n = logits.shape[-1]
+        m = P.all_reduce(logits.detach().amax(dim=-1), mesh, "model", "max")
+        sumexp = torch.exp(logits - m[..., None]).sum(dim=-1)
+        logz = m + torch.log(P.reduce_from(sumexp, mesh))
+        idx = labels.long() - P.axis_index(mesh, "model") * n
+        own = (idx >= 0) & (idx < n)
+        gold = torch.take_along_dim(
+            logits, torch.where(own, idx, torch.zeros_like(idx))[..., None],
+            dim=-1)[..., 0]
+        gold = P.reduce_from(torch.where(own, gold, torch.zeros_like(gold)),
+                             mesh)
     nll = logz - gold
     if mask is None:
         mask = torch.ones_like(nll)
@@ -95,14 +120,25 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     return torch.sum(nll * mask) / torch.clamp_min(torch.sum(mask), 1.0)
 
 
-def loss_fn(cfg: ModelConfig, params: dict, batch: dict):
+def loss_fn(cfg: ModelConfig, params: dict, batch: dict, layout=None):
     """-> (loss, {"ce", "aux"}): the cross-entropy of ``apply_train``'s
     logits against ``batch["labels"]`` (``batch["loss_mask"]`` when given)
-    plus ``MOE_AUX_WEIGHT`` times the aux term (zero outside MoE)."""
-    logits, aux = apply_train(cfg, params, batch)
+    plus ``MOE_AUX_WEIGHT`` times the aux term (zero outside MoE).  With
+    a ``layout`` (``partition.Layout``) ``params`` are this rank's shards
+    and ``batch`` its part of the batch: ``transformer.forward_sharded``
+    and the vocab-parallel cross-entropy (``SHARDED_FAMILIES`` only)."""
+    if layout is None:
+        logits, aux = apply_train(cfg, params, batch)
+        mesh = None
+    else:
+        if cfg.family not in SHARDED_FAMILIES:
+            raise ValueError(f"family {cfg.family!r} has no sharded forward")
+        logits = transformer.forward_sharded(cfg, params, batch, layout)
+        aux = torch.zeros((), dtype=torch.float32, device=logits.device)
+        mesh = layout.mesh
     labels = batch["labels"].to(logits.device)
     mask = batch.get("loss_mask")
     ce = cross_entropy(logits, labels,
-                       None if mask is None else mask.to(logits.device))
+                       None if mask is None else mask.to(logits.device), mesh)
     loss = ce + MOE_AUX_WEIGHT * aux
     return loss, {"ce": ce, "aux": aux}

@@ -4,7 +4,8 @@ RoPE and Qwen2-VL's M-RoPE, full-sequence attention (``flash_attention``:
 kernel 8 on the card for inference, a chunked online softmax otherwise
 and whenever autograd records), decode /
 chunked-prefill attention with the un-repeated GQA contraction and
-float32 softmax, and the MLPs.
+float32 softmax (and, over a sequence split across ranks, each rank's
+partial softmax combined by all-reduces), and the MLPs.
 
 Conventions as the reference: activations x (B, S, D); q (B, S, H, hd);
 k/v (B, S, KV, hd); statistics and attention accumulate in float32.
@@ -31,11 +32,15 @@ NEG_INF = -1e30
 def shard_hint(x: torch.Tensor, *logical) -> torch.Tensor:
     """The identity.  The reference's hint pins a loop-carried activation
     to the ambient mesh so that XLA's sharding propagation does not
-    replicate it; eager PyTorch has no propagation to re-anchor, and the
-    port's forwards never run on DTensors (a sharded train or serve step
-    gathers its params to plain tensors first, ``train.train_step``), so
-    there is nothing to redistribute.  Kept so that code written against
-    the reference's layers reads the same; ``logical`` is ignored."""
+    replicate it; eager PyTorch has no propagation to re-anchor.  The
+    port's forwards run on plain tensors: on a mesh, the dense family's
+    sharded steps pass each rank's local shards and reshard explicitly
+    (``partition.fsdp_gather`` per layer, ``copy_to`` / ``reduce_from``
+    around the tensor-parallel products, ``gather_dim`` where a model
+    shard holds no whole head: ``models.transformer.forward_sharded``),
+    and the other families' steps gather their params first.  Kept so
+    that code written against the reference's layers reads the same;
+    ``logical`` is ignored."""
     return x
 
 
@@ -208,6 +213,21 @@ def _flash_chunked(q, k, v, causal: bool, q_chunk: int, kv_chunk: int
     return out[:, :sq]
 
 
+def _scores(q: torch.Tensor, k_cache: torch.Tensor, visible: torch.Tensor,
+            k_scale: torch.Tensor | None = None):
+    """(float32 (KV, rep)-factored scores (B, KV, rep, C, S) with the
+    invisible keys at ``NEG_INF``, rep)."""
+    b, c, h, hd = q.shape
+    kvh = k_cache.shape[2]
+    rep = h // kvh
+    qg = q.reshape(b, c, kvh, rep, hd).float() / math.sqrt(hd)
+    s = torch.einsum("bqkrd,bskd->bkrqs", qg, k_cache.float())
+    if k_scale is not None:
+        s = s * k_scale.float().permute(0, 2, 1)[:, :, None, None, :]
+    return torch.where(visible[:, None, None], s,
+                       torch.full_like(s, NEG_INF))
+
+
 def _attend(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
             visible: torch.Tensor, k_scale: torch.Tensor | None = None,
             v_scale: torch.Tensor | None = None) -> torch.Tensor:
@@ -217,35 +237,52 @@ def _attend(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
     cache, the (B, S, KV) scales fold in exactly: q.(k*s) = (q.k)*s into
     the scores, sum_s (p*s_v).v into the probabilities."""
     b, c, h, hd = q.shape
-    kvh = k_cache.shape[2]
-    rep = h // kvh
-    qg = q.reshape(b, c, kvh, rep, hd).float() / math.sqrt(hd)
-    s = torch.einsum("bqkrd,bskd->bkrqs", qg, k_cache.float())
-    if k_scale is not None:
-        s = s * k_scale.float().permute(0, 2, 1)[:, :, None, None, :]
-    s = torch.where(visible[:, None, None], s,
-                    torch.full_like(s, NEG_INF))
-    p = torch.softmax(s, dim=-1)
+    p = torch.softmax(_scores(q, k_cache, visible, k_scale), dim=-1)
     if v_scale is not None:
         p = p * v_scale.float().permute(0, 2, 1)[:, :, None, None, :]
     out = torch.einsum("bkrqs,bskd->bqkrd", p, v_cache.float())
     return out.reshape(b, c, h, hd).to(q.dtype)
 
 
+def _attend_partial(q, k_cache, v_cache, visible, k_scale, v_scale,
+                    reduce_max, reduce_sum) -> torch.Tensor:
+    """``_attend`` over one rank's piece of a sequence split across
+    ranks: its partial softmax (the max, the sum of exp and the weighted
+    sum of V, in float32), combined by ``reduce_max`` then ``reduce_sum``
+    (all-reduces over the sequence's mesh axes) before the division."""
+    b, c, h, hd = q.shape
+    s = _scores(q, k_cache, visible, k_scale)
+    m = reduce_max(s.amax(dim=-1))
+    p = torch.exp(s - m[..., None])
+    denom = reduce_sum(p.sum(dim=-1))                    # (B, KV, rep, C)
+    if v_scale is not None:
+        p = p * v_scale.float().permute(0, 2, 1)[:, :, None, None, :]
+    acc = reduce_sum(torch.einsum("bkrqs,bskd->bqkrd", p, v_cache.float()))
+    out = acc / denom.permute(0, 3, 1, 2)[..., None]
+    return out.reshape(b, c, h, hd).to(q.dtype)
+
+
 def attention_decode(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, cache_len,
                      k_scale: torch.Tensor | None = None,
-                     v_scale: torch.Tensor | None = None) -> torch.Tensor:
+                     v_scale: torch.Tensor | None = None, *,
+                     seq=None) -> torch.Tensor:
     """Single-step decode attention: q (B, 1, H, hd) over caches
     (B, S_max, KV, hd) — bf16, or int8 with (B, S_max, KV) scales;
-    entries at index >= cache_len ((B,) or scalar) are masked."""
+    entries at index >= cache_len ((B,) or scalar) are masked.  ``seq``
+    = (s_lo, reduce_max, reduce_sum) for a cache that holds positions
+    s_lo.. of a sequence split over ranks (``_attend_partial``)."""
     s_max = k_cache.shape[1]
-    pos = torch.arange(s_max, device=q.device)
+    s_lo = 0 if seq is None else seq[0]
+    pos = torch.arange(s_lo, s_lo + s_max, device=q.device)
     lens = torch.as_tensor(cache_len, device=q.device)
     lens = lens[:, None] if lens.dim() == 1 else lens.reshape(1, 1)
     visible = (pos[None, :] < lens)[:, None, :]          # (B|1, 1, S)
     visible = visible.expand(q.shape[0], 1, s_max)
-    return _attend(q, k_cache, v_cache, visible, k_scale, v_scale)
+    if seq is None:
+        return _attend(q, k_cache, v_cache, visible, k_scale, v_scale)
+    return _attend_partial(q, k_cache, v_cache, visible, k_scale, v_scale,
+                           *seq[1:])
 
 
 def attention_prefill(q: torch.Tensor, k_cache: torch.Tensor,

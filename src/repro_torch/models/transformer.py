@@ -9,6 +9,10 @@ projection-free attention cores (RoPE + cache write + attention) the
 packed QKV / O groups wrap, the dense ``forward``, ``decode_step`` and
 ``prefill_chunk``, and what every family's full-sequence forward shares
 for training: ``remat_wrap`` around the layer body and ``layer_list``.
+On a mesh the dense family also runs on each rank's shards:
+``forward_sharded`` (ZeRO-3 on ``data``, tensor parallelism on
+``model``) and ``decode_step_sharded`` (a layer's params gathered at a
+time over a cache split by batch and by KV heads or sequence).
 
 Params are the reference's dict layout: layer leaves stacked along a
 leading layer axis, projections stored (d_in, d_out).
@@ -22,13 +26,16 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.sharding import partition as P
+from repro_torch.tree import tree_map
 
 __all__ = ["init_params", "forward", "init_cache", "decode_step",
            "prefill_chunk", "init_attn_layer", "init_mlp_layer", "init_norm",
            "init_embed", "normal", "embed_tokens", "logits_from_hidden", "attn_apply",
            "attn_decode_core", "attn_decode_apply", "attn_prefill_core",
            "attn_prefill_apply", "splice_rows", "mlp_apply", "layer_slice",
-           "layer_list", "remat_wrap"]
+           "layer_list", "remat_wrap", "tp_divides", "forward_sharded",
+           "decode_step_sharded"]
 
 
 def normal(gen, shape, scale, dtype, device):
@@ -146,8 +153,14 @@ def _norm(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
     return L.rms_norm(x, p["w"], cfg.norm_eps)
 
 
-def logits_from_hidden(cfg: ModelConfig, params: dict, h: torch.Tensor):
+def logits_from_hidden(cfg: ModelConfig, params: dict, h: torch.Tensor,
+                       mesh=None):
+    """Final norm, then the (tied or untied) vocab projection.  With a
+    ``mesh`` (a tensor-parallel step) the embedding / lm_head is this
+    rank's vocab shard on ``model``, and so are the logits."""
     h = _norm(cfg, params["final_norm"], h)
+    if mesh is not None:
+        h = P.copy_to(h, mesh)
     if cfg.tie_embeddings:
         return torch.einsum("bsd,vd->bsv", h, params["embed"].to(h.dtype))
     return L.dense(h, params["lm_head"])
@@ -205,7 +218,7 @@ def _quantize_kv(x: torch.Tensor):
 
 def attn_decode_core(cfg: ModelConfig, q, k, v, k_cache, v_cache,
                      cache_len, k_scale=None, v_scale=None, *,
-                     positions3=None):
+                     positions3=None, seq=None):
     """RoPE + cache write + attention for one decode token on precomputed
     heads.  q (B, 1, H, hd); k/v (B, 1, KV, hd); caches (B, S_max, KV, hd),
     int8 with (B, S_max, KV) ``k_scale`` / ``v_scale`` for an int8 cache;
@@ -214,11 +227,16 @@ def attn_decode_core(cfg: ModelConfig, q, k, v, k_cache, v_cache,
 
     The write is the reference's masked ``where`` into new cache tensors:
     the caller's cache is never modified, so two paths can decode from
-    one cache."""
+    one cache.  ``seq`` = (s_lo, reduce_max, reduce_sum) when the caches
+    hold positions s_lo.. of a sequence split over ranks: the new token
+    lands only on the rank that holds its position, and the attention
+    combines the ranks' partial softmax (``layers.attention_decode``)."""
     pos = cache_len.to(torch.int32)
     q, k = _rope(cfg, q, k, pos[:, None], positions3)
     s_max = k_cache.shape[1]
-    at_pos = (torch.arange(s_max, dtype=torch.int32, device=pos.device)[None]
+    s_lo = 0 if seq is None else seq[0]
+    at_pos = (torch.arange(s_lo, s_lo + s_max, dtype=torch.int32,
+                           device=pos.device)[None]
               == pos[:, None])[..., None, None]           # (B, S, 1, 1)
     if k_scale is not None:
         kq, ks = _quantize_kv(k)
@@ -231,7 +249,7 @@ def attn_decode_core(cfg: ModelConfig, q, k, v, k_cache, v_cache,
         k_cache = torch.where(at_pos, k.to(k_cache.dtype), k_cache)
         v_cache = torch.where(at_pos, v.to(v_cache.dtype), v_cache)
     out = L.attention_decode(q, k_cache, v_cache, pos + 1,
-                             k_scale=k_scale, v_scale=v_scale)
+                             k_scale=k_scale, v_scale=v_scale, seq=seq)
     return out, k_cache, v_cache, k_scale, v_scale
 
 
@@ -465,3 +483,246 @@ def prefill_chunk(cfg: ModelConfig, params: dict, cache: dict, batch: dict):
     h, new = _layer_loop(cfg, params, cache, h, attn)
     new["len"] = start + n_valid.to(start.device)
     return logits_from_hidden(cfg, params, h), new
+
+
+# --------------------------------------------------------------------------
+# the dense family on a mesh: each rank's shards, explicit collectives
+# --------------------------------------------------------------------------
+def tp_divides(cfg: ModelConfig, mesh) -> bool:
+    """True when the ``model`` axis divides every tensor-parallel dim (the
+    q / kv / ffn widths and the padded vocab), so that every TP leaf is
+    split on ``model`` and ``forward_sharded`` applies."""
+    tp = P.mesh_axis_size(mesh, "model")
+    return all(w % tp == 0 for w in (cfg.n_heads * cfg.hd,
+                                     cfg.n_kv_heads * cfg.hd, cfg.d_ff,
+                                     cfg.padded_vocab))
+
+
+def _model_part(mesh, width: int) -> tuple:
+    """The columns [lo, hi) of a ``width`` split over ``model`` that this
+    rank holds."""
+    tp = P.mesh_axis_size(mesh, "model")
+    r = P.axis_index(mesh, "model")
+    return r * width // tp, (r + 1) * width // tp
+
+
+def _columns(x, have: tuple, want: tuple, width: int, mesh):
+    """An activation holding columns ``have`` of ``width`` on its last dim
+    (all of them, or this rank's ``model`` part) -> columns ``want``:
+    sliced where it holds them, else all-gathered along ``model`` first
+    (whose backward reduce-scatters the ranks' partial gradients)."""
+    if have == want:
+        return x
+    if not (have[0] <= want[0] and want[1] <= have[1]):
+        x = P.gather_dim(x, x.dim() - 1, mesh, "model")
+        have = (0, width)
+    return x[..., want[0] - have[0]:want[1] - have[0]]
+
+
+def attn_heads(cfg: ModelConfig, mesh) -> tuple:
+    """The q heads [lo, hi) this rank's attention runs under tensor
+    parallelism: its ``n_heads / model`` where that divides, else all of
+    them (replicated over ``model``).  On a 16-way ``model`` axis:
+    granite-3-2b runs 2 of 32 heads, nemotron-4-15b 3 of 48 and
+    qwen1.5-110b 4 of 64, each with one KV head gathered along ``model``
+    (8 KV heads give a rank half of one); llama7b-espim runs 2 of 32
+    with its own 2 KV heads; qwen2.5-14b's 40 heads do not divide 16, so
+    its attention runs on all 40 on every rank."""
+    tp = P.mesh_axis_size(mesh, "model")
+    if cfg.n_heads % tp:
+        return 0, cfg.n_heads
+    return _model_part(mesh, cfg.n_heads)
+
+
+def _attn_tp(cfg: ModelConfig, p: dict, x, positions, mesh):
+    """Tensor-parallel attention: ``x`` (B, S, D) inside the region
+    (``copy_to``); wq / wk / wv (+ biases) this rank's output columns, wo
+    its rows.  q, k and v are resharded to the heads this rank's
+    attention runs (``attn_heads``; their KV heads h // n_rep), gathered
+    along ``model`` where a shard holds no whole head.  Returns this
+    rank's partial of the output projection summed over ``model``."""
+    b, s, _ = x.shape
+    hd, n_q, n_kv = cfg.hd, cfg.n_heads, cfg.n_kv_heads
+    n_rep = n_q // n_kv
+    h_lo, h_hi = attn_heads(cfg, mesh)
+    kv_lo, kv_hi = h_lo // n_rep, (h_hi - 1) // n_rep + 1
+    q_w, kv_w = n_q * hd, n_kv * hd
+
+    def heads(w, bias, width, lo, hi):
+        y = _columns(L.dense(x, w, bias), _model_part(mesh, width),
+                     (lo * hd, hi * hd), width, mesh)
+        return y.reshape(b, s, hi - lo, hd)
+
+    q = heads(p["wq"], p.get("bq"), q_w, h_lo, h_hi)
+    k = heads(p["wk"], p.get("bk"), kv_w, kv_lo, kv_hi)
+    v = heads(p["wv"], p.get("bv"), kv_w, kv_lo, kv_hi)
+    q, k = _rope(cfg, q, k, positions)
+    n_h, n_k = h_hi - h_lo, kv_hi - kv_lo
+    idx = [h // n_rep - kv_lo for h in range(h_lo, h_hi)]
+    if n_h % n_k or idx != [j // (n_h // n_k) for j in range(n_h)]:
+        # the local q heads do not share their KV heads in equal runs:
+        # one KV head per q head
+        sel = torch.tensor(idx, device=k.device)
+        k, v = k[:, :, sel], v[:, :, sel]
+    out = L.flash_attention(q, k, v, causal=True, q_chunk=cfg.q_chunk,
+                            kv_chunk=cfg.kv_chunk)
+    out = _columns(out.reshape(b, s, n_h * hd), (h_lo * hd, h_hi * hd),
+                   _model_part(mesh, q_w), q_w, mesh)
+    return P.reduce_from(L.dense(out, p["wo"]), mesh)
+
+
+def _embed_tp(cfg: ModelConfig, embed, tokens, mesh):
+    """The vocab-parallel lookup: this rank's rows of the embedding
+    (split on ``model``), the others' tokens masked to zero, summed over
+    ``model``."""
+    if P.mesh_axis_size(mesh, "model") == 1:
+        return embed_tokens(cfg, {"embed": embed}, tokens)
+    n = embed.shape[0]
+    idx = tokens.long() - P.axis_index(mesh, "model") * n
+    own = (idx >= 0) & (idx < n)
+    rows = embed[torch.where(own, idx, torch.zeros_like(idx))]
+    rows = torch.where(own[..., None], rows, torch.zeros_like(rows))
+    return P.reduce_from(rows, mesh).to(cfg.cdtype)
+
+
+def forward_sharded(cfg: ModelConfig, params: dict, batch: dict,
+                    layout) -> torch.Tensor:
+    """The dense forward on this rank's shards, the reference's SPMD
+    layout written out: ``params`` are the local tensors of a tree placed
+    by ``layout`` (``partition.Layout``: ``param_pspecs``, FSDP on
+    ``data`` and TP on ``model``), ``batch`` this rank's part of the
+    batch.
+
+      * ZeRO-3: each layer's params are all-gathered along ``data``
+        inside the layer's body, just before use (``fsdp_gather``), so
+        the body that ``remat_wrap`` checkpoints gathers again in the
+        recompute, and the gathers' backward reduce-scatters the grads
+        to their data shards as the mean over the data-parallel axes;
+        embedding, final norm and lm_head likewise outside the loop.
+      * TP: column-parallel wq / wk / wv / w_gate / w_up, row-parallel
+        wo / w_down summed over ``model`` (``copy_to`` / ``reduce_from``
+        around each block), attention on ``attn_heads``, a vocab-parallel
+        embedding, and the logits left split on ``model``.
+
+    Returns this rank's logits (B_local, S, V / model).  Needs
+    ``tp_divides``.  On a mesh of one rank every collective is skipped
+    and the ops are ``forward``'s, bit for bit."""
+    mesh, specs = layout.mesh, layout.specs
+
+    def gather(tree, spec):
+        return tree_map(lambda t, sp: P.fsdp_gather(t, sp, mesh), tree, spec)
+
+    tokens = batch["tokens"].to(params["embed"].device)
+    b, s = tokens.shape
+    positions = batch.get("positions")
+    if positions is None:
+        positions = torch.arange(s, dtype=torch.int32,
+                                 device=tokens.device).expand(b, s)
+    embed = P.fsdp_gather(params["embed"], specs["embed"], mesh)
+    h = _embed_tp(cfg, embed, tokens, mesh)
+    layer_specs = tree_map(lambda sp: sp[1:], specs["layers"])
+
+    def body(h, lp):
+        lp = gather(lp, layer_specs)
+        x = P.copy_to(_norm(cfg, lp["ln1"], h), mesh)
+        h = h + _attn_tp(cfg, lp["attn"], x, positions, mesh)
+        x = P.copy_to(_norm(cfg, lp["ln2"], h), mesh)
+        return h + P.reduce_from(mlp_apply(cfg, lp["mlp"], x), mesh)
+
+    body = remat_wrap(cfg, body)
+    for lp in layer_list(params["layers"], cfg.n_layers):
+        h = body(h, lp)
+    top = {"embed": embed,
+           "final_norm": gather(params["final_norm"], specs["final_norm"])}
+    if "lm_head" in params:
+        top["lm_head"] = P.fsdp_gather(params["lm_head"], specs["lm_head"],
+                                       mesh)
+    return logits_from_hidden(cfg, top, h, mesh)
+
+
+def decode_step_sharded(cfg: ModelConfig, params: dict, cache: dict,
+                        batch: dict, playout, clayout, donate: bool = True):
+    """One dense decode step on this rank's shards: ``params`` the local
+    tensors of a tree placed by ``playout`` (``serve_param_pspecs``),
+    ``cache`` by ``clayout`` (``cache_pspecs``: batch on the data axes,
+    KV heads on ``model`` where they divide, else the sequence), ``batch``
+    this rank's tokens (B_local, 1).
+
+    Each layer's params are all-gathered along every mesh axis just
+    before the layer and freed after.  Attention runs on the local batch
+    and the local KV heads (their q heads; the heads' outputs gathered
+    along the heads' axes) and positions: a sequence split over ranks
+    combines their partial softmax (``attn_decode_core``'s ``seq``), and
+    the new token's K / V land on the rank that holds position ``len``.
+    With ``donate`` the cache's K / V (and scale) leaves are written in
+    place and returned; ``len`` is always a new tensor.  Returns (this
+    rank's logits (B_local, 1, V), the new local cache).  On one rank it
+    is ``decode_step``, bit for bit."""
+    mesh, ps, cs = playout.mesh, playout.specs, clayout.specs
+    axes = tuple(mesh.mesh_dim_names)
+
+    def gather(t, spec):
+        return P.gather_along(t, spec, mesh, axes)
+
+    tokens = batch["tokens"].to(params["embed"].device)
+    top = {"embed": gather(params["embed"], ps["embed"])}
+    h = embed_tokens(cfg, top, tokens)
+    if not cfg.tie_embeddings:
+        del top["embed"]            # untied: the lm_head makes the logits
+    _, b_ax, s_ax, kv_ax = cs["k"][:4]
+    lens = P.local_slice(cache["len"], (b_ax,), mesh)
+    seq = None
+    if P.mesh_axis_size(mesh, s_ax) > 1:
+        seq = (P.axis_index(mesh, s_ax) * cache["k"].shape[2],
+               lambda t: P.all_reduce(t, mesh, s_ax, "max"),
+               lambda t: P.all_reduce(t, mesh, s_ax))
+    hd, n_rep = cfg.hd, cfg.n_heads // cfg.n_kv_heads
+    n_kv = cache["k"].shape[3]
+    kv_lo = P.axis_index(mesh, kv_ax) * n_kv
+    split_heads = P.mesh_axis_size(mesh, kv_ax) > 1
+
+    def cols(w, lo, hi):
+        return None if w is None else w[..., lo * hd:hi * hd]
+
+    def attn(p, hn, kc, vc, ks, vs):
+        if seq is None and not split_heads:
+            return attn_decode_apply(cfg, p, hn, kc, vc, lens, ks, vs)
+        b = hn.shape[0]
+        q_lo, q_hi = kv_lo * n_rep, (kv_lo + n_kv) * n_rep
+        q = L.dense(hn, cols(p["wq"], q_lo, q_hi), cols(p.get("bq"), q_lo,
+                                                        q_hi))
+        k = L.dense(hn, cols(p["wk"], kv_lo, kv_lo + n_kv),
+                    cols(p.get("bk"), kv_lo, kv_lo + n_kv))
+        v = L.dense(hn, cols(p["wv"], kv_lo, kv_lo + n_kv),
+                    cols(p.get("bv"), kv_lo, kv_lo + n_kv))
+        out, kc, vc, ks, vs = attn_decode_core(
+            cfg, q.reshape(b, 1, q_hi - q_lo, hd),
+            k.reshape(b, 1, n_kv, hd), v.reshape(b, 1, n_kv, hd), kc, vc,
+            lens, ks, vs, seq=seq)
+        out = P.gather_dim(out, 2, mesh, kv_ax)
+        out = L.dense(out.reshape(b, 1, cfg.n_heads * hd), p["wo"])
+        return out, kc, vc, ks, vs
+
+    names = [n for n in ("k", "v", "k_scale", "v_scale") if n in cache]
+    new = {n: [] for n in names}
+    for i in range(cfg.n_layers):
+        lp = tree_map(lambda t, sp: gather(t[i], sp[1:]), params["layers"],
+                      ps["layers"])
+        kv = [cache[n][i] for n in names] + [None] * (4 - len(names))
+        a, *kv = attn(lp["attn"], _norm(cfg, lp["ln1"], h), *kv)
+        h = h + a
+        h = h + mlp_apply(cfg, lp["mlp"], _norm(cfg, lp["ln2"], h))
+        del lp
+        for n, t in zip(names, kv):
+            if donate:
+                cache[n][i].copy_(t)
+            else:
+                new[n].append(t)
+    out = ({n: cache[n] for n in names} if donate
+           else {n: torch.stack(ts) for n, ts in new.items()})
+    out["len"] = cache["len"] + 1
+    top["final_norm"] = tree_map(gather, params["final_norm"],
+                                 ps["final_norm"])
+    if "lm_head" in params:
+        top["lm_head"] = gather(params["lm_head"], ps["lm_head"])
+    return logits_from_hidden(cfg, top, h), out

@@ -9,6 +9,10 @@ the reference's order of float32 operations, then ``copy_`` into the
 param and state tensors, which ``apply_updates`` returns.  The schedule
 and the bias corrections are 0-dim float32 tensors on the state's
 device, so a step never waits for the host.
+
+On a mesh (``layout``: a ``partition.Layout`` of the params' specs) the
+trees are each rank's local shards: the update is elementwise, so it runs
+on them as they are, and only the global norm communicates.
 """
 from __future__ import annotations
 
@@ -17,6 +21,7 @@ import math
 
 import torch
 
+from repro_torch.sharding import partition
 from repro_torch.tree import flatten, leaves, tree_map
 
 __all__ = ["OptConfig", "init_opt_state", "apply_updates", "lr_at"]
@@ -68,20 +73,34 @@ def init_opt_state(cfg: OptConfig, params: dict) -> dict:
     return state
 
 
-def _global_norm(tree) -> torch.Tensor:
+def _global_norm(tree, layout=None) -> torch.Tensor:
     """sqrt of the sum over leaves (sorted key order) of sum(g^2) in
-    float32."""
-    sq = [torch.sum(torch.square(g.float())) for g in leaves(tree)]
-    return torch.sqrt(sum(sq))
+    float32.  With a ``layout`` the leaves are local shards: the squares
+    are summed per set of mesh axes that split a leaf, each sum
+    all-reduced over its axes only, so a leaf replicated over an axis is
+    counted once (on one rank the sum is the plain one, bit for bit)."""
+    if layout is None:
+        sq = [torch.sum(torch.square(g.float())) for g in leaves(tree)]
+        return torch.sqrt(sum(sq))
+    specs = dict(flatten(layout.specs))
+    by_axes = {}
+    for path, g in flatten(tree):
+        axes = partition.sharded_axes(specs[path], layout.mesh)
+        by_axes[axes] = by_axes.get(axes, 0) + torch.sum(
+            torch.square(g.float()))
+    return torch.sqrt(sum(partition.all_reduce(v, layout.mesh, axes)
+                          for axes, v in by_axes.items()))
 
 
 @torch.no_grad()
-def apply_updates(cfg: OptConfig, params: dict, grads: dict, state: dict):
+def apply_updates(cfg: OptConfig, params: dict, grads: dict, state: dict,
+                  layout=None):
     """One AdamW step, in place.  Returns (params, state, metrics) — the
     caller's trees, updated — with metrics ``grad_norm`` (before
-    clipping) and ``lr``."""
+    clipping) and ``lr``.  With a ``layout`` every tree holds this rank's
+    shards (``_global_norm``)."""
     step = state["step"] + 1
-    gnorm = _global_norm(grads)
+    gnorm = _global_norm(grads, layout)
     scale = torch.clamp(cfg.grad_clip / torch.clamp_min(gnorm, 1e-12),
                         max=1.0)
     lr = lr_at(cfg, step)

@@ -1,6 +1,6 @@
 """The serving step: one decode step (dense, or through the ESPIM packs) +
 greedy/temperature sampling, and the full-sequence prefill forward
-(mirrors ``src/repro/serve/serve_step.py``), and the dense step on a
+(mirrors ``src/repro/serve/serve_step.py``), and the decode step on a
 device mesh (``make_serve_step``)."""
 from __future__ import annotations
 
@@ -8,7 +8,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import sparse_model
-from repro_torch.models import factory
+from repro_torch.models import factory, transformer
 from repro_torch.sharding import partition
 from repro_torch.tree import tree_map
 
@@ -68,23 +68,54 @@ def prefill_fn(cfg: ModelConfig, params: dict, batch: dict) -> torch.Tensor:
 
 
 def make_serve_step(cfg: ModelConfig, mesh, params_shapes, cache_shapes,
-                    batch_shapes):
+                    batch_shapes, donate_cache: bool = True):
     """The dense decode step on a ``DeviceMesh`` -> (step, pspecs, cspecs,
     bspecs): the serve, cache and batch specs of the given shape trees.
     ``step(params, cache, batch)`` takes them as DTensors placed by those
-    specs, runs ``serve_step_fn`` on their full values on every rank (the
-    model's ops run on plain tensors) and returns (next_tokens, logits,
-    new cache placed by ``cspecs``).  At world size 1 the full values are
-    the DTensors' own tensors, so the step is ``serve_step_fn`` bit for
+    specs and returns (next_tokens (B, 1), logits (B, 1, V), the new
+    cache placed as the input's), the tokens and logits of the whole
+    batch on every rank.
+
+    The dense decoder (``factory.SHARDED_FAMILIES``) keeps params and
+    cache at their shards: each rank decodes its part of the batch
+    (``transformer.decode_step_sharded``: every layer's params gathered
+    just before the layer, attention on the local KV heads or positions,
+    a sequence split over ranks combined by partial-softmax
+    all-reduces), then the logits are gathered along the batch axes.
+    With ``donate_cache`` (the reference's donated cache) the cache's
+    K / V leaves are updated in place and returned (``len`` is a new
+    tensor).  The other families run ``serve_step_fn`` on the full values
+    of params, cache and batch on every rank and place the new cache by
+    ``cspecs``.  At world size 1 both are ``serve_step_fn`` bit for
     bit."""
+    from torch.distributed.tensor import DTensor
+
     pspecs = partition.serve_param_pspecs(params_shapes, mesh)
     cspecs = partition.cache_pspecs(cache_shapes, mesh)
     bspecs = partition.batch_pspecs(batch_shapes, mesh)
 
+    def local(tree):
+        return tree_map(lambda t: t.to_local(), tree)
+
     @torch.no_grad()
-    def step(params: dict, cache: dict, batch: dict):
+    def sharded(params: dict, cache: dict, batch: dict):
+        logits, new = transformer.decode_step_sharded(
+            cfg, local(params), local(cache), local(batch),
+            partition.Layout.of(params), partition.Layout.of(cache),
+            donate_cache)
+        b_ax = partition.spec_of(batch["tokens"])[0]
+        logits = partition.gather_dim(logits, 0, mesh, b_ax)
+        nxt = sample_tokens(cfg, logits[:, -1, :], 0.0)
+        out = {k: v if donate_cache and k != "len" else DTensor.from_local(
+            new[k], mesh, v.placements, run_check=False)
+            for k, v in cache.items()}
+        return nxt[:, None], logits, out
+
+    @torch.no_grad()
+    def gathered(params: dict, cache: dict, batch: dict):
         full = tree_map(partition.full_value, [params, cache, batch])
         nxt, logits, new = serve_step_fn(cfg, *full)
         return nxt, logits, partition.logical_to_sharding(new, cspecs, mesh)
 
+    step = sharded if cfg.family in factory.SHARDED_FAMILIES else gathered
     return step, pspecs, cspecs, bspecs

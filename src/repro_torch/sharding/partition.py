@@ -17,20 +17,37 @@ mesh *shape*: a torch ``DeviceMesh`` (its ``mesh_dim_names`` and
 reference's ``PartitionSpec`` as a tuple, a one-name tuple written as the
 name.  ``named`` turns specs into DTensor placements on a real mesh.
 Optimizer state inherits the param spec leaf for leaf.
+
+The collectives of a placement run a sharded step on each rank's local
+tensors: ``gather_along`` (all-gather a shard along named mesh axes),
+``reduce_scatter_to`` (the mean over named axes, left as this rank's
+shard), ``local_slice`` (this rank's shard of a value every rank holds),
+and the autograd pairs the dense family's ZeRO-3 and tensor-parallel
+step is written with (``fsdp_gather``, ``copy_to``, ``reduce_from``,
+``gather_dim``).  They run on the mesh's axis subgroups
+(``mesh.get_group(axis)``) through ``all_gather_into_tensor``,
+``reduce_scatter_tensor`` and ``all_reduce``, which gloo, NCCL and the
+fake process group all take; an axis of size 1 is no collective at all
+(the same tensor, not a copy).
 """
 from __future__ import annotations
 
 import dataclasses
+import weakref
 
 import torch
+import torch.distributed as dist
 
-from repro_torch.tree import map_with_path, tree_map
+from repro_torch.tree import flatten, map_with_path, tree_map
 
 __all__ = [
     "MeshShape", "batch_axes", "mesh_axis_size", "param_pspecs",
     "serve_param_pspecs", "batch_pspecs", "cache_pspecs",
     "paged_cache_pspecs", "sparse_pack_pspecs", "named",
-    "logical_to_sharding", "full_value",
+    "logical_to_sharding", "full_value", "Layout", "spec_of",
+    "axis_names", "axis_index", "sharded_axes", "gather_along",
+    "reduce_scatter_to", "local_slice", "all_reduce", "fsdp_gather",
+    "copy_to", "reduce_from", "gather_dim",
 ]
 
 
@@ -54,11 +71,21 @@ class MeshShape:
         return dict(self.axes)
 
 
+# a DeviceMesh's {axis: size} and this rank's {axis: coordinate}, read
+# once: a sharded step asks for them per layer and leaf, and a
+# DeviceMesh computes them anew on every call
+_SIZES = weakref.WeakKeyDictionary()
+_COORDS = weakref.WeakKeyDictionary()
+
+
 def _axes(mesh) -> dict:
     """{axis name: size} of a ``MeshShape`` or a ``DeviceMesh``."""
     if isinstance(mesh, MeshShape):
         return mesh.shape
-    return dict(zip(mesh.mesh_dim_names, mesh.shape))
+    sizes = _SIZES.get(mesh)
+    if sizes is None:
+        sizes = _SIZES[mesh] = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    return sizes
 
 
 def mesh_axis_size(mesh, axis) -> int:
@@ -325,3 +352,224 @@ def full_value(t) -> torch.Tensor:
     if not hasattr(t, "to_local"):
         return t
     return t.to_local() if _is_whole(t) else t.full_tensor()
+
+
+# --------------------------------------------------------------------------
+# the collectives of a placement
+# --------------------------------------------------------------------------
+def axis_names(axis) -> tuple:
+    """A spec entry as a tuple of axis names: () for None."""
+    if axis is None:
+        return ()
+    return (axis,) if isinstance(axis, str) else tuple(axis)
+
+
+def spec_of(t) -> tuple:
+    """A DTensor's placements as a spec (the inverse of ``named``): each
+    tensor dim names the mesh axes that split it, in mesh order."""
+    names = t.device_mesh.mesh_dim_names
+    per_dim = [[] for _ in range(t.dim())]
+    for i, p in enumerate(t.placements):
+        if p.is_shard():
+            per_dim[p.dim].append(names[i])
+    return tuple(_norm_axis(a) if a else None for a in per_dim)
+
+
+@dataclasses.dataclass(frozen=True)
+class Layout:
+    """A sharded tree's specs on a ``DeviceMesh``: what a step on the
+    local tensors needs to know of the placement."""
+
+    mesh: object
+    specs: dict             # a spec tree matching the local tensors
+
+    @classmethod
+    def of(cls, tree) -> "Layout":
+        """The layout of a tree of DTensors, read from their placements."""
+        some = next(t for _, t in flatten(tree))
+        return cls(some.device_mesh, tree_map(spec_of, tree))
+
+
+def axis_index(mesh, axis) -> int:
+    """This rank's coordinate along ``axis`` (a name, or a tuple of names
+    split major first, as ``named`` places them)."""
+    coords = _COORDS.get(mesh)
+    if coords is None:
+        coords = _COORDS[mesh] = {a: mesh.get_local_rank(a)
+                                  for a in mesh.mesh_dim_names}
+    idx = 0
+    for a in axis_names(axis):
+        idx = idx * mesh_axis_size(mesh, a) + coords[a]
+    return idx
+
+
+def sharded_axes(spec, mesh) -> tuple:
+    """The mesh axes of size > 1 that split a leaf of ``spec``: those over
+    which its shards differ."""
+    return tuple(a for axis in spec for a in axis_names(axis)
+                 if mesh_axis_size(mesh, a) > 1)
+
+
+# ``all_gather_into_tensor`` / ``reduce_scatter_tensor`` under the names
+# that newer PyTorch gives them (the old names warn there)
+_ALL_GATHER = getattr(dist, "all_gather_single", None) or getattr(
+    dist, "all_gather_into_tensor", None)
+_REDUCE_SCATTER = getattr(dist, "reduce_scatter_single", None) or getattr(
+    dist, "reduce_scatter_tensor", None)
+
+
+def _all_gather_dim(t, dim: int, mesh, axis: str):
+    n = mesh_axis_size(mesh, axis)
+    if n == 1:
+        return t
+    x = t.movedim(dim, 0).contiguous()
+    out = x.new_empty((n * x.shape[0],) + tuple(x.shape[1:]))
+    _ALL_GATHER(out, x, group=mesh.get_group(axis))
+    return out.movedim(0, dim)
+
+
+def _reduce_scatter_dim(t, dim: int, mesh, axis: str):
+    """The sum over ``axis`` of ``t``, split along ``dim``: this rank's
+    piece."""
+    n = mesh_axis_size(mesh, axis)
+    if n == 1:
+        return t
+    x = t.movedim(dim, 0).contiguous()
+    out = x.new_empty((x.shape[0] // n,) + tuple(x.shape[1:]))
+    _REDUCE_SCATTER(out, x, group=mesh.get_group(axis))
+    return out.movedim(0, dim)
+
+
+def all_reduce(t, mesh, axes, op: str = "sum"):
+    """``t`` reduced ("sum" or "max") over the mesh axes ``axes`` (a name
+    or names): a new tensor; ``t`` itself where they all have size 1."""
+    red = dist.ReduceOp.MAX if op == "max" else dist.ReduceOp.SUM
+    out = t
+    for a in axis_names(axes):
+        if mesh_axis_size(mesh, a) > 1:
+            if out is t:
+                out = t.clone()
+            dist.all_reduce(out, op=red, group=mesh.get_group(a))
+    return out
+
+
+def _taken(spec, axes) -> list:
+    """Per dim of ``spec``, the names among ``axes`` that split it, major
+    first; they must be the dim's minor names (a gather along a major
+    axis alone would interleave the pieces)."""
+    out = []
+    for d, axis in enumerate(spec):
+        names = axis_names(axis)
+        take = tuple(a for a in names if a in axes)
+        if take and names[len(names) - len(take):] != take:
+            raise ValueError(f"dim {d} is split over {names}: cannot gather "
+                             f"along {take} alone")
+        out.append(take)
+    return out
+
+
+def gather_along(t, spec, mesh, axes):
+    """This rank's shard ``t`` of a leaf placed by ``spec``, all-gathered
+    along the mesh axes ``axes`` only (the leaf stays split over its
+    other axes): FSDP gathers along ``("data",)``, serving along every
+    axis."""
+    for d, take in enumerate(_taken(spec, axes)):
+        for a in reversed(take):            # minor first
+            t = _all_gather_dim(t, d, mesh, a)
+    return t
+
+
+def _reduce_scatter_sum(g, spec, mesh, axes):
+    """The sum over ``axes`` of ``g`` (full along the axes of ``axes``
+    that split it), left as this rank's shard along them; an axis of
+    ``axes`` that does not split the leaf is all-reduced."""
+    used = set()
+    for d, take in enumerate(_taken(spec, axes)):
+        for a in take:                      # major first
+            g = _reduce_scatter_dim(g, d, mesh, a)
+        used.update(take)
+    return all_reduce(g, mesh, tuple(a for a in axes if a not in used))
+
+
+def reduce_scatter_to(g, spec, mesh, axes):
+    """The mean over the mesh axes ``axes`` (the data-parallel ones) of
+    each rank's ``g``, left as this rank's shard of ``spec``: a
+    reduce-scatter along the axes that split the leaf, an all-reduce
+    along the others, then one division."""
+    n = mesh_axis_size(mesh, tuple(axes))
+    g = _reduce_scatter_sum(g, spec, mesh, axes)
+    return g / n if n > 1 else g
+
+
+def local_slice(full, spec, mesh):
+    """This rank's shard of ``spec`` of a value that every rank holds
+    alike: a view, no communication."""
+    for d, axis in enumerate(spec):
+        n = mesh_axis_size(mesh, axis)
+        if n > 1:
+            c = full.shape[d] // n
+            full = full.narrow(d, axis_index(mesh, axis) * c, c)
+    return full
+
+
+class _Dual(torch.autograd.Function):
+    """``fwd(x)`` in the forward, ``bwd(grad)`` in the backward."""
+
+    @staticmethod
+    def forward(ctx, x, fwd, bwd):
+        ctx.bwd = bwd
+        out = fwd(x)
+        return x.view_as(x) if out is x else out
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.bwd(grad), None, None
+
+
+def _dual(x, fwd, bwd):
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _Dual.apply(x, fwd, bwd)
+    return fwd(x)
+
+
+def fsdp_gather(t, spec, mesh):
+    """ZeRO-3's gather of a param: ``t`` (this rank's shard) all-gathered
+    along the data axis; in the backward its gradient becomes the mean
+    over the data-parallel axes (``batch_axes``), reduce-scattered to this
+    rank's shard where ``data`` splits the leaf and all-reduced where
+    not.  ``t`` itself where those axes all have size 1."""
+    dp = batch_axes(mesh)
+    if mesh_axis_size(mesh, dp) == 1:
+        return t
+    return _dual(t, lambda x: gather_along(x, spec, mesh, ("data",)),
+                 lambda g: reduce_scatter_to(g, spec, mesh, dp))
+
+
+def copy_to(x, mesh, axis: str = "model"):
+    """Enter a tensor-parallel region: the identity, whose backward sums
+    the ranks' partial gradients over ``axis`` (Megatron's f)."""
+    if mesh_axis_size(mesh, axis) == 1:
+        return x
+    return _dual(x, lambda y: y, lambda g: all_reduce(g, mesh, axis))
+
+
+def reduce_from(x, mesh, axis: str = "model"):
+    """Leave a tensor-parallel region: the sum of the ranks' partial
+    results over ``axis``, whose backward is the identity (Megatron's
+    g)."""
+    if mesh_axis_size(mesh, axis) == 1:
+        return x
+    return _dual(x, lambda y: all_reduce(y, mesh, axis), lambda g: g)
+
+
+def gather_dim(x, dim: int, mesh, axis):
+    """A rank-local activation all-gathered along ``dim`` over ``axis`` (a
+    name or names, major first) for rank-local use: its backward sums
+    the ranks' partial gradients and keeps this rank's piece (a
+    reduce-scatter)."""
+    spec = tuple(axis if d == dim else None for d in range(x.dim()))
+    names = axis_names(axis)
+    if mesh_axis_size(mesh, names) == 1:
+        return x
+    return _dual(x, lambda y: gather_along(y, spec, mesh, names),
+                 lambda g: _reduce_scatter_sum(g, spec, mesh, names))

@@ -9,28 +9,34 @@ config (``transformer.remat_wrap``).
 
 ``make_train_step`` gives the step on DTensors placed by the partition
 rules, with the reference's SPMD meaning: the step equals the unsharded
-step on the global batch.
-  * Each rank runs the model on its shard of the batch with full params,
-    gathered from their FSDP / TP placements (the model's ops run on
-    plain tensors: DTensor has no sharding rules for several of them).
-  * The grads are averaged over the data-parallel axes before the global
-    norm, the compression and the update, so every rank computes the
-    same update.
-  * Each rank keeps the shards of the state that its placements say.
-    The update runs on the gathered state and each rank copies its
-    shards back: not the memory of ZeRO (no reduce-scatter, no sharded
-    update), which is still to come.
-A leaf whose local shard is the whole tensor (its sharded mesh dims have
-size 1) is used in place, so at world size 1 the step is
-``train_step_fn`` on the state's own tensors, bit for bit, with no copy
-and no collective.
+step on the global batch.  Which path it runs depends on the family:
+
+  * The dense decoder (``factory.SHARDED_FAMILIES``, where the ``model``
+    axis divides every tensor-parallel dim) keeps the state at its
+    shards for the whole step, the layout the reference's partitioner
+    gives: each rank runs ``factory.loss_fn`` on its local tensors and
+    its part of the batch (``transformer.forward_sharded``: ZeRO-3 on
+    ``data`` with a per-layer all-gather whose backward reduce-scatters
+    the grads as their mean over the data-parallel axes, tensor
+    parallelism on ``model``, a vocab-parallel cross-entropy); the
+    compression and AdamW run on the local shards, the global norm and
+    the compression's scales all-reduced over the axes that split each
+    leaf.  A rank holds its shards plus one layer's params gathered
+    along ``data``.
+  * The other families gather every leaf to its full value on every
+    rank, run the step there on their part of the batch with the grads
+    averaged over the data-parallel axes, and copy their shards back.
+
+A leaf whose sharded mesh dims have size 1 is its DTensor's local tensor,
+so at world size 1 both paths are ``train_step_fn`` on the state's own
+tensors, bit for bit, with no copy and no collective.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import factory
+from repro_torch.models import factory, transformer
 from repro_torch.optim import compression
 from repro_torch.optim.adamw import OptConfig, apply_updates, init_opt_state
 from repro_torch.sharding import partition
@@ -64,14 +70,17 @@ def _split_microbatches(batch: dict, n: int) -> list:
     return [tree_map(lambda x, i=i: x[i], split) for i in range(n)]
 
 
-def _grads(cfg: ModelConfig, params: dict, batch: dict):
+def _grads(cfg: ModelConfig, params: dict, batch: dict, layout=None):
     """(loss, metrics, grads) of ``factory.loss_fn`` at ``params``; the
-    grads have the params' dtypes."""
+    grads have the params' dtypes.  With a ``layout`` the params are
+    this rank's shards and so are the grads, already averaged over the
+    data-parallel axes."""
     live = dict(flatten(tree_map(lambda p: p.detach().requires_grad_(True),
                                  params)))
     with torch.enable_grad():
         loss, metrics = factory.loss_fn(
-            cfg, map_with_path(lambda k, _: live[k], params), batch)
+            cfg, map_with_path(lambda k, _: live[k], params), batch,
+            layout)
         gs = torch.autograd.grad(loss, list(live.values()),
                                  allow_unused=True)
     by_path = {k: torch.zeros_like(p) if g is None else g
@@ -82,30 +91,43 @@ def _grads(cfg: ModelConfig, params: dict, batch: dict):
 
 
 def _step(cfg: ModelConfig, ocfg: OptConfig, state: dict, batch: dict,
-          microbatches: int, compress_grads: bool, reduce=None):
+          microbatches: int, compress_grads: bool, reduce=None,
+          layout=None):
+    """The step on plain tensors.  ``reduce(loss, grads)`` averages whole
+    grads over the data-parallel axes (the gathered path); a ``layout``
+    (``partition.Layout`` of the params' specs) runs it on this rank's
+    shards (the sharded path)."""
     params = state["params"]
     if microbatches > 1:
         grads = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
                                                device=p.device), params)
         loss = 0.0
         for mb in _split_microbatches(batch, microbatches):
-            mb_loss, _, g = _grads(cfg, params, mb)
+            mb_loss, _, g = _grads(cfg, params, mb, layout)
             grads = tree_map(lambda a, b: a + b.float(), grads, g)
             loss = loss + mb_loss
         grads = tree_map(lambda g: g / microbatches, grads)
         loss = loss / microbatches
         metrics = {}
     else:
-        loss, metrics, grads = _grads(cfg, params, batch)
+        loss, metrics, grads = _grads(cfg, params, batch, layout)
     if reduce is not None:
         loss, grads = reduce(loss, grads)
+    if layout is not None:       # the means over the data-parallel axes
+        dp = partition.batch_axes(layout.mesh)
+        n = partition.mesh_axis_size(layout.mesh, dp)
+        loss = partition.all_reduce(loss, layout.mesh, dp) / n
+        metrics = {k: partition.all_reduce(v, layout.mesh, dp) / n
+                   for k, v in metrics.items()}
 
     if compress_grads:
-        grads, ef = compression.ef_compress_grads(grads, state["ef_error"])
+        grads, ef = compression.ef_compress_grads(grads, state["ef_error"],
+                                                  layout)
         with torch.no_grad():
             tree_map(lambda e, new: e.copy_(new), state["ef_error"], ef)
 
-    _, _, opt_metrics = apply_updates(ocfg, params, grads, state["opt"])
+    _, _, opt_metrics = apply_updates(ocfg, params, grads, state["opt"],
+                                      layout)
     return state, {"loss": loss, **metrics, **opt_metrics}
 
 
@@ -167,6 +189,16 @@ def _data_reduce(mesh):
     return reduce
 
 
+def _sharded(cfg: ModelConfig, mesh) -> bool:
+    """True when ``make_train_step`` keeps the state at its shards."""
+    return (cfg.family in factory.SHARDED_FAMILIES
+            and transformer.tp_divides(cfg, mesh))
+
+
+def _local(tree):
+    return tree_map(lambda t: t.to_local(), tree)
+
+
 def make_train_step(cfg: ModelConfig, ocfg: OptConfig, mesh,
                     state_shapes: dict, batch_shapes: dict,
                     microbatches: int = 1, compress_grads: bool = False,
@@ -177,22 +209,31 @@ def make_train_step(cfg: ModelConfig, ocfg: OptConfig, mesh,
     batch's leaf shapes (e.g. ``init_train_state(..., device="meta")``),
     from which the specs derive.  ``step(state, batch)`` takes the state
     and batch as DTensors placed by ``pspecs`` / ``bspecs``
-    (``partition.logical_to_sharding``) and returns (state, metrics).
-    With ``donate`` (the reference's donated buffers) the state's tensors
-    are updated in place and returned; without, the caller's state is
-    left as it was and the step returns a new one."""
+    (``partition.logical_to_sharding``) and returns (state, metrics); the
+    path (sharded for the dense family, else gathered) is the module
+    docstring's.  With ``donate`` (the reference's donated buffers) the
+    state's tensors are updated in place and returned; without, the
+    caller's state is left as it was and the step returns a new one."""
+    from torch.distributed.tensor import DTensor
+
     pspecs = param_state_pspecs(state_shapes, mesh)
     bspecs = partition.batch_pspecs(batch_shapes, mesh)
     reduce = _data_reduce(mesh)
+    sharded = _sharded(cfg, mesh)
 
     @torch.no_grad()
     def step(state: dict, batch: dict):
         if not donate:
-            state = tree_map(lambda t, s: partition._place(
-                partition.full_value(t).clone(), s, mesh), state, pspecs)
+            state = tree_map(lambda t: DTensor.from_local(
+                t.to_local().clone(), t.device_mesh, t.placements,
+                run_check=False), state)
+        if sharded:
+            _, metrics = _step(cfg, ocfg, _local(state), _local(batch),
+                               microbatches, compress_grads,
+                               layout=partition.Layout.of(state["params"]))
+            return state, metrics
         full = tree_map(partition.full_value, state)
-        local = tree_map(lambda t: t.to_local(), batch)
-        _, metrics = _step(cfg, ocfg, full, local, microbatches,
+        _, metrics = _step(cfg, ocfg, full, _local(batch), microbatches,
                            compress_grads, reduce)
         tree_map(lambda t, f: None if partition._is_whole(t)
                  else _scatter_back(t, f), state, full)

@@ -206,3 +206,93 @@ def test_small_cells_trace(port, arch, kind, mesh):
     assert cost["collective_counts"]["all-gather"] > 0
     if kind == "train":       # the grads' mean over the data axes
         assert cost["collective_counts"]["all-reduce"] > 0
+
+
+_SHARDED_VS_GATHERED = textwrap.dedent("""
+    import json, sys
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.models import factory
+
+    out = sys.argv[1]
+    small = {"train": ShapeConfig("t", 32, 8, "train"),
+             "decode": ShapeConfig("d", 64, 8, "decode")}
+    res = {}
+    for path in ("sharded", "gathered"):
+        # the gathered path: every family's steps gather their params
+        factory.SHARDED_FAMILIES = (factory.SHARDED_FAMILIES
+                                    if path == "sharded" else ())
+        for kind, shape in small.items():
+            r = dryrun.run_cell("granite-3-2b", kind, False, verbose=False,
+                                reduced=True, mesh_shape=(4, 4), shape=shape)
+            res[f"{kind}|{path}"] = r
+    json.dump(res, open(out, "w"))
+""")
+
+
+def _state_bytes(kind: str, shape) -> tuple[int, int]:
+    """(full, per-device) bytes of reduced granite's state at ``shape`` on
+    a 4 x 4 mesh: the train state, or the decode step's params and int8
+    cache, each leaf's shard under the port's partition rules."""
+    from repro_torch.launch import specs as S
+    from repro_torch.sharding import partition as PP
+    from repro_torch.train import train_step as TS
+
+    cfg = get_config("granite-3-2b", reduced=True)
+    mesh = PP.MeshShape.of(data=4, model=4)
+    if kind == "train":
+        tree = S.state_specs(cfg)
+        specs = TS.param_state_pspecs(tree, mesh)
+    else:
+        cfg = cfg.replace(kv_cache_dtype="int8")
+        params, cache = S.params_specs(cfg), S.cache_specs(cfg, shape)
+        tree = [params, cache]
+        specs = [PP.serve_param_pspecs(params, mesh,
+                                       global_batch=shape.global_batch),
+                 PP.cache_pspecs(cache, mesh)]
+    full = local = 0
+    flat_s = dict(flatten(specs))
+    for path, x in flatten(tree):
+        n = x.numel() * x.element_size()
+        full += n
+        local += n // PP.mesh_axis_size(mesh, tuple(
+            a for axis in flat_s[path] for a in PP.axis_names(axis)))
+    return full, local
+
+
+@pytest.fixture(scope="module")
+def sharded_vs_gathered(tmp_path_factory):
+    out = tmp_path_factory.mktemp("dryrun_sharded") / "res.json"
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    proc = subprocess.run([sys.executable, "-c", _SHARDED_VS_GATHERED,
+                           str(out)], env=env, capture_output=True,
+                          text=True, timeout=600)
+    assert proc.returncode == 0, (proc.stdout + proc.stderr)[-4000:]
+    return json.loads(out.read_text())
+
+
+@pytest.mark.parametrize("kind", ("train", "decode"))
+def test_sharded_step_peak_below_gathered(sharded_vs_gathered, kind):
+    """Reduced granite on a fake 4 x 4 group: the dense family's sharded
+    step (ZeRO-3 + TP, or the decode step over a cache left at its
+    shards) peaks below the step that gathers its params (and cache) by
+    at least the whole state less this rank's shards of it, and its
+    train step reduce-scatters the grads."""
+    from repro_torch.configs.base import ShapeConfig
+
+    new = sharded_vs_gathered[f"{kind}|sharded"]
+    old = sharded_vs_gathered[f"{kind}|gathered"]
+    assert new["status"] == old["status"] == "ok"
+    assert (new["memory"]["argument_size_in_bytes"]
+            == old["memory"]["argument_size_in_bytes"])
+    shape = (ShapeConfig("t", 32, 8, "train") if kind == "train"
+             else ShapeConfig("d", 64, 8, "decode"))
+    full, local = _state_bytes(kind, shape)
+    assert full > 4 * local
+    drop = (old["memory"]["peak_size_in_bytes"]
+            - new["memory"]["peak_size_in_bytes"])
+    assert drop >= full - local, (drop, full, local)
+    counts = new["hlo_cost"]["collective_counts"]
+    if kind == "train":
+        assert counts["reduce-scatter"] > 0
+        assert old["hlo_cost"]["collective_counts"]["reduce-scatter"] == 0
