@@ -133,7 +133,11 @@ widths and depth) — then checks them:
    steps with a finite loss; (e) ``make_train_step`` on the mesh against
    ``train_step_fn`` in bits, ``espim_matvec_sharded`` (kernel 5 once)
    against ``ESPIMLinear`` on layer 0's w_down, ``make_serve_step``
-   against ``decode_step`` in bits; (c) at 2 layers in bf16, train 3,
+   against ``decode_step`` in bits; and the same for phi3.5-moe (1 of 32
+   layers) and qwen2-vl-2b (whole) at their published widths in float32
+   on the MoE and VLM sharded paths, with the sharded prefill forward
+   against ``forward`` in bits at S 512 and kernel 8 launched as often in
+   both; (c) at 2 layers in bf16, train 3,
    save, restore, train 2 against 5 straight, every state leaf and the
    last loss in bits (deterministic algorithms on; the checkpoint in a
    temp dir, removed); (f) ``python -m repro_torch.launch.train --arch
@@ -286,6 +290,13 @@ TRAIN_LAUNCHER_STEPS = (10, 12)         # (f): fresh, then resumed
 TRAIN_MATVEC_SPARSITY = 0.9             # (e): layer 0's w_down, pruned
 # (g): phi3.5-moe's attention (GQA 32/8, hd 128) at the families' S
 TRAIN_FLASH_SHAPE = (1, FAMILY_FLASH_SEQ, 32, 8, 128)
+# (e) for the MoE and VLM families' sharded paths: (arch, depth or None
+# for whole) at the published widths in float32, the depth at which two
+# copies of the float32 train state (params, mu, nu) fit the card beside
+# the step's grads: phi3.5-moe's 1 of 32 layers is 1.56 B params (18.8
+# GB a copy; 2 layers would be 34 GB a copy), qwen2-vl-2b whole 1.54 B
+# (18.5 GB a copy)
+TRAIN_FAMILY_MESH = (("phi3.5-moe-42b-a6.6b", 1), ("qwen2-vl-2b", None))
 
 # the dryrun phase: the dry run's predictions of one train step at (a)'s
 # shape (B 8 x S 128) on a one-rank fake group, each traced in a worker
@@ -310,13 +321,17 @@ DRYRUN_STEPS = 2                        # (b), (c): the second is timed
 # checkpointed layers, 2 (L D F + V D) tokens fewer
 DRYRUN_PEAK_TOL, DRYRUN_FLOP_TOL = 0.15, 0.02
 # (d): the dry run's launcher on production cells (fake 256-rank groups),
-# the dense family's sharded steps: the train step (ZeRO-3 on data, TP on
-# model) and the decode step (a layer's params gathered at a time, the
-# int8 cache sequence-sharded); each must fit the card
+# the sharded steps: the train step (ZeRO-3 on data, TP on model, for
+# phi3.5-moe the experts on model) and the decode step (a layer's params
+# gathered at a time, a MoE layer's experts along data only, the int8
+# cache sequence-sharded); granite's must fit the card, phi3.5-moe's
+# print their peak and fits_card
+DRYRUN_ARCHS = (TRAIN_ARCH, "phi3.5-moe-42b-a6.6b")
 DRYRUN_CLIS = {
-    f"cli_{shape}": ("-m", "repro_torch.launch.dryrun", "--arch", TRAIN_ARCH,
-                     "--shape", shape, "--mesh", "single", "--force")
-    for shape in ("train_4k", "decode_32k")}
+    f"cli_{arch}_{shape}": ("-m", "repro_torch.launch.dryrun", "--arch",
+                            arch, "--shape", shape, "--mesh", "single",
+                            "--force")
+    for arch in DRYRUN_ARCHS for shape in ("train_4k", "decode_32k")}
 # the train phase's step (a) in two whole runs of this script before the
 # dense family's sharded path (NVIDIA H100 80GB HBM3, 700 W): printed
 # beside this run's
@@ -2972,6 +2987,121 @@ def train_checks(ctx, mesh) -> dict:
     return rec
 
 
+def train_family_mesh(ctx, mesh) -> dict:
+    """(e) for the MoE and VLM families' sharded paths on the (1, 1) mesh,
+    each arch of ``TRAIN_FAMILY_MESH`` at its published widths in float32
+    (B 2 x S 32; the VLM batch with M-RoPE positions and spliced patch
+    embeddings, as the dry run's): ``make_train_step`` against
+    ``train_step_fn`` (every state leaf, the loss and the aux loss),
+    ``make_serve_step`` against ``decode_step`` (logits and cache), and
+    the sharded prefill forward (``factory.apply_train_sharded``) against
+    ``apply_train`` at B 1 x S ``FAMILY_FLASH_SEQ`` under no_grad, all in
+    bits, kernel 8 launched as often in the two forwards, once a
+    layer."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import specs
+    from repro_torch.models import factory, moe
+    from repro_torch.optim.adamw import OptConfig
+    from repro_torch.serve.serve_step import make_serve_step
+    from repro_torch.sharding import partition
+    from repro_torch.train import train_step as ts
+    from repro_torch.tree import leaves, tree_map
+    torch, dev = ctx["torch"], ctx["device"]
+    ocfg = OptConfig()
+    shape = ShapeConfig("check", TRAIN_CHECK_SEQ, TRAIN_CHECK_BATCH, "train")
+    seed = ctx["seed"] + 41
+    rec = {}
+    for arch, layers in TRAIN_FAMILY_MESH:
+        cfg = get_config(arch).replace(param_dtype="float32",
+                                       compute_dtype="float32")
+        if layers:
+            cfg = cfg.replace(n_layers=layers)
+        need(factory.shards(cfg, mesh), f"[train:e] {arch} takes the "
+             "gathered path")
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        batch = {k: _batch_leaf(torch, k, t, cfg, gen, dev)
+                 for k, t in specs.train_batch_specs(cfg, shape).items()}
+
+        def state():
+            return ts.init_train_state(
+                cfg, ocfg, torch.Generator(device=dev).manual_seed(seed),
+                device=dev)
+
+        torch.cuda.empty_cache()
+        card, m_card = ts.train_step_fn(cfg, ocfg, state(), batch)
+        state_gb = sum(t.numel() * t.element_size()
+                       for t in leaves(card)) / 1e9
+        step, pspecs, bspecs = ts.make_train_step(
+            cfg, ocfg, mesh, ts.init_train_state(cfg, ocfg, device="meta"),
+            batch)
+        placed = partition.logical_to_sharding(state(), pspecs, mesh)
+        placed, m_mesh = step(placed, partition.logical_to_sharding(
+            batch, bspecs, mesh))
+        differ = _tree_equal(placed, card)
+        same = [bool(m_mesh[k].equal(m_card[k])) for k in ("loss", "aux")]
+        need(not differ and all(same), f"[train:e] {arch}: mesh step vs "
+             f"train_step_fn: leaves differ {differ[:5]}, loss / aux equal "
+             f"{same}")
+        params = tree_map(partition.full_value, placed["params"])
+        del placed, card
+        torch.cuda.empty_cache()
+        # the serve step through the mesh
+        cache = factory.init_cache(cfg, TRAIN_CHECK_BATCH, 16, device=dev)
+        sb = {"tokens": batch["tokens"][:, :1]}
+        sstep, sp, cs, bs = make_serve_step(cfg, mesh, params, cache, sb)
+        _, logits, new = sstep(
+            partition.logical_to_sharding(params, sp, mesh),
+            partition.logical_to_sharding(cache, cs, mesh),
+            partition.logical_to_sharding(sb, bs, mesh))
+        with torch.no_grad():
+            want, want_cache = factory.decode_step(cfg, params, cache, sb)
+        serve_differ = _tree_equal(new, want_cache)
+        need(bool(logits.equal(want)) and not serve_differ,
+             f"[train:e] {arch}: make_serve_step vs decode_step: logits "
+             f"equal {bool(logits.equal(want))}, cache {serve_differ}")
+        # the prefill forward on the shards: kernel 8 once a layer
+        toks = torch.randint(0, cfg.vocab_size, (1, FAMILY_FLASH_SEQ),
+                             generator=gen, device=dev, dtype=torch.int32)
+        pb = {"tokens": toks}
+        reset_launches()
+        with torch.no_grad():
+            want_l, want_aux = factory.apply_train(cfg, params, pb)
+        k8_plain = read_launches()["flash_attention"]
+        pspec = partition.param_pspecs(params, mesh)
+        placed_p = partition.logical_to_sharding(params, pspec, mesh)
+        split = moe.Split(mesh, partition.batch_pspecs(pb, mesh)["tokens"][0])
+        reset_launches()
+        with torch.no_grad():
+            got_l, got_aux = factory.apply_train_sharded(
+                cfg, tree_map(lambda t: t.to_local(), placed_p), pb,
+                partition.Layout.of(placed_p), split)
+        k8 = read_launches()["flash_attention"]
+        fwd_same = bool(got_l.equal(want_l)) and bool(got_aux.equal(want_aux))
+        need(fwd_same and k8 == k8_plain == cfg.n_layers,
+             f"[train:e] {arch}: sharded prefill forward vs forward: equal "
+             f"{fwd_same}, kernel 8 launches {k8} against {k8_plain}, "
+             f"{cfg.n_layers} layers")
+        rec[arch] = {"layers": cfg.n_layers, "state_gb": state_gb,
+                     "loss": float(m_card["loss"]),
+                     "aux": float(m_card["aux"]),
+                     "train_step_bits_equal": True,
+                     "serve_step_bits_equal": True,
+                     "prefill_bits_equal": True,
+                     "prefill_seq": FAMILY_FLASH_SEQ,
+                     "kernel8_launches": [k8, k8_plain]}
+        log(f"[train:e] {arch} at {cfg.n_layers} of "
+            f"{get_config(arch).n_layers} layers, published widths, float32 "
+            f"(state {state_gb:.1f} GB a copy): make_train_step == "
+            f"train_step_fn in bits (loss {rec[arch]['loss']:.4f}, aux "
+            f"{rec[arch]['aux']:.4f}); make_serve_step == decode_step in "
+            f"bits; sharded prefill forward == forward in bits at S "
+            f"{FAMILY_FLASH_SEQ}, kernel 8 launches {k8} and {k8_plain}")
+        del params, cache, new, want_cache, placed_p
+        torch.cuda.empty_cache()
+    return rec
+
+
 def train_resume(ctx, mesh) -> dict:
     """(c) at 2 layers, full width, bf16: train 3, save, restore, train 2,
     against 5 straight; every state leaf and the last loss in bits, with
@@ -3083,6 +3213,7 @@ def phase_train(ctx) -> dict:
         "grads equal the chunked path's bits")
     rec["full_width"] = train_full_width(ctx, mesh)
     rec.update(train_checks(ctx, mesh))
+    rec["families_mesh"] = train_family_mesh(ctx, mesh)
     rec["resume"] = train_resume(ctx, mesh)
     rec["launcher"] = train_launcher(ctx)
     torch.distributed.destroy_process_group()      # make_local_mesh's
@@ -3261,19 +3392,21 @@ def _vs(card: dict, pred: dict) -> dict:
 
 def dryrun_cells(ctx) -> dict:
     """(d) of the dryrun phase: each launcher of ``DRYRUN_CLIS`` exited 0
-    with status ok and ``fits_card``; each cell's peak, dot FLOPs and
-    collective bytes by kind printed."""
+    with status ok, granite's cells with ``fits_card``; each cell's peak,
+    ``fits_card``, dot FLOPs and collective bytes by kind printed."""
     from repro_torch.launch import dryrun
     rec = {}
     for name, cli in DRYRUN_CLIS.items():
         out = _wait_dryrun(ctx, name)
+        arch = cli[cli.index("--arch") + 1]
         shape = cli[cli.index("--shape") + 1]
-        path = Path(dryrun.cell_path(TRAIN_ARCH, shape, "single"))
+        path = Path(dryrun.cell_path(arch, shape, "single"))
         cell = json.loads(path.read_text())
         need(cell.get("status") == "ok", f"[dryrun:d] {path.name}: "
              f"{cell.get('status')}: {cell.get('error', '')}")
         secs = ctx["dryrun"][f"{name}_seconds"]
-        rec[shape] = {"cell": cell, "stdout": out[-2000:], "seconds": secs}
+        rec[f"{arch}|{shape}"] = {"cell": cell, "stdout": out[-2000:],
+                                  "seconds": secs}
         m, h = cell["memory"], cell["hlo_cost"]
         peak = m["peak_size_in_bytes"] / 1e9
         coll = ", ".join(f"{k} {v / 1e9:.3f} GB ({h['collective_counts'][k]})"
@@ -3283,8 +3416,9 @@ def dryrun_cells(ctx) -> dict:
             f"{m['argument_size_in_bytes'] / 1e9:.3f} GB, peak {peak:.2f} GB, "
             f"fits_card {cell['fits_card']}; {h['dot_flops'] / 1e12:.4g} dot "
             f"TFLOP ({h['flops'] / 1e12:.4g} all); collectives {coll}")
-        need(cell["fits_card"], f"[dryrun:d] {TRAIN_ARCH} x {shape} on 16 x "
-             f"16: peak {peak:.2f} GB does not fit the card")
+        need(cell["fits_card"] or arch != TRAIN_ARCH, f"[dryrun:d] {arch} "
+             f"x {shape} on 16 x 16: peak {peak:.2f} GB does not fit the "
+             "card")
     return rec
 
 
@@ -3297,10 +3431,11 @@ def phase_dryrun(ctx) -> dict:
     one step of each other family (finite loss and grad norm, no kernel
     8 launch under grad) and (c) granite at 4 layers under remat "none",
     "dots" and "full", each with its step ms and measured against
-    predicted peak; (d) the dry run's launcher on granite-3-2b x train_4k
-    and x decode_32k on the 16 x 16 mesh (fake 256-rank groups; the dense
-    family's sharded steps) exits 0 with status ok and ``fits_card``,
-    each cell's peak, dot FLOPs and collective bytes by kind printed."""
+    predicted peak; (d) the dry run's launcher on granite-3-2b and
+    phi3.5-moe x train_4k and x decode_32k on the 16 x 16 mesh (fake
+    256-rank groups; the sharded steps) exits 0 with status ok, granite's
+    with ``fits_card``, each cell's peak, ``fits_card``, dot FLOPs and
+    collective bytes by kind printed."""
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import make_local_mesh
     torch = ctx["torch"]

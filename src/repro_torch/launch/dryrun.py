@@ -8,10 +8,11 @@ rank count (``launch/mesh.make_production_mesh``: 16 x 16, or 2 x 16 x
 16 with the pod axis), builds the cell's inputs from ``launch/specs`` as
 fake DTensors holding this rank's shards under the port's ``partition``
 rules, and runs the cell's entry point once under ``FakeTensorMode``
-(``train_step.make_train_step``; for prefill the dense family's
-``transformer.forward_sharded`` under no_grad on the ``param_pspecs``
-shards, the other families' ``serve_step.prefill_fn`` on the gathered
-params; ``serve_step.make_serve_step``), with the cost analysis
+(``train_step.make_train_step``; for prefill
+``factory.apply_train_sharded`` under no_grad on the ``param_pspecs``
+shards where ``factory.shards`` (the dense, MoE and VLM families), the
+other families' ``factory.apply_train`` on the gathered params;
+``serve_step.make_serve_step``), with the cost analysis
 (``launch/cost_analysis.py``) and a memory tracker.  Decode cells take
 the int8 KV cache for every family but ssm, as the reference's.  Each
 cell writes the reference's record: ``memory`` (the inputs' local shards
@@ -55,7 +56,7 @@ from repro_torch.configs.base import SHAPES, ModelConfig, ShapeConfig
 from repro_torch.configs.registry import ASSIGNED, get_config, skip_reason
 from repro_torch.launch import specs as S
 from repro_torch.launch.cost_analysis import CostMode
-from repro_torch.models import factory, transformer
+from repro_torch.models import factory, moe
 from repro_torch.optim.adamw import OptConfig
 from repro_torch.serve import serve_step
 from repro_torch.sharding import partition
@@ -224,16 +225,19 @@ def _entry(cfg: ModelConfig, shape: ShapeConfig, mesh, ocfg: OptConfig,
         return step, (sp["state"], sp["batch"]), (pspecs, bspecs)
     bspecs = partition.batch_pspecs(sp["batch"], mesh)
     if shape.kind == "prefill":
+        split = moe.Split(mesh, bspecs["tokens"][0])
+
         @torch.no_grad()
         def prefill(params, batch):
             local = tree_map(lambda t: t.to_local(), batch)
-            if cfg.family in factory.SHARDED_FAMILIES:
+            if factory.shards(cfg, mesh):
                 # this rank's logits (its batch, its vocab shard)
-                return transformer.forward_sharded(
+                return factory.apply_train_sharded(
                     cfg, tree_map(lambda t: t.to_local(), params), local,
-                    partition.Layout.of(params))
-            return serve_step.prefill_fn(
-                cfg, tree_map(partition.full_value, params), local)
+                    partition.Layout.of(params), split)[0]
+            return factory.apply_train(
+                cfg, tree_map(partition.full_value, params), local,
+                split)[0]
 
         pspecs = partition.param_pspecs(sp["params"], mesh)
         return prefill, (sp["params"], sp["batch"]), (pspecs, bspecs)

@@ -8,10 +8,12 @@ over the six families.
   prefill_chunk(cfg, params, cache, batch) -> (logits, cache)
   loss_fn(cfg, params, batch)         -> (loss, metrics)
 
-The families of ``SHARDED_FAMILIES`` (the dense decoder) also run on each
-rank's shards of a mesh (``loss_fn(..., layout=)``, the serve step's
-``transformer.decode_step_sharded``); the others' sharded steps gather
-their params first.
+The families of ``SHARDED_FAMILIES`` (the dense decoder, MoE and VLM)
+also run on each rank's shards of a mesh (``apply_train_sharded``,
+``loss_fn(..., layout=)``, ``decode_step_sharded``); the others' sharded
+steps gather their params first.  ``split`` (``moe.Split``) says where a
+rank's batch sits in the global batch: the MoE family's dispatch groups
+are the global batch's.
 """
 from __future__ import annotations
 
@@ -23,7 +25,8 @@ from repro_torch.sharding import partition as P
 
 __all__ = ["get_family", "init_params", "apply_train", "init_cache",
            "decode_step", "prefill_chunk", "supports_chunked_prefill",
-           "loss_fn", "cross_entropy", "MOE_AUX_WEIGHT", "SHARDED_FAMILIES"]
+           "loss_fn", "cross_entropy", "MOE_AUX_WEIGHT", "SHARDED_FAMILIES",
+           "shards", "apply_train_sharded", "decode_step_sharded"]
 
 _FAMILIES = {
     "dense": transformer,
@@ -36,7 +39,7 @@ _FAMILIES = {
 
 MOE_AUX_WEIGHT = 0.01
 # families whose sharded steps run on each rank's shards
-SHARDED_FAMILIES = ("dense",)
+SHARDED_FAMILIES = ("dense", "moe", "vlm")
 
 
 def get_family(cfg: ModelConfig):
@@ -50,13 +53,57 @@ def init_params(cfg: ModelConfig, generator=None, device=None) -> dict:
     return get_family(cfg).init_params(cfg, generator, device)
 
 
-def apply_train(cfg: ModelConfig, params: dict, batch: dict):
+def _zero_aux(logits: torch.Tensor):
+    return logits, torch.zeros((), dtype=torch.float32, device=logits.device)
+
+
+def apply_train(cfg: ModelConfig, params: dict, batch: dict, split=None):
     """The full-sequence forward -> (logits (B, S, V), aux loss): the MoE
-    load-balance term, a float32 zero for the other families."""
+    load-balance term (over the global batch's groups where ``split``
+    says the batch is a rank's part of it), a float32 zero for the other
+    families."""
+    if cfg.family == "moe":
+        return moe.forward(cfg, params, batch, split)
     out = get_family(cfg).forward(cfg, params, batch)
     if isinstance(out, tuple):
         return out
-    return out, torch.zeros((), dtype=torch.float32, device=out.device)
+    return _zero_aux(out)
+
+
+def shards(cfg: ModelConfig, mesh) -> bool:
+    """True when the sharded train and prefill steps keep ``cfg``'s
+    params at their shards on ``mesh``: a family of ``SHARDED_FAMILIES``
+    whose tensor-parallel dims ``model`` divides."""
+    return (cfg.family in SHARDED_FAMILIES
+            and transformer.tp_divides(cfg, mesh))
+
+
+def apply_train_sharded(cfg: ModelConfig, params: dict, batch: dict, layout,
+                        split=None):
+    """``apply_train`` on this rank's shards (``params`` the local tensors
+    of a tree placed by ``layout``, ``batch`` this rank's part of the
+    batch): (this rank's logits (B_local, S, V / model), aux loss)."""
+    if cfg.family not in SHARDED_FAMILIES:
+        raise ValueError(f"family {cfg.family!r} has no sharded forward")
+    if cfg.family == "moe":
+        return moe.forward_sharded(cfg, params, batch, layout, split)
+    return _zero_aux(get_family(cfg).forward_sharded(cfg, params, batch,
+                                                     layout))
+
+
+def decode_step_sharded(cfg: ModelConfig, params: dict, cache: dict,
+                        batch: dict, playout, clayout, donate: bool = True,
+                        split=None):
+    """``decode_step`` on this rank's shards of params and cache (placed
+    by ``playout`` / ``clayout``) and its tokens -> (this rank's logits
+    (B_local, 1, V), the new local cache)."""
+    if cfg.family not in SHARDED_FAMILIES:
+        raise ValueError(f"family {cfg.family!r} has no sharded decode")
+    if cfg.family == "moe":
+        return moe.decode_step_sharded(cfg, params, cache, batch, playout,
+                                       clayout, donate, split)
+    return get_family(cfg).decode_step_sharded(cfg, params, cache, batch,
+                                               playout, clayout, donate)
 
 
 def init_cache(cfg: ModelConfig, batch_size: int, max_len: int,
@@ -120,21 +167,20 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     return torch.sum(nll * mask) / torch.clamp_min(torch.sum(mask), 1.0)
 
 
-def loss_fn(cfg: ModelConfig, params: dict, batch: dict, layout=None):
+def loss_fn(cfg: ModelConfig, params: dict, batch: dict, layout=None,
+            split=None):
     """-> (loss, {"ce", "aux"}): the cross-entropy of ``apply_train``'s
     logits against ``batch["labels"]`` (``batch["loss_mask"]`` when given)
     plus ``MOE_AUX_WEIGHT`` times the aux term (zero outside MoE).  With
-    a ``layout`` (``partition.Layout``) ``params`` are this rank's shards
-    and ``batch`` its part of the batch: ``transformer.forward_sharded``
-    and the vocab-parallel cross-entropy (``SHARDED_FAMILIES`` only)."""
+    a ``layout`` (``partition.Layout``) ``params`` are this rank's shards:
+    ``apply_train_sharded`` and the vocab-parallel cross-entropy
+    (``SHARDED_FAMILIES`` only).  ``split``: ``batch`` is this rank's
+    part of the global batch (``moe.Split``)."""
     if layout is None:
-        logits, aux = apply_train(cfg, params, batch)
+        logits, aux = apply_train(cfg, params, batch, split)
         mesh = None
     else:
-        if cfg.family not in SHARDED_FAMILIES:
-            raise ValueError(f"family {cfg.family!r} has no sharded forward")
-        logits = transformer.forward_sharded(cfg, params, batch, layout)
-        aux = torch.zeros((), dtype=torch.float32, device=logits.device)
+        logits, aux = apply_train_sharded(cfg, params, batch, layout, split)
         mesh = layout.mesh
     labels = batch["labels"].to(logits.device)
     mask = batch.get("loss_mask")

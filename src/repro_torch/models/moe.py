@@ -9,8 +9,17 @@ the overflow drops — the reference's drop pattern exactly (capacity
 index, as ``jax.lax.top_k``'s).  The router runs in float32 at any model
 dtype; the expert products are plain batched products (``torch.einsum``),
 as the reference computes them outside any Pallas kernel.
+
+The groups are the global batch's, as the reference's under ``jit``
+whatever the sharding: where a rank holds part of the batch
+(``Split``), a group that spans ranks counts its tokens' queue places
+and its aux statistics across them (``moe_block``).  On a mesh the
+experts split on ``model`` (expert parallelism: ``moe_tp``,
+``forward_sharded``, ``decode_step_sharded``).
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -19,9 +28,11 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
+from repro_torch.sharding import partition as P
 
 __all__ = ["init_params", "forward", "init_cache", "decode_step",
-           "moe_block"]
+           "moe_block", "moe_tp", "forward_sharded", "decode_step_sharded",
+           "Split"]
 
 
 def init_moe_layer(cfg: ModelConfig, gen, lead: tuple, device) -> dict:
@@ -34,6 +45,17 @@ def init_moe_layer(cfg: ModelConfig, gen, lead: tuple, device) -> dict:
             "w_up": T.normal(gen, lead + (e, d, f), d ** -0.5, dt, device),
             "w_down": T.normal(gen, lead + (e, f, d), f ** -0.5, dt,
                                device)}
+
+
+class Split(NamedTuple):
+    """Where this rank's batch sits in the global batch: the global batch
+    is split into equal consecutive parts over the mesh axes ``axes``
+    (a spec entry, major first, as ``partition.batch_pspecs`` places the
+    batch dim; ``None``: every rank holds the whole batch), and this
+    rank holds the part at its coordinate along them."""
+
+    mesh: object
+    axes: object
 
 
 def _top_k(probs: torch.Tensor, k: int):
@@ -50,24 +72,37 @@ def capacity(cfg: ModelConfig, tg: int) -> int:
     return max(4, (int(tg * k / e * cfg.capacity_factor) + 3) & ~3)
 
 
-def _group_moe(cfg: ModelConfig, p: dict, x: torch.Tensor):
-    """One dispatch group: x (Tg, D) -> (y (Tg, D), aux loss)."""
-    tg = x.shape[0]
-    e, k = cfg.n_experts, cfg.experts_per_token
-    cd = cfg.cdtype
-    probs = torch.softmax(x.float() @ p["router"].float(), dim=-1)
-    top_p, top_e = _top_k(probs, k)                            # (Tg, k)
+def _route(cfg: ModelConfig, router: torch.Tensor, x: torch.Tensor):
+    """x (T, D) -> (probs (T, E), top_p (T, k) renormalised, sel (T, k, E)
+    the one-hot of each slot's expert); float32 at any model dtype."""
+    probs = torch.softmax(x.float() @ router.float(), dim=-1)
+    top_p, top_e = _top_k(probs, cfg.experts_per_token)
     top_p = top_p / torch.clamp_min(top_p.sum(-1, keepdim=True), 1e-9)
+    return probs, top_p, F.one_hot(top_e, cfg.n_experts).float()
 
-    cap = capacity(cfg, tg)
-    sel = F.one_hot(top_e, e).float()                          # (Tg, k, E)
+
+def _experts(cfg: ModelConfig, p: dict, x, top_p, sel, cap: int,
+             experts: tuple, offset=None):
+    """The experts [lo, hi) = ``experts`` (``p``'s w_* hold just those) on
+    the tokens x (T, D) that ``sel`` routes to them -> y (T, D), their
+    share of the combined output.  ``offset`` (E,): the slots each
+    expert's queue already holds from the group's tokens before these."""
+    t, k, e = sel.shape
+    lo, hi = experts
+    if (lo, hi) != (0, e):
+        sel = sel[..., lo:hi]
+        offset = None if offset is None else offset[lo:hi]
+        e = hi - lo
+    cd = cfg.cdtype
     # position of each (token, slot) within its expert's queue
-    pos_in_e = (torch.cumsum(sel.reshape(tg * k, e), dim=0)
-                .reshape(tg, k, e) - 1.0) * sel
+    pos = torch.cumsum(sel.reshape(t * k, e), dim=0).reshape(t, k, e)
+    if offset is not None:
+        pos = pos + offset
+    pos_in_e = (pos - 1.0) * sel
     keep = sel * (pos_in_e < cap)
     pos_oh = (F.one_hot(pos_in_e.long().clamp(0, cap - 1), cap).float()
-              * keep[..., None])                               # (Tg,k,E,C)
-    dispatch = pos_oh.sum(dim=1)                               # (Tg, E, C)
+              * keep[..., None])                               # (T,k,E,C)
+    dispatch = pos_oh.sum(dim=1)                               # (T, E, C)
     combine = torch.einsum("tkec,tk->tec", pos_oh, top_p)
 
     xe = torch.einsum("tec,td->ecd", dispatch.to(cd), x.to(cd))
@@ -76,28 +111,135 @@ def _group_moe(cfg: ModelConfig, p: dict, x: torch.Tensor):
          * torch.einsum("ecd,edf->ecf", xe, p["w_up"].to(cd)))
     ye = torch.einsum("ecf,efd->ecd", h, p["w_down"].to(cd))
     y = torch.einsum("tec,ecd->td", combine.to(cd), ye)
-
-    # Switch-style load-balance aux loss
-    me = probs.mean(dim=0)                                     # (E,)
-    ce = sel.sum(dim=1).mean(dim=0)                            # routed share
-    aux = e * torch.sum(me * ce) / k
-    return y.to(x.dtype), aux
+    return y.to(x.dtype)
 
 
-def moe_block(cfg: ModelConfig, p: dict, x: torch.Tensor):
-    """x (B, S, D) -> (y, aux): tokens in groups of ``moe_group_size``
-    (the last zero-padded), the aux loss averaged over the groups."""
+def _aux(cfg: ModelConfig, me, ce, experts: tuple):
+    """The Switch load-balance term of a group, ``e * sum(me * ce) / k``
+    over the experts [lo, hi) (all: the whole term)."""
+    e, k = cfg.n_experts, cfg.experts_per_token
+    lo, hi = experts
+    if (lo, hi) != (0, e):
+        me, ce = me[..., lo:hi], ce[..., lo:hi]
+    return e * torch.sum(me * ce) / k
+
+
+def _group_moe(cfg: ModelConfig, p: dict, x: torch.Tensor, experts: tuple):
+    """One dispatch group whole on this rank: x (Tg, D) -> (y (Tg, D),
+    aux loss)."""
+    probs, top_p, sel = _route(cfg, p["router"], x)
+    y = _experts(cfg, p, x, top_p, sel, capacity(cfg, x.shape[0]), experts)
+    # Switch-style load-balance aux loss: mean router prob times the
+    # routed share
+    return y, _aux(cfg, probs.mean(dim=0), sel.sum(dim=1).mean(dim=0),
+                   experts)
+
+
+def _spanning_groups(cfg: ModelConfig, p: dict, flat: torch.Tensor,
+                     tg: int, split: Split, experts: tuple):
+    """The reference's groups of ``tg`` consecutive tokens of the global
+    (B·S) order, where they span the ranks of ``split``: this rank's
+    tokens ``flat`` (T, D) are the global [r·T, (r + 1)·T), and the rank
+    holding the global end zero-pads it to a whole group.  Each rank
+    routes its pieces of the groups; one all-gather of the per-group,
+    per-expert routed counts gives each token's place in its expert's
+    queue (the counts of the ranks before it in the group, then its
+    own), and a ``psum`` the routers' mean probabilities over each
+    whole group.  -> (y (T, D), aux loss)."""
+    mesh, axes = split
+    n, e = flat.shape[0], cfg.n_experts
+    parts, r = P.mesh_axis_size(mesh, axes), P.axis_index(mesh, axes)
+    pad = (-n * parts) % tg
+    n_groups = (n * parts + pad) // tg
+    start = r * n
+    if r == parts - 1:
+        flat = F.pad(flat, (0, 0, 0, pad))
+    end = start + flat.shape[0]
+    pieces = [(g, max(start, g * tg) - start, min(end, (g + 1) * tg) - start)
+              for g in range(start // tg, (end - 1) // tg + 1)]
+    routed = [_route(cfg, p["router"], flat[lo:hi]) for _, lo, hi in pieces]
+    counts = flat.new_zeros((n_groups, e), dtype=torch.float32)
+    me_rows = [flat.new_zeros((e,), dtype=torch.float32)] * n_groups
+    for (g, _, _), (probs, _, sel) in zip(pieces, routed):
+        counts[g] = sel.sum(dim=(0, 1))
+        me_rows[g] = probs.sum(dim=0)
+    every = P.gather_along(counts[None], (axes, None, None), mesh,
+                           P.axis_names(axes))         # (parts, G, E)
+    before = every[:r].sum(dim=0)
+    me = P.psum(torch.stack(me_rows), mesh, axes) / tg
+    ce = every.sum(dim=0) / tg
+    cap = capacity(cfg, tg)
+    ys = [_experts(cfg, p, flat[lo:hi], top_p, sel, cap, experts, before[g])
+          for (g, lo, hi), (_, top_p, sel) in zip(pieces, routed)]
+    aux = _aux(cfg, me, ce, experts) / n_groups
+    return torch.cat(ys)[:n], aux
+
+
+def moe_block(cfg: ModelConfig, p: dict, x: torch.Tensor,
+              split: Split | None = None, experts: tuple | None = None):
+    """x (B, S, D) -> (y, aux): the tokens in the reference's groups of
+    ``tg = min(moe_group_size, B_global·S)`` consecutive tokens of the
+    global batch (the last zero-padded), the aux loss averaged over the
+    groups.  ``split`` says where this rank's batch sits in the global
+    batch (``None``: it is the global batch):
+
+      * where every rank's tokens are whole groups (``B·S % tg == 0``,
+        e.g. the production ``train_4k`` cells, S = 4096 =
+        ``moe_group_size``, or one rank) the groups run here, with no
+        collective: the step's mean over the data-parallel ranks of each
+        rank's mean aux is the mean over all groups;
+      * else (e.g. decode, whose one group is the global batch) a group
+        spans ranks: ``_spanning_groups``, with the global queue
+        positions and aux statistics.
+
+    ``experts`` = [lo, hi) runs only those experts (``p``'s w_* hold just
+    them: expert parallelism) and returns their share of y and of the
+    aux loss; the routing is every expert's."""
     b, s, d = x.shape
-    t = b * s
-    tg = min(cfg.moe_group_size, t)
-    flat = F.pad(x.reshape(t, d), (0, 0, 0, (-t) % tg))
+    n = b * s
+    parts = 1 if split is None else P.mesh_axis_size(split.mesh, split.axes)
+    tg = min(cfg.moe_group_size, n * parts)
+    experts = experts or (0, cfg.n_experts)
+    if n % tg:
+        if parts > 1:
+            y, aux = _spanning_groups(cfg, p, x.reshape(n, d), tg, split,
+                                      experts)
+            return y.reshape(b, s, d), aux
+    flat = F.pad(x.reshape(n, d), (0, 0, 0, (-n) % tg))
     ys, aux = [], torch.zeros((), dtype=torch.float32, device=x.device)
     for g in range(flat.shape[0] // tg):
-        y, a = _group_moe(cfg, p, flat[g * tg:(g + 1) * tg])
+        y, a = _group_moe(cfg, p, flat[g * tg:(g + 1) * tg], experts)
         ys.append(y)
         aux = aux + a
-    y = torch.cat(ys)[:t].reshape(b, s, d)
+    y = torch.cat(ys)[:n].reshape(b, s, d)
     return y, aux / len(ys)
+
+
+def moe_tp(cfg: ModelConfig, p: dict, x: torch.Tensor, mesh,
+           split: Split | None = None):
+    """The MoE block under tensor parallelism (expert parallelism on
+    ``model``): ``x`` (B, S, D) already inside the region (``copy_to``),
+    ``p`` this rank's experts ``[e_lo, e_hi)`` (``n_experts / model`` of
+    them) and the replicated router, which enters the region through
+    ``copy_to`` too.  Every rank routes every token to every expert (the
+    same probabilities, top-k, dispatch and combine), runs its own
+    experts, and their shares of y and of the aux loss are summed over
+    ``model`` (``reduce_from``).  So the router's and x's gradients are
+    partial on each rank, as a column-parallel product's, and each is
+    summed over ``model`` once, by its ``copy_to``.
+
+    No all-to-all: under TP the residual stream is replicated along
+    ``model``, so each rank already holds every token its experts need.
+    The reference's partitioner may move tokens instead; the function is
+    the same.  Where ``p`` holds every expert (one rank on ``model``, or
+    decode experts replicated because ``n_experts`` does not divide it)
+    this is ``moe_block``."""
+    if p["w_gate"].shape[0] == cfg.n_experts:
+        return moe_block(cfg, p, x, split)
+    router = P.copy_to(p["router"], mesh)
+    y, aux = moe_block(cfg, dict(p, router=router), x, split,
+                       T._model_part(mesh, cfg.n_experts))
+    return P.reduce_from(y, mesh), P.reduce_from(aux, mesh)
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
@@ -113,8 +255,11 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
     return params
 
 
-def forward(cfg: ModelConfig, params: dict, batch: dict):
-    """-> (logits (B, S, V), the aux loss averaged over the layers)."""
+def forward(cfg: ModelConfig, params: dict, batch: dict,
+            split: Split | None = None):
+    """-> (logits (B, S, V), the aux loss averaged over the layers);
+    ``split`` as ``moe_block``'s (the batch is this rank's part of a
+    global batch: the gathered sharded step)."""
     tokens = batch["tokens"].to(params["embed"].device)
     b, s = tokens.shape
     positions = batch.get("positions")
@@ -127,7 +272,8 @@ def forward(cfg: ModelConfig, params: dict, batch: dict):
     def body(h, aux, lp):
         h = h + T.attn_apply(cfg, lp["attn"], T._norm(cfg, lp["ln1"], h),
                              positions)
-        y, a = moe_block(cfg, lp["moe"], T._norm(cfg, lp["ln2"], h))
+        y, a = moe_block(cfg, lp["moe"], T._norm(cfg, lp["ln2"], h),
+                         split)
         return h + y, aux + a
 
     body = T.remat_wrap(cfg, body)
@@ -153,3 +299,40 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict, batch: dict):
     h, new = T._layer_loop(cfg, params, cache, h, attn, mlp)
     new["len"] = cache["len"] + 1
     return T.logits_from_hidden(cfg, params, h), new
+
+
+def forward_sharded(cfg: ModelConfig, params: dict, batch: dict, layout,
+                    split: Split | None = None):
+    """``forward`` on this rank's shards -> (this rank's logits (B_local,
+    S, V / model), the aux loss averaged over the layers): attention,
+    embedding and logits are ``transformer.forward_sharded``'s (ZeRO-3 on
+    ``data`` inside the checkpointed layer body, TP on ``model``), the
+    MoE block ``moe_tp`` on the rank's ``n_experts / model`` experts,
+    gathered along ``data``.  Needs ``transformer.tp_divides``; on one
+    rank it is ``forward``, bit for bit."""
+    mesh = layout.mesh
+
+    def ffn(lp, x):
+        return moe_tp(cfg, lp["moe"], x, mesh, split)
+
+    logits, aux = T._forward_sharded(cfg, params, batch, layout, ffn)
+    return logits, aux / cfg.n_layers
+
+
+def decode_step_sharded(cfg: ModelConfig, params: dict, cache: dict,
+                        batch: dict, playout, clayout, donate: bool = True,
+                        split: Split | None = None):
+    """``decode_step`` on this rank's shards (``transformer.
+    decode_step_sharded``'s attention and cache): each layer's experts
+    gathered along ``data`` only, the rank's own experts run on its
+    tokens (every expert where ``n_experts`` does not divide ``model``),
+    their shares summed over ``model``.  A decode group is the global
+    batch, so with the batch split (``split``) its queue positions come
+    from the ranks' routed counts (``moe_block``)."""
+    mesh = playout.mesh
+
+    def mlp(lp, hn):
+        return moe_tp(cfg, lp["moe"], hn, mesh, split)[0]
+
+    return T.decode_step_sharded(cfg, params, cache, batch, playout,
+                                 clayout, donate, mlp)

@@ -9,7 +9,8 @@ projection-free attention cores (RoPE + cache write + attention) the
 packed QKV / O groups wrap, the dense ``forward``, ``decode_step`` and
 ``prefill_chunk``, and what every family's full-sequence forward shares
 for training: ``remat_wrap`` around the layer body and ``layer_list``.
-On a mesh the dense family also runs on each rank's shards:
+On a mesh the dense family (the VLM flavour too, and the MoE family with
+its own feed-forward block) also runs on each rank's shards:
 ``forward_sharded`` (ZeRO-3 on ``data``, tensor parallelism on
 ``model``) and ``decode_step_sharded`` (a layer's params gathered at a
 time over a cache split by batch and by KV heads or sequence).
@@ -486,15 +487,18 @@ def prefill_chunk(cfg: ModelConfig, params: dict, cache: dict, batch: dict):
 
 
 # --------------------------------------------------------------------------
-# the dense family on a mesh: each rank's shards, explicit collectives
+# the dense family (and VLM, MoE) on a mesh: each rank's shards, explicit
+# collectives
 # --------------------------------------------------------------------------
 def tp_divides(cfg: ModelConfig, mesh) -> bool:
     """True when the ``model`` axis divides every tensor-parallel dim (the
-    q / kv / ffn widths and the padded vocab), so that every TP leaf is
+    q / kv widths, the padded vocab, and the ffn width, or for the MoE
+    family the experts: expert parallelism), so that every TP leaf is
     split on ``model`` and ``forward_sharded`` applies."""
     tp = P.mesh_axis_size(mesh, "model")
+    ffn = cfg.n_experts if cfg.family == "moe" else cfg.d_ff
     return all(w % tp == 0 for w in (cfg.n_heads * cfg.hd,
-                                     cfg.n_kv_heads * cfg.hd, cfg.d_ff,
+                                     cfg.n_kv_heads * cfg.hd, ffn,
                                      cfg.padded_vocab))
 
 
@@ -534,13 +538,15 @@ def attn_heads(cfg: ModelConfig, mesh) -> tuple:
     return _model_part(mesh, cfg.n_heads)
 
 
-def _attn_tp(cfg: ModelConfig, p: dict, x, positions, mesh):
+def _attn_tp(cfg: ModelConfig, p: dict, x, positions, mesh,
+             positions3=None):
     """Tensor-parallel attention: ``x`` (B, S, D) inside the region
     (``copy_to``); wq / wk / wv (+ biases) this rank's output columns, wo
     its rows.  q, k and v are resharded to the heads this rank's
     attention runs (``attn_heads``; their KV heads h // n_rep), gathered
-    along ``model`` where a shard holds no whole head.  Returns this
-    rank's partial of the output projection summed over ``model``."""
+    along ``model`` where a shard holds no whole head; M-RoPE where
+    ``positions3`` (3, B, S) is given.  Returns this rank's partial of
+    the output projection summed over ``model``."""
     b, s, _ = x.shape
     hd, n_q, n_kv = cfg.hd, cfg.n_heads, cfg.n_kv_heads
     n_rep = n_q // n_kv
@@ -556,7 +562,7 @@ def _attn_tp(cfg: ModelConfig, p: dict, x, positions, mesh):
     q = heads(p["wq"], p.get("bq"), q_w, h_lo, h_hi)
     k = heads(p["wk"], p.get("bk"), kv_w, kv_lo, kv_hi)
     v = heads(p["wv"], p.get("bv"), kv_w, kv_lo, kv_hi)
-    q, k = _rope(cfg, q, k, positions)
+    q, k = _rope(cfg, q, k, positions, positions3)
     n_h, n_k = h_hi - h_lo, kv_hi - kv_lo
     idx = [h // n_rep - kv_lo for h in range(h_lo, h_hi)]
     if n_h % n_k or idx != [j // (n_h // n_k) for j in range(n_h)]:
@@ -591,7 +597,8 @@ def forward_sharded(cfg: ModelConfig, params: dict, batch: dict,
     layout written out: ``params`` are the local tensors of a tree placed
     by ``layout`` (``partition.Layout``: ``param_pspecs``, FSDP on
     ``data`` and TP on ``model``), ``batch`` this rank's part of the
-    batch.
+    batch (with the VLM flavour's ``positions3`` (3, B, S) and
+    ``embeddings`` / ``vis_mask``, as ``forward`` takes them).
 
       * ZeRO-3: each layer's params are all-gathered along ``data``
         inside the layer's body, just before use (``fsdp_gather``), so
@@ -602,15 +609,30 @@ def forward_sharded(cfg: ModelConfig, params: dict, batch: dict,
       * TP: column-parallel wq / wk / wv / w_gate / w_up, row-parallel
         wo / w_down summed over ``model`` (``copy_to`` / ``reduce_from``
         around each block), attention on ``attn_heads``, a vocab-parallel
-        embedding, and the logits left split on ``model``.
+        embedding (the vision embeddings spliced over its sum), and the
+        logits left split on ``model``.
 
     Returns this rank's logits (B_local, S, V / model).  Needs
     ``tp_divides``.  On a mesh of one rank every collective is skipped
     and the ops are ``forward``'s, bit for bit."""
+    return _forward_sharded(cfg, params, batch, layout)[0]
+
+
+def _forward_sharded(cfg: ModelConfig, params: dict, batch: dict, layout,
+                     ffn=None):
+    """``forward_sharded`` -> (logits, the sum over the layers of the
+    feed-forward blocks' aux terms): ``ffn(lp, x) -> (y, aux or None)``
+    is the block on a layer's gathered params and ``x`` inside the
+    region, ``y`` summed over ``model`` (the dense MLP unless given: the
+    MoE family passes its own)."""
     mesh, specs = layout.mesh, layout.specs
 
     def gather(tree, spec):
         return tree_map(lambda t, sp: P.fsdp_gather(t, sp, mesh), tree, spec)
+
+    if ffn is None:
+        def ffn(lp, x):
+            return P.reduce_from(mlp_apply(cfg, lp["mlp"], x), mesh), None
 
     tokens = batch["tokens"].to(params["embed"].device)
     b, s = tokens.shape
@@ -618,38 +640,49 @@ def forward_sharded(cfg: ModelConfig, params: dict, batch: dict,
     if positions is None:
         positions = torch.arange(s, dtype=torch.int32,
                                  device=tokens.device).expand(b, s)
+    positions3 = batch.get("positions3")
     embed = P.fsdp_gather(params["embed"], specs["embed"], mesh)
     h = _embed_tp(cfg, embed, tokens, mesh)
+    if "embeddings" in batch:
+        vis = batch["embeddings"].to(h.dtype)
+        h = torch.where(batch["vis_mask"][..., None], vis, h)
     layer_specs = tree_map(lambda sp: sp[1:], specs["layers"])
 
-    def body(h, lp):
+    def body(h, aux, lp):
         lp = gather(lp, layer_specs)
         x = P.copy_to(_norm(cfg, lp["ln1"], h), mesh)
-        h = h + _attn_tp(cfg, lp["attn"], x, positions, mesh)
+        h = h + _attn_tp(cfg, lp["attn"], x, positions, mesh, positions3)
         x = P.copy_to(_norm(cfg, lp["ln2"], h), mesh)
-        return h + P.reduce_from(mlp_apply(cfg, lp["mlp"], x), mesh)
+        y, a = ffn(lp, x)
+        return h + y, aux if a is None else aux + a
 
     body = remat_wrap(cfg, body)
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for lp in layer_list(params["layers"], cfg.n_layers):
-        h = body(h, lp)
+        h, aux = body(h, aux, lp)
     top = {"embed": embed,
            "final_norm": gather(params["final_norm"], specs["final_norm"])}
     if "lm_head" in params:
         top["lm_head"] = P.fsdp_gather(params["lm_head"], specs["lm_head"],
                                        mesh)
-    return logits_from_hidden(cfg, top, h, mesh)
+    return logits_from_hidden(cfg, top, h, mesh), aux
 
 
 def decode_step_sharded(cfg: ModelConfig, params: dict, cache: dict,
-                        batch: dict, playout, clayout, donate: bool = True):
+                        batch: dict, playout, clayout, donate: bool = True,
+                        mlp=None):
     """One dense decode step on this rank's shards: ``params`` the local
     tensors of a tree placed by ``playout`` (``serve_param_pspecs``),
     ``cache`` by ``clayout`` (``cache_pspecs``: batch on the data axes,
     KV heads on ``model`` where they divide, else the sequence), ``batch``
-    this rank's tokens (B_local, 1).
+    this rank's tokens (B_local, 1) (and ``positions3`` (3, B_local, 1)
+    for M-RoPE).
 
     Each layer's params are all-gathered along every mesh axis just
-    before the layer and freed after.  Attention runs on the local batch
+    before the layer and freed after; a MoE layer's experts (``moe``)
+    along every axis but ``model``, where they stay, and ``mlp(lp, hn)``
+    (the MoE family's block: ``moe.moe_tp``) runs in place of the dense
+    MLP.  Attention runs on the local batch
     and the local KV heads (their q heads; the heads' outputs gathered
     along the heads' axes) and positions: a sequence split over ranks
     combines their partial softmax (``attn_decode_core``'s ``seq``), and
@@ -660,9 +693,19 @@ def decode_step_sharded(cfg: ModelConfig, params: dict, cache: dict,
     is ``decode_step``, bit for bit."""
     mesh, ps, cs = playout.mesh, playout.specs, clayout.specs
     axes = tuple(mesh.mesh_dim_names)
+    off_model = tuple(a for a in axes if a != "model")
+    positions3 = batch.get("positions3")
+    if mlp is None:
+        def mlp(lp, hn):
+            return mlp_apply(cfg, lp["mlp"], hn)
 
-    def gather(t, spec):
-        return P.gather_along(t, spec, mesh, axes)
+    def gather(t, spec, along=axes):
+        return P.gather_along(t, spec, mesh, along)
+
+    def layer(i):
+        return {k: tree_map(lambda t, sp, k=k: gather(
+            t[i], sp[1:], off_model if k == "moe" else axes), v,
+            ps["layers"][k]) for k, v in params["layers"].items()}
 
     tokens = batch["tokens"].to(params["embed"].device)
     top = {"embed": gather(params["embed"], ps["embed"])}
@@ -686,7 +729,8 @@ def decode_step_sharded(cfg: ModelConfig, params: dict, cache: dict,
 
     def attn(p, hn, kc, vc, ks, vs):
         if seq is None and not split_heads:
-            return attn_decode_apply(cfg, p, hn, kc, vc, lens, ks, vs)
+            return attn_decode_apply(cfg, p, hn, kc, vc, lens, ks, vs,
+                                     positions3=positions3)
         b = hn.shape[0]
         q_lo, q_hi = kv_lo * n_rep, (kv_lo + n_kv) * n_rep
         q = L.dense(hn, cols(p["wq"], q_lo, q_hi), cols(p.get("bq"), q_lo,
@@ -698,7 +742,7 @@ def decode_step_sharded(cfg: ModelConfig, params: dict, cache: dict,
         out, kc, vc, ks, vs = attn_decode_core(
             cfg, q.reshape(b, 1, q_hi - q_lo, hd),
             k.reshape(b, 1, n_kv, hd), v.reshape(b, 1, n_kv, hd), kc, vc,
-            lens, ks, vs, seq=seq)
+            lens, ks, vs, positions3=positions3, seq=seq)
         out = P.gather_dim(out, 2, mesh, kv_ax)
         out = L.dense(out.reshape(b, 1, cfg.n_heads * hd), p["wo"])
         return out, kc, vc, ks, vs
@@ -706,12 +750,11 @@ def decode_step_sharded(cfg: ModelConfig, params: dict, cache: dict,
     names = [n for n in ("k", "v", "k_scale", "v_scale") if n in cache]
     new = {n: [] for n in names}
     for i in range(cfg.n_layers):
-        lp = tree_map(lambda t, sp: gather(t[i], sp[1:]), params["layers"],
-                      ps["layers"])
+        lp = layer(i)
         kv = [cache[n][i] for n in names] + [None] * (4 - len(names))
         a, *kv = attn(lp["attn"], _norm(cfg, lp["ln1"], h), *kv)
         h = h + a
-        h = h + mlp_apply(cfg, lp["mlp"], _norm(cfg, lp["ln2"], h))
+        h = h + mlp(lp, _norm(cfg, lp["ln2"], h))
         del lp
         for n, t in zip(names, kv):
             if donate:

@@ -13,9 +13,10 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import transformer as T
+from repro_torch.sharding import partition as P
 
 __all__ = ["init_params", "forward", "init_cache", "decode_step",
-           "default_positions3"]
+           "default_positions3", "forward_sharded", "decode_step_sharded"]
 
 init_params = T.init_params
 init_cache = T.init_cache
@@ -28,13 +29,25 @@ def default_positions3(b: int, s: int, start: int = 0,
     return pos.expand(3, b, s)
 
 
+def _with_positions3(params: dict, batch: dict) -> dict:
+    if "positions3" in batch:
+        return batch
+    b, s = batch["tokens"].shape
+    return dict(batch, positions3=default_positions3(
+        b, s, device=params["embed"].device))
+
+
 def forward(cfg: ModelConfig, params: dict, batch: dict) -> torch.Tensor:
-    tokens = batch["tokens"]
-    if "positions3" not in batch:
-        b, s = tokens.shape
-        batch = dict(batch, positions3=default_positions3(
-            b, s, device=params["embed"].device))
-    return T.forward(cfg, params, batch)
+    return T.forward(cfg, params, _with_positions3(params, batch))
+
+
+def forward_sharded(cfg: ModelConfig, params: dict, batch: dict,
+                    layout) -> torch.Tensor:
+    """``forward`` on this rank's shards (``transformer.forward_sharded``:
+    M-RoPE from the local batch's ``positions3``, the vision embeddings
+    spliced after the vocab-parallel lookup)."""
+    return T.forward_sharded(cfg, params, _with_positions3(params, batch),
+                             layout)
 
 
 def decode_step(cfg: ModelConfig, params: dict, cache: dict, batch: dict):
@@ -45,3 +58,18 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict, batch: dict):
         pos = cache["len"].to(torch.int32)[None, :, None]      # (1, B, 1)
         batch = dict(batch, positions3=pos.expand(3, b, 1))
     return T.decode_step(cfg, params, cache, batch)
+
+
+def decode_step_sharded(cfg: ModelConfig, params: dict, cache: dict,
+                        batch: dict, playout, clayout, donate: bool = True):
+    """``decode_step`` on this rank's shards (``transformer.
+    decode_step_sharded``), the positions derived from the local
+    sequences' ``len`` unless the batch carries ``positions3``."""
+    if "positions3" not in batch:
+        b = batch["tokens"].shape[0]
+        lens = P.local_slice(cache["len"], (clayout.specs["k"][1],),
+                             playout.mesh)
+        pos = lens.to(torch.int32)[None, :, None]
+        batch = dict(batch, positions3=pos.expand(3, b, 1))
+    return T.decode_step_sharded(cfg, params, cache, batch, playout,
+                                 clayout, donate)

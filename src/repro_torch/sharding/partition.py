@@ -22,9 +22,10 @@ The collectives of a placement run a sharded step on each rank's local
 tensors: ``gather_along`` (all-gather a shard along named mesh axes),
 ``reduce_scatter_to`` (the mean over named axes, left as this rank's
 shard), ``local_slice`` (this rank's shard of a value every rank holds),
-and the autograd pairs the dense family's ZeRO-3 and tensor-parallel
-step is written with (``fsdp_gather``, ``copy_to``, ``reduce_from``,
-``gather_dim``).  They run on the mesh's axis subgroups
+and the autograd pairs the sharded steps are written with
+(``fsdp_gather``, ``copy_to``, ``reduce_from``, ``gather_dim``, and
+``psum`` for the MoE family's statistics over a dispatch group that
+spans the data-parallel ranks).  They run on the mesh's axis subgroups
 (``mesh.get_group(axis)``) through ``all_gather_into_tensor``,
 ``reduce_scatter_tensor`` and ``all_reduce``, which gloo, NCCL and the
 fake process group all take; an axis of size 1 is no collective at all
@@ -47,7 +48,7 @@ __all__ = [
     "logical_to_sharding", "full_value", "Layout", "spec_of",
     "axis_names", "axis_index", "sharded_axes", "gather_along",
     "reduce_scatter_to", "local_slice", "all_reduce", "fsdp_gather",
-    "copy_to", "reduce_from", "gather_dim",
+    "copy_to", "reduce_from", "gather_dim", "psum",
 ]
 
 
@@ -573,3 +574,17 @@ def gather_dim(x, dim: int, mesh, axis):
         return x
     return _dual(x, lambda y: gather_along(y, spec, mesh, names),
                  lambda g: _reduce_scatter_sum(g, spec, mesh, names))
+
+
+def psum(x, mesh, axes):
+    """The sum over the mesh axes ``axes`` of each rank's ``x``, for a
+    value that every rank then uses alike in its own loss: its backward
+    sums the ranks' gradients too (the all-reduce's adjoint).  With the
+    step's mean over the data-parallel axes, each rank's share of the
+    sum then gets the gradient of the one shared value.  ``x`` itself
+    where the axes all have size 1."""
+    names = tuple(a for a in axis_names(axes) if mesh_axis_size(mesh, a) > 1)
+    if not names:
+        return x
+    return _dual(x, lambda y: all_reduce(y, mesh, names),
+                 lambda g: all_reduce(g, mesh, names))

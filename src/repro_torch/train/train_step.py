@@ -11,21 +11,27 @@ config (``transformer.remat_wrap``).
 rules, with the reference's SPMD meaning: the step equals the unsharded
 step on the global batch.  Which path it runs depends on the family:
 
-  * The dense decoder (``factory.SHARDED_FAMILIES``, where the ``model``
-    axis divides every tensor-parallel dim) keeps the state at its
+  * The dense, MoE and VLM families (``factory.shards``: a family of
+    ``factory.SHARDED_FAMILIES`` where the ``model`` axis divides every
+    tensor-parallel dim, the experts for MoE) keep the state at its
     shards for the whole step, the layout the reference's partitioner
     gives: each rank runs ``factory.loss_fn`` on its local tensors and
-    its part of the batch (``transformer.forward_sharded``: ZeRO-3 on
+    its part of the batch (``factory.apply_train_sharded``: ZeRO-3 on
     ``data`` with a per-layer all-gather whose backward reduce-scatters
     the grads as their mean over the data-parallel axes, tensor
-    parallelism on ``model``, a vocab-parallel cross-entropy); the
-    compression and AdamW run on the local shards, the global norm and
-    the compression's scales all-reduced over the axes that split each
-    leaf.  A rank holds its shards plus one layer's params gathered
-    along ``data``.
+    parallelism on ``model``, expert parallelism on ``model`` for MoE,
+    a vocab-parallel cross-entropy); the compression and AdamW run on
+    the local shards, the global norm and the compression's scales
+    all-reduced over the axes that split each leaf.  A rank holds its
+    shards plus one layer's params gathered along ``data``.
   * The other families gather every leaf to its full value on every
-    rank, run the step there on their part of the batch with the grads
-    averaged over the data-parallel axes, and copy their shards back.
+    rank, run the step there on their part of the batch with the loss,
+    metrics and grads averaged over the data-parallel axes, and copy
+    their shards back.
+
+On both paths the MoE family's dispatch groups are the global batch's
+(``moe.Split``: the batch axes of the batch's spec), as the reference's
+under ``jit``.
 
 A leaf whose sharded mesh dims have size 1 is its DTensor's local tensor,
 so at world size 1 both paths are ``train_step_fn`` on the state's own
@@ -36,7 +42,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import factory, transformer
+from repro_torch.models import factory, moe
 from repro_torch.optim import compression
 from repro_torch.optim.adamw import OptConfig, apply_updates, init_opt_state
 from repro_torch.sharding import partition
@@ -70,17 +76,19 @@ def _split_microbatches(batch: dict, n: int) -> list:
     return [tree_map(lambda x, i=i: x[i], split) for i in range(n)]
 
 
-def _grads(cfg: ModelConfig, params: dict, batch: dict, layout=None):
+def _grads(cfg: ModelConfig, params: dict, batch: dict, layout=None,
+           split=None):
     """(loss, metrics, grads) of ``factory.loss_fn`` at ``params``; the
     grads have the params' dtypes.  With a ``layout`` the params are
     this rank's shards and so are the grads, already averaged over the
-    data-parallel axes."""
+    data-parallel axes.  ``split`` (``moe.Split``): the batch is this
+    rank's part of the global batch."""
     live = dict(flatten(tree_map(lambda p: p.detach().requires_grad_(True),
                                  params)))
     with torch.enable_grad():
         loss, metrics = factory.loss_fn(
             cfg, map_with_path(lambda k, _: live[k], params), batch,
-            layout)
+            layout, split)
         gs = torch.autograd.grad(loss, list(live.values()),
                                  allow_unused=True)
     by_path = {k: torch.zeros_like(p) if g is None else g
@@ -92,27 +100,29 @@ def _grads(cfg: ModelConfig, params: dict, batch: dict, layout=None):
 
 def _step(cfg: ModelConfig, ocfg: OptConfig, state: dict, batch: dict,
           microbatches: int, compress_grads: bool, reduce=None,
-          layout=None):
-    """The step on plain tensors.  ``reduce(loss, grads)`` averages whole
-    grads over the data-parallel axes (the gathered path); a ``layout``
-    (``partition.Layout`` of the params' specs) runs it on this rank's
-    shards (the sharded path)."""
+          layout=None, split=None):
+    """The step on plain tensors.  ``reduce(loss, metrics, grads)``
+    averages them over the data-parallel axes (the gathered path); a
+    ``layout`` (``partition.Layout`` of the params' specs) runs it on
+    this rank's shards (the sharded path).  ``split``: the batch is this
+    rank's part of the global batch (``moe.Split``; each microbatch's
+    dispatch groups are those of the ranks' microbatches together)."""
     params = state["params"]
     if microbatches > 1:
         grads = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
                                                device=p.device), params)
         loss = 0.0
         for mb in _split_microbatches(batch, microbatches):
-            mb_loss, _, g = _grads(cfg, params, mb, layout)
+            mb_loss, _, g = _grads(cfg, params, mb, layout, split)
             grads = tree_map(lambda a, b: a + b.float(), grads, g)
             loss = loss + mb_loss
         grads = tree_map(lambda g: g / microbatches, grads)
         loss = loss / microbatches
         metrics = {}
     else:
-        loss, metrics, grads = _grads(cfg, params, batch, layout)
+        loss, metrics, grads = _grads(cfg, params, batch, layout, split)
     if reduce is not None:
-        loss, grads = reduce(loss, grads)
+        loss, metrics, grads = reduce(loss, metrics, grads)
     if layout is not None:       # the means over the data-parallel axes
         dp = partition.batch_axes(layout.mesh)
         n = partition.mesh_axis_size(layout.mesh, dp)
@@ -166,9 +176,9 @@ def _scatter_back(t, full: torch.Tensor) -> None:
 
 
 def _data_reduce(mesh):
-    """(loss, grads) -> their means over the mesh's data-parallel axes
-    (all-reduce sums, then one division); the identity where those axes
-    have size 1."""
+    """(loss, metrics, grads) -> their means over the mesh's
+    data-parallel axes (all-reduce sums, then one division); the
+    identity where those axes have size 1."""
     import torch.distributed as dist
 
     axes = [a for a in partition.batch_axes(mesh)
@@ -183,16 +193,10 @@ def _data_reduce(mesh):
             dist.all_reduce(t, group=mesh.get_group(a))
         return t / n
 
-    def reduce(loss, grads):
-        return mean(loss), tree_map(mean, grads)
+    def reduce(loss, metrics, grads):
+        return mean(loss), tree_map(mean, metrics), tree_map(mean, grads)
 
     return reduce
-
-
-def _sharded(cfg: ModelConfig, mesh) -> bool:
-    """True when ``make_train_step`` keeps the state at its shards."""
-    return (cfg.family in factory.SHARDED_FAMILIES
-            and transformer.tp_divides(cfg, mesh))
 
 
 def _local(tree):
@@ -210,8 +214,7 @@ def make_train_step(cfg: ModelConfig, ocfg: OptConfig, mesh,
     from which the specs derive.  ``step(state, batch)`` takes the state
     and batch as DTensors placed by ``pspecs`` / ``bspecs``
     (``partition.logical_to_sharding``) and returns (state, metrics); the
-    path (sharded for the dense family, else gathered) is the module
-    docstring's.  With ``donate`` (the reference's donated buffers) the
+    path (sharded or gathered) is the module docstring's.  With ``donate`` (the reference's donated buffers) the
     state's tensors are updated in place and returned; without, the
     caller's state is left as it was and the step returns a new one."""
     from torch.distributed.tensor import DTensor
@@ -219,7 +222,8 @@ def make_train_step(cfg: ModelConfig, ocfg: OptConfig, mesh,
     pspecs = param_state_pspecs(state_shapes, mesh)
     bspecs = partition.batch_pspecs(batch_shapes, mesh)
     reduce = _data_reduce(mesh)
-    sharded = _sharded(cfg, mesh)
+    sharded = factory.shards(cfg, mesh)
+    split = moe.Split(mesh, bspecs["tokens"][0])
 
     @torch.no_grad()
     def step(state: dict, batch: dict):
@@ -230,11 +234,12 @@ def make_train_step(cfg: ModelConfig, ocfg: OptConfig, mesh,
         if sharded:
             _, metrics = _step(cfg, ocfg, _local(state), _local(batch),
                                microbatches, compress_grads,
-                               layout=partition.Layout.of(state["params"]))
+                               layout=partition.Layout.of(state["params"]),
+                               split=split)
             return state, metrics
         full = tree_map(partition.full_value, state)
         _, metrics = _step(cfg, ocfg, full, _local(batch), microbatches,
-                           compress_grads, reduce)
+                           compress_grads, reduce, split=split)
         tree_map(lambda t, f: None if partition._is_whole(t)
                  else _scatter_back(t, f), state, full)
         return state, metrics

@@ -214,7 +214,7 @@ _SHARDED_VS_GATHERED = textwrap.dedent("""
     from repro_torch.launch import dryrun
     from repro_torch.models import factory
 
-    out = sys.argv[1]
+    out, arch = sys.argv[1], sys.argv[2]
     small = {"train": ShapeConfig("t", 32, 8, "train"),
              "decode": ShapeConfig("d", 64, 8, "decode")}
     res = {}
@@ -223,22 +223,24 @@ _SHARDED_VS_GATHERED = textwrap.dedent("""
         factory.SHARDED_FAMILIES = (factory.SHARDED_FAMILIES
                                     if path == "sharded" else ())
         for kind, shape in small.items():
-            r = dryrun.run_cell("granite-3-2b", kind, False, verbose=False,
+            r = dryrun.run_cell(arch, kind, False, verbose=False,
                                 reduced=True, mesh_shape=(4, 4), shape=shape)
             res[f"{kind}|{path}"] = r
     json.dump(res, open(out, "w"))
 """)
+PEAK_ARCHS = ("granite-3-2b", "phi3.5-moe-42b-a6.6b", "qwen2-vl-2b")
 
 
-def _state_bytes(kind: str, shape) -> tuple[int, int]:
-    """(full, per-device) bytes of reduced granite's state at ``shape`` on
+def _state_bytes(kind: str, shape,
+                 arch: str = "granite-3-2b") -> tuple[int, int]:
+    """(full, per-device) bytes of reduced ``arch``'s state at ``shape`` on
     a 4 x 4 mesh: the train state, or the decode step's params and int8
     cache, each leaf's shard under the port's partition rules."""
     from repro_torch.launch import specs as S
     from repro_torch.sharding import partition as PP
     from repro_torch.train import train_step as TS
 
-    cfg = get_config("granite-3-2b", reduced=True)
+    cfg = get_config(arch, reduced=True)
     mesh = PP.MeshShape.of(data=4, model=4)
     if kind == "train":
         tree = S.state_specs(cfg)
@@ -261,14 +263,31 @@ def _state_bytes(kind: str, shape) -> tuple[int, int]:
 
 
 @pytest.fixture(scope="module")
-def sharded_vs_gathered(tmp_path_factory):
-    out = tmp_path_factory.mktemp("dryrun_sharded") / "res.json"
+def sharded_vs_gathered_all(tmp_path_factory):
+    """Each arch of ``PEAK_ARCHS`` in a process of its own, all started
+    together: {arch: {"kind|path": record}}."""
+    tmp = tmp_path_factory.mktemp("dryrun_sharded")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
-    proc = subprocess.run([sys.executable, "-c", _SHARDED_VS_GATHERED,
-                           str(out)], env=env, capture_output=True,
-                          text=True, timeout=600)
-    assert proc.returncode == 0, (proc.stdout + proc.stderr)[-4000:]
-    return json.loads(out.read_text())
+    procs = {a: subprocess.Popen(
+        [sys.executable, "-c", _SHARDED_VS_GATHERED, str(tmp / f"{a}.json"),
+         a], env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for a in PEAK_ARCHS}
+    try:
+        logs = {a: p.communicate(timeout=600)[0] for a, p in procs.items()}
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for a, p in procs.items():
+        assert p.returncode == 0, logs[a][-4000:]
+    return {a: json.loads((tmp / f"{a}.json").read_text())
+            for a in PEAK_ARCHS}
+
+
+@pytest.fixture(scope="module")
+def sharded_vs_gathered(sharded_vs_gathered_all):
+    return sharded_vs_gathered_all["granite-3-2b"]
 
 
 @pytest.mark.parametrize("kind", ("train", "decode"))
@@ -296,3 +315,27 @@ def test_sharded_step_peak_below_gathered(sharded_vs_gathered, kind):
     if kind == "train":
         assert counts["reduce-scatter"] > 0
         assert old["hlo_cost"]["collective_counts"]["reduce-scatter"] == 0
+
+
+@pytest.mark.parametrize("kind", ("train", "decode"))
+@pytest.mark.parametrize("arch", ("phi3.5-moe-42b-a6.6b", "qwen2-vl-2b"))
+def test_family_sharded_step_peak_below_gathered(sharded_vs_gathered_all,
+                                                 arch, kind):
+    """As above for reduced phi3.5-moe (experts on ``model``, each rank
+    running its own; the decode group spans the data ranks) and
+    qwen2-vl (M-RoPE, the vision splice): the sharded step peaks below
+    the gathered one by at least the whole state less this rank's
+    shards of it."""
+    from repro_torch.configs.base import ShapeConfig
+
+    rec = sharded_vs_gathered_all[arch]
+    new, old = rec[f"{kind}|sharded"], rec[f"{kind}|gathered"]
+    assert new["status"] == old["status"] == "ok"
+    shape = (ShapeConfig("t", 32, 8, "train") if kind == "train"
+             else ShapeConfig("d", 64, 8, "decode"))
+    full, local = _state_bytes(kind, shape, arch)
+    drop = (old["memory"]["peak_size_in_bytes"]
+            - new["memory"]["peak_size_in_bytes"])
+    assert drop >= full - local, (drop, full, local)
+    if kind == "train":
+        assert new["hlo_cost"]["collective_counts"]["reduce-scatter"] > 0

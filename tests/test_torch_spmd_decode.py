@@ -1,20 +1,27 @@
-"""The dense family's sharded decode step (``serve_step.make_serve_step``:
-params at ``serve_param_pspecs`` gathered a layer at a time, the KV cache
-at ``cache_pspecs``) on gloo process groups against the world-size-1
-``serve_step_fn``.
+"""The sharded decode step (``serve_step.make_serve_step``: params at
+``serve_param_pspecs`` gathered a layer at a time, the KV cache at
+``cache_pspecs``) of the dense, MoE and VLM families on gloo process
+groups against the world-size-1 ``serve_step_fn``.
 
 One launch of 4 processes on a (2, 2) mesh and one of 2 on (1, 2),
 spawned as subprocesses on a ``FileStore``, run every case of ``CASES``
-on reduced granite (float32): a cache primed with a 3-token prompt by
-``factory.prefill_chunk`` (S_max 8), then 4 greedy decode steps, which
-cross from one sequence shard to the next.  The cases:
+on reduced configs (float32): a cache primed with a 3-token prompt by
+``factory.prefill_chunk`` (token replay for the families without it;
+S_max 8), then 4 greedy decode steps, which cross from one sequence
+shard to the next.  The cases, on granite unless named:
 
   * heads: 2 KV heads, split on ``model`` (the cache's KV dim);
   * seq: one KV head, so the sequence splits on ``model`` and each rank
     combines its partial softmax with the others' (compute-dtype cache
     and int8 cache with its scales);
   * odd batch: B 3 does not divide ``data``, so the batch stays whole
-    and the sequence splits over (data, model).
+    and the sequence splits over (data, model);
+  * heads_moe: phi3.5-moe, each rank running its ``n_experts / model``
+    experts (gathered along ``data`` only: no gather along ``model``
+    returns an expert axis whole); at (2, 2) the decode group (the global
+    batch of 4) spans the two data ranks;
+  * heads_vlm: qwen2-vl, M-RoPE positions from the local sequences'
+    lengths.
 
 Each step's greedy tokens equal the world-size-1 step's and its logits
 are within 1e-5 (max |diff| / max |ref|); after the steps each rank's
@@ -39,13 +46,16 @@ LOGIT_REL_TOL = 1e-5
 CACHE_REL_TOL = 1e-6
 TIMEOUT_S = 300
 MESHES = ((2, 2), (1, 2))
-# name -> (config overrides, batch)
+# name -> (arch, config overrides, batch)
 CASES = {
-    "heads": ({}, 4),
-    "heads_int8": ({"kv_cache_dtype": "int8"}, 4),
-    "seq": ({"n_kv_heads": 1}, 4),
-    "seq_int8": ({"n_kv_heads": 1, "kv_cache_dtype": "int8"}, 4),
-    "odd_batch": ({"n_kv_heads": 1}, 3),
+    "heads": ("granite-3-2b", {}, 4),
+    "heads_int8": ("granite-3-2b", {"kv_cache_dtype": "int8"}, 4),
+    "seq": ("granite-3-2b", {"n_kv_heads": 1}, 4),
+    "seq_int8": ("granite-3-2b", {"n_kv_heads": 1, "kv_cache_dtype": "int8"},
+                 4),
+    "odd_batch": ("granite-3-2b", {"n_kv_heads": 1}, 3),
+    "heads_moe": ("phi3.5-moe-42b-a6.6b", {}, 4),
+    "heads_vlm": ("qwen2-vl-2b", {}, 4),
 }
 PROMPT, STEPS, MAX_LEN = 3, 4, 8
 
@@ -73,16 +83,29 @@ _WORKER = textwrap.dedent("""
         return float((a.double() - b.double()).abs().max()
                      / max(float(b.double().abs().max()), 1e-30))
 
-    for name, (over, b) in cases.items():
-        cfg = get_config("granite-3-2b", reduced=True).replace(**over)
+    gathered = []
+
+    def spy(t, spec, mesh_, axes):
+        out = gather_along(t, spec, mesh_, axes)
+        gathered.append(list(out.shape))
+        return out
+
+    gather_along, PP.gather_along = PP.gather_along, spy
+    for name, (arch, over, b) in cases.items():
+        cfg = get_config(arch, reduced=True).replace(**over)
         gen = torch.Generator().manual_seed(0)
         params = factory.init_params(cfg, gen, device="cpu")
         prompt = torch.randint(0, cfg.vocab_size, (b, %(prompt)d),
                                generator=gen, dtype=torch.int32)
         cache = factory.init_cache(cfg, b, %(max_len)d, device="cpu")
         with torch.no_grad():
-            _, cache = factory.prefill_chunk(cfg, params, cache,
-                                             {"tokens": prompt})
+            if factory.supports_chunked_prefill(cfg):
+                _, cache = factory.prefill_chunk(cfg, params, cache,
+                                                 {"tokens": prompt})
+            else:
+                for j in range(%(prompt)d):
+                    _, cache = factory.decode_step(
+                        cfg, params, cache, {"tokens": prompt[:, j:j + 1]})
         tok = {"tokens": prompt[:, -1:]}
         step, sp, cs, bs = make_serve_step(cfg, mesh, params, cache, tok)
         placed_p = PP.logical_to_sharding(params, sp, mesh)
@@ -97,6 +120,7 @@ _WORKER = textwrap.dedent("""
         kept = all(torch.equal(placed_c[k].to_local(), v)
                    for k, v in keep.items())
         want_c, errs, same = cache, [], []
+        del gathered[:]
         for _ in range(%(steps)d):
             nxt, logits, placed_c = step(placed_p, placed_c,
                                          PP.logical_to_sharding(tok, bs,
@@ -125,7 +149,13 @@ _WORKER = textwrap.dedent("""
             "shapes": shapes, "kept": kept,
             "donated": all(placed_c[k] is v for k, v in kv_before.items()),
             "cache_spec": [list(PP.axis_names(a)) for a in cs["k"]],
-            "split": [PP.mesh_axis_size(mesh, a) > 1 for a in cs["k"]]}
+            "split": [PP.mesh_axis_size(mesh, a) > 1 for a in cs["k"]],
+            # the leading dim of each (E, D, F) / (E, F, D) expert leaf
+            # the steps gathered
+            "expert_rows": sorted({s[0] for s in gathered if s[1:] in (
+                [cfg.d_model, cfg.d_ff], [cfg.d_ff, cfg.d_model])}),
+            "n_experts": cfg.n_experts,
+            "model": PP.mesh_axis_size(mesh, "model")}
     if rank == 0:
         json.dump(res, open(out, "w"))
     dist.destroy_process_group()
@@ -197,3 +227,7 @@ def test_decode_holds_only_its_shards(runs, shape, name):
         assert s_ax == ["model"] and s_split and not kv_split
     if shape[0] > 1 and name != "odd_batch":
         assert b_ax == ["data"] and b_split
+    if name == "heads_moe":
+        assert res["expert_rows"] == [res["n_experts"] // res["model"]]
+    else:
+        assert res["expert_rows"] == []
