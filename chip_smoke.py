@@ -322,16 +322,30 @@ DRYRUN_STEPS = 2                        # (b), (c): the second is timed
 DRYRUN_PEAK_TOL, DRYRUN_FLOP_TOL = 0.15, 0.02
 # (d): the dry run's launcher on production cells (fake 256-rank groups),
 # the sharded steps: the train step (ZeRO-3 on data, TP on model, for
-# phi3.5-moe the experts on model) and the decode step (a layer's params
-# gathered at a time, a MoE layer's experts along data only, the int8
-# cache sequence-sharded); granite's must fit the card, phi3.5-moe's
-# print their peak and fits_card
+# phi3.5-moe the experts on model) and the decode step (tensor-parallel
+# products over (data, model), a MoE layer's experts on model and their
+# F on data, the int8 cache sequence-sharded); granite's must fit the
+# card, phi3.5-moe's print their peak and fits_card
 DRYRUN_ARCHS = (TRAIN_ARCH, "phi3.5-moe-42b-a6.6b")
 DRYRUN_CLIS = {
     f"cli_{arch}_{shape}": ("-m", "repro_torch.launch.dryrun", "--arch",
                             arch, "--shape", shape, "--mesh", "single",
                             "--force")
     for arch in DRYRUN_ARCHS for shape in ("train_4k", "decode_32k")}
+# (d)'s decode_32k cells, per device, when the decode step gathered every
+# layer's weights (the dry run of the tree before the tensor-parallel
+# products, CPU): dot FLOPs, dot bytes, collective operand bytes and calls
+# by kind; printed beside this run's.  The new step all-gathers
+# activations only: at most DRYRUN_DECODE_GATHER_SHARE of the old bytes
+GATHERED_DECODE = {
+    TRAIN_ARCH: {"dot_flops": 4.591e10, "dot_bytes": 10.30e9,
+                 "all-gather": (0.334e9, 403), "all-reduce": (2.703e6, 120),
+                 "reduce-scatter": (0.0, 0)},
+    "phi3.5-moe-42b-a6.6b": {"dot_flops": 1.330e11, "dot_bytes": 20.02e9,
+                             "all-gather": (0.518e9, 261),
+                             "all-reduce": (6.359e6, 192),
+                             "reduce-scatter": (0.0, 0)}}
+DRYRUN_DECODE_GATHER_SHARE = 0.05
 # the train phase's step (a) in two whole runs of this script before the
 # dense family's sharded path (NVIDIA H100 80GB HBM3, 700 W): printed
 # beside this run's
@@ -3419,7 +3433,34 @@ def dryrun_cells(ctx) -> dict:
         need(cell["fits_card"] or arch != TRAIN_ARCH, f"[dryrun:d] {arch} "
              f"x {shape} on 16 x 16: peak {peak:.2f} GB does not fit the "
              "card")
+        if shape == "decode_32k":
+            rec[f"{arch}|{shape}"]["gathered"] = decode_vs_gathered(arch, h)
     return rec
+
+
+def decode_vs_gathered(arch: str, h: dict) -> dict:
+    """A (d) decode_32k cell's dot FLOPs, dot bytes and collectives beside
+    ``GATHERED_DECODE``'s (the decode step that gathered every layer's
+    weights); needs its all-gather bytes at most
+    ``DRYRUN_DECODE_GATHER_SHARE`` of those: no weight is gathered."""
+    old = GATHERED_DECODE[arch]
+    new = {"dot_flops": h["dot_flops"], "dot_bytes": h["dot_bytes"],
+           **{k: (h["collective_bytes"][k], h["collective_counts"][k])
+              for k in ("all-gather", "all-reduce", "reduce-scatter")}}
+    coll = "; ".join(f"{k} {old[k][0] / 1e9:.4g} GB ({old[k][1]}) -> "
+                     f"{new[k][0] / 1e9:.4g} GB ({new[k][1]})"
+                     for k in ("all-gather", "all-reduce", "reduce-scatter"))
+    log(f"[dryrun:d] {arch} x decode_32k against the step that gathered "
+        f"its weights: dot FLOPs {old['dot_flops']:.4g} -> "
+        f"{new['dot_flops']:.4g}, dot bytes {old['dot_bytes'] / 1e9:.4g} -> "
+        f"{new['dot_bytes'] / 1e9:.4g} GB; {coll}")
+    need(new["all-gather"][0]
+         <= DRYRUN_DECODE_GATHER_SHARE * old["all-gather"][0],
+         f"[dryrun:d] {arch} x decode_32k all-gathers "
+         f"{new['all-gather'][0] / 1e9:.4g} GB a step: more than "
+         f"{DRYRUN_DECODE_GATHER_SHARE} of the weight-gathering step's "
+         f"{old['all-gather'][0] / 1e9:.4g}")
+    return {"before": old, "after": new}
 
 
 def phase_dryrun(ctx) -> dict:
@@ -3435,7 +3476,8 @@ def phase_dryrun(ctx) -> dict:
     phi3.5-moe x train_4k and x decode_32k on the 16 x 16 mesh (fake
     256-rank groups; the sharded steps) exits 0 with status ok, granite's
     with ``fits_card``, each cell's peak, ``fits_card``, dot FLOPs and
-    collective bytes by kind printed."""
+    collective bytes by kind printed, the decode_32k cells beside the
+    weight-gathering step's and with no weight all-gathered."""
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import make_local_mesh
     torch = ctx["torch"]

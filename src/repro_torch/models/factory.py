@@ -10,10 +10,11 @@ over the six families.
 
 The families of ``SHARDED_FAMILIES`` (the dense decoder, MoE and VLM)
 also run on each rank's shards of a mesh (``apply_train_sharded``,
-``loss_fn(..., layout=)``, ``decode_step_sharded``); the others' sharded
-steps gather their params first.  ``split`` (``moe.Split``) says where a
-rank's batch sits in the global batch: the MoE family's dispatch groups
-are the global batch's.
+``loss_fn(..., layout=)``, ``decode_step_sharded``: tensor-parallel
+products, no param leaf gathered); the others' sharded steps gather
+their params first.  ``split`` (``moe.Split``) says where a rank's batch
+sits in the global batch: the MoE family's dispatch groups are the
+global batch's.
 """
 from __future__ import annotations
 
@@ -92,16 +93,18 @@ def apply_train_sharded(cfg: ModelConfig, params: dict, batch: dict, layout,
 
 
 def decode_step_sharded(cfg: ModelConfig, params: dict, cache: dict,
-                        batch: dict, playout, clayout, donate: bool = True,
-                        split=None):
-    """``decode_step`` on this rank's shards of params and cache (placed
-    by ``playout`` / ``clayout``) and its tokens -> (this rank's logits
-    (B_local, 1, V), the new local cache)."""
+                        batch: dict, playout, clayout, donate: bool = True):
+    """``decode_step`` as tensor-parallel products on this rank's shards
+    of params and cache (placed by ``playout`` / ``clayout``) and its
+    tokens (B_local, 1) -> (logits, the new local cache, the logits'
+    spec).  The logits are this rank's piece of the whole batch's: where
+    the vocab is split (the embedding or lm_head on (``data``,
+    ``model``)), its V shard for the rows gathered along the batch axes
+    that split the vocab too; else all of V for its local rows.  The
+    spec (rows, None, vocab) names the axes along which the pieces
+    differ (``serve_step.make_serve_step`` gathers along them)."""
     if cfg.family not in SHARDED_FAMILIES:
         raise ValueError(f"family {cfg.family!r} has no sharded decode")
-    if cfg.family == "moe":
-        return moe.decode_step_sharded(cfg, params, cache, batch, playout,
-                                       clayout, donate, split)
     return get_family(cfg).decode_step_sharded(cfg, params, cache, batch,
                                                playout, clayout, donate)
 

@@ -15,7 +15,8 @@ whatever the sharding: where a rank holds part of the batch
 (``Split``), a group that spans ranks counts its tokens' queue places
 and its aux statistics across them (``moe_block``).  On a mesh the
 experts split on ``model`` (expert parallelism: ``moe_tp``,
-``forward_sharded``, ``decode_step_sharded``).
+``forward_sharded``), and at decode their F dim on ``data`` too
+(``decode_tp``, ``decode_step_sharded``).
 """
 from __future__ import annotations
 
@@ -31,8 +32,8 @@ from repro_torch.models import transformer as T
 from repro_torch.sharding import partition as P
 
 __all__ = ["init_params", "forward", "init_cache", "decode_step",
-           "moe_block", "moe_tp", "forward_sharded", "decode_step_sharded",
-           "Split"]
+           "moe_block", "moe_tp", "decode_tp", "forward_sharded",
+           "decode_step_sharded", "Split"]
 
 
 def init_moe_layer(cfg: ModelConfig, gen, lead: tuple, device) -> dict:
@@ -81,12 +82,25 @@ def _route(cfg: ModelConfig, router: torch.Tensor, x: torch.Tensor):
     return probs, top_p, F.one_hot(top_e, cfg.n_experts).float()
 
 
+def _expert_ffn(cfg: ModelConfig, p: dict, xe):
+    """The experts' gated FFN on their dispatched tokens: xe (E, C, D) ->
+    (E, C, D)."""
+    cd = cfg.cdtype
+    act = L.act_fn(cfg.activation)
+    h = (act(torch.einsum("ecd,edf->ecf", xe, p["w_gate"].to(cd)))
+         * torch.einsum("ecd,edf->ecf", xe, p["w_up"].to(cd)))
+    return torch.einsum("ecf,efd->ecd", h, p["w_down"].to(cd))
+
+
 def _experts(cfg: ModelConfig, p: dict, x, top_p, sel, cap: int,
-             experts: tuple, offset=None):
+             experts: tuple, offset=None, ffn=None):
     """The experts [lo, hi) = ``experts`` (``p``'s w_* hold just those) on
     the tokens x (T, D) that ``sel`` routes to them -> y (T, D), their
     share of the combined output.  ``offset`` (E,): the slots each
-    expert's queue already holds from the group's tokens before these."""
+    expert's queue already holds from the group's tokens before these.
+    ``ffn(xe)`` maps the dispatched tokens (E, C, D) to the experts'
+    outputs (E, C, D') (``_expert_ffn`` unless given: the sharded decode
+    step passes its products on a slice of each expert)."""
     t, k, e = sel.shape
     lo, hi = experts
     if (lo, hi) != (0, e):
@@ -106,10 +120,7 @@ def _experts(cfg: ModelConfig, p: dict, x, top_p, sel, cap: int,
     combine = torch.einsum("tkec,tk->tec", pos_oh, top_p)
 
     xe = torch.einsum("tec,td->ecd", dispatch.to(cd), x.to(cd))
-    act = L.act_fn(cfg.activation)
-    h = (act(torch.einsum("ecd,edf->ecf", xe, p["w_gate"].to(cd)))
-         * torch.einsum("ecd,edf->ecf", xe, p["w_up"].to(cd)))
-    ye = torch.einsum("ecf,efd->ecd", h, p["w_down"].to(cd))
+    ye = _expert_ffn(cfg, p, xe) if ffn is None else ffn(xe)
     y = torch.einsum("tec,ecd->td", combine.to(cd), ye)
     return y.to(x.dtype)
 
@@ -124,11 +135,13 @@ def _aux(cfg: ModelConfig, me, ce, experts: tuple):
     return e * torch.sum(me * ce) / k
 
 
-def _group_moe(cfg: ModelConfig, p: dict, x: torch.Tensor, experts: tuple):
+def _group_moe(cfg: ModelConfig, p: dict, x: torch.Tensor, experts: tuple,
+               ffn=None):
     """One dispatch group whole on this rank: x (Tg, D) -> (y (Tg, D),
     aux loss)."""
     probs, top_p, sel = _route(cfg, p["router"], x)
-    y = _experts(cfg, p, x, top_p, sel, capacity(cfg, x.shape[0]), experts)
+    y = _experts(cfg, p, x, top_p, sel, capacity(cfg, x.shape[0]), experts,
+                 ffn=ffn)
     # Switch-style load-balance aux loss: mean router prob times the
     # routed share
     return y, _aux(cfg, probs.mean(dim=0), sel.sum(dim=1).mean(dim=0),
@@ -176,7 +189,8 @@ def _spanning_groups(cfg: ModelConfig, p: dict, flat: torch.Tensor,
 
 
 def moe_block(cfg: ModelConfig, p: dict, x: torch.Tensor,
-              split: Split | None = None, experts: tuple | None = None):
+              split: Split | None = None, experts: tuple | None = None,
+              ffn=None):
     """x (B, S, D) -> (y, aux): the tokens in the reference's groups of
     ``tg = min(moe_group_size, B_global·S)`` consecutive tokens of the
     global batch (the last zero-padded), the aux loss averaged over the
@@ -188,13 +202,15 @@ def moe_block(cfg: ModelConfig, p: dict, x: torch.Tensor,
         ``moe_group_size``, or one rank) the groups run here, with no
         collective: the step's mean over the data-parallel ranks of each
         rank's mean aux is the mean over all groups;
-      * else (e.g. decode, whose one group is the global batch) a group
-        spans ranks: ``_spanning_groups``, with the global queue
-        positions and aux statistics.
+      * else (a group longer than a rank's tokens, e.g. short
+        sequences) a group spans ranks: ``_spanning_groups``, with the
+        global queue positions and aux statistics.
 
     ``experts`` = [lo, hi) runs only those experts (``p``'s w_* hold just
     them: expert parallelism) and returns their share of y and of the
-    aux loss; the routing is every expert's."""
+    aux loss; the routing is every expert's.  ``ffn``: the experts'
+    products on the dispatched tokens (``_experts``), for groups whole
+    on this rank."""
     b, s, d = x.shape
     n = b * s
     parts = 1 if split is None else P.mesh_axis_size(split.mesh, split.axes)
@@ -208,10 +224,10 @@ def moe_block(cfg: ModelConfig, p: dict, x: torch.Tensor,
     flat = F.pad(x.reshape(n, d), (0, 0, 0, (-n) % tg))
     ys, aux = [], torch.zeros((), dtype=torch.float32, device=x.device)
     for g in range(flat.shape[0] // tg):
-        y, a = _group_moe(cfg, p, flat[g * tg:(g + 1) * tg], experts)
+        y, a = _group_moe(cfg, p, flat[g * tg:(g + 1) * tg], experts, ffn)
         ys.append(y)
         aux = aux + a
-    y = torch.cat(ys)[:n].reshape(b, s, d)
+    y = torch.cat(ys)[:n].reshape(b, s, -1)
     return y, aux / len(ys)
 
 
@@ -231,8 +247,7 @@ def moe_tp(cfg: ModelConfig, p: dict, x: torch.Tensor, mesh,
     No all-to-all: under TP the residual stream is replicated along
     ``model``, so each rank already holds every token its experts need.
     The reference's partitioner may move tokens instead; the function is
-    the same.  Where ``p`` holds every expert (one rank on ``model``, or
-    decode experts replicated because ``n_experts`` does not divide it)
+    the same.  Where ``p`` holds every expert (one rank on ``model``)
     this is ``moe_block``."""
     if p["w_gate"].shape[0] == cfg.n_experts:
         return moe_block(cfg, p, x, split)
@@ -319,20 +334,54 @@ def forward_sharded(cfg: ModelConfig, params: dict, batch: dict, layout,
     return logits, aux / cfg.n_layers
 
 
-def decode_step_sharded(cfg: ModelConfig, params: dict, cache: dict,
-                        batch: dict, playout, clayout, donate: bool = True,
-                        split: Split | None = None):
-    """``decode_step`` on this rank's shards (``transformer.
-    decode_step_sharded``'s attention and cache): each layer's experts
-    gathered along ``data`` only, the rank's own experts run on its
-    tokens (every expert where ``n_experts`` does not divide ``model``),
-    their shares summed over ``model``.  A decode group is the global
-    batch, so with the batch split (``split``) its queue positions come
-    from the ranks' routed counts (``moe_block``)."""
-    mesh = playout.mesh
+def decode_tp(cfg: ModelConfig, p: dict, sp: dict, hn, mesh, b_ax):
+    """The MoE block of one decode token on this rank's expert shards at
+    the serving layout (``serve_param_pspecs``: experts on ``model``, the
+    expert F dim on ``data``; at ``global_batch == 1`` the w_gate / w_up
+    D dim and w_down's output on ``data``), ``sp`` their specs.  The
+    rows are all-gathered along the batch axes ``b_ax``, so the whole
+    decode group (the global batch) is on every rank and its dispatch,
+    capacity and drops are the reference's with no count exchanged
+    (``moe_block`` without a ``Split``).  Each rank runs its experts'
+    slice on every token: where D is split the gate / up partials are
+    summed over its axes (one all-reduce) before the activation.  y is
+    summed over the axes of the experts and F and left as the local
+    batch's rows (``partition.sum_to_shard``), its D columns gathered
+    where w_down splits them.  ``moe_block`` on the local rows on one
+    rank."""
+    (e_ax, d_ax, f_ax), o_ax = sp["w_gate"], sp["w_down"][-1]
+    if not any(P.sharded_axes(s, mesh) for s in (sp["w_gate"],
+                                                sp["w_down"], (b_ax,))):
+        return moe_block(cfg, p, hn)[0]
+    experts = (T._model_part(mesh, cfg.n_experts)
+               if P.axis_names(e_ax) == ("model",) else None)
+    cd = cfg.cdtype
+    act = L.act_fn(cfg.activation)
 
-    def mlp(lp, hn):
-        return moe_tp(cfg, lp["moe"], hn, mesh, split)[0]
+    def ffn(xe):
+        xe = P.local_slice(xe, (None, None, d_ax), mesh)
+        gu = torch.stack([torch.einsum("ecd,edf->ecf", xe, p[n].to(cd))
+                          for n in ("w_gate", "w_up")])
+        g, u = P.all_reduce(gu, mesh, d_ax).unbind(0)
+        return torch.einsum("ecf,efd->ecd", act(g) * u, p["w_down"].to(cd))
+
+    y = moe_block(cfg, p, T.gather_rows(hn, mesh, b_ax), None, experts,
+                  ffn)[0]
+    y = P.sum_to_shard(y, mesh, P.axis_names(e_ax) + P.axis_names(f_ax), 0,
+                       b_ax)
+    return P.gather_along(y, (None, None, o_ax), mesh, P.axis_names(o_ax))
+
+
+def decode_step_sharded(cfg: ModelConfig, params: dict, cache: dict,
+                        batch: dict, playout, clayout, donate: bool = True):
+    """``decode_step`` on this rank's shards (``transformer.
+    decode_step_sharded``'s embedding, attention, cache and logits), the
+    MoE block ``decode_tp`` on the rank's experts' slices over the whole
+    decode group."""
+    mesh, b_ax = playout.mesh, clayout.specs["k"][1]
+
+    def ffn(lp, sp, hn):
+        return decode_tp(cfg, lp["moe"], sp["moe"], hn, mesh, b_ax)
 
     return T.decode_step_sharded(cfg, params, cache, batch, playout,
-                                 clayout, donate, mlp)
+                                 clayout, donate, ffn)

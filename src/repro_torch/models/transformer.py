@@ -12,8 +12,9 @@ for training: ``remat_wrap`` around the layer body and ``layer_list``.
 On a mesh the dense family (the VLM flavour too, and the MoE family with
 its own feed-forward block) also runs on each rank's shards:
 ``forward_sharded`` (ZeRO-3 on ``data``, tensor parallelism on
-``model``) and ``decode_step_sharded`` (a layer's params gathered at a
-time over a cache split by batch and by KV heads or sequence).
+``model``) and ``decode_step_sharded`` (tensor-parallel products over
+(``data``, ``model``) on the serving layout, over a cache split by batch
+and by KV heads or sequence).
 
 Params are the reference's dict layout: layer leaves stacked along a
 leading layer axis, projections stored (d_in, d_out).
@@ -28,7 +29,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.sharding import partition as P
-from repro_torch.tree import tree_map
+from repro_torch.tree import flatten, tree_map
 
 __all__ = ["init_params", "forward", "init_cache", "decode_step",
            "prefill_chunk", "init_attn_layer", "init_mlp_layer", "init_norm",
@@ -36,7 +37,7 @@ __all__ = ["init_params", "forward", "init_cache", "decode_step",
            "attn_decode_core", "attn_decode_apply", "attn_prefill_core",
            "attn_prefill_apply", "splice_rows", "mlp_apply", "layer_slice",
            "layer_list", "remat_wrap", "tp_divides", "forward_sharded",
-           "decode_step_sharded"]
+           "decode_step_sharded", "gather_rows"]
 
 
 def normal(gen, shape, scale, dtype, device):
@@ -577,18 +578,24 @@ def _attn_tp(cfg: ModelConfig, p: dict, x, positions, mesh,
     return P.reduce_from(L.dense(out, p["wo"]), mesh)
 
 
+def _vocab_rows(embed, tokens, mesh, axis):
+    """The rows of ``tokens`` that this rank's vocab shard ``embed`` (split
+    on ``axis``) holds, the others' tokens as zero rows."""
+    n = embed.shape[0]
+    idx = tokens.long() - P.axis_index(mesh, axis) * n
+    own = (idx >= 0) & (idx < n)
+    rows = embed[torch.where(own, idx, torch.zeros_like(idx))]
+    return torch.where(own[..., None], rows, torch.zeros_like(rows))
+
+
 def _embed_tp(cfg: ModelConfig, embed, tokens, mesh):
     """The vocab-parallel lookup: this rank's rows of the embedding
     (split on ``model``), the others' tokens masked to zero, summed over
     ``model``."""
     if P.mesh_axis_size(mesh, "model") == 1:
         return embed_tokens(cfg, {"embed": embed}, tokens)
-    n = embed.shape[0]
-    idx = tokens.long() - P.axis_index(mesh, "model") * n
-    own = (idx >= 0) & (idx < n)
-    rows = embed[torch.where(own, idx, torch.zeros_like(idx))]
-    rows = torch.where(own[..., None], rows, torch.zeros_like(rows))
-    return P.reduce_from(rows, mesh).to(cfg.cdtype)
+    return P.reduce_from(_vocab_rows(embed, tokens, mesh, "model"),
+                         mesh).to(cfg.cdtype)
 
 
 def forward_sharded(cfg: ModelConfig, params: dict, batch: dict,
@@ -668,94 +675,187 @@ def _forward_sharded(cfg: ModelConfig, params: dict, batch: dict, layout,
     return logits_from_hidden(cfg, top, h, mesh), aux
 
 
+def gather_rows(x, mesh, b_ax, axes=None):
+    """The rank-local batch ``x`` (B_local, ...) all-gathered along the
+    axes ``axes`` of the batch's spec entry ``b_ax`` (all of them unless
+    given; they must be its minor axes): the rows of every rank along
+    them, in the global order."""
+    take = P.axis_names(b_ax) if axes is None else axes
+    spec = (b_ax,) + (None,) * (x.dim() - 1)
+    return P.gather_along(x, spec, mesh, take)
+
+
+def _row_axes(b_ax, axes) -> tuple:
+    """The axes of the batch's spec entry ``b_ax`` that also split a
+    weight dim placed on ``axes``: the ranks along them multiply one
+    weight shard each, so they need each other's rows."""
+    names = P.axis_names(axes)
+    return tuple(a for a in P.axis_names(b_ax) if a in names)
+
+
+def _mlp_tp(cfg: ModelConfig, p: dict, sp: dict, hn, mesh, b_ax):
+    """The dense MLP on this rank's d_ff slice (``w_up`` / ``w_gate``
+    columns and ``w_down`` rows, split on the same axes, (``data``,
+    ``model``) at ``serve_param_pspecs``) of the rows gathered along the
+    batch axes among them: the partial ``w_down`` products summed over
+    those axes and left as this rank's rows (a reduce-scatter along the
+    batch axes, an all-reduce along the others).  ``mlp_apply`` on the
+    local rows where d_ff is not split."""
+    f_ax = sp["w_up"][-1]
+    if not P.sharded_axes((f_ax,), mesh):
+        return mlp_apply(cfg, p, hn)
+    take = _row_axes(b_ax, f_ax)
+    y = mlp_apply(cfg, p, gather_rows(hn, mesh, b_ax, take))
+    return P.sum_to_shard(y, mesh, f_ax, 0, take)
+
+
+def _columns_of(spec_entry, mesh, width: int) -> tuple:
+    """The columns [lo, hi) of a ``width`` that a leaf dim placed on
+    ``spec_entry`` (``model`` or None: the attention leaves) holds here."""
+    if P.axis_names(spec_entry) == ("model",):
+        return _model_part(mesh, width)
+    if P.sharded_axes((spec_entry,), mesh):
+        raise ValueError(f"an attention dim split on {spec_entry}")
+    return 0, width
+
+
+def _attn_decode_tp(cfg: ModelConfig, p: dict, sp: dict, hn, kc, vc, ks,
+                    vs, lens, mesh, kv_heads: tuple, seq, positions3):
+    """One decode token's attention on this rank's weight shards and its
+    cache shard: the KV heads ``kv_heads`` = [lo, hi) (this rank's where
+    the cache splits the heads on ``model``, else all of them over a
+    sequence shard, ``seq``) and their q heads.
+
+      * q / k / v: ``hn``'s columns narrowed to the rows of wq / wk / wv
+        where their contraction dim is split (the ``global_batch == 1``
+        layout: on ``data``), the three partial products summed over
+        those axes in one all-reduce, the biases added; then each
+        resharded to the heads this rank attends (``_columns``: a slice
+        where the rank's column shard holds them, the Megatron case,
+        else an all-gather of the activation along ``model``).
+      * RoPE (M-RoPE with ``positions3``), the cache write on the rank
+        that holds position ``len`` and the attention over the shard
+        (``attn_decode_core``; a split sequence combines the ranks'
+        partial softmax).
+      * wo: the output's columns that match wo's local rows, times them,
+        summed over the axes that split those rows; wo's output columns
+        (split on ``data`` at ``global_batch == 1``) all-gathered.
+
+    Returns (out (B, 1, D), kc, vc, ks, vs)."""
+    b, hd = hn.shape[0], cfg.hd
+    n_rep = cfg.n_heads // cfg.n_kv_heads
+    q_w, kv_w = cfg.n_heads * hd, cfg.n_kv_heads * hd
+    kv_lo, kv_hi = kv_heads
+    q_lo, q_hi = kv_lo * n_rep, kv_hi * n_rep
+    k_ax = sp["wq"][0]
+    x = P.local_slice(hn, (None, None, k_ax), mesh)
+    names = ("wq", "wk", "wv")
+    ys = [L.dense(x, p[n]) for n in names]
+    if P.mesh_axis_size(mesh, k_ax) > 1:
+        widths = [y.shape[-1] for y in ys]
+        ys = P.all_reduce(torch.cat(ys, -1), mesh, k_ax).split(widths, -1)
+
+    def heads(y, name, width, lo, hi):
+        bias = p.get("b" + name[1])
+        if bias is not None:
+            y = y + bias.to(y.dtype)
+        y = _columns(y, _columns_of(sp[name][-1], mesh, width),
+                     (lo * hd, hi * hd), width, mesh)
+        return y.reshape(b, 1, hi - lo, hd)
+
+    q = heads(ys[0], "wq", q_w, q_lo, q_hi)
+    k = heads(ys[1], "wk", kv_w, kv_lo, kv_hi)
+    v = heads(ys[2], "wv", kv_w, kv_lo, kv_hi)
+    out, kc, vc, ks, vs = attn_decode_core(
+        cfg, q, k, v, kc, vc, lens, ks, vs, positions3=positions3, seq=seq)
+    in_ax, out_ax = sp["wo"]
+    out = _columns(out.reshape(b, 1, (q_hi - q_lo) * hd),
+                   (q_lo * hd, q_hi * hd), _columns_of(in_ax, mesh, q_w),
+                   q_w, mesh)
+    y = P.all_reduce(L.dense(out, p["wo"]), mesh, in_ax)
+    y = P.gather_along(y, (None, None, out_ax), mesh, P.axis_names(out_ax))
+    return y, kc, vc, ks, vs
+
+
 def decode_step_sharded(cfg: ModelConfig, params: dict, cache: dict,
                         batch: dict, playout, clayout, donate: bool = True,
-                        mlp=None):
-    """One dense decode step on this rank's shards: ``params`` the local
-    tensors of a tree placed by ``playout`` (``serve_param_pspecs``),
-    ``cache`` by ``clayout`` (``cache_pspecs``: batch on the data axes,
-    KV heads on ``model`` where they divide, else the sequence), ``batch``
-    this rank's tokens (B_local, 1) (and ``positions3`` (3, B_local, 1)
-    for M-RoPE).
+                        ffn=None):
+    """One dense decode step as tensor-parallel products on this rank's
+    shards: ``params`` the local tensors of a tree placed by ``playout``
+    (``serve_param_pspecs``: TP over (``data``, ``model``), at
+    ``global_batch == 1`` the attention's contraction dim on ``data``
+    too), ``cache`` by ``clayout`` (``cache_pspecs``: batch on the data
+    axes, KV heads on ``model`` where they divide, else the sequence),
+    ``batch`` this rank's tokens (B_local, 1) (and ``positions3`` (3,
+    B_local, 1) for M-RoPE).
 
-    Each layer's params are all-gathered along every mesh axis just
-    before the layer and freed after; a MoE layer's experts (``moe``)
-    along every axis but ``model``, where they stay, and ``mlp(lp, hn)``
-    (the MoE family's block: ``moe.moe_tp``) runs in place of the dense
-    MLP.  Attention runs on the local batch
-    and the local KV heads (their q heads; the heads' outputs gathered
-    along the heads' axes) and positions: a sequence split over ranks
-    combines their partial softmax (``attn_decode_core``'s ``seq``), and
-    the new token's K / V land on the rank that holds position ``len``.
+    No param leaf moves: each product follows its leaf's spec, and only
+    activations do, at most B_global x the widest activation row a
+    collective.
+      * The embedding (V split): the tokens gathered along the batch axes
+        that split V, a vocab-parallel lookup of the rank's rows, summed
+        over V's axes and left as the local batch (``sum_to_shard``).
+      * Attention on the local batch (``_attn_decode_tp``): the rank's
+        KV heads and their q heads where the cache splits the heads,
+        else every head over the rank's sequence shard; wo's rows summed
+        over ``model``.
+      * The feed-forward block, ``ffn(lp, sp, hn)`` on a layer's local
+        params and their specs (the dense MLP's d_ff slice on the rows
+        gathered along the batch axes, ``_mlp_tp``, unless given: the
+        MoE family passes its own), returning the local batch's rows.
+      * The logits: this rank's V shard of the rows gathered along the
+        batch axes that split V.
     With ``donate`` the cache's K / V (and scale) leaves are written in
-    place and returned; ``len`` is always a new tensor.  Returns (this
-    rank's logits (B_local, 1, V), the new local cache).  On one rank it
-    is ``decode_step``, bit for bit."""
+    place and returned; ``len`` is always a new tensor.  Returns (the
+    logits (B_rows, 1, V_cols), the new local cache, the logits' spec:
+    the axes that split their rows and their vocab, along which
+    ``serve_step`` gathers them).  On one rank every collective is
+    skipped and it is ``decode_step``, bit for bit."""
     mesh, ps, cs = playout.mesh, playout.specs, clayout.specs
-    axes = tuple(mesh.mesh_dim_names)
-    off_model = tuple(a for a in axes if a != "model")
     positions3 = batch.get("positions3")
-    if mlp is None:
-        def mlp(lp, hn):
-            return mlp_apply(cfg, lp["mlp"], hn)
-
-    def gather(t, spec, along=axes):
-        return P.gather_along(t, spec, mesh, along)
-
-    def layer(i):
-        return {k: tree_map(lambda t, sp, k=k: gather(
-            t[i], sp[1:], off_model if k == "moe" else axes), v,
-            ps["layers"][k]) for k, v in params["layers"].items()}
+    _, b_ax, s_ax, kv_ax = cs["k"][:4]
+    if ffn is None:
+        def ffn(lp, sp, hn):
+            return _mlp_tp(cfg, lp["mlp"], sp["mlp"], hn, mesh, b_ax)
 
     tokens = batch["tokens"].to(params["embed"].device)
-    top = {"embed": gather(params["embed"], ps["embed"])}
-    h = embed_tokens(cfg, top, tokens)
-    if not cfg.tie_embeddings:
-        del top["embed"]            # untied: the lm_head makes the logits
-    _, b_ax, s_ax, kv_ax = cs["k"][:4]
+    e_ax = ps["embed"][0]
+    if P.sharded_axes((e_ax,), mesh):
+        take = _row_axes(b_ax, e_ax)
+        rows = _vocab_rows(params["embed"], gather_rows(tokens, mesh, b_ax,
+                                                        take), mesh, e_ax)
+        h = P.sum_to_shard(rows, mesh, e_ax, 0, take).to(cfg.cdtype)
+    else:
+        h = embed_tokens(cfg, params, tokens)
     lens = P.local_slice(cache["len"], (b_ax,), mesh)
     seq = None
     if P.mesh_axis_size(mesh, s_ax) > 1:
         seq = (P.axis_index(mesh, s_ax) * cache["k"].shape[2],
                lambda t: P.all_reduce(t, mesh, s_ax, "max"),
                lambda t: P.all_reduce(t, mesh, s_ax))
-    hd, n_rep = cfg.hd, cfg.n_heads // cfg.n_kv_heads
     n_kv = cache["k"].shape[3]
     kv_lo = P.axis_index(mesh, kv_ax) * n_kv
-    split_heads = P.mesh_axis_size(mesh, kv_ax) > 1
-
-    def cols(w, lo, hi):
-        return None if w is None else w[..., lo * hd:hi * hd]
+    lsp = tree_map(lambda sp: sp[1:], ps["layers"])
+    whole = (seq is None and P.mesh_axis_size(mesh, kv_ax) == 1
+             and not any(P.sharded_axes(sp, mesh)
+                         for _, sp in flatten(lsp["attn"])))
 
     def attn(p, hn, kc, vc, ks, vs):
-        if seq is None and not split_heads:
+        if whole:
             return attn_decode_apply(cfg, p, hn, kc, vc, lens, ks, vs,
                                      positions3=positions3)
-        b = hn.shape[0]
-        q_lo, q_hi = kv_lo * n_rep, (kv_lo + n_kv) * n_rep
-        q = L.dense(hn, cols(p["wq"], q_lo, q_hi), cols(p.get("bq"), q_lo,
-                                                        q_hi))
-        k = L.dense(hn, cols(p["wk"], kv_lo, kv_lo + n_kv),
-                    cols(p.get("bk"), kv_lo, kv_lo + n_kv))
-        v = L.dense(hn, cols(p["wv"], kv_lo, kv_lo + n_kv),
-                    cols(p.get("bv"), kv_lo, kv_lo + n_kv))
-        out, kc, vc, ks, vs = attn_decode_core(
-            cfg, q.reshape(b, 1, q_hi - q_lo, hd),
-            k.reshape(b, 1, n_kv, hd), v.reshape(b, 1, n_kv, hd), kc, vc,
-            lens, ks, vs, positions3=positions3, seq=seq)
-        out = P.gather_dim(out, 2, mesh, kv_ax)
-        out = L.dense(out.reshape(b, 1, cfg.n_heads * hd), p["wo"])
-        return out, kc, vc, ks, vs
+        return _attn_decode_tp(cfg, p, lsp["attn"], hn, kc, vc, ks, vs,
+                               lens, mesh, (kv_lo, kv_lo + n_kv), seq,
+                               positions3)
 
     names = [n for n in ("k", "v", "k_scale", "v_scale") if n in cache]
     new = {n: [] for n in names}
     for i in range(cfg.n_layers):
-        lp = layer(i)
+        lp = layer_slice(params["layers"], i)
         kv = [cache[n][i] for n in names] + [None] * (4 - len(names))
         a, *kv = attn(lp["attn"], _norm(cfg, lp["ln1"], h), *kv)
         h = h + a
-        h = h + mlp(lp, _norm(cfg, lp["ln2"], h))
-        del lp
+        h = h + ffn(lp, lsp, _norm(cfg, lp["ln2"], h))
         for n, t in zip(names, kv):
             if donate:
                 cache[n][i].copy_(t)
@@ -764,8 +864,12 @@ def decode_step_sharded(cfg: ModelConfig, params: dict, cache: dict,
     out = ({n: cache[n] for n in names} if donate
            else {n: torch.stack(ts) for n, ts in new.items()})
     out["len"] = cache["len"] + 1
-    top["final_norm"] = tree_map(gather, params["final_norm"],
-                                 ps["final_norm"])
-    if "lm_head" in params:
-        top["lm_head"] = gather(params["lm_head"], ps["lm_head"])
-    return logits_from_hidden(cfg, top, h), out
+    head = "embed" if cfg.tie_embeddings else "lm_head"
+    v_ax = ps[head][0 if cfg.tie_embeddings else -1]
+    take = _row_axes(b_ax, v_ax)
+    top = {"final_norm": params["final_norm"], head: params[head]}
+    logits = logits_from_hidden(cfg, top, gather_rows(h, mesh, b_ax, take))
+    # the rows stay split along the batch axes not gathered
+    left = tuple(a for a in P.axis_names(b_ax) if a not in take)
+    rows = None if not left else left[0] if len(left) == 1 else left
+    return logits, out, (rows, None, v_ax)

@@ -62,9 +62,10 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict, batch: dict):
 
 def decode_step_sharded(cfg: ModelConfig, params: dict, cache: dict,
                         batch: dict, playout, clayout, donate: bool = True):
-    """``decode_step`` on this rank's shards (``transformer.
-    decode_step_sharded``), the positions derived from the local
-    sequences' ``len`` unless the batch carries ``positions3``."""
+    """``decode_step`` as tensor-parallel products on this rank's shards
+    (``transformer.decode_step_sharded``: attention on the local batch),
+    the M-RoPE positions derived from the local sequences' ``len`` unless
+    the batch carries ``positions3``."""
     if "positions3" not in batch:
         b = batch["tokens"].shape[0]
         lens = P.local_slice(cache["len"], (clayout.specs["k"][1],),

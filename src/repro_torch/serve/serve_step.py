@@ -8,7 +8,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import sparse_model
-from repro_torch.models import factory, moe
+from repro_torch.models import factory
 from repro_torch.sharding import partition
 from repro_torch.tree import tree_map
 
@@ -78,12 +78,15 @@ def make_serve_step(cfg: ModelConfig, mesh, params_shapes, cache_shapes,
 
     The dense, MoE and VLM families (``factory.SHARDED_FAMILIES``) keep
     params and cache at their shards: each rank decodes its part of the
-    batch (``factory.decode_step_sharded``: every layer's params gathered
-    just before the layer, a MoE layer's experts along ``data`` only,
-    each rank running its own and summing over ``model``; attention on
-    the local KV heads or positions, a sequence split over ranks
-    combined by partial-softmax all-reduces), then the logits are
-    gathered along the batch axes.
+    batch as tensor-parallel products (``factory.decode_step_sharded``:
+    no param leaf gathered; each product on the rank's weight shard, the
+    activations gathered along the batch axes where a weight dim splits
+    over them and the partial products summed back to the local batch;
+    attention on the local KV heads or positions, a sequence split over
+    ranks combined by partial-softmax all-reduces; a MoE layer's experts
+    on ``model`` and their F dim on ``data`` over the whole decode
+    group), then the logits are gathered: their vocab shards where the
+    vocab is split, else the batch.
     With ``donate_cache`` (the reference's donated cache) the cache's
     K / V leaves are updated in place and returned (``len`` is a new
     tensor).  The other families run ``serve_step_fn`` on the full values
@@ -101,12 +104,12 @@ def make_serve_step(cfg: ModelConfig, mesh, params_shapes, cache_shapes,
 
     @torch.no_grad()
     def sharded(params: dict, cache: dict, batch: dict):
-        b_ax = partition.spec_of(batch["tokens"])[0]
-        logits, new = factory.decode_step_sharded(
+        logits, new, lspec = factory.decode_step_sharded(
             cfg, local(params), local(cache), local(batch),
             partition.Layout.of(params), partition.Layout.of(cache),
-            donate_cache, moe.Split(mesh, b_ax))
-        logits = partition.gather_dim(logits, 0, mesh, b_ax)
+            donate_cache)
+        logits = partition.gather_along(logits, lspec, mesh,
+                                        mesh.mesh_dim_names)
         nxt = sample_tokens(cfg, logits[:, -1, :], 0.0)
         out = {k: v if donate_cache and k != "len" else DTensor.from_local(
             new[k], mesh, v.placements, run_check=False)

@@ -22,7 +22,9 @@ The collectives of a placement run a sharded step on each rank's local
 tensors: ``gather_along`` (all-gather a shard along named mesh axes),
 ``reduce_scatter_to`` (the mean over named axes, left as this rank's
 shard), ``local_slice`` (this rank's shard of a value every rank holds),
-and the autograd pairs the sharded steps are written with
+``sum_to_shard`` (the sum of partial products over named axes, left as
+this rank's rows of an activation gathered along the batch axes), and
+the autograd pairs the sharded steps are written with
 (``fsdp_gather``, ``copy_to``, ``reduce_from``, ``gather_dim``, and
 ``psum`` for the MoE family's statistics over a dispatch group that
 spans the data-parallel ranks).  They run on the mesh's axis subgroups
@@ -47,8 +49,8 @@ __all__ = [
     "paged_cache_pspecs", "sparse_pack_pspecs", "named",
     "logical_to_sharding", "full_value", "Layout", "spec_of",
     "axis_names", "axis_index", "sharded_axes", "gather_along",
-    "reduce_scatter_to", "local_slice", "all_reduce", "fsdp_gather",
-    "copy_to", "reduce_from", "gather_dim", "psum",
+    "reduce_scatter_to", "local_slice", "all_reduce", "sum_to_shard",
+    "fsdp_gather", "copy_to", "reduce_from", "gather_dim", "psum",
 ]
 
 
@@ -500,6 +502,30 @@ def reduce_scatter_to(g, spec, mesh, axes):
     n = mesh_axis_size(mesh, tuple(axes))
     g = _reduce_scatter_sum(g, spec, mesh, axes)
     return g / n if n > 1 else g
+
+
+def _slice_dim(t, dim: int, mesh, axis: str):
+    """This rank's piece of ``t`` along ``dim`` split over ``axis``."""
+    n = mesh_axis_size(mesh, axis)
+    if n == 1:
+        return t
+    c = t.shape[dim] // n
+    return t.narrow(dim, axis_index(mesh, axis) * c, c)
+
+
+def sum_to_shard(t, mesh, axes, dim: int, along=None):
+    """The sum over the mesh axes ``axes`` of each rank's partial ``t``,
+    left as this rank's piece of ``dim`` along ``along`` (a spec entry:
+    the axes, major first, along which ``t`` holds the rows that an
+    all-gather of an activation brought in).  Per axis of ``along``,
+    major first: a reduce-scatter where the sum runs over it, a slice
+    where not; then an all-reduce over the rest of ``axes``.  ``t``
+    itself where they all have size 1."""
+    names, rows = axis_names(axes), axis_names(along)
+    for a in rows:
+        t = (_reduce_scatter_dim(t, dim, mesh, a) if a in names
+             else _slice_dim(t, dim, mesh, a))
+    return all_reduce(t, mesh, tuple(a for a in names if a not in rows))
 
 
 def local_slice(full, spec, mesh):

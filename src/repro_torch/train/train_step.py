@@ -31,7 +31,9 @@ step on the global batch.  Which path it runs depends on the family:
 
 On both paths the MoE family's dispatch groups are the global batch's
 (``moe.Split``: the batch axes of the batch's spec), as the reference's
-under ``jit``.
+under ``jit``, and so are the microbatches: microbatch i is the global
+rows [i·B/n, (i+1)·B/n), of which each rank takes its part
+(``_split_microbatches``).
 
 A leaf whose sharded mesh dims have size 1 is its DTensor's local tensor,
 so at world size 1 both paths are ``train_step_fn`` on the state's own
@@ -63,17 +65,39 @@ def init_train_state(cfg: ModelConfig, ocfg: OptConfig, generator=None,
     return state
 
 
-def _split_microbatches(batch: dict, n: int) -> list:
+def _split_microbatches(batch: dict, n: int, layout=None) -> list:
     """The batch as ``n`` microbatches along its batch dim (the second dim
-    of ``positions3`` (3, B, S)), in order."""
+    of ``positions3`` (3, B, S)), in order, as the reference splits the
+    global batch.  With a ``layout`` (``partition.Layout`` of the batch's
+    specs) ``batch`` is this rank's part of the global batch, and
+    microbatch i is this rank's part of the global batch's microbatch i:
+    each leaf is all-gathered along the axes that split it, split, and
+    sliced back to this rank's part of each microbatch.  Nothing moves
+    where those axes have size 1."""
     def re(x):
         if x.dim() >= 2 and x.shape[0] == 3:   # positions3 (3, B, S)
             return x.reshape(3, n, x.shape[1] // n, *x.shape[2:]
                              ).transpose(0, 1)
         return x.reshape(n, x.shape[0] // n, *x.shape[1:])
 
-    split = tree_map(re, batch)
-    return [tree_map(lambda x, i=i: x[i], split) for i in range(n)]
+    if layout is None:
+        split = tree_map(re, batch)
+        return [tree_map(lambda x, i=i: x[i], split) for i in range(n)]
+    mesh = layout.mesh
+
+    def whole(x, spec):
+        return partition.gather_along(x, spec, mesh,
+                                      partition.sharded_axes(spec, mesh))
+
+    def part(x, spec):
+        if any(d % partition.mesh_axis_size(mesh, a)
+               for d, a in zip(x.shape, spec)):
+            raise ValueError(f"a microbatch of shape {tuple(x.shape)} does "
+                             f"not split over {spec}")
+        return partition.local_slice(x, spec, mesh)
+
+    full = _split_microbatches(tree_map(whole, batch, layout.specs), n)
+    return [tree_map(part, mb, layout.specs) for mb in full]
 
 
 def _grads(cfg: ModelConfig, params: dict, batch: dict, layout=None,
@@ -98,21 +122,23 @@ def _grads(cfg: ModelConfig, params: dict, batch: dict, layout=None,
             map_with_path(lambda k, _: by_path[k], params))
 
 
-def _step(cfg: ModelConfig, ocfg: OptConfig, state: dict, batch: dict,
-          microbatches: int, compress_grads: bool, reduce=None,
-          layout=None, split=None):
-    """The step on plain tensors.  ``reduce(loss, metrics, grads)``
-    averages them over the data-parallel axes (the gathered path); a
-    ``layout`` (``partition.Layout`` of the params' specs) runs it on
-    this rank's shards (the sharded path).  ``split``: the batch is this
-    rank's part of the global batch (``moe.Split``; each microbatch's
-    dispatch groups are those of the ranks' microbatches together)."""
-    params = state["params"]
+def _loss_and_grads(cfg: ModelConfig, params: dict, batch: dict,
+                    microbatches: int = 1, reduce=None, layout=None,
+                    split=None, blayout=None):
+    """(loss, metrics, grads) of the step before the update: the
+    microbatches' float32 grads summed in order, then divided by the
+    count (``metrics`` empty), or one batch's.  ``reduce(loss, metrics,
+    grads)`` averages them over the data-parallel axes (the gathered
+    path); a ``layout`` (``partition.Layout`` of the params' specs) runs
+    on this rank's shards (the sharded path).  ``split``: the batch is
+    this rank's part of the global batch (``moe.Split``); ``blayout``
+    (the batch's ``partition.Layout``) makes each microbatch this rank's
+    part of the global batch's (``_split_microbatches``)."""
     if microbatches > 1:
         grads = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
                                                device=p.device), params)
         loss = 0.0
-        for mb in _split_microbatches(batch, microbatches):
+        for mb in _split_microbatches(batch, microbatches, blayout):
             mb_loss, _, g = _grads(cfg, params, mb, layout, split)
             grads = tree_map(lambda a, b: a + b.float(), grads, g)
             loss = loss + mb_loss
@@ -129,6 +155,17 @@ def _step(cfg: ModelConfig, ocfg: OptConfig, state: dict, batch: dict,
         loss = partition.all_reduce(loss, layout.mesh, dp) / n
         metrics = {k: partition.all_reduce(v, layout.mesh, dp) / n
                    for k, v in metrics.items()}
+    return loss, metrics, grads
+
+
+def _step(cfg: ModelConfig, ocfg: OptConfig, state: dict, batch: dict,
+          microbatches: int, compress_grads: bool, reduce=None,
+          layout=None, split=None, blayout=None):
+    """The step on plain tensors: ``_loss_and_grads``, then the optional
+    compression and AdamW (on this rank's shards with a ``layout``)."""
+    params = state["params"]
+    loss, metrics, grads = _loss_and_grads(cfg, params, batch, microbatches,
+                                           reduce, layout, split, blayout)
 
     if compress_grads:
         grads, ef = compression.ef_compress_grads(grads, state["ef_error"],
@@ -231,15 +268,17 @@ def make_train_step(cfg: ModelConfig, ocfg: OptConfig, mesh,
             state = tree_map(lambda t: DTensor.from_local(
                 t.to_local().clone(), t.device_mesh, t.placements,
                 run_check=False), state)
+        blayout = partition.Layout.of(batch) if microbatches > 1 else None
         if sharded:
             _, metrics = _step(cfg, ocfg, _local(state), _local(batch),
                                microbatches, compress_grads,
                                layout=partition.Layout.of(state["params"]),
-                               split=split)
+                               split=split, blayout=blayout)
             return state, metrics
         full = tree_map(partition.full_value, state)
         _, metrics = _step(cfg, ocfg, full, _local(batch), microbatches,
-                           compress_grads, reduce, split=split)
+                           compress_grads, reduce, split=split,
+                           blayout=blayout)
         tree_map(lambda t, f: None if partition._is_whole(t)
                  else _scatter_back(t, f), state, full)
         return state, metrics

@@ -49,6 +49,13 @@ FAMILY_ARCHS = ("granite-3-2b", "phi3.5-moe-42b-a6.6b", "qwen2-vl-2b",
                 "whisper-small", "rwkv6-1.6b", "zamba2-2.7b")
 SMALL_MESHES = ((2, 2), (2, 2, 2))
 SMALL_KINDS = ("train", "prefill", "decode")
+# production cells traced whole (arch, shape, mesh)
+PRODUCTION_CELLS = (("granite-3-2b", "decode_32k", "single"),)
+# granite-3-2b x decode_32k on 16 x 16 per device when the decode step
+# gathered every layer's weights (the dry run of the tree before the
+# tensor-parallel products): all-gather operand bytes, dot FLOPs, peak
+GATHERED_DECODE_32K = {"all-gather": 0.334e9, "dot_flops": 4.59e10,
+                       "peak": 1.17e9}
 RECORD_KEYS = {"arch", "shape", "mesh", "mesh_shape", "n_devices", "status",
                "trace_s", "hlo_cost", "memory", "fits_card"}
 
@@ -64,7 +71,10 @@ _PORT = textwrap.dedent("""
              "prefill": ShapeConfig("p", 32, 4, "prefill"),
              "decode": ShapeConfig("d", 64, 8, "decode")}
     for c in cells:
-        if mode == "inputs":
+        if mode == "cell":
+            r = dryrun.run_cell(c[0], c[1], c[2] == "multi", verbose=False)
+            res["|".join(["cell"] + c)] = r
+        elif mode == "inputs":
             arch, shape, mesh = c
             r = dryrun.run_cell(arch, shape, mesh == "multi",
                                 inputs_only=True, verbose=False)
@@ -84,13 +94,14 @@ def port(tmp_path_factory):
     """The port's records: per-device argument bytes of every production
     cell, and the small cells' records."""
     tmp = tmp_path_factory.mktemp("dryrun")
-    jobs = {"inputs": [[a, s, m] for a, s in CELLS for m in MESHES]}
+    jobs = {"inputs": [[a, s, m] for a, s in CELLS for m in MESHES],
+            "cell": [list(c) for c in PRODUCTION_CELLS]}
     for mesh in SMALL_MESHES:
         jobs[f"small{len(mesh)}"] = [[a, k, list(mesh)] for a in FAMILY_ARCHS
                                      for k in SMALL_KINDS]
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
     procs = {name: subprocess.Popen(
-        [sys.executable, "-c", _PORT, "inputs" if name == "inputs"
+        [sys.executable, "-c", _PORT, name if name in ("inputs", "cell")
          else "small", str(tmp / f"{name}.json"), json.dumps(cs)], env=env,
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for name, cs in jobs.items()}
@@ -202,10 +213,28 @@ def test_small_cells_trace(port, arch, kind, mesh):
     assert mem["argument_size_in_bytes"] > 0
     assert mem["temp_size_in_bytes"] >= 0
     assert mem["output_size_in_bytes"] > 0
-    # every rank gathers its params' shards from the others
+    # every rank gathers activations (decode) or its params' shards
     assert cost["collective_counts"]["all-gather"] > 0
     if kind == "train":       # the grads' mean over the data axes
         assert cost["collective_counts"]["all-reduce"] > 0
+
+
+def test_decode_step_streams_only_weight_shards(port):
+    """granite-3-2b x decode_32k on 16 x 16, per device: the decode step
+    as tensor-parallel products moves activations only (all-gather bytes
+    at most 5% of the step that gathered every layer's weights), each
+    rank multiplies its weight shards only (dot FLOPs at most a quarter;
+    attention over the local cache shard sets the floor), peaks no
+    higher and fits the card."""
+    rec = port["|".join(("cell",) + PRODUCTION_CELLS[0])]
+    assert rec["status"] == "ok"
+    cost = rec["hlo_cost"]
+    assert (cost["collective_bytes"]["all-gather"]
+            <= 0.05 * GATHERED_DECODE_32K["all-gather"]), cost
+    assert cost["dot_flops"] <= 0.25 * GATHERED_DECODE_32K["dot_flops"]
+    assert (rec["memory"]["peak_size_in_bytes"]
+            <= GATHERED_DECODE_32K["peak"]), rec["memory"]
+    assert rec["fits_card"]
 
 
 _SHARDED_VS_GATHERED = textwrap.dedent("""

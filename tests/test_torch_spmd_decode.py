@@ -1,27 +1,32 @@
-"""The sharded decode step (``serve_step.make_serve_step``: params at
-``serve_param_pspecs`` gathered a layer at a time, the KV cache at
+"""The sharded decode step (``serve_step.make_serve_step``: tensor-parallel
+products on params at ``serve_param_pspecs``, the KV cache at
 ``cache_pspecs``) of the dense, MoE and VLM families on gloo process
 groups against the world-size-1 ``serve_step_fn``.
 
-One launch of 4 processes on a (2, 2) mesh and one of 2 on (1, 2),
-spawned as subprocesses on a ``FileStore``, run every case of ``CASES``
-on reduced configs (float32): a cache primed with a 3-token prompt by
-``factory.prefill_chunk`` (token replay for the families without it;
-S_max 8), then 4 greedy decode steps, which cross from one sequence
-shard to the next.  The cases, on granite unless named:
+One launch per mesh -- 4 processes on (2, 2), 2 on (1, 2), 2 on (2, 1)
+and 4 on (1, 4), spawned as subprocesses on a ``FileStore`` and started
+together -- runs every case of ``CASES`` on reduced configs (float32): a
+cache primed with a 3-token prompt by ``factory.prefill_chunk`` (token
+replay for the families without it; S_max 8), then 4 greedy decode
+steps, which cross from one sequence shard to the next.  The cases, on
+granite unless named:
 
-  * heads: 2 KV heads, split on ``model`` (the cache's KV dim);
-  * seq: one KV head, so the sequence splits on ``model`` and each rank
-    combines its partial softmax with the others' (compute-dtype cache
-    and int8 cache with its scales);
+  * heads: 2 KV heads, split on ``model`` (the cache's KV dim): the
+    Megatron pattern, each rank's own q / k / v columns and wo rows;
+  * seq: one KV head, so the sequence splits on ``model``, the q / k / v
+    columns are all-gathered along ``model`` and each rank combines its
+    partial softmax with the others' (compute-dtype cache and int8 cache
+    with its scales);
   * odd batch: B 3 does not divide ``data``, so the batch stays whole
     and the sequence splits over (data, model);
   * heads_moe: phi3.5-moe, each rank running its ``n_experts / model``
-    experts (gathered along ``data`` only: no gather along ``model``
-    returns an expert axis whole); at (2, 2) the decode group (the global
-    batch of 4) spans the two data ranks;
+    experts' F slice on ``data`` over the whole decode group;
   * heads_vlm: qwen2-vl, M-RoPE positions from the local sequences'
-    lengths.
+    lengths;
+  * b1, b1_moe, b1_vlm: B 1 on the ``global_batch=1`` layout (the dry
+    run's ``long_500k``): the attention's contraction dim and w_down's
+    output split on ``data`` too, so their partial products are summed
+    over it (qwen2-vl's QKV biases added after the sum).
 
 Each step's greedy tokens equal the world-size-1 step's and its logits
 are within 1e-5 (max |diff| / max |ref|); after the steps each rank's
@@ -29,7 +34,11 @@ cache shards equal the slices of the world-size-1 cache (the K / V
 writes are exact; within 1e-6 where the float32 K / V differ in the
 last bits), every leaf of params and cache is at its spec's shard shape,
 the donated K / V leaves are the step's own (written in place) and a
-step with ``donate_cache=False`` leaves its input cache as it was."""
+step with ``donate_cache=False`` leaves its input cache as it was.  No
+collective of the step moves a param leaf: every all-gather's output is
+at most B_global x the widest activation row (d_model, the q width, the
+padded vocab), and no collective's operand has the shape of a param
+leaf, whole or shard, stacked or one layer's."""
 import json
 import os
 import subprocess
@@ -45,17 +54,22 @@ ROOT = Path(__file__).resolve().parents[1]
 LOGIT_REL_TOL = 1e-5
 CACHE_REL_TOL = 1e-6
 TIMEOUT_S = 300
-MESHES = ((2, 2), (1, 2))
-# name -> (arch, config overrides, batch)
+MESHES = ((2, 2), (1, 2), (2, 1), (1, 4))
+MOE, VLM = "phi3.5-moe-42b-a6.6b", "qwen2-vl-2b"
+# name -> (arch, config overrides, batch, serve_param_pspecs'
+# global_batch: None for make_serve_step's layout)
 CASES = {
-    "heads": ("granite-3-2b", {}, 4),
-    "heads_int8": ("granite-3-2b", {"kv_cache_dtype": "int8"}, 4),
-    "seq": ("granite-3-2b", {"n_kv_heads": 1}, 4),
+    "heads": ("granite-3-2b", {}, 4, None),
+    "heads_int8": ("granite-3-2b", {"kv_cache_dtype": "int8"}, 4, None),
+    "seq": ("granite-3-2b", {"n_kv_heads": 1}, 4, None),
     "seq_int8": ("granite-3-2b", {"n_kv_heads": 1, "kv_cache_dtype": "int8"},
-                 4),
-    "odd_batch": ("granite-3-2b", {"n_kv_heads": 1}, 3),
-    "heads_moe": ("phi3.5-moe-42b-a6.6b", {}, 4),
-    "heads_vlm": ("qwen2-vl-2b", {}, 4),
+                 4, None),
+    "odd_batch": ("granite-3-2b", {"n_kv_heads": 1}, 3, None),
+    "heads_moe": (MOE, {}, 4, None),
+    "heads_vlm": (VLM, {}, 4, None),
+    "b1": ("granite-3-2b", {}, 1, 1),
+    "b1_moe": (MOE, {}, 1, 1),
+    "b1_vlm": (VLM, {}, 1, 1),
 }
 PROMPT, STEPS, MAX_LEN = 3, 4, 8
 
@@ -83,15 +97,22 @@ _WORKER = textwrap.dedent("""
         return float((a.double() - b.double()).abs().max()
                      / max(float(b.double().abs().max()), 1e-30))
 
-    gathered = []
+    # the collectives of the step: (kind, operand shape, output numel)
+    seen, spying = [], [False]
 
-    def spy(t, spec, mesh_, axes):
-        out = gather_along(t, spec, mesh_, axes)
-        gathered.append(list(out.shape))
-        return out
+    def spy(kind, fn):
+        def wrapped(*args, **kwargs):
+            out = fn(*args, **kwargs)
+            if spying[0] and out is not args[0]:
+                seen.append((kind, list(args[0].shape), out.numel()))
+            return out
+        return wrapped
 
-    gather_along, PP.gather_along = PP.gather_along, spy
-    for name, (arch, over, b) in cases.items():
+    for kind, name in (("all-gather", "_all_gather_dim"),
+                       ("reduce-scatter", "_reduce_scatter_dim"),
+                       ("all-reduce", "all_reduce")):
+        setattr(PP, name, spy(kind, getattr(PP, name)))
+    for name, (arch, over, b, gb) in cases.items():
         cfg = get_config(arch, reduced=True).replace(**over)
         gen = torch.Generator().manual_seed(0)
         params = factory.init_params(cfg, gen, device="cpu")
@@ -108,6 +129,8 @@ _WORKER = textwrap.dedent("""
                         cfg, params, cache, {"tokens": prompt[:, j:j + 1]})
         tok = {"tokens": prompt[:, -1:]}
         step, sp, cs, bs = make_serve_step(cfg, mesh, params, cache, tok)
+        if gb is not None:
+            sp = PP.serve_param_pspecs(params, mesh, global_batch=gb)
         placed_p = PP.logical_to_sharding(params, sp, mesh)
         placed_c = PP.logical_to_sharding(tree_map(torch.clone, cache), cs,
                                           mesh)
@@ -120,11 +143,12 @@ _WORKER = textwrap.dedent("""
         kept = all(torch.equal(placed_c[k].to_local(), v)
                    for k, v in keep.items())
         want_c, errs, same = cache, [], []
-        del gathered[:]
+        del seen[:]
         for _ in range(%(steps)d):
-            nxt, logits, placed_c = step(placed_p, placed_c,
-                                         PP.logical_to_sharding(tok, bs,
-                                                                mesh))
+            batch = PP.logical_to_sharding(tok, bs, mesh)
+            spying[0] = True
+            nxt, logits, placed_c = step(placed_p, placed_c, batch)
+            spying[0] = False
             with torch.no_grad():
                 want_n, want_l, want_c = serve_step_fn(cfg, params, want_c,
                                                        tok)
@@ -140,22 +164,27 @@ _WORKER = textwrap.dedent("""
             cache_err[path] = ("equal" if torch.equal(t.to_local(), ref)
                                else rel(t.to_local(), ref))
         p_specs = dict(flatten(sp))
+        leaf_shapes = set()
         for path, t in flatten(placed_p):
+            local = list(t.to_local().shape)
             shapes["params/" + path] = [
-                list(t.to_local().shape),
-                list(PP.local_slice(t, p_specs[path], mesh).shape)]
+                local, list(PP.local_slice(t, p_specs[path], mesh).shape)]
+            for sh in (local, list(t.shape)):
+                leaf_shapes.update({tuple(sh), tuple(sh[1:])})
         res[name] = {
             "logit_err": errs, "tokens_equal": same, "cache_err": cache_err,
             "shapes": shapes, "kept": kept,
             "donated": all(placed_c[k] is v for k, v in kv_before.items()),
             "cache_spec": [list(PP.axis_names(a)) for a in cs["k"]],
             "split": [PP.mesh_axis_size(mesh, a) > 1 for a in cs["k"]],
-            # the leading dim of each (E, D, F) / (E, F, D) expert leaf
-            # the steps gathered
-            "expert_rows": sorted({s[0] for s in gathered if s[1:] in (
-                [cfg.d_model, cfg.d_ff], [cfg.d_ff, cfg.d_model])}),
-            "n_experts": cfg.n_experts,
-            "model": PP.mesh_axis_size(mesh, "model")}
+            "collectives": len(seen),
+            "largest_gather": max([n for k, _, n in seen
+                                   if k == "all-gather"], default=0),
+            "row_bound": b * max(cfg.d_model, cfg.n_heads * cfg.hd,
+                                 cfg.padded_vocab),
+            "param_moved": [s_ for _, s_, _ in seen
+                            if tuple(s_) in leaf_shapes],
+            "n_kv_heads": cfg.n_kv_heads, "batch": b}
     if rank == 0:
         json.dump(res, open(out, "w"))
     dist.destroy_process_group()
@@ -217,17 +246,27 @@ def test_decode_holds_only_its_shards(runs, shape, name):
     bad = {p: s for p, s in res["shapes"].items() if s[0] != s[1]}
     assert not bad, bad
     assert res["donated"] and res["kept"]
+    data, model = shape
     _, b_ax, s_ax, kv_ax, _ = res["cache_spec"]
     _, b_split, s_split, kv_split, _ = res["split"]
-    if name.startswith("heads"):
-        assert kv_ax == ["model"] and kv_split and not s_split
-    elif name == "odd_batch" and shape[0] > 1:
-        assert not b_split and s_ax == ["data", "model"] and s_split
+    idle = res["batch"] % data != 0        # the batch stays whole
+    if idle:
+        assert not b_split and "data" in s_ax and s_split
     else:
-        assert s_ax == ["model"] and s_split and not kv_split
-    if shape[0] > 1 and name != "odd_batch":
-        assert b_ax == ["data"] and b_split
-    if name == "heads_moe":
-        assert res["expert_rows"] == [res["n_experts"] // res["model"]]
-    else:
-        assert res["expert_rows"] == []
+        assert b_ax == ["data"] and b_split == (data > 1)
+    if res["n_kv_heads"] % model == 0:     # the heads split on model
+        assert kv_ax == ["model"] and kv_split == (model > 1)
+        assert s_split == idle
+    else:                                  # the sequence picks model up
+        assert not kv_split and "model" in s_ax and s_split
+
+
+@pytest.mark.parametrize("shape,name", _CASES, ids=_IDS)
+def test_decode_moves_no_param_leaf(runs, shape, name):
+    """The step moves activations only: its largest all-gather output is
+    at most B_global x the widest activation row, and no collective's
+    operand has a param leaf's shape (whole, shard, or one layer's)."""
+    res = runs[shape][name]
+    assert res["collectives"] > 0
+    assert res["largest_gather"] <= res["row_bound"], res
+    assert not res["param_moved"], res["param_moved"]

@@ -19,7 +19,13 @@ The cases, reduced configs in float32:
   * at (2, 2) granite with ``microbatches=2`` and with
     ``compress_grads=True``;
   * at (2, 2, 2) (the batch over ``pod`` x ``data``, the params over
-    ``data`` only) granite with one KV head and nemotron.
+    ``data`` only) granite with one KV head and nemotron;
+  * at (2, 1) and (2, 2) phi3.5-moe in 2 microbatches (the microbatch
+    fault: each rank's microbatch i is its part of the global batch's
+    microbatch i), sharded and gathered.
+
+With microbatches the first step's grads are the microbatches' mean on
+both sides (``train_step._loss_and_grads``).
 
 Held within 1e-5 relative of the world-size-1 step: the first step's
 grads on the shards (max |diff| / max |ref| per leaf: 3e-7 on ``data``,
@@ -105,9 +111,15 @@ CASES = {
     "moe_fault_gathered": (MOE, {}, 1, False,
                            {"seq": 32, "batch": 2, "gathered": True}),
     "vlm": ("qwen2-vl-2b", {}, 1, False, {"vision": True}),
+    # the microbatch fault: B 4 x S 16 in 2 microbatches of the global
+    # batch (groups of 64 tokens over both data ranks), sharded and
+    # gathered
+    "moe_mb2": (MOE, {}, 2, False, {}),
+    "moe_mb2_gathered": (MOE, {}, 2, False, {"gathered": True}),
 }
 ONLY_2X2 = ("granite_mb2", "granite_ef")
 ONLY_2X1 = ("moe_fault", "moe_fault_gathered")
+MB_CASES = ("moe_mb2", "moe_mb2_gathered")     # on (2, 1) and (2, 2)
 POD_CASES = ("granite_kv1", "nemotron")        # on (2, 2, 2)
 WIDE_CASES = ("moe_span",)                     # on (1, 4): one expert a rank
 MOE_CASES = ("moe_span", "moe_align", "moe_fault", "moe_fault_gathered")
@@ -249,24 +261,33 @@ _WORKER = _VISION + textwrap.dedent("""
                 cfg.n_experts // PP.mesh_axis_size(mesh, "model")]
         if not ef:
             r["state_err"] = vs_slices(placed, plain, pspecs, l2_rel)
-        # the first step's grads on the shards against the whole batch's
+        # the first step's grads on the shards (its microbatches' mean)
+        # against the whole batch's
         state0 = PP.logical_to_sharding(init(), pspecs, mesh)
-        b0 = local(PP.logical_to_sharding(batches[0], bspecs, mesh))
+        placed_b0 = PP.logical_to_sharding(batches[0], bspecs, mesh)
+        b0, blayout = local(placed_b0), PP.Layout.of(placed_b0)
         split = moe.Split(mesh, bspecs["tokens"][0])
         if r["path"] == "sharded":
             layout = PP.Layout.of(state0["params"])
-            _, _, g = ts._grads(cfg, local(state0["params"]), b0, layout,
-                                split)
+            _, _, g = ts._loss_and_grads(cfg, local(state0["params"]), b0,
+                                         mb, None, layout, split, blayout)
         else:
             full = tree_map(PP.full_value, state0["params"])
-            loss0, m0, g = ts._grads(cfg, full, b0, None, split)
-            reduce = ts._data_reduce(mesh)
-            if reduce is not None:
-                _, _, g = reduce(loss0, m0, g)
+            _, _, g = ts._loss_and_grads(cfg, full, b0, mb,
+                                         ts._data_reduce(mesh), None, split,
+                                         blayout)
             g = tree_map(lambda t, sp: PP.local_slice(t, sp, mesh), g,
                          pspecs["params"])
-        _, _, g1 = ts._grads(cfg, init()["params"], batches[0])
+        _, _, g1 = ts._loss_and_grads(cfg, init()["params"], batches[0], mb)
         r["grad_err"] = vs_slices(g, g1, pspecs["params"], max_rel)
+        if mb > 1:
+            # each rank's microbatch i: its part of the global batch's
+            mine = ts._split_microbatches(b0, mb, blayout)
+            glob = ts._split_microbatches(batches[0], mb)
+            r["rows_equal"] = all(
+                torch.equal(t, PP.local_slice(dict(flatten(want))[p],
+                                              dict(flatten(bspecs))[p], mesh))
+                for got, want in zip(mine, glob) for p, t in flatten(got))
         if ef:
             # the sharded compression on the shards of given grads and
             # residuals against the whole leaves'
@@ -395,6 +416,8 @@ def _runs(shape, name) -> bool:
         return name in WIDE_CASES
     if name in ONLY_2X1:
         return shape == (2, 1)
+    if name in MB_CASES:
+        return shape in ((2, 1), (2, 2))
     return shape == (2, 2) or name not in ONLY_2X2
 
 
@@ -473,6 +496,28 @@ def test_moe_fault_groups_span_ranks(runs):
                 (name, key, got, want)
         bad = {k: v for k, v in res["grad_err"].items() if not v <= REL_TOL}
         assert not bad, (name, bad)
+
+
+@pytest.mark.parametrize("shape,name", [(s, n) for s in ((2, 1), (2, 2))
+                                        for n in MB_CASES],
+                         ids=[f"{'x'.join(map(str, s))}-{n}"
+                              for s in ((2, 1), (2, 2)) for n in MB_CASES])
+def test_moe_microbatches_are_the_global_rows(runs, shape, name):
+    """The microbatch fault repaired: reduced phi3.5-moe at B 4 x S 16 in
+    2 microbatches, each rank's microbatch i exactly its part of the
+    global batch's microbatch i (the reference splits the global batch
+    under ``jit``), so every loss and every first-step grad (the two
+    microbatches' mean) is within ``REL_TOL`` of the world-size-1 step's
+    on the sharded path and on the gathered one.  Each rank split its
+    own rows before, so its microbatches' dispatch groups held other
+    tokens: loss 6.577869 against 6.578063 on (2, 1)."""
+    res = runs[shape][name]
+    assert res["rows_equal"]
+    for got, want in zip(res["metrics"], res["want"]):
+        assert abs(got["loss"] - want["loss"]) <= REL_TOL * abs(
+            want["loss"]), (got, want)
+    bad = {k: v for k, v in res["grad_err"].items() if not v <= REL_TOL}
+    assert not bad, bad
 
 
 @pytest.mark.parametrize("shape", MESHES, ids=lambda s: "x".join(map(str, s)))
