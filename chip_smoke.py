@@ -134,10 +134,13 @@ widths and depth) — then checks them:
    ``train_step_fn`` in bits, ``espim_matvec_sharded`` (kernel 5 once)
    against ``ESPIMLinear`` on layer 0's w_down, ``make_serve_step``
    against ``decode_step`` in bits; and the same for phi3.5-moe (1 of 32
-   layers) and qwen2-vl-2b (whole) at their published widths in float32
-   on the MoE and VLM sharded paths, with the sharded prefill forward
-   against ``forward`` in bits at S 512 and kernel 8 launched as often in
-   both; (c) at 2 layers in bf16, train 3,
+   layers), qwen2-vl-2b (whole), zamba2-2.7b (12 of 54 layers),
+   whisper-small (whole) and rwkv6-1.6b (4 layers) at their published
+   widths in float32 on each family's sharded path, with the sharded
+   prefill forward against ``forward`` in bits at S 512 and kernel 8
+   launched as often in both (once a layer; zamba2 once an application
+   of its shared block, whisper once an encoder and a decoder layer,
+   rwkv6 never); (c) at 2 layers in bf16, train 3,
    save, restore, train 2 against 5 straight, every state leaf and the
    last loss in bits (deterministic algorithms on; the checkpoint in a
    temp dir, removed); (f) ``python -m repro_torch.launch.train --arch
@@ -290,13 +293,17 @@ TRAIN_LAUNCHER_STEPS = (10, 12)         # (f): fresh, then resumed
 TRAIN_MATVEC_SPARSITY = 0.9             # (e): layer 0's w_down, pruned
 # (g): phi3.5-moe's attention (GQA 32/8, hd 128) at the families' S
 TRAIN_FLASH_SHAPE = (1, FAMILY_FLASH_SEQ, 32, 8, 128)
-# (e) for the MoE and VLM families' sharded paths: (arch, depth or None
-# for whole) at the published widths in float32, the depth at which two
+# (e) for the other families' sharded paths: (arch, depth or None for
+# whole) at the published widths in float32, the depth at which two
 # copies of the float32 train state (params, mu, nu) fit the card beside
 # the step's grads: phi3.5-moe's 1 of 32 layers is 1.56 B params (18.8
 # GB a copy; 2 layers would be 34 GB a copy), qwen2-vl-2b whole 1.54 B
-# (18.5 GB a copy)
-TRAIN_FAMILY_MESH = (("phi3.5-moe-42b-a6.6b", 1), ("qwen2-vl-2b", None))
+# (18.5 GB a copy); zamba2 at 12 of 54 layers (0.6 B params) and rwkv6
+# at 4 (0.35 B) as the dryrun phase's (b) cuts them, whisper-small whole
+# (0.24 B)
+TRAIN_FAMILY_MESH = (("phi3.5-moe-42b-a6.6b", 1), ("qwen2-vl-2b", None),
+                     ("zamba2-2.7b", 12), ("whisper-small", None),
+                     ("rwkv6-1.6b", 4))
 
 # the dryrun phase: the dry run's predictions of one train step at (a)'s
 # shape (B 8 x S 128) on a one-rank fake group, each traced in a worker
@@ -324,18 +331,25 @@ DRYRUN_PEAK_TOL, DRYRUN_FLOP_TOL = 0.15, 0.02
 # the sharded steps: the train step (ZeRO-3 on data, TP on model, for
 # phi3.5-moe the experts on model) and the decode step (tensor-parallel
 # products over (data, model), a MoE layer's experts on model and their
-# F on data, the int8 cache sequence-sharded); granite's must fit the
-# card, phi3.5-moe's print their peak and fits_card
+# F on data, the int8 cache sequence-sharded; zamba2's SSM state and
+# whisper's K / V caches at their shards); granite's, zamba2's and
+# whisper's must fit the card, phi3.5-moe's print their peak and
+# fits_card
 DRYRUN_ARCHS = (TRAIN_ARCH, "phi3.5-moe-42b-a6.6b")
+DRYRUN_DECODE_ARCHS = ("zamba2-2.7b", "whisper-small")
+DRYRUN_FIT = (TRAIN_ARCH,) + DRYRUN_DECODE_ARCHS
 DRYRUN_CLIS = {
     f"cli_{arch}_{shape}": ("-m", "repro_torch.launch.dryrun", "--arch",
                             arch, "--shape", shape, "--mesh", "single",
                             "--force")
-    for arch in DRYRUN_ARCHS for shape in ("train_4k", "decode_32k")}
+    for arch, shape in [(a, s) for a in DRYRUN_ARCHS
+                        for s in ("train_4k", "decode_32k")]
+    + [(a, "decode_32k") for a in DRYRUN_DECODE_ARCHS]}
 # (d)'s decode_32k cells, per device, when the decode step gathered every
 # layer's weights (the dry run of the tree before the tensor-parallel
-# products, CPU): dot FLOPs, dot bytes, collective operand bytes and calls
-# by kind; printed beside this run's.  The new step all-gathers
+# products, CPU; for zamba2 and whisper the tree before their sharded
+# steps): dot FLOPs, dot bytes, collective operand bytes and calls by
+# kind; printed beside this run's.  The new step all-gathers
 # activations only: at most DRYRUN_DECODE_GATHER_SHARE of the old bytes
 GATHERED_DECODE = {
     TRAIN_ARCH: {"dot_flops": 4.591e10, "dot_bytes": 10.30e9,
@@ -344,7 +358,15 @@ GATHERED_DECODE = {
     "phi3.5-moe-42b-a6.6b": {"dot_flops": 1.330e11, "dot_bytes": 20.02e9,
                              "all-gather": (0.518e9, 261),
                              "all-reduce": (6.359e6, 192),
-                             "reduce-scatter": (0.0, 0)}}
+                             "reduce-scatter": (0.0, 0)},
+    # the two families that gathered their params, cache and batch whole
+    # on every rank
+    "zamba2-2.7b": {"dot_flops": 1.205e12, "dot_bytes": 814.6e9,
+                    "all-gather": (26.58e9, 21), "all-reduce": (0.0, 0),
+                    "reduce-scatter": (0.0, 0)},
+    "whisper-small": {"dot_flops": 1.973e11, "dot_bytes": 332.4e9,
+                      "all-gather": (10.74e9, 31), "all-reduce": (0.0, 0),
+                      "reduce-scatter": (0.0, 0)}}
 DRYRUN_DECODE_GATHER_SHARE = 0.05
 # the train phase's step (a) in two whole runs of this script before the
 # dense family's sharded path (NVIDIA H100 80GB HBM3, 700 W): printed
@@ -3001,17 +3023,31 @@ def train_checks(ctx, mesh) -> dict:
     return rec
 
 
+def _kernel8_per_forward(cfg) -> int:
+    """Kernel 8's launches in one forward under no_grad: one a layer; for
+    zamba2 one an application of the shared block; for whisper one an
+    encoder layer and one a decoder layer's self-attention (its
+    cross-attention has unequal lengths: the chunked softmax); none for
+    rwkv6."""
+    if cfg.family == "hybrid":
+        return cfg.n_layers // cfg.attn_every
+    if cfg.family == "audio":
+        return cfg.encoder_layers + cfg.n_layers
+    return 0 if cfg.family == "ssm" else cfg.n_layers
+
+
 def train_family_mesh(ctx, mesh) -> dict:
-    """(e) for the MoE and VLM families' sharded paths on the (1, 1) mesh,
-    each arch of ``TRAIN_FAMILY_MESH`` at its published widths in float32
-    (B 2 x S 32; the VLM batch with M-RoPE positions and spliced patch
-    embeddings, as the dry run's): ``make_train_step`` against
-    ``train_step_fn`` (every state leaf, the loss and the aux loss),
-    ``make_serve_step`` against ``decode_step`` (logits and cache), and
-    the sharded prefill forward (``factory.apply_train_sharded``) against
-    ``apply_train`` at B 1 x S ``FAMILY_FLASH_SEQ`` under no_grad, all in
-    bits, kernel 8 launched as often in the two forwards, once a
-    layer."""
+    """(e) for the other families' sharded paths on the (1, 1) mesh, each
+    arch of ``TRAIN_FAMILY_MESH`` at its published widths in float32 (B 2
+    x S 32; the VLM batch with M-RoPE positions and spliced patch
+    embeddings, whisper's with frames, as the dry run's):
+    ``make_train_step`` against ``train_step_fn`` (every state leaf, the
+    loss and the aux loss), ``make_serve_step`` against ``decode_step``
+    (logits and cache), and the sharded prefill forward
+    (``factory.apply_train_sharded``) against ``apply_train`` at B 1 x S
+    ``FAMILY_FLASH_SEQ`` under no_grad (whisper on seeded frames), all in
+    bits, kernel 8 launched as often in the two forwards
+    (``_kernel8_per_forward``)."""
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.configs.registry import get_config
     from repro_torch.launch import specs
@@ -3064,9 +3100,13 @@ def train_family_mesh(ctx, mesh) -> dict:
         cache = factory.init_cache(cfg, TRAIN_CHECK_BATCH, 16, device=dev)
         sb = {"tokens": batch["tokens"][:, :1]}
         sstep, sp, cs, bs = make_serve_step(cfg, mesh, params, cache, sb)
+        # the step donates its cache, which at one rank is ``cache``'s own
+        # storage: the recurrent states would be read updated by
+        # ``decode_step`` after it
         _, logits, new = sstep(
             partition.logical_to_sharding(params, sp, mesh),
-            partition.logical_to_sharding(cache, cs, mesh),
+            partition.logical_to_sharding(tree_map(torch.clone, cache), cs,
+                                          mesh),
             partition.logical_to_sharding(sb, bs, mesh))
         with torch.no_grad():
             want, want_cache = factory.decode_step(cfg, params, cache, sb)
@@ -3078,6 +3118,10 @@ def train_family_mesh(ctx, mesh) -> dict:
         toks = torch.randint(0, cfg.vocab_size, (1, FAMILY_FLASH_SEQ),
                              generator=gen, device=dev, dtype=torch.int32)
         pb = {"tokens": toks}
+        if cfg.family == "audio":
+            pb["frames"] = torch.randn((1, cfg.encoder_seq, cfg.d_model),
+                                       generator=gen, device=dev)
+        k8_want = _kernel8_per_forward(cfg)
         reset_launches()
         with torch.no_grad():
             want_l, want_aux = factory.apply_train(cfg, params, pb)
@@ -3092,10 +3136,10 @@ def train_family_mesh(ctx, mesh) -> dict:
                 partition.Layout.of(placed_p), split)
         k8 = read_launches()["flash_attention"]
         fwd_same = bool(got_l.equal(want_l)) and bool(got_aux.equal(want_aux))
-        need(fwd_same and k8 == k8_plain == cfg.n_layers,
+        need(fwd_same and k8 == k8_plain == k8_want,
              f"[train:e] {arch}: sharded prefill forward vs forward: equal "
              f"{fwd_same}, kernel 8 launches {k8} against {k8_plain}, "
-             f"{cfg.n_layers} layers")
+             f"{k8_want} expected")
         rec[arch] = {"layers": cfg.n_layers, "state_gb": state_gb,
                      "loss": float(m_card["loss"]),
                      "aux": float(m_card["aux"]),
@@ -3430,9 +3474,9 @@ def dryrun_cells(ctx) -> dict:
             f"{m['argument_size_in_bytes'] / 1e9:.3f} GB, peak {peak:.2f} GB, "
             f"fits_card {cell['fits_card']}; {h['dot_flops'] / 1e12:.4g} dot "
             f"TFLOP ({h['flops'] / 1e12:.4g} all); collectives {coll}")
-        need(cell["fits_card"] or arch != TRAIN_ARCH, f"[dryrun:d] {arch} "
-             f"x {shape} on 16 x 16: peak {peak:.2f} GB does not fit the "
-             "card")
+        need(cell["fits_card"] or arch not in DRYRUN_FIT, f"[dryrun:d] "
+             f"{arch} x {shape} on 16 x 16: peak {peak:.2f} GB does not "
+             "fit the card")
         if shape == "decode_32k":
             rec[f"{arch}|{shape}"]["gathered"] = decode_vs_gathered(arch, h)
     return rec
@@ -3474,10 +3518,12 @@ def phase_dryrun(ctx) -> dict:
     "dots" and "full", each with its step ms and measured against
     predicted peak; (d) the dry run's launcher on granite-3-2b and
     phi3.5-moe x train_4k and x decode_32k on the 16 x 16 mesh (fake
-    256-rank groups; the sharded steps) exits 0 with status ok, granite's
-    with ``fits_card``, each cell's peak, ``fits_card``, dot FLOPs and
-    collective bytes by kind printed, the decode_32k cells beside the
-    weight-gathering step's and with no weight all-gathered."""
+    256-rank groups; the sharded steps), and on zamba2-2.7b and
+    whisper-small x decode_32k, exits 0 with status ok, granite's,
+    zamba2's and whisper's with ``fits_card``, each cell's peak,
+    ``fits_card``, dot FLOPs and collective bytes by kind printed, the
+    decode_32k cells beside the weight-gathering step's and with no
+    weight all-gathered."""
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import make_local_mesh
     torch = ctx["torch"]

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Alternating A/B of the train step's two paths on one rank: the dense
 family's sharded path (``make_train_step``'s default for granite-3-2b)
-against the gathered path that the other families take (and every
-family took before the sharded one existed), step by step on one state.
+against the gathered path (taken where ``model`` does not divide a
+family's tensor-parallel widths, and by every family before the sharded
+one existed), step by step on one state.
 
     python3 scripts/train_step_ab.py [--rounds N] [--steps N] [--layers N]
                                      [--out DIR]
@@ -11,7 +12,7 @@ granite-3-2b at its published widths (bf16 params, float32 master,
 remat "full"; ``--layers`` cuts the depth) trains at B 8 x S 128 on the
 (1, 1) mesh, as ``chip_smoke.py``'s train phase does.  Both steps come
 from ``make_train_step``; the gathered one is built with
-``factory.SHARDED_FAMILIES`` emptied.  On one rank both run the same
+``factory.shards`` answering False.  On one rank both run the same
 ops on the state's own tensors, so the A/B measures what the sharded
 path adds on the host.  After one warm-up step each, every round runs
 ``--steps`` steps of each arm, the order alternating from round to
@@ -73,14 +74,14 @@ def main(argv=None) -> int:
     shapes = ts.init_train_state(cfg, ocfg, device="meta")
     steps = {}
     for arm in ARMS:
-        keep = factory.SHARDED_FAMILIES
+        keep = factory.shards
         if arm == "gathered":
-            factory.SHARDED_FAMILIES = ()
+            factory.shards = lambda cfg, mesh: False
         try:
             steps[arm], pspecs, bspecs = ts.make_train_step(
                 cfg, ocfg, mesh, shapes, pipe.batch_at(0))
         finally:
-            factory.SHARDED_FAMILIES = keep
+            factory.shards = keep
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     state = partition.logical_to_sharding(
         ts.init_train_state(cfg, ocfg, gen, device=dev), pspecs, mesh)

@@ -10,9 +10,9 @@ fake DTensors holding this rank's shards under the port's ``partition``
 rules, and runs the cell's entry point once under ``FakeTensorMode``
 (``train_step.make_train_step``; for prefill
 ``factory.apply_train_sharded`` under no_grad on the ``param_pspecs``
-shards where ``factory.shards`` (the dense, MoE and VLM families), the
-other families' ``factory.apply_train`` on the gathered params;
-``serve_step.make_serve_step``), with the cost analysis
+shards where ``factory.shards`` (every family, where ``model`` divides
+its tensor-parallel widths), else ``factory.apply_train`` on the
+gathered params; ``serve_step.make_serve_step``), with the cost analysis
 (``launch/cost_analysis.py``) and a memory tracker.  Decode cells take
 the int8 KV cache for every family but ssm, as the reference's.  Each
 cell writes the reference's record: ``memory`` (the inputs' local shards

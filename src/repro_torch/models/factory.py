@@ -8,12 +8,13 @@ over the six families.
   prefill_chunk(cfg, params, cache, batch) -> (logits, cache)
   loss_fn(cfg, params, batch)         -> (loss, metrics)
 
-The families of ``SHARDED_FAMILIES`` (the dense decoder, MoE and VLM)
-also run on each rank's shards of a mesh (``apply_train_sharded``,
-``loss_fn(..., layout=)``, ``decode_step_sharded``: tensor-parallel
-products, no param leaf gathered); the others' sharded steps gather
-their params first.  ``split`` (``moe.Split``) says where a rank's batch
-sits in the global batch: the MoE family's dispatch groups are the
+Every family also runs on each rank's shards of a mesh whose ``model``
+axis divides its tensor-parallel widths (``shards``):
+``apply_train_sharded``, ``loss_fn(..., layout=)`` and
+``decode_step_sharded`` (tensor-parallel products, no param leaf
+gathered).  On a mesh where it does not divide them, the sharded steps
+gather the params first.  ``split`` (``moe.Split``) says where a rank's
+batch sits in the global batch: the MoE family's dispatch groups are the
 global batch's.
 """
 from __future__ import annotations
@@ -26,8 +27,8 @@ from repro_torch.sharding import partition as P
 
 __all__ = ["get_family", "init_params", "apply_train", "init_cache",
            "decode_step", "prefill_chunk", "supports_chunked_prefill",
-           "loss_fn", "cross_entropy", "MOE_AUX_WEIGHT", "SHARDED_FAMILIES",
-           "shards", "apply_train_sharded", "decode_step_sharded"]
+           "loss_fn", "cross_entropy", "MOE_AUX_WEIGHT", "shards",
+           "apply_train_sharded", "decode_step_sharded"]
 
 _FAMILIES = {
     "dense": transformer,
@@ -39,8 +40,6 @@ _FAMILIES = {
 }
 
 MOE_AUX_WEIGHT = 0.01
-# families whose sharded steps run on each rank's shards
-SHARDED_FAMILIES = ("dense", "moe", "vlm")
 
 
 def get_family(cfg: ModelConfig):
@@ -72,11 +71,12 @@ def apply_train(cfg: ModelConfig, params: dict, batch: dict, split=None):
 
 
 def shards(cfg: ModelConfig, mesh) -> bool:
-    """True when the sharded train and prefill steps keep ``cfg``'s
-    params at their shards on ``mesh``: a family of ``SHARDED_FAMILIES``
-    whose tensor-parallel dims ``model`` divides."""
-    return (cfg.family in SHARDED_FAMILIES
-            and transformer.tp_divides(cfg, mesh))
+    """True when the sharded train, prefill and decode steps keep
+    ``cfg``'s params at their shards on ``mesh``: the ``model`` axis
+    divides every dim the family splits on it (its module's
+    ``tp_widths``).  Else they gather the params first."""
+    tp = P.mesh_axis_size(mesh, "model")
+    return all(w % tp == 0 for w in get_family(cfg).tp_widths(cfg))
 
 
 def apply_train_sharded(cfg: ModelConfig, params: dict, batch: dict, layout,
@@ -84,8 +84,6 @@ def apply_train_sharded(cfg: ModelConfig, params: dict, batch: dict, layout,
     """``apply_train`` on this rank's shards (``params`` the local tensors
     of a tree placed by ``layout``, ``batch`` this rank's part of the
     batch): (this rank's logits (B_local, S, V / model), aux loss)."""
-    if cfg.family not in SHARDED_FAMILIES:
-        raise ValueError(f"family {cfg.family!r} has no sharded forward")
     if cfg.family == "moe":
         return moe.forward_sharded(cfg, params, batch, layout, split)
     return _zero_aux(get_family(cfg).forward_sharded(cfg, params, batch,
@@ -103,8 +101,6 @@ def decode_step_sharded(cfg: ModelConfig, params: dict, cache: dict,
     that split the vocab too; else all of V for its local rows.  The
     spec (rows, None, vocab) names the axes along which the pieces
     differ (``serve_step.make_serve_step`` gathers along them)."""
-    if cfg.family not in SHARDED_FAMILIES:
-        raise ValueError(f"family {cfg.family!r} has no sharded decode")
     return get_family(cfg).decode_step_sharded(cfg, params, cache, batch,
                                                playout, clayout, donate)
 
@@ -177,7 +173,7 @@ def loss_fn(cfg: ModelConfig, params: dict, batch: dict, layout=None,
     plus ``MOE_AUX_WEIGHT`` times the aux term (zero outside MoE).  With
     a ``layout`` (``partition.Layout``) ``params`` are this rank's shards:
     ``apply_train_sharded`` and the vocab-parallel cross-entropy
-    (``SHARDED_FAMILIES`` only).  ``split``: ``batch`` is this rank's
+    (where ``shards``).  ``split``: ``batch`` is this rank's
     part of the global batch (``moe.Split``)."""
     if layout is None:
         logits, aux = apply_train(cfg, params, batch, split)

@@ -7,6 +7,11 @@ is a stack of Mamba2 layers with one shared attention + MLP block applied
 at the start of every group of ``attn_every`` layers (one set of weights;
 each application keeps its own KV cache).  ``a_log``, ``d_skip`` and
 ``dt_bias`` stay float32 at any model dtype.
+
+On a mesh (``forward_sharded``, ``decode_step_sharded``) the shared block
+is a dense block and runs on the dense family's tensor-parallel
+functions; the Mamba2 mixer runs its SSD on a rank's heads in training
+and on the cache's own slice of the SSM state in decode.
 """
 from __future__ import annotations
 
@@ -19,10 +24,13 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
+from repro_torch.sharding import partition as P
+from repro_torch.tree import tree_map
 
 __all__ = ["init_params", "forward", "init_cache", "decode_step",
            "prefill_chunk", "ssd_chunked", "ssd_step", "mamba2_apply",
-           "mamba2_step", "mamba2_prefill"]
+           "mamba2_step", "mamba2_prefill", "forward_sharded",
+           "decode_step_sharded", "tp_widths"]
 
 GROUPS = 1                      # B/C projection groups
 
@@ -30,6 +38,15 @@ GROUPS = 1                      # B/C projection groups
 def _dims(cfg: ModelConfig):
     d_inner = cfg.ssm_expand * cfg.d_model
     return d_inner, d_inner // cfg.ssm_head_dim, cfg.ssm_state
+
+
+def tp_widths(cfg: ModelConfig) -> tuple:
+    """The dims the sharded steps split on ``model``: the shared block's
+    dense widths and the Mamba2 mixer's (``in_proj``'s output columns,
+    the conv channels, d_inner and the SSD heads)."""
+    d_inner, n_heads, n = _dims(cfg)
+    return T.tp_widths(cfg) + (2 * d_inner + 2 * GROUPS * n + n_heads,
+                               d_inner + 2 * GROUPS * n, d_inner, n_heads)
 
 
 # --------------------------------------------------------------------------
@@ -154,13 +171,14 @@ def _causal_conv(xbc, w, b):
     return out + b[None, None, :]
 
 
-def _gated_out(cfg: ModelConfig, p: dict, y, xs, zg, x):
-    """The D skip, the gated RMS norm and the output projection."""
+def _gated_out(cfg: ModelConfig, p: dict, y, xs, zg, x, proj=None):
+    """The D skip, the gated RMS norm and the output projection (``proj``
+    in place of ``out_proj``'s product where given)."""
     d_inner = _dims(cfg)[0]
     y = y + p["d_skip"].float()[:, None] * xs.float()
     y = y.reshape(x.shape[:2] + (d_inner,)).to(x.dtype)
     y = L.rms_norm(y * F.silu(zg), p["norm_w"], cfg.norm_eps)
-    return L.dense(y, p["out_proj"])
+    return L.dense(y, p["out_proj"]) if proj is None else proj(y)
 
 
 def mamba2_apply(cfg: ModelConfig, p: dict, x, init_state=None):
@@ -397,3 +415,212 @@ def prefill_chunk(cfg: ModelConfig, params: dict, cache: dict, batch: dict):
     new = _stacked(states, kvs)
     new["len"] = start + n_valid
     return T.logits_from_hidden(cfg, params, h), new
+
+
+# --------------------------------------------------------------------------
+# zamba2 on a mesh: each rank's shards, explicit collectives
+# --------------------------------------------------------------------------
+def _mixer_tp(cfg: ModelConfig, p: dict, x, mesh):
+    """The Mamba2 mixer under tensor parallelism, in training: ``x`` (B, S,
+    D) inside the region (``copy_to``), ``p`` a layer's params gathered
+    along ``data`` (``in_proj`` its output columns on ``model``,
+    ``conv_w`` its channels, ``out_proj`` its rows; the rest
+    replicated).  ``in_proj``'s and ``conv_w``'s splits straddle the z /
+    xBC / dt segments, so the two leaves are gathered along ``model``
+    here, inside the remat unit (their backward reduce-scatters the
+    ranks' partial grads), and narrowed to the columns of this rank's
+    SSD heads (``n_heads / model`` of them, as the reference's
+    ``shard_hint``s place the heads) and every B / C column.  The SSD
+    runs on those heads, the gated norm's mean of squares is summed
+    over ``model`` (``psum``), and ``out_proj``'s rows (the same heads)
+    give this rank's partial of the output, summed over ``model``.
+    ``mamba2_apply`` on one rank."""
+    if P.mesh_axis_size(mesh, "model") == 1:
+        return mamba2_apply(cfg, p, x)[0]
+    b, s, _ = x.shape
+    d_inner, n_heads, n = _dims(cfg)
+    pd, gn = cfg.ssm_head_dim, GROUPS * n
+    lo, hi = T._model_part(mesh, n_heads)
+    nh = hi - lo
+
+    def span(a, z):
+        return torch.arange(a, z, device=x.device)
+
+    conv_idx = torch.cat([span(lo * pd, hi * pd),
+                          span(d_inner, d_inner + 2 * gn)])
+    proj_idx = torch.cat([span(lo * pd, hi * pd), d_inner + conv_idx,
+                          span(2 * d_inner + 2 * gn + lo,
+                               2 * d_inner + 2 * gn + hi)])
+    rep = {k: P.copy_to(p[k], mesh)
+           for k in ("conv_b", "a_log", "d_skip", "dt_bias", "norm_w")}
+    w = P.gather_dim(p["in_proj"], 1, mesh, "model")
+    cw = P.gather_dim(p["conv_w"], 1, mesh, "model")
+    zg, xbc, dt = L.dense(x, w[:, proj_idx]).split(
+        [nh * pd, nh * pd + 2 * gn, nh], dim=-1)
+    xbc = F.silu(_causal_conv(xbc, cw[:, conv_idx], rep["conv_b"][conv_idx]))
+    xs = xbc[..., :nh * pd].reshape(b, s, nh, pd)
+    bmat = xbc[..., nh * pd:nh * pd + gn].reshape(b, s, GROUPS, n)
+    cmat = xbc[..., nh * pd + gn:].reshape(b, s, GROUPS, n)
+    dt = F.softplus(dt.float() + rep["dt_bias"][lo:hi].float())
+    a = -torch.exp(rep["a_log"][lo:hi].float())
+    y, _ = ssd_chunked(xs, dt, a, bmat, cmat)
+    y = y + rep["d_skip"][lo:hi].float()[:, None] * xs.float()
+    g = (y.reshape(b, s, nh * pd).to(x.dtype) * F.silu(zg)).float()
+    var = P.psum(torch.sum(g * g, dim=-1, keepdim=True), mesh,
+                 "model") / d_inner
+    y = (g * torch.rsqrt(var + cfg.norm_eps)
+         * rep["norm_w"][lo * pd:hi * pd].float()).to(x.dtype)
+    return P.reduce_from(L.dense(y, p["out_proj"]), mesh)
+
+
+def forward_sharded(cfg: ModelConfig, params: dict, batch: dict,
+                    layout) -> torch.Tensor:
+    """``forward`` on this rank's shards (``params`` the local tensors of a
+    tree placed by ``layout``: ``param_pspecs``, FSDP on ``data``, TP on
+    ``model``; ``batch`` this rank's part).  The remat unit is the
+    reference's, the shared block and its group; each layer's params
+    (and the shared block's, at each application) are all-gathered
+    along ``data`` inside it (``fsdp_gather``).  The shared block runs
+    the dense family's ``_attn_tp`` and a column / row-parallel MLP, the
+    mixer ``_mixer_tp``; the embedding is vocab-parallel and the logits
+    are left split on ``model``.  Returns this rank's logits (B_local, S,
+    V / model).  Needs ``factory.shards``; on one rank it is
+    ``forward``, bit for bit."""
+    mesh, specs = layout.mesh, layout.specs
+
+    tokens = batch["tokens"].to(params["embed"].device)
+    b, s = tokens.shape
+    positions = torch.arange(s, dtype=torch.int32,
+                             device=tokens.device).expand(b, s)
+    embed = P.fsdp_gather(params["embed"], specs["embed"], mesh)
+    h = T._embed_tp(cfg, embed, tokens, mesh)
+    layers = T.layer_list(params["layers"], cfg.n_layers)
+    lsp = tree_map(lambda sp: sp[1:], specs["layers"])
+    shared = params.get("shared_attn")
+
+    def mamba_body(h, lp):
+        lp = T.fsdp_tree(lp, lsp, mesh)
+        x = P.copy_to(T._norm(cfg, lp["ln"], h), mesh)
+        return h + _mixer_tp(cfg, lp["mamba"], x, mesh)
+
+    def group_body(h, group):
+        if shared is not None:
+            sh = T.fsdp_tree(shared, specs["shared_attn"], mesh)
+            x = P.copy_to(T._norm(cfg, sh["ln1"], h), mesh)
+            h = h + T._attn_tp(cfg, sh["attn"], x, positions, mesh)
+            x = P.copy_to(T._norm(cfg, sh["ln2"], h), mesh)
+            h = h + P.reduce_from(T.mlp_apply(cfg, sh["mlp"], x), mesh)
+        for lp in group:
+            h = mamba_body(h, lp)
+        return h
+
+    body = T.remat_wrap(cfg, group_body)
+    # one remat unit a group, as ``forward`` (which rejects the same
+    # configs), or a layer without the shared block
+    every, n = ((cfg.attn_every, _n_apps(cfg)) if shared is not None
+                else (1, cfg.n_layers))
+    for g in range(n):
+        h = body(h, layers[g * every:(g + 1) * every])
+    top = {"embed": embed,
+           "final_norm": T.fsdp_tree(params["final_norm"],
+                                     specs["final_norm"], mesh)}
+    return T.logits_from_hidden(cfg, top, h, mesh)
+
+
+def _mixer_decode_tp(cfg: ModelConfig, p: dict, sp: dict, x, conv_state,
+                     ssm_state, ssm_spec, mesh):
+    """One token's Mamba2 mixer on this rank's weight and state shards at
+    the serving layout (``sp``: ``in_proj``'s columns and ``conv_w``'s
+    channels on ``model``, ``out_proj``'s rows; at ``global_batch == 1``
+    ``in_proj``'s contraction and ``out_proj``'s output on ``data``).
+    No param leaf moves; the activations do where a split straddles:
+
+      * ``in_proj``: the partial products summed over its contraction
+        axes, then its output columns all-gathered along ``model`` (B x
+        ``in_proj``'s width);
+      * the conv on the rank's channels of the window (the conv state's
+        own slice), its output gathered along ``model`` (B x channels);
+      * the SSD step on the SSM state's own slice ``ssm_spec`` (batch,
+        heads, head dim P, N; P on ``model`` where it divides, else the
+        heads), its output gathered (B x d_inner);
+      * the D skip and the gated norm on every column, then
+        ``out_proj``'s rows, summed over their axes.
+
+    Returns (y (B, 1, D), the new conv state, the new SSM state), the
+    states at their shards; on one rank ``mamba2_step``'s ops."""
+    b = x.shape[0]
+    c_ax = sp["in_proj"][-1]
+    z = P.gather_along(T.proj_tp(p, sp, ((x, "in_proj"),), mesh)[0],
+                       (None, None, c_ax), mesh, P.axis_names(c_ax))
+    zg, xbc, dt = _split_proj(cfg, z)
+    ch = (None, None, sp["conv_w"][-1])
+    window = torch.cat([conv_state.to(xbc.dtype),
+                        P.local_slice(xbc, ch, mesh)], dim=1)
+    out = (torch.einsum("bkc,kc->bc", window.float(), p["conv_w"].float())
+           + P.local_slice(p["conv_b"], ch[2:], mesh).float())
+    xbc = P.gather_along(F.silu(out)[:, None, :].to(x.dtype), ch, mesh,
+                         P.sharded_axes(ch, mesh))
+    xs, bmat, cmat = _split_xbc(cfg, xbc, (b,))
+    dt = F.softplus(dt.float() + p["dt_bias"].float())[:, 0]
+    a = -torch.exp(p["a_log"].float())
+    hp = (None,) + tuple(ssm_spec[1:3])
+    y, ssm_state = ssd_step(
+        ssm_state.float(), P.local_slice(xs.float(), hp, mesh),
+        P.local_slice(dt, hp[:2], mesh), P.local_slice(a, hp[1:2], mesh),
+        bmat.float(), cmat.float())
+    y = P.gather_along(y, hp, mesh, P.sharded_axes(hp, mesh))
+    r_ax, o_ax = sp["out_proj"]
+
+    def proj(y):
+        y = P.all_reduce(L.dense(P.local_slice(y, (None, None, r_ax), mesh),
+                                 p["out_proj"]), mesh, r_ax)
+        return P.gather_along(y, (None, None, o_ax), mesh,
+                              P.axis_names(o_ax))
+
+    return (_gated_out(cfg, p, y[:, None], xs[:, None], zg, x, proj),
+            window[:, 1:].to(conv_state.dtype), ssm_state)
+
+
+def decode_step_sharded(cfg: ModelConfig, params: dict, cache: dict,
+                        batch: dict, playout, clayout, donate: bool = True):
+    """``decode_step`` as tensor-parallel products on this rank's shards,
+    the contract of ``transformer.decode_step_sharded`` (params at
+    ``serve_param_pspecs``, the cache at ``cache_pspecs``: conv windows
+    by channel and SSM states by head dim on ``model``, the shared
+    block's K / V by KV heads or sequence): the embedding and logits and
+    the shared block's attention and MLP are the dense family's, the
+    mixer ``_mixer_decode_tp``.  Returns (logits, the new local cache,
+    the logits' spec)."""
+    mesh, ps, cs = playout.mesh, playout.specs, clayout.specs
+    b_ax = cs["ssm"][1]
+    h = T.decode_embed(cfg, params["embed"], ps["embed"][0], batch["tokens"],
+                       mesh, b_ax)
+    lens = P.local_slice(cache["len"], (b_ax,), mesh)
+    lsp = tree_map(lambda sp: sp[1:], ps["layers"])
+    shared, ssp = params.get("shared_attn"), ps.get("shared_attn")
+    new = {n: [] for n in ("conv", "ssm", "k", "v") if n in cache}
+    if shared is not None:
+        attn = T.decode_attn(cfg, mesh, ssp["attn"], cs["k"],
+                             cache["k"].shape, lens)
+    for i in range(cfg.n_layers):
+        if shared is not None and i % cfg.attn_every == 0:
+            app = i // cfg.attn_every
+            a, kc, vc, _, _ = attn(shared["attn"],
+                                   T._norm(cfg, shared["ln1"], h),
+                                   cache["k"][app], cache["v"][app])
+            h = h + a
+            h = h + T._mlp_tp(cfg, shared["mlp"], ssp["mlp"],
+                              T._norm(cfg, shared["ln2"], h), mesh, b_ax)
+            T.keep_row(cache["k"], new["k"], app, kc, donate)
+            T.keep_row(cache["v"], new["v"], app, vc, donate)
+        lp = T.layer_slice(params["layers"], i)
+        m, conv, ssm = _mixer_decode_tp(
+            cfg, lp["mamba"], lsp["mamba"], T._norm(cfg, lp["ln"], h),
+            cache["conv"][i], cache["ssm"][i], cs["ssm"][1:], mesh)
+        h = h + m
+        T.keep_row(cache["conv"], new["conv"], i, conv, donate)
+        T.keep_row(cache["ssm"], new["ssm"], i, ssm, donate)
+    out = T.stacked_rows(cache, new, donate)
+    out["len"] = cache["len"] + 1
+    logits, lspec = T.decode_logits(cfg, params, ps, h, mesh, b_ax)
+    return logits, out, lspec

@@ -33,7 +33,7 @@ from repro_torch.sharding import partition as P
 
 __all__ = ["init_params", "forward", "init_cache", "decode_step",
            "moe_block", "moe_tp", "decode_tp", "forward_sharded",
-           "decode_step_sharded", "Split"]
+           "decode_step_sharded", "Split", "tp_widths"]
 
 
 def init_moe_layer(cfg: ModelConfig, gen, lead: tuple, device) -> dict:
@@ -316,6 +316,13 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict, batch: dict):
     return T.logits_from_hidden(cfg, params, h), new
 
 
+def tp_widths(cfg: ModelConfig) -> tuple:
+    """The dense widths with the experts in place of the ffn width
+    (expert parallelism on ``model``)."""
+    return (cfg.padded_vocab, cfg.n_experts, cfg.n_heads * cfg.hd,
+            cfg.n_kv_heads * cfg.hd)
+
+
 def forward_sharded(cfg: ModelConfig, params: dict, batch: dict, layout,
                     split: Split | None = None):
     """``forward`` on this rank's shards -> (this rank's logits (B_local,
@@ -323,7 +330,7 @@ def forward_sharded(cfg: ModelConfig, params: dict, batch: dict, layout,
     embedding and logits are ``transformer.forward_sharded``'s (ZeRO-3 on
     ``data`` inside the checkpointed layer body, TP on ``model``), the
     MoE block ``moe_tp`` on the rank's ``n_experts / model`` experts,
-    gathered along ``data``.  Needs ``transformer.tp_divides``; on one
+    gathered along ``data``.  Needs ``factory.shards``; on one
     rank it is ``forward``, bit for bit."""
     mesh = layout.mesh
 

@@ -36,8 +36,10 @@ __all__ = ["init_params", "forward", "init_cache", "decode_step",
            "init_embed", "normal", "embed_tokens", "logits_from_hidden", "attn_apply",
            "attn_decode_core", "attn_decode_apply", "attn_prefill_core",
            "attn_prefill_apply", "splice_rows", "mlp_apply", "layer_slice",
-           "layer_list", "remat_wrap", "tp_divides", "forward_sharded",
-           "decode_step_sharded", "gather_rows"]
+           "layer_list", "remat_wrap", "tp_widths",
+           "forward_sharded", "decode_step_sharded", "gather_rows",
+           "decode_embed", "decode_attn", "decode_logits", "keep_row",
+           "stacked_rows", "proj_tp", "heads_tp", "out_tp", "fsdp_tree"]
 
 
 def normal(gen, shape, scale, dtype, device):
@@ -491,16 +493,12 @@ def prefill_chunk(cfg: ModelConfig, params: dict, cache: dict, batch: dict):
 # the dense family (and VLM, MoE) on a mesh: each rank's shards, explicit
 # collectives
 # --------------------------------------------------------------------------
-def tp_divides(cfg: ModelConfig, mesh) -> bool:
-    """True when the ``model`` axis divides every tensor-parallel dim (the
-    q / kv widths, the padded vocab, and the ffn width, or for the MoE
-    family the experts: expert parallelism), so that every TP leaf is
-    split on ``model`` and ``forward_sharded`` applies."""
-    tp = P.mesh_axis_size(mesh, "model")
-    ffn = cfg.n_experts if cfg.family == "moe" else cfg.d_ff
-    return all(w % tp == 0 for w in (cfg.n_heads * cfg.hd,
-                                     cfg.n_kv_heads * cfg.hd, ffn,
-                                     cfg.padded_vocab))
+def tp_widths(cfg: ModelConfig) -> tuple:
+    """The dims the dense family's sharded steps split on ``model``: the
+    padded vocab, the ffn width and the q / kv widths (each family module
+    has its own ``tp_widths``; ``factory.shards`` asks it)."""
+    return (cfg.padded_vocab, cfg.d_ff, cfg.n_heads * cfg.hd,
+            cfg.n_kv_heads * cfg.hd)
 
 
 def _model_part(mesh, width: int) -> tuple:
@@ -540,14 +538,16 @@ def attn_heads(cfg: ModelConfig, mesh) -> tuple:
 
 
 def _attn_tp(cfg: ModelConfig, p: dict, x, positions, mesh,
-             positions3=None):
+             positions3=None, *, causal: bool = True, kv_x=None):
     """Tensor-parallel attention: ``x`` (B, S, D) inside the region
     (``copy_to``); wq / wk / wv (+ biases) this rank's output columns, wo
     its rows.  q, k and v are resharded to the heads this rank's
     attention runs (``attn_heads``; their KV heads h // n_rep), gathered
     along ``model`` where a shard holds no whole head; M-RoPE where
-    ``positions3`` (3, B, S) is given.  Returns this rank's partial of
-    the output projection summed over ``model``."""
+    ``positions3`` (3, B, S) is given.  ``kv_x`` (B, T, D), inside the
+    region too, makes it cross-attention (k / v from it, no RoPE), as
+    ``attn_apply``'s.  Returns this rank's partial of the output
+    projection summed over ``model``."""
     b, s, _ = x.shape
     hd, n_q, n_kv = cfg.hd, cfg.n_heads, cfg.n_kv_heads
     n_rep = n_q // n_kv
@@ -555,15 +555,17 @@ def _attn_tp(cfg: ModelConfig, p: dict, x, positions, mesh,
     kv_lo, kv_hi = h_lo // n_rep, (h_hi - 1) // n_rep + 1
     q_w, kv_w = n_q * hd, n_kv * hd
 
-    def heads(w, bias, width, lo, hi):
-        y = _columns(L.dense(x, w, bias), _model_part(mesh, width),
+    def heads(src, w, bias, width, lo, hi):
+        y = _columns(L.dense(src, w, bias), _model_part(mesh, width),
                      (lo * hd, hi * hd), width, mesh)
-        return y.reshape(b, s, hi - lo, hd)
+        return y.reshape(b, src.shape[1], hi - lo, hd)
 
-    q = heads(p["wq"], p.get("bq"), q_w, h_lo, h_hi)
-    k = heads(p["wk"], p.get("bk"), kv_w, kv_lo, kv_hi)
-    v = heads(p["wv"], p.get("bv"), kv_w, kv_lo, kv_hi)
-    q, k = _rope(cfg, q, k, positions, positions3)
+    src = x if kv_x is None else kv_x
+    q = heads(x, p["wq"], p.get("bq"), q_w, h_lo, h_hi)
+    k = heads(src, p["wk"], p.get("bk"), kv_w, kv_lo, kv_hi)
+    v = heads(src, p["wv"], p.get("bv"), kv_w, kv_lo, kv_hi)
+    if kv_x is None:
+        q, k = _rope(cfg, q, k, positions, positions3)
     n_h, n_k = h_hi - h_lo, kv_hi - kv_lo
     idx = [h // n_rep - kv_lo for h in range(h_lo, h_hi)]
     if n_h % n_k or idx != [j // (n_h // n_k) for j in range(n_h)]:
@@ -571,7 +573,7 @@ def _attn_tp(cfg: ModelConfig, p: dict, x, positions, mesh,
         # one KV head per q head
         sel = torch.tensor(idx, device=k.device)
         k, v = k[:, :, sel], v[:, :, sel]
-    out = L.flash_attention(q, k, v, causal=True, q_chunk=cfg.q_chunk,
+    out = L.flash_attention(q, k, v, causal=causal, q_chunk=cfg.q_chunk,
                             kv_chunk=cfg.kv_chunk)
     out = _columns(out.reshape(b, s, n_h * hd), (h_lo * hd, h_hi * hd),
                    _model_part(mesh, q_w), q_w, mesh)
@@ -620,7 +622,7 @@ def forward_sharded(cfg: ModelConfig, params: dict, batch: dict,
         logits left split on ``model``.
 
     Returns this rank's logits (B_local, S, V / model).  Needs
-    ``tp_divides``.  On a mesh of one rank every collective is skipped
+    ``factory.shards``.  On a mesh of one rank every collective is skipped
     and the ops are ``forward``'s, bit for bit."""
     return _forward_sharded(cfg, params, batch, layout)[0]
 
@@ -633,9 +635,6 @@ def _forward_sharded(cfg: ModelConfig, params: dict, batch: dict, layout,
     region, ``y`` summed over ``model`` (the dense MLP unless given: the
     MoE family passes its own)."""
     mesh, specs = layout.mesh, layout.specs
-
-    def gather(tree, spec):
-        return tree_map(lambda t, sp: P.fsdp_gather(t, sp, mesh), tree, spec)
 
     if ffn is None:
         def ffn(lp, x):
@@ -656,7 +655,7 @@ def _forward_sharded(cfg: ModelConfig, params: dict, batch: dict, layout,
     layer_specs = tree_map(lambda sp: sp[1:], specs["layers"])
 
     def body(h, aux, lp):
-        lp = gather(lp, layer_specs)
+        lp = fsdp_tree(lp, layer_specs, mesh)
         x = P.copy_to(_norm(cfg, lp["ln1"], h), mesh)
         h = h + _attn_tp(cfg, lp["attn"], x, positions, mesh, positions3)
         x = P.copy_to(_norm(cfg, lp["ln2"], h), mesh)
@@ -668,11 +667,18 @@ def _forward_sharded(cfg: ModelConfig, params: dict, batch: dict, layout,
     for lp in layer_list(params["layers"], cfg.n_layers):
         h, aux = body(h, aux, lp)
     top = {"embed": embed,
-           "final_norm": gather(params["final_norm"], specs["final_norm"])}
+           "final_norm": fsdp_tree(params["final_norm"], specs["final_norm"],
+                                   mesh)}
     if "lm_head" in params:
         top["lm_head"] = P.fsdp_gather(params["lm_head"], specs["lm_head"],
                                        mesh)
     return logits_from_hidden(cfg, top, h, mesh), aux
+
+
+def fsdp_tree(tree, spec, mesh):
+    """``partition.fsdp_gather`` on every leaf of a params tree placed by
+    the spec tree ``spec``: ZeRO-3's gather of a layer's params."""
+    return tree_map(lambda t, sp: P.fsdp_gather(t, sp, mesh), tree, spec)
 
 
 def gather_rows(x, mesh, b_ax, axes=None):
@@ -699,14 +705,27 @@ def _mlp_tp(cfg: ModelConfig, p: dict, sp: dict, hn, mesh, b_ax):
     ``model``) at ``serve_param_pspecs``) of the rows gathered along the
     batch axes among them: the partial ``w_down`` products summed over
     those axes and left as this rank's rows (a reduce-scatter along the
-    batch axes, an all-reduce along the others).  ``mlp_apply`` on the
-    local rows where d_ff is not split."""
-    f_ax = sp["w_up"][-1]
-    if not P.sharded_axes((f_ax,), mesh):
+    batch axes, an all-reduce along the others).  Where the contraction
+    dim is split too (zamba2's shared MLP at ``global_batch == 1``: D on
+    ``data``), the gate / up partials are summed over its axes before the
+    activation and ``w_down``'s output columns gathered.  ``mlp_apply``
+    on the local rows where no dim is split."""
+    f_ax, d_ax, o_ax = sp["w_up"][-1], sp["w_up"][0], sp["w_down"][-1]
+    if not P.sharded_axes((f_ax, d_ax, o_ax), mesh):
         return mlp_apply(cfg, p, hn)
     take = _row_axes(b_ax, f_ax)
-    y = mlp_apply(cfg, p, gather_rows(hn, mesh, b_ax, take))
-    return P.sum_to_shard(y, mesh, f_ax, 0, take)
+    x = gather_rows(hn, mesh, b_ax, take)
+    if P.sharded_axes((d_ax, o_ax), mesh):
+        x = P.local_slice(x, (None, None, d_ax), mesh)
+        names = ("w_gate", "w_up") if cfg.gated_mlp else ("w_up",)
+        ys = P.all_reduce(torch.stack([L.dense(x, p[n]) for n in names]),
+                          mesh, d_ax).unbind(0)
+        act = L.act_fn(cfg.activation)
+        a = act(ys[0]) * ys[1] if cfg.gated_mlp else act(ys[0])
+        y = P.sum_to_shard(L.dense(a, p["w_down"]), mesh, f_ax, 0, take)
+        return P.gather_along(y, (None, None, o_ax), mesh,
+                              P.axis_names(o_ax))
+    return P.sum_to_shard(mlp_apply(cfg, p, x), mesh, f_ax, 0, take)
 
 
 def _columns_of(spec_entry, mesh, width: int) -> tuple:
@@ -747,34 +766,59 @@ def _attn_decode_tp(cfg: ModelConfig, p: dict, sp: dict, hn, kc, vc, ks,
     q_w, kv_w = cfg.n_heads * hd, cfg.n_kv_heads * hd
     kv_lo, kv_hi = kv_heads
     q_lo, q_hi = kv_lo * n_rep, kv_hi * n_rep
-    k_ax = sp["wq"][0]
-    x = P.local_slice(hn, (None, None, k_ax), mesh)
-    names = ("wq", "wk", "wv")
-    ys = [L.dense(x, p[n]) for n in names]
+    yq, yk, yv = proj_tp(p, sp, [(hn, n) for n in ("wq", "wk", "wv")], mesh)
+    q = heads_tp(cfg, p, sp, yq, "wq", q_w, q_lo, q_hi, mesh)
+    k = heads_tp(cfg, p, sp, yk, "wk", kv_w, kv_lo, kv_hi, mesh)
+    v = heads_tp(cfg, p, sp, yv, "wv", kv_w, kv_lo, kv_hi, mesh)
+    out, kc, vc, ks, vs = attn_decode_core(
+        cfg, q, k, v, kc, vc, lens, ks, vs, positions3=positions3, seq=seq)
+    return out_tp(cfg, p, sp, out, (q_lo, q_hi), mesh), kc, vc, ks, vs
+
+
+def proj_tp(p: dict, sp: dict, pairs, mesh) -> list:
+    """The products of ``pairs`` ((x (B, S, every column), name), ...)
+    with the local weights ``p[name]`` (specs in ``sp``, one contraction
+    split): each x's columns narrowed to its weight's rows where the
+    contraction dim is split (the ``global_batch == 1`` layout: on
+    ``data``), the partial products summed over those axes in one
+    all-reduce.  The products' columns stay the weights' local ones."""
+    k_ax = sp[pairs[0][1]][0]
+    ys = [L.dense(P.local_slice(x, (None, None, k_ax), mesh), p[n])
+          for x, n in pairs]
     if P.mesh_axis_size(mesh, k_ax) > 1:
         widths = [y.shape[-1] for y in ys]
         ys = P.all_reduce(torch.cat(ys, -1), mesh, k_ax).split(widths, -1)
+    return list(ys)
 
-    def heads(y, name, width, lo, hi):
-        bias = p.get("b" + name[1])
-        if bias is not None:
-            y = y + bias.to(y.dtype)
-        y = _columns(y, _columns_of(sp[name][-1], mesh, width),
-                     (lo * hd, hi * hd), width, mesh)
-        return y.reshape(b, 1, hi - lo, hd)
 
-    q = heads(ys[0], "wq", q_w, q_lo, q_hi)
-    k = heads(ys[1], "wk", kv_w, kv_lo, kv_hi)
-    v = heads(ys[2], "wv", kv_w, kv_lo, kv_hi)
-    out, kc, vc, ks, vs = attn_decode_core(
-        cfg, q, k, v, kc, vc, lens, ks, vs, positions3=positions3, seq=seq)
+def heads_tp(cfg: ModelConfig, p: dict, sp: dict, y, name: str, width: int,
+             lo: int, hi: int, mesh):
+    """``proj_tp``'s product ``y`` of projection ``name`` (``width``
+    columns, its local ones) plus its bias, resharded to heads [lo, hi)
+    (``_columns``: a slice where the rank's column shard holds them,
+    else an all-gather along ``model``): (B, S, hi - lo, hd)."""
+    bias = p.get("b" + name[1])
+    if bias is not None:
+        y = y + bias.to(y.dtype)
+    y = _columns(y, _columns_of(sp[name][-1], mesh, width),
+                 (lo * cfg.hd, hi * cfg.hd), width, mesh)
+    return y.reshape(y.shape[0], y.shape[1], hi - lo, cfg.hd)
+
+
+def out_tp(cfg: ModelConfig, p: dict, sp: dict, out, heads: tuple, mesh):
+    """The output projection of the attention ``out`` (B, S, H_local, hd)
+    over q heads ``heads`` = [lo, hi): the columns that match wo's local
+    rows, times them, summed over the axes that split those rows; wo's
+    output columns (split on ``data`` at ``global_batch == 1``)
+    all-gathered.  (B, S, D)."""
+    b, s = out.shape[:2]
+    q_w = cfg.n_heads * cfg.hd
     in_ax, out_ax = sp["wo"]
-    out = _columns(out.reshape(b, 1, (q_hi - q_lo) * hd),
-                   (q_lo * hd, q_hi * hd), _columns_of(in_ax, mesh, q_w),
-                   q_w, mesh)
+    out = _columns(out.reshape(b, s, (heads[1] - heads[0]) * cfg.hd),
+                   (heads[0] * cfg.hd, heads[1] * cfg.hd),
+                   _columns_of(in_ax, mesh, q_w), q_w, mesh)
     y = P.all_reduce(L.dense(out, p["wo"]), mesh, in_ax)
-    y = P.gather_along(y, (None, None, out_ax), mesh, P.axis_names(out_ax))
-    return y, kc, vc, ks, vs
+    return P.gather_along(y, (None, None, out_ax), mesh, P.axis_names(out_ax))
 
 
 def decode_step_sharded(cfg: ModelConfig, params: dict, cache: dict,
@@ -813,41 +857,17 @@ def decode_step_sharded(cfg: ModelConfig, params: dict, cache: dict,
     skipped and it is ``decode_step``, bit for bit."""
     mesh, ps, cs = playout.mesh, playout.specs, clayout.specs
     positions3 = batch.get("positions3")
-    _, b_ax, s_ax, kv_ax = cs["k"][:4]
+    b_ax = cs["k"][1]
     if ffn is None:
         def ffn(lp, sp, hn):
             return _mlp_tp(cfg, lp["mlp"], sp["mlp"], hn, mesh, b_ax)
 
-    tokens = batch["tokens"].to(params["embed"].device)
-    e_ax = ps["embed"][0]
-    if P.sharded_axes((e_ax,), mesh):
-        take = _row_axes(b_ax, e_ax)
-        rows = _vocab_rows(params["embed"], gather_rows(tokens, mesh, b_ax,
-                                                        take), mesh, e_ax)
-        h = P.sum_to_shard(rows, mesh, e_ax, 0, take).to(cfg.cdtype)
-    else:
-        h = embed_tokens(cfg, params, tokens)
+    h = decode_embed(cfg, params["embed"], ps["embed"][0], batch["tokens"],
+                     mesh, b_ax)
     lens = P.local_slice(cache["len"], (b_ax,), mesh)
-    seq = None
-    if P.mesh_axis_size(mesh, s_ax) > 1:
-        seq = (P.axis_index(mesh, s_ax) * cache["k"].shape[2],
-               lambda t: P.all_reduce(t, mesh, s_ax, "max"),
-               lambda t: P.all_reduce(t, mesh, s_ax))
-    n_kv = cache["k"].shape[3]
-    kv_lo = P.axis_index(mesh, kv_ax) * n_kv
     lsp = tree_map(lambda sp: sp[1:], ps["layers"])
-    whole = (seq is None and P.mesh_axis_size(mesh, kv_ax) == 1
-             and not any(P.sharded_axes(sp, mesh)
-                         for _, sp in flatten(lsp["attn"])))
-
-    def attn(p, hn, kc, vc, ks, vs):
-        if whole:
-            return attn_decode_apply(cfg, p, hn, kc, vc, lens, ks, vs,
-                                     positions3=positions3)
-        return _attn_decode_tp(cfg, p, lsp["attn"], hn, kc, vc, ks, vs,
-                               lens, mesh, (kv_lo, kv_lo + n_kv), seq,
-                               positions3)
-
+    attn = decode_attn(cfg, mesh, lsp["attn"], cs["k"], cache["k"].shape,
+                       lens, positions3)
     names = [n for n in ("k", "v", "k_scale", "v_scale") if n in cache]
     new = {n: [] for n in names}
     for i in range(cfg.n_layers):
@@ -857,19 +877,84 @@ def decode_step_sharded(cfg: ModelConfig, params: dict, cache: dict,
         h = h + a
         h = h + ffn(lp, lsp, _norm(cfg, lp["ln2"], h))
         for n, t in zip(names, kv):
-            if donate:
-                cache[n][i].copy_(t)
-            else:
-                new[n].append(t)
-    out = ({n: cache[n] for n in names} if donate
-           else {n: torch.stack(ts) for n, ts in new.items()})
+            keep_row(cache[n], new[n], i, t, donate)
+    out = stacked_rows(cache, new, donate)
     out["len"] = cache["len"] + 1
+    logits, lspec = decode_logits(cfg, params, ps, h, mesh, b_ax)
+    return logits, out, lspec
+
+
+def keep_row(stacked, rows: list, i: int, t, donate: bool) -> None:
+    """Layer ``i``'s new rows ``t`` of a stacked cache leaf: written into
+    it in place with ``donate``, else kept in ``rows``."""
+    if donate:
+        stacked[i].copy_(t)
+    else:
+        rows.append(t)
+
+
+def stacked_rows(cache: dict, new: dict, donate: bool) -> dict:
+    """The new stacked leaves of ``keep_row``'s rows: the cache's own
+    leaves with ``donate``, else each leaf's rows stacked."""
+    return {n: cache[n] if donate else torch.stack(ts)
+            for n, ts in new.items()}
+
+
+def decode_embed(cfg: ModelConfig, table, e_ax, ids, mesh, b_ax):
+    """The rows of a table split on ``e_ax`` along its rows (an embedding
+    at ``serve_param_pspecs``: V on (``data``, ``model``); whisper's
+    learned positions) for this rank's ids (B_local, S): the ids gathered
+    along the batch axes that split the table, a lookup of the rank's
+    rows (``_vocab_rows``), summed over the table's axes and left as the
+    local batch (``sum_to_shard``), in the compute dtype."""
+    ids = ids.to(table.device)
+    if not P.sharded_axes((e_ax,), mesh):
+        return embed_tokens(cfg, {"embed": table}, ids)
+    take = _row_axes(b_ax, e_ax)
+    rows = _vocab_rows(table, gather_rows(ids, mesh, b_ax, take), mesh, e_ax)
+    return P.sum_to_shard(rows, mesh, e_ax, 0, take).to(cfg.cdtype)
+
+
+def decode_attn(cfg: ModelConfig, mesh, asp: dict, k_spec, k_shape, lens,
+                positions3=None):
+    """``attn(p, hn, kc, vc, ks, vs)`` -> (out, kc, vc, ks, vs): one decode
+    token's self-attention on a layer's local weights ``p`` (specs
+    ``asp``) and its cache shards, the stacked K cache placed by
+    ``k_spec`` (layers, batch, sequence, KV heads, hd) with local shape
+    ``k_shape``: ``_attn_decode_tp`` on the rank's KV heads or sequence
+    shard, ``attn_decode_apply`` where nothing is split."""
+    _, _, s_ax, kv_ax = k_spec[:4]
+    seq = None
+    if P.mesh_axis_size(mesh, s_ax) > 1:
+        seq = (P.axis_index(mesh, s_ax) * k_shape[2],
+               lambda t: P.all_reduce(t, mesh, s_ax, "max"),
+               lambda t: P.all_reduce(t, mesh, s_ax))
+    n_kv = k_shape[3]
+    kv_lo = P.axis_index(mesh, kv_ax) * n_kv
+    whole = (seq is None and P.mesh_axis_size(mesh, kv_ax) == 1
+             and not any(P.sharded_axes(sp, mesh) for _, sp in flatten(asp)))
+
+    def attn(p, hn, kc, vc, ks=None, vs=None):
+        if whole:
+            return attn_decode_apply(cfg, p, hn, kc, vc, lens, ks, vs,
+                                     positions3=positions3)
+        return _attn_decode_tp(cfg, p, asp, hn, kc, vc, ks, vs, lens, mesh,
+                               (kv_lo, kv_lo + n_kv), seq, positions3)
+
+    return attn
+
+
+def decode_logits(cfg: ModelConfig, params: dict, ps: dict, h, mesh, b_ax):
+    """(this rank's logits, their spec) of a decode step's last hidden
+    state ``h`` (the local batch): the final norm, then the tied
+    embedding or the lm_head on this rank's V shard for the rows
+    gathered along the batch axes that split V; the rows stay split
+    along the batch axes not gathered."""
     head = "embed" if cfg.tie_embeddings else "lm_head"
     v_ax = ps[head][0 if cfg.tie_embeddings else -1]
     take = _row_axes(b_ax, v_ax)
     top = {"final_norm": params["final_norm"], head: params[head]}
     logits = logits_from_hidden(cfg, top, gather_rows(h, mesh, b_ax, take))
-    # the rows stay split along the batch axes not gathered
     left = tuple(a for a in P.axis_names(b_ax) if a not in take)
     rows = None if not left else left[0] if len(left) == 1 else left
-    return logits, out, (rows, None, v_ax)
+    return logits, (rows, None, v_ax)

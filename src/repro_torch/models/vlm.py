@@ -16,10 +16,12 @@ from repro_torch.models import transformer as T
 from repro_torch.sharding import partition as P
 
 __all__ = ["init_params", "forward", "init_cache", "decode_step",
-           "default_positions3", "forward_sharded", "decode_step_sharded"]
+           "default_positions3", "forward_sharded", "decode_step_sharded",
+           "tp_widths"]
 
 init_params = T.init_params
 init_cache = T.init_cache
+tp_widths = T.tp_widths
 
 
 def default_positions3(b: int, s: int, start: int = 0,

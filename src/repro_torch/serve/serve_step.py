@@ -76,23 +76,25 @@ def make_serve_step(cfg: ModelConfig, mesh, params_shapes, cache_shapes,
     cache placed as the input's), the tokens and logits of the whole
     batch on every rank.
 
-    The dense, MoE and VLM families (``factory.SHARDED_FAMILIES``) keep
-    params and cache at their shards: each rank decodes its part of the
-    batch as tensor-parallel products (``factory.decode_step_sharded``:
-    no param leaf gathered; each product on the rank's weight shard, the
+    Where ``factory.shards`` (every family, on a mesh whose ``model``
+    axis divides its tensor-parallel widths) params and cache stay at
+    their shards: each rank decodes its part of the batch as
+    tensor-parallel products (``factory.decode_step_sharded``: no param
+    leaf gathered; each product on the rank's weight shard, the
     activations gathered along the batch axes where a weight dim splits
     over them and the partial products summed back to the local batch;
     attention on the local KV heads or positions, a sequence split over
     ranks combined by partial-softmax all-reduces; a MoE layer's experts
     on ``model`` and their F dim on ``data`` over the whole decode
-    group), then the logits are gathered: their vocab shards where the
+    group; zamba2's SSM state and rwkv6's WKV state updated on their own
+    slices), then the logits are gathered: their vocab shards where the
     vocab is split, else the batch.
     With ``donate_cache`` (the reference's donated cache) the cache's
     K / V leaves are updated in place and returned (``len`` is a new
-    tensor).  The other families run ``serve_step_fn`` on the full values
-    of params, cache and batch on every rank and place the new cache by
-    ``cspecs``.  At world size 1 both are ``serve_step_fn`` bit for
-    bit."""
+    tensor).  Elsewhere the step runs ``serve_step_fn`` on the full
+    values of params, cache and batch on every rank and places the new
+    cache by ``cspecs``.  At world size 1 both are ``serve_step_fn`` bit
+    for bit."""
     from torch.distributed.tensor import DTensor
 
     pspecs = partition.serve_param_pspecs(params_shapes, mesh)
@@ -122,5 +124,5 @@ def make_serve_step(cfg: ModelConfig, mesh, params_shapes, cache_shapes,
         nxt, logits, new = serve_step_fn(cfg, *full)
         return nxt, logits, partition.logical_to_sharding(new, cspecs, mesh)
 
-    step = sharded if cfg.family in factory.SHARDED_FAMILIES else gathered
+    step = sharded if factory.shards(cfg, mesh) else gathered
     return step, pspecs, cspecs, bspecs

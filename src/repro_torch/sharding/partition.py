@@ -25,13 +25,14 @@ shard), ``local_slice`` (this rank's shard of a value every rank holds),
 ``sum_to_shard`` (the sum of partial products over named axes, left as
 this rank's rows of an activation gathered along the batch axes), and
 the autograd pairs the sharded steps are written with
-(``fsdp_gather``, ``copy_to``, ``reduce_from``, ``gather_dim``, and
-``psum`` for the MoE family's statistics over a dispatch group that
-spans the data-parallel ranks).  They run on the mesh's axis subgroups
-(``mesh.get_group(axis)``) through ``all_gather_into_tensor``,
-``reduce_scatter_tensor`` and ``all_reduce``, which gloo, NCCL and the
-fake process group all take; an axis of size 1 is no collective at all
-(the same tensor, not a copy).
+(``fsdp_gather``, ``copy_to``, ``reduce_from``, ``gather_dim``,
+``gather_whole``, and ``psum`` for statistics summed over ranks: the MoE
+family's over a dispatch group that spans the data-parallel ranks,
+zamba2's gated norm over its heads on ``model``).  They run on the
+mesh's axis subgroups (``mesh.get_group(axis)``) through
+``all_gather_into_tensor``, ``reduce_scatter_tensor`` and
+``all_reduce``, which gloo, NCCL and the fake process group all take; an
+axis of size 1 is no collective at all (the same tensor, not a copy).
 """
 from __future__ import annotations
 
@@ -50,7 +51,8 @@ __all__ = [
     "logical_to_sharding", "full_value", "Layout", "spec_of",
     "axis_names", "axis_index", "sharded_axes", "gather_along",
     "reduce_scatter_to", "local_slice", "all_reduce", "sum_to_shard",
-    "fsdp_gather", "copy_to", "reduce_from", "gather_dim", "psum",
+    "fsdp_gather", "copy_to", "reduce_from", "gather_dim", "gather_whole",
+    "psum",
 ]
 
 
@@ -600,6 +602,19 @@ def gather_dim(x, dim: int, mesh, axis):
         return x
     return _dual(x, lambda y: gather_along(y, spec, mesh, names),
                  lambda g: _reduce_scatter_sum(g, spec, mesh, names))
+
+
+def gather_whole(x, dim: int, mesh, axis: str = "model"):
+    """A rank-local piece all-gathered along ``dim`` over ``axis`` into a
+    value that every rank then uses alike (as the residual stream is
+    used, whose gradient is the same on every rank): its backward keeps
+    this rank's piece of the gradient, with no sum (``gather_dim``'s
+    backward sums partial gradients instead)."""
+    spec = tuple(axis if d == dim else None for d in range(x.dim()))
+    if mesh_axis_size(mesh, axis) == 1:
+        return x
+    return _dual(x, lambda y: gather_along(y, spec, mesh, (axis,)),
+                 lambda g: local_slice(g, spec, mesh))
 
 
 def psum(x, mesh, axes):

@@ -9,31 +9,33 @@ config (``transformer.remat_wrap``).
 
 ``make_train_step`` gives the step on DTensors placed by the partition
 rules, with the reference's SPMD meaning: the step equals the unsharded
-step on the global batch.  Which path it runs depends on the family:
+step on the global batch.  Which path it runs depends on the mesh:
 
-  * The dense, MoE and VLM families (``factory.shards``: a family of
-    ``factory.SHARDED_FAMILIES`` where the ``model`` axis divides every
-    tensor-parallel dim, the experts for MoE) keep the state at its
-    shards for the whole step, the layout the reference's partitioner
-    gives: each rank runs ``factory.loss_fn`` on its local tensors and
-    its part of the batch (``factory.apply_train_sharded``: ZeRO-3 on
-    ``data`` with a per-layer all-gather whose backward reduce-scatters
-    the grads as their mean over the data-parallel axes, tensor
-    parallelism on ``model``, expert parallelism on ``model`` for MoE,
-    a vocab-parallel cross-entropy); the compression and AdamW run on
-    the local shards, the global norm and the compression's scales
-    all-reduced over the axes that split each leaf.  A rank holds its
-    shards plus one layer's params gathered along ``data``.
-  * The other families gather every leaf to its full value on every
-    rank, run the step there on their part of the batch with the loss,
-    metrics and grads averaged over the data-parallel axes, and copy
-    their shards back.
+  * Where ``factory.shards`` (every family, on a mesh whose ``model``
+    axis divides the family's tensor-parallel widths) the state stays
+    at its shards for the whole step, the layout the reference's
+    partitioner gives: each rank runs ``factory.loss_fn`` on its local
+    tensors and its part of the batch (``factory.apply_train_sharded``:
+    ZeRO-3 on ``data`` with a per-layer all-gather whose backward
+    reduce-scatters the grads as their mean over the data-parallel
+    axes, tensor parallelism on ``model``, expert parallelism on
+    ``model`` for MoE, the Mamba2 mixer and the RWKV time mix on a
+    rank's heads, a vocab-parallel cross-entropy); the compression and
+    AdamW run on the local shards, the global norm and the compression's
+    scales all-reduced over the axes that split each leaf.  A rank
+    holds its shards plus one layer's params gathered along ``data``.
+  * Elsewhere every leaf is gathered to its full value on every rank,
+    the step runs there on the rank's part of the batch with the loss,
+    metrics and grads averaged over the data-parallel axes, and the
+    shards are copied back.
 
 On both paths the MoE family's dispatch groups are the global batch's
 (``moe.Split``: the batch axes of the batch's spec), as the reference's
 under ``jit``, and so are the microbatches: microbatch i is the global
-rows [i·B/n, (i+1)·B/n), of which each rank takes its part
-(``_split_microbatches``).
+rows [i·B/n, (i+1)·B/n), of which each rank takes its part along the
+major batch axes that divide B/n and all of it along the rest
+(``microbatch_axes``, ``_split_microbatches``): a microbatch of fewer
+rows than the data ranks runs whole on each of them.
 
 A leaf whose sharded mesh dims have size 1 is its DTensor's local tensor,
 so at world size 1 both paths are ``train_step_fn`` on the state's own
@@ -51,7 +53,7 @@ from repro_torch.sharding import partition
 from repro_torch.tree import flatten, map_with_path, tree_map
 
 __all__ = ["make_train_step", "init_train_state", "train_step_fn",
-           "param_state_pspecs"]
+           "param_state_pspecs", "microbatch_axes"]
 
 
 def init_train_state(cfg: ModelConfig, ocfg: OptConfig, generator=None,
@@ -65,15 +67,34 @@ def init_train_state(cfg: ModelConfig, ocfg: OptConfig, generator=None,
     return state
 
 
+def microbatch_axes(batch: dict, n: int, layout):
+    """The spec entry of each of ``n`` microbatches' batch dim, for this
+    rank's part ``batch`` of a global batch placed by ``layout``
+    (``partition.Layout`` of the batch's specs): the longest major part
+    of the axes that split the global batch whose size divides a
+    microbatch's rows (``None`` where no part does).  A microbatch runs
+    whole on every rank of the other axes."""
+    mesh = layout.mesh
+    b_ax = layout.specs["tokens"][0]
+    rows = (batch["tokens"].shape[0]
+            * partition.mesh_axis_size(mesh, b_ax) // n)
+    names = partition.axis_names(b_ax)
+    while names and rows % partition.mesh_axis_size(mesh, names):
+        names = names[:-1]
+    return None if not names else names[0] if len(names) == 1 else names
+
+
 def _split_microbatches(batch: dict, n: int, layout=None) -> list:
     """The batch as ``n`` microbatches along its batch dim (the second dim
     of ``positions3`` (3, B, S)), in order, as the reference splits the
     global batch.  With a ``layout`` (``partition.Layout`` of the batch's
     specs) ``batch`` is this rank's part of the global batch, and
-    microbatch i is this rank's part of the global batch's microbatch i:
-    each leaf is all-gathered along the axes that split it, split, and
-    sliced back to this rank's part of each microbatch.  Nothing moves
-    where those axes have size 1."""
+    microbatch i is this rank's part of the global batch's microbatch i
+    along ``microbatch_axes`` (whole along the batch axes beyond them,
+    where a microbatch's rows do not divide): each leaf is all-gathered
+    along the axes that split it, split, and sliced back to this rank's
+    part of each microbatch.  Nothing moves where those axes have size
+    1."""
     def re(x):
         if x.dim() >= 2 and x.shape[0] == 3:   # positions3 (3, B, S)
             return x.reshape(3, n, x.shape[1] // n, *x.shape[2:]
@@ -84,17 +105,16 @@ def _split_microbatches(batch: dict, n: int, layout=None) -> list:
         split = tree_map(re, batch)
         return [tree_map(lambda x, i=i: x[i], split) for i in range(n)]
     mesh = layout.mesh
+    b_ax, mb_ax = layout.specs["tokens"][0], microbatch_axes(batch, n, layout)
 
     def whole(x, spec):
         return partition.gather_along(x, spec, mesh,
                                       partition.sharded_axes(spec, mesh))
 
     def part(x, spec):
-        if any(d % partition.mesh_axis_size(mesh, a)
-               for d, a in zip(x.shape, spec)):
-            raise ValueError(f"a microbatch of shape {tuple(x.shape)} does "
-                             f"not split over {spec}")
-        return partition.local_slice(x, spec, mesh)
+        return partition.local_slice(
+            x, tuple(mb_ax if a == b_ax and a is not None else a
+                     for a in spec), mesh)
 
     full = _split_microbatches(tree_map(whole, batch, layout.specs), n)
     return [tree_map(part, mb, layout.specs) for mb in full]
@@ -133,11 +153,17 @@ def _loss_and_grads(cfg: ModelConfig, params: dict, batch: dict,
     on this rank's shards (the sharded path).  ``split``: the batch is
     this rank's part of the global batch (``moe.Split``); ``blayout``
     (the batch's ``partition.Layout``) makes each microbatch this rank's
-    part of the global batch's (``_split_microbatches``)."""
+    part of the global batch's (``_split_microbatches``), split only
+    along ``microbatch_axes`` and so is ``split`` then: a microbatch run
+    whole on several ranks is the same rows on each, and the means over
+    the data-parallel axes average equal values."""
     if microbatches > 1:
         grads = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
                                                device=p.device), params)
         loss = 0.0
+        if blayout is not None and split is not None:
+            split = moe.Split(split.mesh, microbatch_axes(
+                batch, microbatches, blayout))
         for mb in _split_microbatches(batch, microbatches, blayout):
             mb_loss, _, g = _grads(cfg, params, mb, layout, split)
             grads = tree_map(lambda a, b: a + b.float(), grads, g)

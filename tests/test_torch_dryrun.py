@@ -249,15 +249,16 @@ _SHARDED_VS_GATHERED = textwrap.dedent("""
     res = {}
     for path in ("sharded", "gathered"):
         # the gathered path: every family's steps gather their params
-        factory.SHARDED_FAMILIES = (factory.SHARDED_FAMILIES
-                                    if path == "sharded" else ())
+        if path == "gathered":
+            factory.shards = lambda cfg, mesh: False
         for kind, shape in small.items():
             r = dryrun.run_cell(arch, kind, False, verbose=False,
                                 reduced=True, mesh_shape=(4, 4), shape=shape)
             res[f"{kind}|{path}"] = r
     json.dump(res, open(out, "w"))
 """)
-PEAK_ARCHS = ("granite-3-2b", "phi3.5-moe-42b-a6.6b", "qwen2-vl-2b")
+PEAK_ARCHS = ("granite-3-2b", "phi3.5-moe-42b-a6.6b", "qwen2-vl-2b",
+              "zamba2-2.7b", "whisper-small", "rwkv6-1.6b")
 
 
 def _state_bytes(kind: str, shape,
@@ -347,14 +348,17 @@ def test_sharded_step_peak_below_gathered(sharded_vs_gathered, kind):
 
 
 @pytest.mark.parametrize("kind", ("train", "decode"))
-@pytest.mark.parametrize("arch", ("phi3.5-moe-42b-a6.6b", "qwen2-vl-2b"))
+@pytest.mark.parametrize("arch", PEAK_ARCHS[1:])
 def test_family_sharded_step_peak_below_gathered(sharded_vs_gathered_all,
                                                  arch, kind):
     """As above for reduced phi3.5-moe (experts on ``model``, each rank
-    running its own; the decode group spans the data ranks) and
-    qwen2-vl (M-RoPE, the vision splice): the sharded step peaks below
-    the gathered one by at least the whole state less this rank's
-    shards of it."""
+    running its own; the decode group spans the data ranks), qwen2-vl
+    (M-RoPE, the vision splice), zamba2 (the Mamba2 mixer's in_proj
+    and conv gathered along ``model`` inside the remat unit in
+    training, the SSM state at its shards in decode), whisper (the
+    encoder, the cross K / V cache) and rwkv6 (the WKV state by K): the
+    sharded step peaks below the gathered one by at least the whole
+    state less this rank's shards of it."""
     from repro_torch.configs.base import ShapeConfig
 
     rec = sharded_vs_gathered_all[arch]

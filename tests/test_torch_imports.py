@@ -63,6 +63,10 @@ def test_no_source_imports_jax_or_repro():
                                           "quickstart_torch.py",
                                           ROOT / "examples" /
                                           "serve_sparse_llm_torch.py",
+                                          ROOT / "examples" /
+                                          "train_tiny_lm_torch.py",
+                                          ROOT / "examples" /
+                                          "espim_schedule_viz_torch.py",
                                           ROOT / "scripts" /
                                           "spmv_tile_ab.py",
                                           ROOT / "scripts" /

@@ -1,7 +1,7 @@
 """The sharded decode step (``serve_step.make_serve_step``: tensor-parallel
 products on params at ``serve_param_pspecs``, the KV cache at
-``cache_pspecs``) of the dense, MoE and VLM families on gloo process
-groups against the world-size-1 ``serve_step_fn``.
+``cache_pspecs``) of all six families on gloo process groups against
+the world-size-1 ``serve_step_fn``.
 
 One launch per mesh -- 4 processes on (2, 2), 2 on (1, 2), 2 on (2, 1)
 and 4 on (1, 4), spawned as subprocesses on a ``FileStore`` and started
@@ -26,19 +26,31 @@ granite unless named:
   * b1, b1_moe, b1_vlm: B 1 on the ``global_batch=1`` layout (the dry
     run's ``long_500k``): the attention's contraction dim and w_down's
     output split on ``data`` too, so their partial products are summed
-    over it (qwen2-vl's QKV biases added after the sum).
+    over it (qwen2-vl's QKV biases added after the sum);
+  * zamba2 (2 layers, one application of the shared block), whisper
+    (its cross K / V primed from random frames first, then written
+    again on the shards by ``prime_cross_sharded``) and rwkv6 (1
+    layer), and zamba2 and rwkv6 at B 1 on the ``global_batch=1``
+    layout: the Mamba2 conv window by channel and SSM state by head dim
+    on ``model``, rwkv6's WKV state by K.  The depth cuts keep the
+    cache inside the bounds of the row-parallel sums' rounding: at
+    their reduced depth (6 and 4 layers) the worst cache leaf reads
+    1.8e-6 (zamba2's SSM state) and 1.0e-6 (rwkv6's WKV state), beside
+    3.6e-6 and 2.3e-6 that a 1e-7 relative perturbation of the params
+    moves the world-size-1 step by (``scripts/spmd_depth_gap.py``).
 
 Each step's greedy tokens equal the world-size-1 step's and its logits
 are within 1e-5 (max |diff| / max |ref|); after the steps each rank's
 cache shards equal the slices of the world-size-1 cache (the K / V
 writes are exact; within 1e-6 where the float32 K / V differ in the
-last bits), every leaf of params and cache is at its spec's shard shape,
-the donated K / V leaves are the step's own (written in place) and a
-step with ``donate_cache=False`` leaves its input cache as it was.  No
-collective of the step moves a param leaf: every all-gather's output is
-at most B_global x the widest activation row (d_model, the q width, the
-padded vocab), and no collective's operand has the shape of a param
-leaf, whole or shard, stacked or one layer's."""
+last bits, 3e-6 for zamba2's SSM state), every leaf of params and
+cache is at its spec's shard shape, the donated state leaves are the
+step's own (written in place) and a step with ``donate_cache=False``
+leaves its input cache as it was.  No collective of the step moves a
+param leaf: every all-gather's output is at most B_global x the widest
+activation row (d_model, the q width, the padded vocab, zamba2's
+``in_proj`` output), and no collective's operand has the shape of a
+param leaf, whole or shard, stacked or one layer's."""
 import json
 import os
 import subprocess
@@ -53,6 +65,10 @@ torch = pytest.importorskip("torch")
 ROOT = Path(__file__).resolve().parents[1]
 LOGIT_REL_TOL = 1e-5
 CACHE_REL_TOL = 1e-6
+# zamba2's SSM state: each step adds dt * x * B, the product of three
+# projections, each within the K / V cache's rounding of the
+# world-size-1 step's (read 1.45e-6 at most)
+SSM_REL_TOL = 3 * CACHE_REL_TOL
 TIMEOUT_S = 300
 MESHES = ((2, 2), (1, 2), (2, 1), (1, 4))
 MOE, VLM = "phi3.5-moe-42b-a6.6b", "qwen2-vl-2b"
@@ -70,6 +86,11 @@ CASES = {
     "b1": ("granite-3-2b", {}, 1, 1),
     "b1_moe": (MOE, {}, 1, 1),
     "b1_vlm": (VLM, {}, 1, 1),
+    "zamba2": ("zamba2-2.7b", {"n_layers": 2}, 4, None),
+    "whisper": ("whisper-small", {}, 4, None),
+    "rwkv6": ("rwkv6-1.6b", {"n_layers": 1}, 4, None),
+    "b1_zamba2": ("zamba2-2.7b", {"n_layers": 2}, 1, 1),
+    "b1_rwkv6": ("rwkv6-1.6b", {"n_layers": 1}, 1, 1),
 }
 PROMPT, STEPS, MAX_LEN = 3, 4, 8
 
@@ -85,7 +106,7 @@ _WORKER = textwrap.dedent("""
     dist.init_process_group("gloo", store=dist.FileStore(store, world),
                             rank=rank, world_size=world)
     from repro_torch.configs.registry import get_config
-    from repro_torch.models import factory
+    from repro_torch.models import factory, whisper
     from repro_torch.serve.serve_step import make_serve_step, serve_step_fn
     from repro_torch.sharding import partition as PP
     from repro_torch.tree import flatten, tree_map
@@ -119,6 +140,12 @@ _WORKER = textwrap.dedent("""
         prompt = torch.randint(0, cfg.vocab_size, (b, %(prompt)d),
                                generator=gen, dtype=torch.int32)
         cache = factory.init_cache(cfg, b, %(max_len)d, device="cpu")
+        frames = None
+        if cfg.family == "audio":       # the encoder's cross K / V first
+            frames = torch.randn((b, cfg.encoder_seq, cfg.d_model),
+                                 generator=gen)
+            with torch.no_grad():
+                cache = whisper.prime_cross(cfg, params, cache, frames)
         with torch.no_grad():
             if factory.supports_chunked_prefill(cfg):
                 _, cache = factory.prefill_chunk(cfg, params, cache,
@@ -134,7 +161,19 @@ _WORKER = textwrap.dedent("""
         placed_p = PP.logical_to_sharding(params, sp, mesh)
         placed_c = PP.logical_to_sharding(tree_map(torch.clone, cache), cs,
                                           mesh)
-        kv_before = {k: placed_c[k] for k in ("k", "v")}
+        state_keys = [k for k in cache if k != "len"]
+        kv_before = {k: placed_c[k] for k in state_keys}
+        primed = None
+        if frames is not None:
+            # the cross K / V written on the shards: each rank's slices
+            with torch.no_grad():
+                mine = whisper.prime_cross_sharded(
+                    cfg, tree_map(lambda t: t.to_local(), placed_p),
+                    tree_map(lambda t: t.to_local(), placed_c),
+                    PP.local_slice(frames, (cs["k"][1], None, None), mesh),
+                    PP.Layout.of(placed_p), PP.Layout.of(placed_c))
+            primed = max(rel(mine[k], PP.local_slice(cache[k], cs[k], mesh))
+                         for k in ("cross_k", "cross_v"))
         # a step that does not donate leaves its input as it was
         keep = {k: v.to_local().clone() for k, v in placed_c.items()}
         nodon, _, _, _ = make_serve_step(cfg, mesh, params, cache, tok,
@@ -171,20 +210,29 @@ _WORKER = textwrap.dedent("""
                 local, list(PP.local_slice(t, p_specs[path], mesh).shape)]
             for sh in (local, list(t.shape)):
                 leaf_shapes.update({tuple(sh), tuple(sh[1:])})
+        # the attention cache, or rwkv6's WKV state (batch, H, K, V):
+        # its dims 2 and 3 take the sequence's and the KV heads' rules
+        key = "k" if "k" in cs else "wkv"
+        widths = [cfg.d_model, cfg.n_heads * cfg.hd, cfg.padded_vocab]
+        if cfg.family == "hybrid":      # the Mamba2 in_proj's output row
+            d_inner = cfg.ssm_expand * cfg.d_model
+            widths.append(2 * d_inner + 2 * cfg.ssm_state
+                          + d_inner // cfg.ssm_head_dim)
         res[name] = {
             "logit_err": errs, "tokens_equal": same, "cache_err": cache_err,
             "shapes": shapes, "kept": kept,
             "donated": all(placed_c[k] is v for k, v in kv_before.items()),
-            "cache_spec": [list(PP.axis_names(a)) for a in cs["k"]],
-            "split": [PP.mesh_axis_size(mesh, a) > 1 for a in cs["k"]],
+            "cache_spec": [list(PP.axis_names(a)) for a in cs[key]],
+            "split": [PP.mesh_axis_size(mesh, a) > 1 for a in cs[key]],
             "collectives": len(seen),
             "largest_gather": max([n for k, _, n in seen
                                    if k == "all-gather"], default=0),
-            "row_bound": b * max(cfg.d_model, cfg.n_heads * cfg.hd,
-                                 cfg.padded_vocab),
+            "row_bound": b * max(widths),
             "param_moved": [s_ for _, s_, _ in seen
                             if tuple(s_) in leaf_shapes],
-            "n_kv_heads": cfg.n_kv_heads, "batch": b}
+            "n_kv_heads": cache[key].shape[3], "batch": b,
+            "path": "sharded" if factory.shards(cfg, mesh) else "gathered",
+            "primed": primed}
     if rank == 0:
         json.dump(res, open(out, "w"))
     dist.destroy_process_group()
@@ -229,19 +277,29 @@ _IDS = [f"{'x'.join(map(str, s))}-{n}" for s, n in _CASES]
 
 @pytest.mark.parametrize("shape,name", _CASES, ids=_IDS)
 def test_sharded_decode_matches_one_rank(runs, shape, name):
+    """Tokens equal, logits and cache within their bounds, on the
+    sharded path; whisper's cross K / V written on the shards
+    (``prime_cross_sharded``) within the cache's bound of the slices of
+    ``prime_cross``'s."""
     res = runs[shape][name]
+    assert res["path"] == "sharded"
     assert all(res["tokens_equal"]), res["tokens_equal"]
     assert max(res["logit_err"]) <= LOGIT_REL_TOL, res["logit_err"]
     bad = {k: v for k, v in res["cache_err"].items()
-           if v != "equal" and not v <= CACHE_REL_TOL}
+           if v != "equal" and not v <= (SSM_REL_TOL if k == "ssm"
+                                         else CACHE_REL_TOL)}
     assert not bad, bad
+    if res["primed"] is not None:
+        assert res["primed"] <= CACHE_REL_TOL, res["primed"]
 
 
 @pytest.mark.parametrize("shape,name", _CASES, ids=_IDS)
 def test_decode_holds_only_its_shards(runs, shape, name):
     """Every leaf of params and cache at its spec's shard shape, the cache
-    split as the case says, the K / V leaves donated in place, and a
-    step without donation leaves its input cache as it was."""
+    split as the case says (for rwkv6 its WKV state (L, B, H, K, V),
+    whose H and K take the sequence's and the KV heads' rules), every
+    state leaf donated in place, and a step without donation leaves its
+    input cache as it was."""
     res = runs[shape][name]
     bad = {p: s for p, s in res["shapes"].items() if s[0] != s[1]}
     assert not bad, bad

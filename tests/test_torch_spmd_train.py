@@ -1,6 +1,6 @@
-"""The dense family's sharded train step (``train_step.make_train_step``:
-ZeRO-3 on ``data``, tensor parallelism on ``model``, the sharded AdamW)
-on gloo process groups, against the world-size-1 step and the JAX
+"""The sharded train step (``train_step.make_train_step``: ZeRO-3 on
+``data``, tensor parallelism on ``model``, the sharded AdamW) of every
+family on gloo process groups, against the world-size-1 step and the JAX
 reference.
 
 One launch per mesh -- (2, 1) data only, (1, 2) model only, (2, 2), and
@@ -22,7 +22,25 @@ The cases, reduced configs in float32:
     ``data`` only) granite with one KV head and nemotron;
   * at (2, 1) and (2, 2) phi3.5-moe in 2 microbatches (the microbatch
     fault: each rank's microbatch i is its part of the global batch's
-    microbatch i), sharded and gathered.
+    microbatch i), sharded and gathered;
+  * the microbatch fault below the data ranks: granite at B 2 in 2
+    microbatches of one row on (2, 1) and (2, 2), sharded and gathered,
+    and phi3.5-moe so on (2, 1) (a microbatch runs whole on every data
+    rank, and so does its dispatch group); granite at B 4 in 2
+    microbatches on (2, 2, 2), whose rows of 2 split over ``pod`` and
+    run whole over ``data``;
+  * at (2, 2) and (1, 4) the hybrid, audio and ssm families: zamba2
+    (2 layers: one group, the shared block once), whisper (its encoder
+    on random ``frames``) and rwkv6 (1 layer, peak lr 3e-4).  The cuts
+    bring the world-size-1 step's own conditioning down to the size of
+    the bounds (``scripts/spmd_depth_gap.py``: a 1e-7 relative
+    perturbation of the initial params, worst of three seeds, moves the
+    world-size-1 step's 3-step state by 1.0e-4 in L2 for zamba2 at its
+    reduced 6 layers and 2.6e-5 at 2, and rwkv6's first-step grads by
+    4.3e-5 and its state by 2.7e-3 at 4 layers and lr 1e-3, 1.5e-5 and
+    2.1e-5 at 1 layer and lr 3e-4).  At the full depth the same script
+    puts the sharded step within 1.5x of that perturbation on (2, 2)
+    and (1, 4): no fault of stacked layers shows above rounding.
 
 With microbatches the first step's grads are the microbatches' mean on
 both sides (``train_step._loss_and_grads``).
@@ -47,7 +65,8 @@ of a half quantum takes the other code, so the step is held on its loss
 and grad norm, and the sharded compression itself on given grads in
 bits (the scale's max all-reduced over the leaf's shards).
 
-The (2, 2) launch also runs granite with one KV head from the
+The (2, 2) launch also runs granite with one KV head, phi3.5-moe,
+qwen2-vl, zamba2, whisper and rwkv6 (as in ``CASES``) from the
 reference's ``init_train_state`` and batches, held within 1e-4 of the
 reference's ``train_step_fn`` on one CPU device (the elastic drill's
 bound), and checks what a rank holds after a step: every leaf of the
@@ -90,7 +109,7 @@ MESHES = ((2, 1), (1, 2), (2, 2), (2, 2, 2), (1, 4))
 MOE = "phi3.5-moe-42b-a6.6b"
 # name -> (arch, config overrides, microbatches, compress_grads, extras:
 # "seq" / "batch" in place of S 16 x B 4, "gathered" to run the step
-# with ``factory.SHARDED_FAMILIES`` emptied, "vision" for a batch with
+# with ``factory.shards`` answering False, "vision" for a batch with
 # M-RoPE positions and spliced embeddings)
 CASES = {
     "granite": ("granite-3-2b", {}, 1, False, {}),
@@ -116,18 +135,40 @@ CASES = {
     # gathered
     "moe_mb2": (MOE, {}, 2, False, {}),
     "moe_mb2_gathered": (MOE, {}, 2, False, {"gathered": True}),
+    # the microbatch fault below the data ranks: B 2 in 2 microbatches
+    # of one row, which run whole on every data rank (sharded, gathered,
+    # MoE), and B 4 on (2, 2, 2), whose rows of 2 split over ``pod`` only
+    "granite_b2_mb2": ("granite-3-2b", {}, 2, False, {"batch": 2}),
+    "granite_b2_mb2_gathered": ("granite-3-2b", {}, 2, False,
+                                {"batch": 2, "gathered": True}),
+    "moe_b2_mb2": (MOE, {}, 2, False, {"batch": 2}),
+    "granite_pod_mb2": ("granite-3-2b", {}, 2, False, {}),
+    # the hybrid, audio and ssm families (frames for whisper's encoder)
+    "zamba2": ("zamba2-2.7b", {"n_layers": 2}, 1, False, {}),
+    "whisper": ("whisper-small", {}, 1, False, {"audio": True}),
+    "rwkv6": ("rwkv6-1.6b", {"n_layers": 1}, 1, False, {"lr": 3e-4}),
 }
 ONLY_2X2 = ("granite_mb2", "granite_ef")
-ONLY_2X1 = ("moe_fault", "moe_fault_gathered")
-MB_CASES = ("moe_mb2", "moe_mb2_gathered")     # on (2, 1) and (2, 2)
-POD_CASES = ("granite_kv1", "nemotron")        # on (2, 2, 2)
+ONLY_2X1 = ("moe_fault", "moe_fault_gathered", "moe_b2_mb2")
+MB_CASES = ("moe_mb2", "moe_mb2_gathered", "granite_b2_mb2",
+            "granite_b2_mb2_gathered")         # on (2, 1) and (2, 2)
+POD_CASES = ("granite_kv1", "nemotron", "granite_pod_mb2")  # on (2, 2, 2)
+ONLY_POD = ("granite_pod_mb2",)
 WIDE_CASES = ("moe_span",)                     # on (1, 4): one expert a rank
+FAMILY_CASES = ("zamba2", "whisper", "rwkv6")  # on (2, 2) and (1, 4)
+FAULT_CASES = {(2, 1): ("granite_b2_mb2", "granite_b2_mb2_gathered",
+                        "moe_b2_mb2"),
+               (2, 2): ("granite_b2_mb2", "granite_b2_mb2_gathered"),
+               (2, 2, 2): ("granite_pod_mb2",)}
 MOE_CASES = ("moe_span", "moe_align", "moe_fault", "moe_fault_gathered")
 # the reference's state and batches, run at (2, 2): name -> (arch,
 # config overrides, extras)
 REF_CASES = {"granite_kv1": ("granite-3-2b", {"n_kv_heads": 1}, {}),
              "moe_span": (MOE, {"capacity_factor": 1.0}, {}),
-             "vlm": ("qwen2-vl-2b", {}, {"vision": True})}
+             "vlm": ("qwen2-vl-2b", {}, {"vision": True}),
+             "zamba2": ("zamba2-2.7b", {"n_layers": 2}, {}),
+             "whisper": ("whisper-small", {}, {"audio": True}),
+             "rwkv6": ("rwkv6-1.6b", {"n_layers": 1}, {"lr": 3e-4})}
 
 # the vision extras of a VLM batch, made alike by the workers and for the
 # reference: M-RoPE positions whose three sections differ, patch
@@ -144,6 +185,12 @@ _VISION = textwrap.dedent("""
         mask = np.zeros((b, s), bool)
         mask[:, :s // 4] = True
         return {"positions3": pos, "embeddings": emb, "vis_mask": mask}
+
+    def audio_extras(b, t, d, step):
+        import numpy as np
+        rng = np.random.RandomState(200 + step)
+        return {"frames": rng.standard_normal((b, t, d)).astype(
+            np.float32)}
 """)
 exec(_VISION)
 
@@ -173,7 +220,7 @@ _WORKER = _VISION + textwrap.dedent("""
     mesh = init_device_mesh("cpu", shape, mesh_dim_names=(
         ("pod", "data", "model") if len(shape) == 3 else ("data", "model")))
     ocfg = OptConfig(warmup_steps=2, decay_steps=20, peak_lr=1e-3)
-    SHARDED = factory.SHARDED_FAMILIES
+    SHARDS = factory.shards
     res = {}
 
     def max_rel(a, b):
@@ -194,11 +241,15 @@ _WORKER = _VISION + textwrap.dedent("""
                 for p, t in flatten(placed)}
 
     def with_vision(batch, cfg, step, extra):
-        if not extra.get("vision"):
-            return batch
         b, s = batch["tokens"].shape
-        return dict(batch, **{k: torch.from_numpy(v) for k, v in
-                              vision_extras(b, s, cfg.d_model, step).items()})
+        if extra.get("audio"):
+            more = audio_extras(b, cfg.encoder_seq, cfg.d_model, step)
+        elif extra.get("vision"):
+            more = vision_extras(b, s, cfg.d_model, step)
+        else:
+            return batch
+        return dict(batch, **{k: torch.from_numpy(v)
+                              for k, v in more.items()})
 
     def metric(m):
         return {k: float(m[k]) for k in ("loss", "grad_norm", "aux")
@@ -223,7 +274,10 @@ _WORKER = _VISION + textwrap.dedent("""
 
     for name, (arch, over, mb, ef, extra) in cases.items():
         cfg = get_config(arch, reduced=True).replace(**over)
-        factory.SHARDED_FAMILIES = () if extra.get("gathered") else SHARDED
+        ocfg = OptConfig(warmup_steps=2, decay_steps=20,
+                         peak_lr=extra.get("lr", 1e-3))
+        factory.shards = ((lambda cfg, mesh: False) if extra.get("gathered")
+                          else SHARDS)
         pipe = SyntheticPipeline.for_model(
             cfg, ShapeConfig("t", extra.get("seq", 16),
                              extra.get("batch", 4), "train"), device="cpu")
@@ -282,11 +336,20 @@ _WORKER = _VISION + textwrap.dedent("""
         r["grad_err"] = vs_slices(g, g1, pspecs["params"], max_rel)
         if mb > 1:
             # each rank's microbatch i: its part of the global batch's
+            # along the axes that split a microbatch, whole along the rest
             mine = ts._split_microbatches(b0, mb, blayout)
             glob = ts._split_microbatches(batches[0], mb)
+            b_ax = bspecs["tokens"][0]
+            mb_ax = ts.microbatch_axes(b0, mb, blayout)
+            r["mb_axes"] = [list(PP.axis_names(b_ax)),
+                            list(PP.axis_names(mb_ax))]
+            mb_specs = tree_map(lambda sp: tuple(
+                mb_ax if a == b_ax and a is not None else a for a in sp),
+                bspecs)
             r["rows_equal"] = all(
                 torch.equal(t, PP.local_slice(dict(flatten(want))[p],
-                                              dict(flatten(bspecs))[p], mesh))
+                                              dict(flatten(mb_specs))[p],
+                                              mesh))
                 for got, want in zip(mine, glob) for p, t in flatten(got))
         if ef:
             # the sharded compression on the shards of given grads and
@@ -303,15 +366,17 @@ _WORKER = _VISION + textwrap.dedent("""
                 torch.equal(a, b) for (_, a), (_, b) in
                 zip(flatten([deq, new]), flatten([sl(deq1), sl(new1)])))
         res[name] = r
-    factory.SHARDED_FAMILIES = SHARDED
+    factory.shards = SHARDS
 
     # the JAX reference's initial state and batches
     refs = {} if data == "-" else json.loads(data)
     res["reference"] = {}
     for name, path in refs.items():
         blob = torch.load(path, weights_only=True)
-        arch, over, _ = %(ref_cases)r[name]
+        arch, over, extra = %(ref_cases)r[name]
         cfg = get_config(arch, reduced=True).replace(**over)
+        ocfg = OptConfig(warmup_steps=2, decay_steps=20,
+                         peak_lr=extra.get("lr", 1e-3))
         placed, _, _, metrics, _ = run(cfg, blob["state"], blob["batches"],
                                        1, False)
         full = tree_map(lambda t: PP.full_value(t).detach(), placed)
@@ -330,7 +395,8 @@ def _reference(name):
     as numpy."""
     arch, over, extra = REF_CASES[name]
     cfg = ref_config(arch, reduced=True).replace(**over)
-    ocfg = ROpt(warmup_steps=2, decay_steps=20, peak_lr=1e-3)
+    ocfg = ROpt(warmup_steps=2, decay_steps=20,
+                peak_lr=extra.get("lr", 1e-3))
     pipe = RPipe.for_model(cfg, RShape("t", seq_len=16, global_batch=4,
                                        kind="train"))
     state = RT.init_train_state(cfg, ocfg, jax.random.PRNGKey(0))
@@ -340,6 +406,9 @@ def _reference(name):
         b = jax.tree.map(np.asarray, pipe.batch_at(s))
         if extra.get("vision"):
             b.update(vision_extras(*b["tokens"].shape, cfg.d_model, s))
+        if extra.get("audio"):
+            b.update(audio_extras(b["tokens"].shape[0], cfg.encoder_seq,
+                                  cfg.d_model, s))
         batches.append(b)
     step = jax.jit(partial(RT.train_step_fn, cfg, ocfg))
     losses, norms = [], []
@@ -412,6 +481,10 @@ def runs(tmp_path_factory):
 def _runs(shape, name) -> bool:
     if len(shape) == 3:
         return name in POD_CASES
+    if name in ONLY_POD:
+        return False
+    if name in FAMILY_CASES:
+        return shape in ((2, 2), (1, 4))
     if shape == (1, 4):
         return name in WIDE_CASES
     if name in ONLY_2X1:
@@ -572,9 +645,57 @@ def test_sharded_step_matches_reference(runs):
     _vs_reference(runs, "granite_kv1")
 
 
-@pytest.mark.parametrize("name", ("moe_span", "vlm"))
+@pytest.mark.parametrize("name", ("moe_span", "vlm", "zamba2", "whisper",
+                                  "rwkv6"))
 def test_family_sharded_step_matches_reference(runs, name):
     """As above for phi3.5-moe (experts on ``model``, groups across the
-    data ranks, tokens dropped; the loss with its aux term) and qwen2-vl
-    (M-RoPE positions whose sections differ, the vision splice)."""
+    data ranks, tokens dropped; the loss with its aux term), qwen2-vl
+    (M-RoPE positions whose sections differ, the vision splice), zamba2
+    (the Mamba2 mixer on a rank's SSD heads), whisper (the encoder on
+    the reference's frames) and rwkv6 (the time mix on a rank's heads,
+    at 1 layer and peak lr 3e-4 as in ``CASES``)."""
     _vs_reference(runs, name)
+
+
+@pytest.mark.parametrize("shape,name", [(s, n) for s, names in
+                                        FAULT_CASES.items() for n in names],
+                         ids=[f"{'x'.join(map(str, s))}-{n}" for s, names in
+                              FAULT_CASES.items() for n in names])
+def test_microbatch_below_data_ranks(runs, shape, name):
+    """The fault repaired first: a microbatch whose rows do not divide
+    over the batch axes runs whole on every rank of the axes beyond the
+    major part that divides them (B 2 in 2 microbatches: whole on
+    ``data``; B 4 on (2, 2, 2): split over ``pod``, whole over
+    ``data``), on the sharded path and on the gathered one, and for MoE
+    with a dispatch group that names no whole axis.  Each rank's rows
+    are its part of the global microbatch along those axes, and the
+    loss and every first-step grad are within ``REL_TOL`` of the
+    world-size-1 step.  It raised before ("a microbatch of shape (1, 16)
+    does not split over ('data', None)")."""
+    res = runs[shape][name]
+    want_axes = ["pod"] if len(shape) == 3 else []
+    assert res["mb_axes"][1] == want_axes, res["mb_axes"]
+    assert res["rows_equal"]
+    assert res["path"] == ("gathered" if CASES[name][4].get("gathered")
+                           else "sharded")
+    for got, want in zip(res["metrics"], res["want"]):
+        assert abs(got["loss"] - want["loss"]) <= REL_TOL * abs(
+            want["loss"]), (got, want)
+    bad = {k: v for k, v in res["grad_err"].items() if not v <= REL_TOL}
+    assert not bad, bad
+
+
+@pytest.mark.parametrize("shape", ((2, 2), (1, 4)),
+                         ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("name", FAMILY_CASES)
+def test_families_take_the_sharded_path(runs, shape, name):
+    """zamba2, whisper and rwkv6 keep their state at its shards: the
+    sharded path, every leaf at its shard shape, the grads
+    reduce-scattered along ``data`` and summed over ``model``."""
+    res = runs[shape][name]
+    assert res["path"] == "sharded"
+    assert not res["whole"], res["whole"]
+    counts = res["collectives"]
+    if shape[0] > 1:
+        assert counts["reduce-scatter"] > 0, counts
+    assert counts["all-reduce"] > 0, counts
