@@ -13,7 +13,8 @@ drills, the ops of the other kernels, the other model families at their
 own published widths, and training (granite-3-2b at its published
 widths and depth) — then checks them:
 
-1. build: nvcc the kernels, print the build time and ptxas' report, and
+1. build: nvcc the kernels (four libraries: espim_spmv, dense_mv,
+   flash_attention and wkv), print the build time and ptxas' report, and
    the tensor-core instructions in the flash library's SASS (HGMMA for
    wgmma, HMMA for mma.sync); fails if its bf16 (wgmma) body holds no
    HGMMA or its fp32 (3xTF32) body no HMMA;
@@ -81,14 +82,23 @@ widths and depth) — then checks them:
    a bound on the relative L2 error of the whole output) — each with its
    time, the plain version's, a library call of the same function that
    the port never makes (each timed by CUDA events around replays of a
-   captured CUDA graph), and the least time the card could take;
+   captured CUDA graph), and the least time the card could take; after
+   the families phase, the WKV kernels at rwkv6-1.6b's full width (32
+   heads of 64) against ``wkv6_ref`` / ``wkv6_bwd_ref``: the forward at
+   B 1 x S 512 (the prefill, bf16 and fp32 r / k / v), B 1 x S 16 (the
+   engine's chunk) and B 4 x S 1 (decode; also at a sharded decode's K'
+   4) in bf16, the backward at B 8 x S 128 in fp32 and bf16, each
+   launched twice for identical bits, timed beside the plain
+   version, the bound and the serial floor (no library call computes
+   the recurrence);
 10. families: each other family's assigned arch at its published widths
    and vocab, bf16 params from ``init_params`` with the float32 leaves
    kept (phi3.5-moe at 2 of 32 layers, zamba2 at 12 of 54, qwen2-vl-2b,
    whisper-small and rwkv6-1.6b whole): (a) ``prefill_fn`` (kernel 8 in
    every forward and in Whisper's encoder; its counter zeroed before
    and read after, and it must read one launch per equal-length
-   attention) against teacher-forced decode in fp32, within 5e-5 of
+   attention; rwkv6's one WKV launch a layer instead) against
+   teacher-forced decode in fp32, within 5e-5 of
    max|forward| (MoE with a capacity factor that drops nothing; Whisper
    primed from seeded frames; rwkv6 at 4 layers, its whole depth
    reported beside a float64 control); (b) decode at depth 1 (zamba2:
@@ -99,8 +109,10 @@ widths and depth) — then checks them:
    512) against its plain version, fp32 and bf16, timed beside SDPA and
    the bound; (e) ``ServeEngine(sparse=None)`` on the 8-request trace,
    replay or chunked prefill as the family has it, and one decode
-   step's profile; (f) the launcher for each family (phi3.5 at 2
-   layers), all five as subprocesses at once;
+   step's profile (rwkv6: one WKV launch a layer a prefill chunk and a
+   decode step, its TTFT beside the per-token loop's); (f) the launcher
+   for each family (phi3.5 at 2 layers), all five as subprocesses at
+   once;
 11. autotune, after every counter read (a launch inside a captured timing
    graph counts once, at capture): no ``ESPIM_IMPL`` pin but ``cuda`` and
    ``ops.provenance()`` naming backend ``cuda``; layer 0's w_gate (11008 x
@@ -140,7 +152,9 @@ widths and depth) — then checks them:
    prefill forward against ``forward`` in bits at S 512 and kernel 8
    launched as often in both (once a layer; zamba2 once an application
    of its shared block, whisper once an encoder and a decoder layer,
-   rwkv6 never); (c) at 2 layers in bf16, train 3,
+   rwkv6 never; rwkv6's WKV forward once a layer a forward, its
+   recompute included, and its backward once a layer a step, as often
+   on the mesh as in ``train_step_fn``); (c) at 2 layers in bf16, train 3,
    save, restore, train 2 against 5 straight, every state leaf and the
    last loss in bits (deterministic algorithms on; the checkpoint in a
    temp dir, removed); (f) ``python -m repro_torch.launch.train --arch
@@ -272,6 +286,37 @@ FAMILY_FLASH_SEQ = 512                  # (d): the forwards' S
 # do not fit the card, so it serves 2
 FAMILY_LAUNCHER_LAYERS = {"phi3.5-moe-42b-a6.6b": 2}
 FAMILY_LAUNCHER_ARGS = ("--requests", "4", "--max-new-tokens", "8")
+# the WKV kernels at rwkv6-1.6b's full width: (label, B, S, r / k / v
+# dtype, backward, K'); the forward at the prefill's (bf16, and fp32 as
+# the fp32 forwards of the families and train phases run it), the
+# engine's chunk's and decode's shapes, and at a sharded decode's K
+# slice (K' 4: hd 64 over 16 model ranks), the backward at the train
+# step's (fp32 as check (e) runs it, bf16 as the dryrun phase's card
+# step does)
+WKV_HEADS, WKV_HD = 32, 64
+WKV_CASES = (("prefill", 1, 512, "bf16", False, WKV_HD),
+             ("prefill32", 1, 512, "fp32", False, WKV_HD),
+             ("chunk", 1, FAMILY_CHUNK, "bf16", False, WKV_HD),
+             ("decode", 4, 1, "bf16", False, WKV_HD),
+             ("decode_k4", 4, 1, "bf16", False, 4),
+             ("train", 8, 128, "fp32", True, WKV_HD),
+             ("train16", 8, 128, "bf16", True, WKV_HD))
+WKV_MAIN = {"wkv6": "prefill", "wkv6_bwd": "train"}   # the kernels line
+# the fewest float32 operations a (b, t, h, k, j) the function needs (an
+# fma counts 2; terms of O(K' + V) a (b, t, h) left out).  Forward 5:
+# y_t = S^T r_t + (sum_k r u k) v_t is one fma a (k, j), the state
+# w S + k v a multiply and an fma.  Backward 14: the chunk's states
+# recomputed from the checkpoints (3), dr = S gy (2), dk = dS v (2),
+# dw = sum_j dS S (2), dv = dS^T k + (sum_k u r k) gy (2), and
+# dS = r gy^T + w dS (3)
+WKV_FWD_OPS, WKV_BWD_OPS = 5, 14
+# a step's serial floor: the state's fma chain, one dependent fma (4
+# cycles) a step at the H100 SXM's 1.98 GHz boost clock (data sheet)
+WKV_STEP_FLOOR_S = 4 / 1.98e9
+# rwkv6's TTFT p50 through the per-token WKV loop (a run of this script
+# before the WKV op, NVIDIA H100 80GB HBM3, 700 W): printed beside this
+# run's
+LOOP_RWKV6_TTFT_MS = 628.6
 # the train phase: granite-3-2b, the reference launcher's and training
 # test's model (src/repro/launch/train.py:1-2), at its published widths
 TRAIN_ARCH = "granite-3-2b"
@@ -298,8 +343,8 @@ TRAIN_FLASH_SHAPE = (1, FAMILY_FLASH_SEQ, 32, 8, 128)
 # copies of the float32 train state (params, mu, nu) fit the card beside
 # the step's grads: phi3.5-moe's 1 of 32 layers is 1.56 B params (18.8
 # GB a copy; 2 layers would be 34 GB a copy), qwen2-vl-2b whole 1.54 B
-# (18.5 GB a copy); zamba2 at 12 of 54 layers (0.6 B params) and rwkv6
-# at 4 (0.35 B) as the dryrun phase's (b) cuts them, whisper-small whole
+# (18.5 GB a copy); zamba2 at 12 of 54 layers (0.6 B params) as the
+# dryrun phase's (b) cuts it, rwkv6 at 4 (0.35 B), whisper-small whole
 # (0.24 B)
 TRAIN_FAMILY_MESH = (("phi3.5-moe-42b-a6.6b", 1), ("qwen2-vl-2b", None),
                      ("zamba2-2.7b", 12), ("whisper-small", None),
@@ -310,11 +355,10 @@ TRAIN_FAMILY_MESH = (("phi3.5-moe-42b-a6.6b", 1), ("qwen2-vl-2b", None),
 # process of its own (a fake group must be its process's default group),
 # against the card: (a) granite-3-2b whole; (b) each other family at a
 # depth that fits the card (phi3.5-moe's 2 layers, as the families
-# phase's; zamba2 at 12 of 54 for time; rwkv6 at 4, whose WKV
-# recurrence runs one token at a time in Python); (c) granite at 4 layers
-# under each remat policy
+# phase's; zamba2 at 12 of 54 for time; rwkv6 whole, its WKV one op a
+# layer); (c) granite at 4 layers under each remat policy
 DRYRUN_FAMILIES = (("phi3.5-moe-42b-a6.6b", 2), ("qwen2-vl-2b", None),
-                   ("whisper-small", None), ("rwkv6-1.6b", 4),
+                   ("whisper-small", None), ("rwkv6-1.6b", None),
                    ("zamba2-2.7b", 12))
 DRYRUN_REMATS = ("none", "dots", "full")
 DRYRUN_REMAT_LAYERS = 4
@@ -332,19 +376,22 @@ DRYRUN_PEAK_TOL, DRYRUN_FLOP_TOL = 0.15, 0.02
 # phi3.5-moe the experts on model) and the decode step (tensor-parallel
 # products over (data, model), a MoE layer's experts on model and their
 # F on data, the int8 cache sequence-sharded; zamba2's SSM state and
-# whisper's K / V caches at their shards); granite's, zamba2's and
-# whisper's must fit the card, phi3.5-moe's print their peak and
-# fits_card
+# whisper's K / V caches at their shards); rwkv6's train_4k (the WKV ops'
+# forward and backward on fake cuda tensors under grad); granite's,
+# zamba2's, whisper's and rwkv6's must fit the card, phi3.5-moe's print
+# their peak and fits_card
 DRYRUN_ARCHS = (TRAIN_ARCH, "phi3.5-moe-42b-a6.6b")
 DRYRUN_DECODE_ARCHS = ("zamba2-2.7b", "whisper-small")
-DRYRUN_FIT = (TRAIN_ARCH,) + DRYRUN_DECODE_ARCHS
+DRYRUN_TRAIN_ARCHS = ("rwkv6-1.6b",)
+DRYRUN_FIT = (TRAIN_ARCH,) + DRYRUN_DECODE_ARCHS + DRYRUN_TRAIN_ARCHS
 DRYRUN_CLIS = {
     f"cli_{arch}_{shape}": ("-m", "repro_torch.launch.dryrun", "--arch",
                             arch, "--shape", shape, "--mesh", "single",
                             "--force")
     for arch, shape in [(a, s) for a in DRYRUN_ARCHS
                         for s in ("train_4k", "decode_32k")]
-    + [(a, "decode_32k") for a in DRYRUN_DECODE_ARCHS]}
+    + [(a, "decode_32k") for a in DRYRUN_DECODE_ARCHS]
+    + [(a, "train_4k") for a in DRYRUN_TRAIN_ARCHS]}
 # (d)'s decode_32k cells, per device, when the decode step gathered every
 # layer's weights (the dry run of the tree before the tensor-parallel
 # products, CPU; for zamba2 and whisper the tree before their sharded
@@ -395,6 +442,11 @@ _KERNELS = {
     "flash_attention": ("src/repro/kernels/flash_attention.py:99",
                         "flash_attention_pallas",
                         "src/repro_torch/kernels/csrc/flash_attention.cu"),
+    # a compiled loop of the reference, not a pallas_call
+    "wkv6": ("src/repro/models/rwkv.py:116", "jax.lax.scan",
+             "src/repro_torch/kernels/csrc/wkv.cu"),
+    "wkv6_bwd": ("src/repro/models/rwkv.py:116", "jax.lax.scan",
+                 "src/repro_torch/kernels/csrc/wkv.cu"),
 }
 
 
@@ -525,8 +577,8 @@ def phase_build(report: dict) -> None:
 
 
 def _counter_modules():
-    from repro_torch.kernels import dense_mv, espim_spmv, flash_attention
-    return espim_spmv, dense_mv, flash_attention
+    from repro_torch.kernels import dense_mv, espim_spmv, flash_attention, wkv
+    return espim_spmv, dense_mv, flash_attention, wkv
 
 
 def reset_launches() -> None:
@@ -568,7 +620,7 @@ def drive_engine(ctx, label, cfg, params, sparse, prompts, kernels,
     counters, serve
     ``prompts``, read the counters; every kernel in ``kernels`` must have
     launched in every run, and a dense engine (``sparse=None``) must have
-    launched none.  Reports each run's tok/s, TTFT and TPOT p50, their
+    launched no other.  Reports each run's tok/s, TTFT and TPOT p50, their
     medians, and the last run's launch counts and outputs."""
     from repro_torch.serve import engine as E
     from repro_torch.serve.scheduler import latency_summary
@@ -600,8 +652,10 @@ def drive_engine(ctx, label, cfg, params, sparse, prompts, kernels,
         for k in kernels:
             need(launches[k] > 0, f"[{label}] kernel {k} never launched")
         if sparse is None:
-            need(not any(launches.values()),
-                 f"[{label}] the dense engine launched kernels {launches}")
+            other = {k: v for k, v in launches.items()
+                     if v and k not in kernels}
+            need(not other,
+                 f"[{label}] the dense engine launched kernels {other}")
         eng.check_arena()
         lat = latency_summary(stats.requests)      # exact percentiles
         runs.append({"tokens": stats.tokens_generated, "wall_s": wall,
@@ -1933,6 +1987,12 @@ def _depth_params(params: dict, n) -> dict:
                 else v) for k, v in params.items()}
 
 
+def wkv_expected(cfg) -> int:
+    """WKV forward launches of one forward, prefill chunk or decode step:
+    one a layer for rwkv6, none for the other families."""
+    return cfg.n_layers if cfg.family == "ssm" else 0
+
+
 def kernel8_expected(cfg) -> int:
     """Kernel 8 launches of one ``prefill_fn`` (and, for Whisper, one
     ``prime_cross``): one per equal-length attention of the forward."""
@@ -1968,18 +2028,19 @@ def family_decode_vs_forward(ctx, cfg, params, toks, frames) -> dict:
                           frames, dev)
     torch.cuda.synchronize()
     launches = read_launches()
-    want = kernel8_expected(cfg)
+    want, want_wkv = kernel8_expected(cfg), wkv_expected(cfg)
     need(launches["flash_attention"] == want
-         and sum(launches.values()) == want,
+         and launches["wkv6"] == want_wkv
+         and sum(launches.values()) == want + want_wkv,
          f"[families:{cfg.name}] launches {launches}, want kernel 8 "
-         f"{want} times and no other kernel")
+         f"{want} times, the WKV forward {want_wkv} and no other kernel")
     dec = _roll(torch, cfg, params, toks, dev, cache)
     err = float((dec - fwd).abs().max() / fwd.abs().max())
     need(bool(torch.isfinite(fwd).all()) and err <= FAMILY_REL_TOL,
          f"[families:{cfg.name}] decode vs forward {err:.3e} > "
          f"{FAMILY_REL_TOL}")
     return {"rel_err": err, "kernel8_launches": launches["flash_attention"],
-            "kernel8_expected": want}
+            "kernel8_expected": want, "wkv6_launches": launches["wkv6"]}
 
 
 def family_conditioning(ctx, cfg, params, toks) -> dict:
@@ -2056,22 +2117,38 @@ def family_chunked_vs_replay(ctx, cfg, params, prompt) -> dict:
 
 def family_engine(ctx, cfg, params) -> dict:
     """(e) ``ServeEngine(sparse=None)`` on the smoke trace (bf16, paged,
-    greedy), then one decode step's profile at B = 4."""
+    greedy), then one decode step's profile at B = 4.  rwkv6's serve
+    launches the WKV forward once a layer a prefill chunk and a decode
+    step, and nothing else."""
     from repro_torch.models import factory
     torch = ctx["torch"]
     rng = torch.Generator().manual_seed(ctx["seed"] + 12)
     prompts = [torch.randint(1, cfg.vocab_size, (n,), generator=rng).tolist()
                for n in PROMPT_LENS]
+    kernels = ("wkv6",) if wkv_expected(cfg) else ()
     eng = drive_engine(ctx, f"{cfg.name} bf16", cfg, params, None, prompts,
-                       (), runs=FAMILY_ENGINE_RUNS)
+                       kernels, runs=FAMILY_ENGINE_RUNS)
     chunked = factory.supports_chunked_prefill(cfg)
     need((eng["prefill_chunks"] > 0) == chunked,
          f"[families:{cfg.name}] {eng['prefill_chunks']} prefill chunks; "
          f"the family prefills by {'chunks' if chunked else 'replay'}")
     eng["prefill"] = "chunked" if chunked else "replay"
+    ticks = eng["decode_steps"] + eng["prefill_chunks"]
+    need(eng["launches"]["wkv6"] == wkv_expected(cfg) * ticks,
+         f"[families:{cfg.name}] WKV launches {eng['launches']['wkv6']}, "
+         f"want {wkv_expected(cfg)} a layer x {ticks} decode steps and "
+         "prefill chunks")
     step = decode_step_profile(
         ctx, f"decode_step {cfg.name} bf16", cfg,
         lambda c, b: factory.decode_step(cfg, params, c, b))
+    if kernels:
+        log(f"[families:{cfg.name}] the WKV as one op: {ticks} prefill "
+            f"chunks and decode steps launched it {eng['launches']['wkv6']} "
+            f"times ({wkv_expected(cfg)} a step); TTFT p50 "
+            f"{eng['ttft_p50_s'] * 1e3:.1f} ms (the per-token loop's "
+            f"{LOOP_RWKV6_TTFT_MS} ms), TPOT p50 "
+            f"{eng['tpot_p50_s'] * 1e3:.2f} ms; decode step "
+            f"{step['kernels_per_step']} kernels, {step['step_ms']:.2f} ms")
     return {"engine": {k: v for k, v in eng.items() if k != "outputs"},
             "step": step}
 
@@ -2275,6 +2352,109 @@ def phase_families(ctx) -> dict:
         f"encodes; phase {rec['seconds']:.1f} s")
     ctx["report"]["families"] = rec
     return rec
+
+
+# --------------------------------------------------------------------------
+# the WKV kernels: rwkv6's recurrence as one op
+# --------------------------------------------------------------------------
+def _wkv_inputs(torch, gen, dev, b, s, dt, kp):
+    """r, k, v in ``dt``, a decay w = exp(-exp(w0 + noise)) about rwkv6's
+    w0 = -2, u and a nonzero state at ``WKV_HEADS`` heads of K' ``kp`` x
+    V ``WKV_HD``."""
+    h, hd = WKV_HEADS, WKV_HD
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    r, k = (rnd(b, s, h, kp).to(dt) for _ in range(2))
+    v = rnd(b, s, h, hd).to(dt)
+    w = torch.exp(-torch.exp(-2.0 + rnd(b, s, h, kp, scale=0.5)))
+    return r, k, v, w, rnd(h, kp, scale=0.1), rnd(b, h, kp, hd, scale=0.1)
+
+
+def phase_wkv(ctx) -> dict:
+    """The WKV kernels against ``wkv6_ref`` / ``wkv6_bwd_ref`` on the card
+    at ``WKV_CASES``, every output under the fp32 rule of rows 1-7
+    (``_within``), two launches on the same inputs in the same bits;
+    then each timed (``Timer``: CUDA events around a captured graph)
+    beside the plain version, the bound (bytes: each input the function
+    reads once, each output once; ``WKV_FWD_OPS`` / ``WKV_BWD_OPS``
+    fp32 operations a (b, t, h, k, j)) and the serial floor (S x ``WKV_STEP_FLOOR_S``).  No PyTorch
+    call computes the recurrence: ``library_ms`` is None."""
+    from repro_torch.kernels import wkv as WKV
+    from repro_torch.kernels.ref import wkv6_bwd_ref, wkv6_ref
+    torch, dev, timer, bw = (ctx["torch"], ctx["device"], ctx["timer"],
+                             ctx["bandwidth"])
+    gen = torch.Generator(device=dev).manual_seed(ctx["seed"] + 17)
+    rows = {}
+    for label, b, s, dname, backward, kp in WKV_CASES:
+        dt = torch.bfloat16 if dname == "bf16" else torch.float32
+        ins = _wkv_inputs(torch, gen, dev, b, s, dt, kp)
+        if backward:
+            kernel = "wkv6_bwd"
+            ckpt = WKV.wkv6_cuda(*ins, WKV.CHUNK)[2]
+            gy = torch.randn((b, s, WKV_HEADS, WKV_HD), generator=gen,
+                             device=dev)
+            gs = torch.randn(ins[5].shape, generator=gen, device=dev)
+
+            def run(ins=ins, ckpt=ckpt, gy=gy, gs=gs):
+                return WKV.wkv6_bwd_cuda(*ins[:5], ckpt, gy, gs)
+
+            def plain(ins=ins, gy=gy, gs=gs):
+                return wkv6_bwd_ref(*ins, gy, gs)
+
+            names = ("dr", "dk", "dv", "dw", "du", "d_state0")
+            read = list(ins[:5]) + [ckpt, gy, gs]   # not the initial state
+            ops = WKV_BWD_OPS
+        else:
+            kernel = "wkv6"
+
+            def run(ins=ins):
+                return WKV.wkv6_cuda(*ins)[:2]
+
+            def plain(ins=ins):
+                return wkv6_ref(*ins)
+
+            names, read, ops = ("y", "state"), list(ins), WKV_FWD_OPS
+        got, again, want = run(), run(), plain()
+        errs = {}
+        for name, g, a, w in zip(names, got, again, want):
+            ok, errs[name] = _within(kernel, "fp32", g, w)
+            need(ok, f"[wkv] {kernel} {label} {name}: max|kernel-plain| "
+                 f"{errs[name]:.3e} > {KERNEL_REL_TOL} * "
+                 f"{float(w.float().abs().max()):.3e} + {KERNEL_ABS_TOL}")
+            need(torch.equal(g, a), f"[wkv] {kernel} {label} {name}: two "
+                 "launches on the same inputs gave different bits")
+        t_k, t_p = timer(run), timer(plain, reps=3)
+        nbytes = sum(t.numel() * t.element_size() for t in read + list(got))
+        flops = ops * b * s * WKV_HEADS * kp * WKV_HD
+        t_bytes, t_ops = nbytes / bw * 1e3, flops / PEAKS["fp32"] * 1e3
+        r = {"kernel": kernel, "variant": label, "B": b, "S": s,
+             "H": WKV_HEADS, "K": kp, "hd": WKV_HD, "dtype": dname,
+             "max_abs_err": max(errs.values()), "errors": errs, "ms": t_k,
+             "plain_ms": t_p, "library_ms": None,
+             "bound_ms": max(t_bytes, t_ops),
+             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+             "serial_floor_ms": s * WKV_STEP_FLOOR_S * 1e3,
+             "bytes": nbytes, "flops": flops,
+             "us_per_step": t_k * 1e3 / s}
+        rows[label] = r
+        log(f"[wkv] {kernel:8s} {label:9s} B {b} x S {s} x H {WKV_HEADS} x "
+            f"K' {kp} x V {WKV_HD} {dname}: max|kernel-plain| "
+            f"{r['max_abs_err']:.2e}, bits repeat; {t_k * 1e3:8.1f} us "
+            f"({r['us_per_step']:.2f} us a step; plain {t_p * 1e3:9.1f} us, "
+            f"bound {r['bound_ms'] * 1e3:6.2f} us by {r['bound_by']}, serial "
+            f"floor {r['serial_floor_ms'] * 1e3:5.2f} us)")
+    ctx["report"]["wkv"] = rows
+    return rows
+
+
+def wkv_entries(rows: dict, launches: dict) -> list:
+    """The kernels line's WKV entries: ``WKV_MAIN``'s case of each, with
+    the main path's launches (the families phase's rwkv6 serve for the
+    forward, train check (e)'s rwkv6 step for the backward)."""
+    return [_entry(k, launches[k], rows[v]["max_abs_err"], rows[v])
+            for k, v in WKV_MAIN.items()]
 
 
 def _leaves(tree: dict):
@@ -3036,6 +3216,14 @@ def _kernel8_per_forward(cfg) -> int:
     return 0 if cfg.family == "ssm" else cfg.n_layers
 
 
+def _wkv_per_step(cfg) -> tuple[int, int]:
+    """(WKV forward, WKV backward) launches of one train step: rwkv6's
+    forward once a layer and again in the layer's recompute under remat,
+    its backward once a layer; none for the other families."""
+    n = wkv_expected(cfg)
+    return n * (1 if cfg.remat == "none" else 2), n
+
+
 def train_family_mesh(ctx, mesh) -> dict:
     """(e) for the other families' sharded paths on the (1, 1) mesh, each
     arch of ``TRAIN_FAMILY_MESH`` at its published widths in float32 (B 2
@@ -3047,7 +3235,8 @@ def train_family_mesh(ctx, mesh) -> dict:
     (``factory.apply_train_sharded``) against ``apply_train`` at B 1 x S
     ``FAMILY_FLASH_SEQ`` under no_grad (whisper on seeded frames), all in
     bits, kernel 8 launched as often in the two forwards
-    (``_kernel8_per_forward``)."""
+    (``_kernel8_per_forward``); rwkv6's WKV kernels as often in each pair
+    of steps (``_wkv_per_step``, ``wkv_expected``)."""
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.configs.registry import get_config
     from repro_torch.launch import specs
@@ -3079,15 +3268,19 @@ def train_family_mesh(ctx, mesh) -> dict:
                 device=dev)
 
         torch.cuda.empty_cache()
+        reset_launches()
         card, m_card = ts.train_step_fn(cfg, ocfg, state(), batch)
+        wkv = {"train_step_fn": read_launches()}
         state_gb = sum(t.numel() * t.element_size()
                        for t in leaves(card)) / 1e9
         step, pspecs, bspecs = ts.make_train_step(
             cfg, ocfg, mesh, ts.init_train_state(cfg, ocfg, device="meta"),
             batch)
         placed = partition.logical_to_sharding(state(), pspecs, mesh)
+        reset_launches()
         placed, m_mesh = step(placed, partition.logical_to_sharding(
             batch, bspecs, mesh))
+        wkv["make_train_step"] = read_launches()
         differ = _tree_equal(placed, card)
         same = [bool(m_mesh[k].equal(m_card[k])) for k in ("loss", "aux")]
         need(not differ and all(same), f"[train:e] {arch}: mesh step vs "
@@ -3103,13 +3296,17 @@ def train_family_mesh(ctx, mesh) -> dict:
         # the step donates its cache, which at one rank is ``cache``'s own
         # storage: the recurrent states would be read updated by
         # ``decode_step`` after it
+        reset_launches()
         _, logits, new = sstep(
             partition.logical_to_sharding(params, sp, mesh),
             partition.logical_to_sharding(tree_map(torch.clone, cache), cs,
                                           mesh),
             partition.logical_to_sharding(sb, bs, mesh))
+        wkv["make_serve_step"] = read_launches()
+        reset_launches()
         with torch.no_grad():
             want, want_cache = factory.decode_step(cfg, params, cache, sb)
+        wkv["decode_step"] = read_launches()
         serve_differ = _tree_equal(new, want_cache)
         need(bool(logits.equal(want)) and not serve_differ,
              f"[train:e] {arch}: make_serve_step vs decode_step: logits "
@@ -3125,7 +3322,8 @@ def train_family_mesh(ctx, mesh) -> dict:
         reset_launches()
         with torch.no_grad():
             want_l, want_aux = factory.apply_train(cfg, params, pb)
-        k8_plain = read_launches()["flash_attention"]
+        wkv["apply_train"] = read_launches()
+        k8_plain = wkv["apply_train"]["flash_attention"]
         pspec = partition.param_pspecs(params, mesh)
         placed_p = partition.logical_to_sharding(params, pspec, mesh)
         split = moe.Split(mesh, partition.batch_pspecs(pb, mesh)["tokens"][0])
@@ -3134,12 +3332,21 @@ def train_family_mesh(ctx, mesh) -> dict:
             got_l, got_aux = factory.apply_train_sharded(
                 cfg, tree_map(lambda t: t.to_local(), placed_p), pb,
                 partition.Layout.of(placed_p), split)
-        k8 = read_launches()["flash_attention"]
+        wkv["apply_train_sharded"] = read_launches()
+        k8 = wkv["apply_train_sharded"]["flash_attention"]
         fwd_same = bool(got_l.equal(want_l)) and bool(got_aux.equal(want_aux))
         need(fwd_same and k8 == k8_plain == k8_want,
              f"[train:e] {arch}: sharded prefill forward vs forward: equal "
              f"{fwd_same}, kernel 8 launches {k8} against {k8_plain}, "
              f"{k8_want} expected")
+        fwd, bwd = _wkv_per_step(cfg)
+        want_wkv = {"train_step_fn": (fwd, bwd), "make_train_step": (fwd, bwd),
+                    **{k: (wkv_expected(cfg), 0) for k in (
+                        "make_serve_step", "decode_step", "apply_train",
+                        "apply_train_sharded")}}
+        wkv = {k: (v["wkv6"], v["wkv6_bwd"]) for k, v in wkv.items()}
+        need(wkv == want_wkv, f"[train:e] {arch}: WKV (forward, backward) "
+             f"launches {wkv}, want {want_wkv}")
         rec[arch] = {"layers": cfg.n_layers, "state_gb": state_gb,
                      "loss": float(m_card["loss"]),
                      "aux": float(m_card["aux"]),
@@ -3147,14 +3354,17 @@ def train_family_mesh(ctx, mesh) -> dict:
                      "serve_step_bits_equal": True,
                      "prefill_bits_equal": True,
                      "prefill_seq": FAMILY_FLASH_SEQ,
-                     "kernel8_launches": [k8, k8_plain]}
+                     "kernel8_launches": [k8, k8_plain],
+                     "wkv_launches": wkv}
         log(f"[train:e] {arch} at {cfg.n_layers} of "
             f"{get_config(arch).n_layers} layers, published widths, float32 "
             f"(state {state_gb:.1f} GB a copy): make_train_step == "
             f"train_step_fn in bits (loss {rec[arch]['loss']:.4f}, aux "
             f"{rec[arch]['aux']:.4f}); make_serve_step == decode_step in "
             f"bits; sharded prefill forward == forward in bits at S "
-            f"{FAMILY_FLASH_SEQ}, kernel 8 launches {k8} and {k8_plain}")
+            f"{FAMILY_FLASH_SEQ}, kernel 8 launches {k8} and {k8_plain}"
+            + (f"; WKV (forward, backward) launches {wkv}"
+               if wkv_expected(cfg) else ""))
         del params, cache, new, want_cache, placed_p
         torch.cuda.empty_cache()
     return rec
@@ -3387,8 +3597,9 @@ def card_step(ctx, mesh, cfg) -> dict:
     """``DRYRUN_STEPS`` train steps of ``cfg`` through ``make_train_step``
     on the one-rank mesh at B 8 x S 128 (the dry run's step): the peak
     (reset once the state and batch are made, less what the card held
-    besides them), the last step's ms, loss and grad norm, and kernel 8's
-    launches, and the FLOPs of the last step's products as
+    besides them), the last step's ms, loss and grad norm, kernel 8's
+    and the WKV kernels' launches, and the FLOPs of the last step's
+    products as
     ``FlopCounterMode`` counts them."""
     from torch.utils.flop_counter import FlopCounterMode
 
@@ -3424,7 +3635,7 @@ def card_step(ctx, mesh, cfg) -> dict:
         state, m = step(state, batch)
         loss, gnorm = float(m["loss"]), float(m["grad_norm"])
         secs.append(time.perf_counter() - t0)
-    k8 = read_launches()["flash_attention"]
+    launches = read_launches()
     counter = FlopCounterMode(display=False)
     with counter:
         state, m = step(state, batch)
@@ -3434,7 +3645,9 @@ def card_step(ctx, mesh, cfg) -> dict:
     torch.cuda.empty_cache()
     return {"layers": cfg.n_layers, "remat": cfg.remat, "args_bytes": args,
             "peak_bytes": peak, "step_ms": [x * 1e3 for x in secs],
-            "loss": loss, "grad_norm": gnorm, "kernel8_launches": k8,
+            "loss": loss, "grad_norm": gnorm,
+            "kernel8_launches": launches["flash_attention"],
+            "wkv_launches": [launches["wkv6"], launches["wkv6_bwd"]],
             "flops": counter.get_total_flops()}
 
 
@@ -3514,13 +3727,15 @@ def phase_dryrun(ctx) -> dict:
     within 15%, the dot FLOPs within 2% of the products of a step on the
     card (``FlopCounterMode``; 8 N tokens + attention reported beside); (b)
     one step of each other family (finite loss and grad norm, no kernel
-    8 launch under grad) and (c) granite at 4 layers under remat "none",
-    "dots" and "full", each with its step ms and measured against
+    8 launch under grad; rwkv6 whole, its WKV kernels launched as
+    ``_wkv_per_step`` says) and (c) granite at 4 layers under remat
+    "none", "dots" and "full", each with its step ms and measured against
     predicted peak; (d) the dry run's launcher on granite-3-2b and
     phi3.5-moe x train_4k and x decode_32k on the 16 x 16 mesh (fake
-    256-rank groups; the sharded steps), and on zamba2-2.7b and
-    whisper-small x decode_32k, exits 0 with status ok, granite's,
-    zamba2's and whisper's with ``fits_card``, each cell's peak,
+    256-rank groups; the sharded steps), on zamba2-2.7b and
+    whisper-small x decode_32k and on rwkv6-1.6b x train_4k, exits 0
+    with status ok, granite's, zamba2's, whisper's and rwkv6's with
+    ``fits_card``, each cell's peak,
     ``fits_card``, dot FLOPs and collective bytes by kind printed, the
     decode_32k cells beside the weight-gathering step's and with no
     weight all-gathered."""
@@ -3578,12 +3793,17 @@ def phase_dryrun(ctx) -> dict:
             f"({r['peak_pred_over_card']:.3f}x); dot FLOPs "
             f"{r['pred_dot_flops'] / 1e12:.4f} T predicted, "
             f"{r['flops'] / 1e12:.4f} counted ({r['flops_pred_over_card']:.4f}"
-            f"x); kernel 8 launches {r['kernel8_launches']}")
+            f"x); kernel 8 launches {r['kernel8_launches']}"
+            + (f", WKV (forward, backward) {r['wkv_launches']}"
+               if wkv_expected(cfg) else ""))
         need(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"]),
              f"[dryrun:{part}] {cfg.name}: loss {r['loss']}, grad norm "
              f"{r['grad_norm']}")
         need(r["kernel8_launches"] == 0, f"[dryrun:{part}] {cfg.name}: "
              f"kernel 8 launched {r['kernel8_launches']} times under grad")
+        want_wkv = [DRYRUN_STEPS * n for n in _wkv_per_step(cfg)]
+        need(r["wkv_launches"] == want_wkv, f"[dryrun:{part}] {cfg.name}: "
+             f"WKV launches {r['wkv_launches']}, want {want_wkv}")
     torch.distributed.destroy_process_group()      # make_local_mesh's
     rec["d"] = dryrun_cells(ctx)
     rec["seconds"] = time.perf_counter() - t0
@@ -3662,7 +3882,8 @@ def run(ctx) -> list:
                           if k in ("espim_spmv_batched_res", "dense_mv",
                                    "flash_attention")})
     entries += phase_new_kernels(ctx, groups, launches_main)
-    phase_families(ctx)
+    fam = phase_families(ctx)
+    wkv_rows = phase_wkv(ctx)
     # the dry run's processes use the host alone: they overlap the phases
     # timed on the device clock (autotune) and the train phase
     start_dryrun(ctx)
@@ -3671,7 +3892,12 @@ def run(ctx) -> list:
     del params, params_fp, sparse8, sparse_fp, proj, groups
     gc.collect()
     torch.cuda.empty_cache()
-    phase_train(ctx)
+    tr = phase_train(ctx)
+    launches_main = {
+        "wkv6": fam["models"]["rwkv6-1.6b"]["engine"]["launches"]["wkv6"],
+        "wkv6_bwd": tr["families_mesh"]["rwkv6-1.6b"]["wkv_launches"][
+            "make_train_step"][1]}
+    entries += wkv_entries(wkv_rows, launches_main)
     phase_dryrun(ctx)
     return entries
 

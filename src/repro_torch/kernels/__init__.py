@@ -1,4 +1,4 @@
 """Hand-written CUDA kernels for Hopper (``csrc/``), their build and
 ctypes binding (``build.py``), the launch wrappers (``espim_spmv.py``,
-``dense_mv.py``, ``flash_attention.py``), the plain PyTorch versions
-(``ref.py``) and the dispatching ops (``ops.py``)."""
+``dense_mv.py``, ``flash_attention.py``, ``wkv.py``), the plain PyTorch
+versions (``ref.py``) and the dispatching ops (``ops.py``)."""

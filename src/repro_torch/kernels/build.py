@@ -28,7 +28,8 @@ __all__ = ["SOURCES", "NVCC_FLAGS", "build_dir", "library_path",
 _CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = {"espim_spmv": _CSRC / "espim_spmv.cu",
            "dense_mv": _CSRC / "dense_mv.cu",
-           "flash_attention": _CSRC / "flash_attention.cu"}
+           "flash_attention": _CSRC / "flash_attention.cu",
+           "wkv": _CSRC / "wkv.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -56,6 +57,10 @@ _SIGNATURES = {
     },
     "flash_attention": {
         "flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    },
+    "wkv": {
+        "wkv6_fwd": [_P] * 9 + [_I] * 7 + [_P],
+        "wkv6_bwd": [_P] * 16 + [_I] * 7 + [_P],
     },
 }
 _LIBS: dict = {}

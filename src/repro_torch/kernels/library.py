@@ -1,6 +1,7 @@
 """The hand-written kernels as ``torch.library`` ops in the ``repro_torch``
 namespace (``torch.ops.repro_torch.<kernel>``), one op per launch
-wrapper of ``espim_spmv.py``, ``dense_mv.py`` and ``flash_attention.py``.
+wrapper of ``espim_spmv.py``, ``dense_mv.py``, ``flash_attention.py``
+and ``wkv.py``.
 
 Each op has two implementations:
 
@@ -25,14 +26,18 @@ the ``custom_op`` decorator, whose wrapper objects add Python work to
 every call.
 
 ``COSTS[name](args, out) -> (flops, bytes)`` is the op's count for
-``launch/cost_analysis.py``: every tensor input read once and the output
-written once, and the kernel's operations as ``chip_smoke.py``'s bound
-column counts them (2 x ELL slots x B for the SpMV family, 2 R C for
-dense MV, 4 BH hd x the (query, key) pairs for attention).
+``launch/cost_analysis.py``: every tensor input read once and every
+output written once, and the kernel's operations as ``chip_smoke.py``'s
+bound column counts them (2 x ELL slots x B for the SpMV family, 2 R C
+for dense MV, 4 BH hd x the (query, key) pairs for attention; the WKV
+ops the products ``CostMode`` counts in the plain loop they replace).
+The same count is registered with ``torch.utils.flop_counter``, so a
+``FlopCounterMode`` on the card sees each op's products.
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 __all__ = ["LIB", "COSTS", "define", "tensor_bytes"]
 
@@ -41,6 +46,9 @@ COSTS: dict = {}
 
 
 def tensor_bytes(t) -> int:
+    """Bytes of a tensor, or of every tensor of a tuple or list."""
+    if isinstance(t, (tuple, list)):
+        return sum(tensor_bytes(x) for x in t)
     return t.numel() * t.element_size() if isinstance(t, torch.Tensor) else 0
 
 
@@ -61,6 +69,8 @@ def define(schema: str, launch, meta, flops):
 
     COSTS[name] = cost
     op = getattr(torch.ops.repro_torch, name)
+    register_flop_formula(op, get_raw=True)(
+        lambda *args, out_val=None, **kwargs: flops(*args))
 
     def kernel(*args):
         if (type(args[0]) is torch.Tensor

@@ -6,7 +6,10 @@ Each function mirrors its namesake in the JAX package's
 against that module and against the Pallas kernels (interpret mode), and
 ``chip_smoke.py`` holds the hand-written CUDA kernels
 (``kernels/espim_spmv.py``, ``kernels/dense_mv.py``,
-``kernels/flash_attention.py``) against them on the card.
+``kernels/flash_attention.py``, ``kernels/wkv.py``) against them on the
+card.  ``wkv6_ref`` is the scan of ``repro/models/rwkv.time_mix_apply``
+(a ``lax.scan``, no Pallas kernel) one token at a time, and
+``wkv6_bwd_ref`` its gradient as an explicit reverse-time loop.
 ``kernels/ops.py`` runs them for tensors that lie on the CPU.
 
 Layouts: column-chunked ELL — values/cols ``(R_pad, K, Lc)`` with
@@ -39,6 +42,8 @@ __all__ = [
     "dense_mv_ref",
     "flash_attention_ref",
     "NEG_INF",
+    "wkv6_ref",
+    "wkv6_bwd_ref",
 ]
 
 
@@ -235,3 +240,63 @@ def scatter_rows_ref(y_packed: torch.Tensor, perm: torch.Tensor,
     out = torch.zeros((n_rows,) + tuple(y_packed.shape[1:]),
                       dtype=y_packed.dtype, device=y_packed.device)
     return out.index_add_(0, safe, contrib)
+
+
+def wkv6_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             w: torch.Tensor, u: torch.Tensor, state: torch.Tensor):
+    """The WKV recurrence in float32, one token at a time in order: r / k
+    / w (B, S, H, K), v (B, S, H, V), u (H, K), state (B, H, K, V) ->
+    (y (B, S, H, V), the new state).  ``y`` sums over K, so a K slice of
+    every head gives a partial ``y``."""
+    u = u.float()[None, :, :, None]
+    st = state.float()
+    ys = []
+    for t in range(r.shape[1]):
+        kv = torch.einsum("bhk,bhv->bhkv", k[:, t].float(), v[:, t].float())
+        ys.append(torch.einsum("bhk,bhkv->bhv", r[:, t].float(),
+                               st + u * kv))
+        st = w[:, t].float()[..., None] * st + kv
+    return torch.stack(ys, dim=1), st
+
+
+def wkv6_bwd_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 w: torch.Tensor, u: torch.Tensor, state: torch.Tensor,
+                 gy: torch.Tensor, g_state: torch.Tensor):
+    """The gradient of ``wkv6_ref`` by a reverse-time loop: the saved
+    inputs (``state`` the initial one), ``gy`` (B, S, H, V) and
+    ``g_state`` (B, H, K, V) -> (dr, dk, dv, dw, du, d_state0),
+    float32.  With S_t the state after step t, dS_t its
+    gradient and kv = k_t v_t^T:
+
+      dr_t[k] = sum_j gy_t[j] (S_{t-1}[k,j] + u[k] k_t[k] v_t[j])
+      d(kv) = u r_t gy_t^T + dS_t;  dk_t = d(kv) v_t;  dv_t = d(kv)^T k_t
+      du += r_t * k_t * (gy_t . v_t);  dw_t[k] = sum_j dS_t[k,j] S_{t-1}[k,j]
+      dS_{t-1} = r_t gy_t^T + w_t * dS_t
+
+    The forward's states are recomputed and kept, one per step."""
+    rf, kf, vf, wf, gf = (t.float() for t in (r, k, v, w, gy))
+    uf = u.float()
+    st = state.float()
+    prev = []
+    for t in range(r.shape[1]):
+        prev.append(st)
+        st = (wf[:, t][..., None] * st
+              + torch.einsum("bhk,bhv->bhkv", kf[:, t], vf[:, t]))
+    ds = g_state.float()
+    dr, dk, dw = (torch.empty_like(rf) for _ in range(3))
+    dv = torch.empty_like(vf)
+    du = torch.zeros_like(uf)
+    for t in reversed(range(r.shape[1])):
+        r_t, k_t, v_t, w_t, g_t = rf[:, t], kf[:, t], vf[:, t], wf[:, t], \
+            gf[:, t]
+        s_prev = prev[t]
+        gv = (g_t * v_t).sum(-1, keepdim=True)              # (B, H, 1)
+        dr[:, t] = (torch.einsum("bhv,bhkv->bhk", g_t, s_prev)
+                    + uf * k_t * gv)
+        dkv = (uf * r_t)[..., None] * g_t[:, :, None, :] + ds
+        dk[:, t] = torch.einsum("bhkv,bhv->bhk", dkv, v_t)
+        dv[:, t] = torch.einsum("bhkv,bhk->bhv", dkv, k_t)
+        du += (r_t * k_t * gv).sum(0)
+        dw[:, t] = (ds * s_prev).sum(-1)
+        ds = r_t[..., None] * g_t[:, :, None, :] + w_t[..., None] * ds
+    return dr, dk, dv, dw, du, ds

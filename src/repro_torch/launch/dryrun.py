@@ -28,8 +28,8 @@ launch).  A CPU-only PyTorch can make fake ``cuda`` tensors but cannot
 index them from Python (the indexing binding takes a CUDA device guard)
 nor differentiate them (autograd's engine does too): there, prefill and
 decode cells index through ``_CudaIndexing`` and train cells run on
-fake ``cpu`` tensors, which take the same ops (no kernel runs under
-grad).
+fake ``cpu`` tensors, which take the same ops (under grad only the WKV
+ops run a kernel, and its dispatch sends any fake tensor to them).
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch granite-3-2b \\

@@ -4,9 +4,11 @@
 Token-shift lerp mixes for (r, k, v, w, g), the LoRA-style decay
 ``w = exp(-exp(w0 + tanh(x @ A) @ B))``, a per-head bonus ``u``, a
 per-head RMS norm and a squared-ReLU channel mix.  The WKV recurrence
-runs sequentially over time in float32 (forward and chunked prefill) and
-as an O(1) state update at decode; ``w0`` and ``u`` stay float32 at any
-model dtype.
+runs in float32 as one op (``kernels/wkv.wkv6``: on the card one CUDA
+kernel a layer for a whole forward, prefill chunk or decode step, and
+one for its backward; in a dry run one node with a Meta implementation;
+on the CPU the plain per-token loop ``kernels/ref.wkv6_ref``); ``w0``
+and ``u`` stay float32 at any model dtype.
 
 State per head: a (K, V) outer-product accumulator;
   y_t = r_t . (state + (u * k_t) v_t^T);  state' = diag(w_t) state + k_t v_t^T
@@ -24,6 +26,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.kernels import wkv as WKV
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.sharding import partition as P
@@ -126,19 +129,13 @@ def _decay(w0, lora) -> torch.Tensor:
 
 
 def _wkv(r, k, v, w, u, state):
-    """The WKV recurrence in float32, one token at a time in order: r / k
-    / w (B, S, H, K), v (B, S, H, V), u (H, K), state (B, H, K, V) ->
-    (y (B, S, H, V), the new state).  ``y`` sums over K, so a K slice of
-    every head gives a partial ``y``."""
-    u = u.float()[None, :, :, None]
-    st = state.float()
-    ys = []
-    for t in range(r.shape[1]):
-        kv = torch.einsum("bhk,bhv->bhkv", k[:, t].float(), v[:, t].float())
-        ys.append(torch.einsum("bhk,bhkv->bhv", r[:, t].float(),
-                               st + u * kv))
-        st = w[:, t].float()[..., None] * st + kv
-    return torch.stack(ys, dim=1), st
+    """The WKV recurrence in float32: r / k / w (B, S, H, K), v (B, S, H,
+    V), u (H, K), state (B, H, K, V) -> (y (B, S, H, V), the new state),
+    through ``WKV.wkv6``, which places the call (the kernels on CUDA and
+    a dry run's fake tensors, the plain per-token loop on the CPU and
+    under the ``ESPIM_IMPL=ref`` pin).  ``y`` sums over K, so a K slice
+    of every head gives a partial ``y``."""
+    return WKV.wkv6(r, k, v, w, u, state)
 
 
 def channel_mix_apply(cfg: ModelConfig, p: dict, x: torch.Tensor, last_x):

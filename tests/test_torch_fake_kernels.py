@@ -1,7 +1,8 @@
 """The hand-written kernels' ``torch.library`` ops under ``FakeTensorMode``
-(``kernels/library.py``): each of the eight launch wrappers, called on
-fake ``cuda`` tensors, gives its plain version's output shape and dtype
-without a card, a data pointer or a launch count; and the cost analysis
+(``kernels/library.py``): each of the eight launch wrappers, and the WKV
+recurrence's forward and backward, called on fake ``cuda`` tensors,
+gives its plain version's output shapes and dtypes without a card, a
+data pointer or a launch count; and the cost analysis
 reads each op's FLOPs and bytes equal to ``chip_smoke.py``'s bound
 column at the kernel table's shapes (``PERF.md`` §6)."""
 import contextlib
@@ -18,6 +19,8 @@ from repro_torch.kernels import dense_mv as DM  # noqa: E402
 from repro_torch.kernels import espim_spmv as SP  # noqa: E402
 from repro_torch.kernels import flash_attention as FA  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import ref as KR  # noqa: E402
+from repro_torch.kernels import wkv as WKV  # noqa: E402
 from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch.cost_analysis import analyze_step  # noqa: E402
 
@@ -48,6 +51,19 @@ def _cases():
     w = torch.randn((6, 40), generator=gen)
     wx = torch.randn((40,), generator=gen)
     q = torch.randn((2, 9, 80), generator=gen).to(torch.bfloat16)
+    # the WKV: bf16 r / k / v, B 2 x S 40 (two checkpoints), H 3, K' 16,
+    # V 64
+    rkv = [torch.randn(shape, generator=gen).to(torch.bfloat16)
+           for shape in ((2, 40, 3, 16), (2, 40, 3, 16), (2, 40, 3, 64))]
+    wus = [torch.rand((2, 40, 3, 16), generator=gen),
+           torch.randn((3, 16), generator=gen),
+           torch.randn((2, 3, 16, 64), generator=gen)]
+    gy = torch.randn((2, 40, 3, 64), generator=gen)
+
+    def wkv_bwd(r, k, v, w, u, st, gy):
+        ckpt = WKV.wkv6_cuda(r, k, v, w, u, st, WKV.CHUNK)[2]
+        return WKV.wkv6_bwd_cuda(r, k, v, w, u, ckpt, gy, st)
+
     return {
         "espim_spmv": (
             lambda v, c, x: SP.espim_spmv_cuda(v, c, x, chunk_cols=CC),
@@ -89,6 +105,12 @@ def _cases():
             lambda q, k, v: FA.flash_attention_cuda(q, k, v, causal=True),
             lambda q, k, v: FA.flash_attention(q, k, v, causal=True),
             (q, q.clone(), q.clone())),
+        "wkv6": (lambda *ts: WKV.wkv6_cuda(*ts)[:2], KR.wkv6_ref,
+                 (*rkv, *wus)),
+        "wkv6_bwd": (wkv_bwd,
+                     lambda r, k, v, w, u, st, gy: KR.wkv6_bwd_ref(
+                         r, k, v, w, u, st, gy, st),
+                     (*rkv, *wus, gy)),
     }
 
 
@@ -102,7 +124,7 @@ def _indexing():
 
 
 def _launches() -> dict:
-    return {**SP.LAUNCHES, **DM.LAUNCHES, **FA.LAUNCHES}
+    return {**SP.LAUNCHES, **DM.LAUNCHES, **FA.LAUNCHES, **WKV.LAUNCHES}
 
 
 @pytest.mark.parametrize("kernel", sorted(_cases()))
@@ -114,9 +136,11 @@ def test_op_traces_on_fake_cuda_tensors(kernel):
         fakes = [torch.empty(t.shape, dtype=t.dtype, device="cuda")
                  for t in tensors]
         got = wrapper(*fakes)
-        assert got.device.type == "cuda"
-    assert tuple(got.shape) == tuple(want.shape)
-    assert got.dtype == want.dtype
+        got = got if isinstance(got, tuple) else (got,)
+        assert all(g.device.type == "cuda" for g in got)
+    want = want if isinstance(want, tuple) else (want,)
+    assert [tuple(g.shape) for g in got] == [tuple(w.shape) for w in want]
+    assert [g.dtype for g in got] == [w.dtype for w in want]
     assert _launches() == before
     assert kernel in before          # one counter per op
 
