@@ -21,18 +21,27 @@ widths and depth) — then checks them:
 2. engine: 8 requests through the int8 engine (kernels 2 and 4), then 4
    through a 1-layer fp engine (kernels 1 and 3), each trace served 3
    times; every launch counter is zeroed just before each serve and read
-   just after, and each kernel of the path must have launched;
+   just after, and each kernel of the path must have launched, an SpMV
+   kernel once a group a layer a decode step;
 3. decode parity: 4 teacher-forced decode steps at B=4 through the kernels
-   and through their plain versions, from the same packs and cache; then
-   one decode step's host time, and from ``torch.profiler``'s device
-   kernel spans the device-busy share and the SpMV share of device time;
+   and through their plain versions, from the same packs and cache; one
+   step with the GLU epilogue fused against unfused, in bits; then one
+   decode step's host time, and from ``torch.profiler``'s device kernel
+   spans the device-busy share, the SpMV share of device time and the
+   SpMV kernels a step (one a group a layer);
 4. SpMV kernels: the five kernels on the streaming body (1-4 and the
    residual kernel 6) against their plain versions at the engine packs'
    full-width bucket shapes (plus int4 planes, one QKV and one gate+up
    bucket with an odd Lc, and kernels 1, 3 and 6 on the fp32 packs'
    planes cast to bf16), B in {1, 2, 3, 4, 8, 13}, each launched twice
-   for identical bits; then kernels 1-4 timed per layer at B in {1, 4},
-   and each bucket launch of kernels 1-4 and 6 at B = 4 on its own (a
+   for identical bits; every engine group as one grouped launch
+   (``ops.espim_spmv_group``: fp32, bf16, int8, int4, and int4 with an
+   odd Lc) under the same rules against the grouped plain version, and
+   in bits against its buckets' launches followed by the scale,
+   concatenation and take; then kernels 1-4 timed per layer at B in {1,
+   4}, one grouped launch a group, beside the same buckets launched one
+   at a time and the earlier streaming body's time, and each bucket
+   launch of kernels 1-4 and 6 at B = 4 on its own (a
    graph of an L2-evicting read and the launch, less the read): rows, K,
    Lc, µs and GB/s.  This runs before any flash attention launch, so the
    timings do not depend on what the attention kernels leave behind;
@@ -65,8 +74,9 @@ widths and depth) — then checks them:
    ticks its prompt tokens take); every restored or preempted request
    completes with at least ``RESUME_EQUAL_MIN`` of its later tokens
    equal to the uninterrupted run's; each drill must launch its pack's
-   kernels (counters zeroed before, read after).  Then whether kernels
-   1-4 give a column the same bits alone as inside B = 4 (reported),
+   kernels (counters zeroed before, read after).  Then kernels 1-4, per
+   bucket and grouped, must give a column the same bits alone as inside
+   B = 4,
    and ``python -m repro_torch.launch.serve`` at llama7b-espim's full
    depth and width as a subprocess (4 requests, 32 tokens);
 8. ops: the residual epilogue over the fp32 engine's attn_out and down
@@ -211,6 +221,13 @@ KERNEL_REL_TOL, KERNEL_ABS_TOL = 1e-5, 1e-6
 # (1, 2, 4, 8), a tile's remainder (3) and the loop over tiles of 8 (13),
 # and each of their bucket launches is timed at B = 4; every SpMV kernel
 # is timed per layer (kernel 6: per call) at B in {1, 4}
+# the earlier streaming body (one launch a bucket), one layer's
+# launches of kernels 1-4 (NVIDIA H100 80GB HBM3, 700 W; PERF.md's
+# kernel table): printed beside the grouped ring body's
+SPMV_STREAM_US = {("espim_spmv_batched", "fp32", 4): 89.4,
+                ("espim_spmv_batched_quant", "int8", 4): 85.7,
+                ("espim_spmv_batched_glu", "fp32", 4): 67.1,
+                ("espim_spmv_batched_quant_glu", "int8", 4): 49.6}
 STREAM_KERNELS = ("espim_spmv_batched", "espim_spmv_batched_quant",
                   "espim_spmv_batched_glu", "espim_spmv_batched_quant_glu",
                   "espim_spmv_batched_res")
@@ -614,13 +631,27 @@ def serve(engine_mod, eng, prompts, max_new: int, inject=None):
     return reqs, stats, time.perf_counter() - t0
 
 
+def group_launches(cfg, sparse) -> dict:
+    """The SpMV launches one sparse decode step makes: one a group a
+    layer, as the kernel it computes (kernels 1-4)."""
+    out = {}
+    for gname, g in sparse["groups"].items():
+        k = ("espim_spmv_batched_quant" if g["quant"] is not None
+             else "espim_spmv_batched")
+        k += "_glu" if gname == "gateup" and sparse["gated"] else ""
+        out[k] = out.get(k, 0) + cfg.n_layers
+    return out
+
+
 def drive_engine(ctx, label, cfg, params, sparse, prompts, kernels,
                  runs: int = None) -> dict:
     """Warm up, then ``runs`` (``ENGINE_RUNS``) times: zero the launch
     counters, serve
     ``prompts``, read the counters; every kernel in ``kernels`` must have
     launched in every run, and a dense engine (``sparse=None``) must have
-    launched no other.  Reports each run's tok/s, TTFT and TPOT p50, their
+    launched no other; a sparse engine's SpMV kernels, once a group a
+    layer a decode step (``group_launches``; prefill runs the dense
+    copies).  Reports each run's tok/s, TTFT and TPOT p50, their
     medians, and the last run's launch counts and outputs."""
     from repro_torch.serve import engine as E
     from repro_torch.serve.scheduler import latency_summary
@@ -656,6 +687,12 @@ def drive_engine(ctx, label, cfg, params, sparse, prompts, kernels,
                      if v and k not in kernels}
             need(not other,
                  f"[{label}] the dense engine launched kernels {other}")
+        else:
+            for k, n in group_launches(cfg, sparse).items():
+                need(launches[k] == n * stats.decode_steps,
+                     f"[{label}] kernel {k}: {launches[k]} launches in "
+                     f"{stats.decode_steps} decode steps, not {n} a step "
+                     "(one a group a layer)")
         eng.check_arena()
         lat = latency_summary(stats.requests)      # exact percentiles
         runs.append({"tokens": stats.tokens_generated, "wall_s": wall,
@@ -793,18 +830,22 @@ def decode_step_profile(ctx, label, cfg, step_fn, b=4, reps=10) -> dict:
            "kernels_per_step": None}
     prof = device_profile(torch, step, reps)
     if prof["busy_us"] > 0:     # else the profiler saw no device time
-        spmv_us = sum(t for n, (_, t) in prof["by_name"].items()
-                      if any(k in n for k in SPMV_KERNEL_NAMES))
+        spmv = [(c, t) for n, (c, t) in prof["by_name"].items()
+                if any(k in n for k in SPMV_KERNEL_NAMES)]
+        spmv_us = sum(t for _, t in spmv)
         rec.update(device_ms_per_step=prof["busy_us"] / 1e3 / reps,
                    device_busy_share=prof["busy_us"] / 1e3 / prof["wall_ms"],
                    spmv_share_of_device=spmv_us / prof["busy_us"],
+                   spmv_us_per_step=spmv_us / reps,
+                   spmv_kernels_per_step=sum(c for c, _ in spmv) / reps,
                    kernels_per_step=prof["kernels"] / reps,
                    top_kernels=prof["top"])
     log(f"[step] {label} B={b}, {cfg.n_layers} layers: "
         f"{rec['step_ms']:.2f} ms per step (host clock); device busy "
         f"{rec['device_busy_share']}, device ms/step "
         f"{rec['device_ms_per_step']}, SpMV share of device time "
-        f"{rec['spmv_share_of_device']}, kernels per step "
+        f"{rec['spmv_share_of_device']} ({rec.get('spmv_us_per_step')} us, "
+        f"{rec.get('spmv_kernels_per_step')} SpMV kernels), kernels per step "
         f"{rec['kernels_per_step']} (profiler, device kernels only)")
     for k in rec.get("top_kernels", ()):
         log(f"[step]   {k['us_per_step']:7.1f} us/step in "
@@ -928,6 +969,90 @@ def run_case(ops, c, x, impl, schedule=None):
                                         srow=c["srow"], **kw)
 
 
+def group_cases(ctx, sparse8, sparse_fp) -> list:
+    """The grouped launches each kernel of 1-4 makes per layer, one a
+    group: (kernel, variant, layer, group, the buckets' plane lists, srow,
+    the take's perm and inv, act) over every engine group, fp32 and int8
+    as the engines hold them, bf16 (the fp32 planes cast), int4 (the int8
+    codes requantized to [-7, 7] and nibble-packed, as ``kernel_cases``
+    makes them) and int4 with an odd Lc (layer 0's qkv and gate+up, every
+    bucket's Lc cut by one); ``buckets`` holds the per-bucket cases
+    (``kernel_cases``) of the same launches, for their bytes."""
+    torch = ctx["torch"]
+    per = {}
+    for c in kernel_cases(ctx, sparse8, sparse_fp):
+        if c["kernel"] != "espim_spmv_batched_res" and \
+                c["variant"] != "int4-oddLc":
+            key = (c["variant"], c["layer"], c["group"])
+            per.setdefault(key, []).append(c)
+    out = []
+    for (variant, layer, gname), bks in per.items():
+        src = sparse_fp if variant in ("fp32", "bf16") else sparse8
+        g = src["groups"][gname]
+        glu = gname == "gateup"
+        quant = variant.startswith("int")
+        take = g["output"] == "take"
+        planes = [c["q" if quant else "values"] for c in bks]
+        srow = ([b["srow"][layer] for b in sparse8["groups"][gname]["buckets"]]
+                if quant else None)
+        out.append(dict(
+            kernel=bks[0]["kernel"], variant=variant, layer=layer,
+            group=gname, values=planes, cols=[c["cols"] for c in bks],
+            srow=srow, act="silu" if glu else None,
+            perm=g["perm"][layer] if take else None,
+            inv=g["inv_perm"][layer] if take else None,
+            n_out=g["n_rows"] if take else None, cc=g["chunk_cols"],
+            m=g["n_cols"], buckets=bks))
+    # the odd-Lc int4 group: every bucket of layer 0's qkv and gate+up
+    for gc in [gc for gc in out if gc["variant"] == "int4"
+               and gc["layer"] == 0 and gc["group"] in ("qkv", "gateup")]:
+        q8 = [b["q"][0] for b in sparse8["groups"][gc["group"]]["buckets"]]
+        cols, vals = [], []
+        for c, q in zip(gc["cols"], q8):
+            lc = c.shape[-1] - (1 - c.shape[-1] % 2)     # odd
+            q4 = torch.clamp(torch.round(q.float() / 18.0), -7, 7).to(
+                torch.int8)
+            cols.append(c[..., :lc].contiguous())
+            vals.append(_nibble_pack(torch, q4[..., :lc]))
+        out.append(dict(gc, variant="int4-oddLc", values=vals, cols=cols,
+                        buckets=[dict(b, cols=c, q=v) for b, c, v in
+                                 zip(gc["buckets"], cols, vals)]))
+    return out
+
+
+def run_group(ops, gc, x, impl, schedule=None):
+    """One grouped launch (``ops.espim_spmv_group``) of a group case."""
+    return ops.espim_spmv_group(gc["values"], gc["cols"], x,
+                                chunk_cols=gc["cc"], srow=gc["srow"],
+                                act=gc["act"], perm=gc["perm"],
+                                n_out=gc["n_out"], impl=impl,
+                                schedule=schedule)
+
+
+def run_group_per_bucket(ops, gc, x, impl):
+    """The same group as the decode step launched it before the grouped
+    op: one launch a bucket, then each quantized bucket's srow multiply,
+    the concatenation and the take."""
+    parts = []
+    for i, (v, c) in enumerate(zip(gc["values"], gc["cols"])):
+        kw = dict(chunk_cols=gc["cc"], impl=impl)
+        if gc["srow"] is not None and gc["act"]:
+            parts.append(ops.espim_spmv_batched_quant(
+                v, c, None, x, epilogue="glu", act=gc["act"],
+                srow=gc["srow"][i], **kw))
+        elif gc["srow"] is not None:
+            parts.append(ops.espim_spmv_batched_quant(v, c, None, x, **kw)
+                         * gc["srow"][i][:, None])
+        elif gc["act"]:
+            parts.append(ops.espim_spmv_batched(v, c, x, epilogue="glu",
+                                                act=gc["act"], **kw))
+        else:
+            parts.append(ops.espim_spmv_batched(v, c, x, **kw))
+    import torch
+    y = parts[0] if len(parts) == 1 else torch.cat(parts, dim=0)
+    return y if gc["inv"] is None else y.index_select(0, gc["inv"])
+
+
 def case_bytes(c, b: int) -> tuple[int, int]:
     """(bytes, flops) the launch needs: every plane it reads read once
     (values or codes, cols, and the GLU kernel's scales), x and the
@@ -966,15 +1091,34 @@ def bucket_times(ctx, sel, xs, b) -> list:
     return out
 
 
+def _check(what, got, want, again, torch) -> float:
+    """max|kernel - plain|, after the kernels' rule: finite, the plain
+    version's shape, within KERNEL_REL_TOL * max|plain| + KERNEL_ABS_TOL,
+    and the same bits on a second launch."""
+    err = float((got - want).abs().max()) if want.numel() else 0.0
+    scale = float(want.abs().max()) if want.numel() else 0.0
+    need(got.shape == want.shape and bool(torch.isfinite(got).all()),
+         f"{what}: bad output")
+    need(torch.equal(got, again), f"{what}: two launches on the "
+         "same inputs gave different bits")
+    need(err <= KERNEL_REL_TOL * scale + KERNEL_ABS_TOL,
+         f"{what}: max|kernel-plain| {err:.3e} > "
+         f"{KERNEL_REL_TOL}*{scale:.3e}+{KERNEL_ABS_TOL}")
+    return err
+
+
 def phase_kernels(ctx, sparse8, sparse_fp, launches_main) -> list:
     """Every kernel against its plain version (and against itself: two
-    launches on the same inputs must give the same bits), then timed.  The
-    launches made here are comparisons: the line reports the engine runs'
-    counts (``launches_main``)."""
+    launches on the same inputs must give the same bits), per bucket and
+    grouped (every engine group in one launch, also held in bits against
+    its buckets' launches followed by the scale, concatenation and take),
+    then timed.  The launches made here are comparisons: the line reports
+    the engine runs' counts (``launches_main``)."""
     from repro_torch.kernels import ops
     torch, dev, timer = ctx["torch"], ctx["device"], ctx["timer"]
     bw = ctx["bandwidth"]
     cases = kernel_cases(ctx, sparse8, sparse_fp)
+    gcases = group_cases(ctx, sparse8, sparse_fp)
     gen = torch.Generator(device=dev).manual_seed(ctx["seed"] + 2)
     xs = {(m, b): torch.randn((m, b), generator=gen, device=dev)
           for m in {c["m"] for c in cases} for b in CHECK_BATCHES}
@@ -987,53 +1131,81 @@ def phase_kernels(ctx, sparse8, sparse_fp, launches_main) -> list:
             got = run_case(ops, c, x, ctx["impl"])
             again = run_case(ops, c, x, ctx["impl"])
             want = run_case(ops, c, x, "ref")
-            err = float((got - want).abs().max())
-            scale = float(want.abs().max())
             what = (f"{c['kernel']} {c['variant']} {c['group']}/"
                     f"b{c['bucket']} B={b}")
-            need(got.shape == want.shape and bool(torch.isfinite(got).all()),
-                 f"{what}: bad output")
-            need(torch.equal(got, again), f"{what}: two launches on the "
-                 "same inputs gave different bits")
-            need(err <= KERNEL_REL_TOL * scale + KERNEL_ABS_TOL,
-                 f"{what}: max|kernel-plain| {err:.3e} > "
-                 f"{KERNEL_REL_TOL}*{scale:.3e}+{KERNEL_ABS_TOL}")
+            err = _check(what, got, want, again, torch)
             worst[c["kernel"]] = max(worst[c["kernel"]], err)
             rows.append({"kernel": c["kernel"], "variant": c["variant"],
                          "layer": c["layer"], "group": c["group"],
                          "bucket": c["bucket"],
                          "shape": list(c["cols"].shape), "B": b,
-                         "max_abs_err": err, "max_abs_plain": scale})
-    log(f"[kernels] {len(rows)} checks within {KERNEL_REL_TOL}*max|plain| + "
-        f"{KERNEL_ABS_TOL}, each bit-identical across two launches; worst "
-        "max|kernel-plain| "
+                         "max_abs_err": err,
+                         "max_abs_plain": float(want.abs().max())})
+    n_bucket = len(rows)
+    # the grouped launches: the same rule against the grouped plain
+    # version, and the bits of the buckets' launches + scale, cat, take
+    n_bits = 0
+    for gc in gcases:
+        for b in CHECK_BATCHES:
+            x = xs[(gc["m"], b)]
+            got = run_group(ops, gc, x, ctx["impl"])
+            again = run_group(ops, gc, x, ctx["impl"])
+            want = run_group(ops, gc, x, "ref")
+            what = (f"{gc['kernel']} grouped {gc['variant']} "
+                    f"layer {gc['layer']} {gc['group']} B={b}")
+            err = _check(what, got, want, again, torch)
+            unfused = run_group_per_bucket(ops, gc, x, ctx["impl"])
+            need(torch.equal(got, unfused),
+                 f"{what}: the grouped launch differs from its buckets' "
+                 "launches + scale, concatenation and take by "
+                 f"{float((got - unfused).abs().max()):.3e}")
+            n_bits += 1
+            worst[gc["kernel"]] = max(worst[gc["kernel"]], err)
+            rows.append({"kernel": gc["kernel"], "variant": gc["variant"],
+                         "layer": gc["layer"], "group": gc["group"],
+                         "bucket": "grouped", "B": b,
+                         "shape": [list(c.shape) for c in gc["cols"]],
+                         "max_abs_err": err,
+                         "max_abs_plain": float(want.abs().max())})
+    log(f"[kernels] {n_bucket} per-bucket and {len(rows) - n_bucket} grouped "
+        f"checks within {KERNEL_REL_TOL}*max|plain| + {KERNEL_ABS_TOL}, each "
+        f"bit-identical across two launches; {n_bits} grouped launches "
+        "bit-identical to their buckets' launches + scale, concatenation "
+        "and take; worst max|kernel-plain| "
         + ", ".join(f"{k} {v:.2e}" for k, v in worst.items()))
     ctx["worst"] = worst
-    # 2) timing: per kernel and variant, one layer's launches at B in {1,4},
-    # cycling over every layer so the planes stream from HBM (the packs
-    # of all layers exceed the 50 MB L2); kernel 6 is timed per call,
-    # beside its addmm, by phase_new_kernels
+    # 2) timing: per kernel and variant, one layer's launches at B in {1,4}
+    # (one grouped launch a group, and beside it the same buckets launched
+    # one at a time), cycling over every layer so the planes stream from
+    # HBM (the packs of all layers exceed the 50 MB L2); kernel 6 is timed
+    # per call, beside its addmm, by phase_new_kernels
     timed = {}
-    for key in sorted({(c["kernel"], c["variant"]) for c in cases
-                       if c["variant"] != "int4-oddLc"
-                       and c["kernel"] != "espim_spmv_batched_res"}):
-        sel = [c for c in cases if (c["kernel"], c["variant"]) == key]
-        n_layers = len({c["layer"] for c in sel})
+    for key in sorted({(gc["kernel"], gc["variant"]) for gc in gcases
+                       if gc["variant"] != "int4-oddLc"}):
+        sel = [gc for gc in gcases if (gc["kernel"], gc["variant"]) == key]
+        n_layers = len({gc["layer"] for gc in sel})
         src = sparse_fp if key[1] in ("fp32", "bf16") else sparse8
         for b in TIME_BATCHES:
             def launch_all(impl, sel=sel, b=b):
-                for c in sel:
-                    run_case(ops, c, xs[(c["m"], b)], impl)
+                for gc in sel:
+                    run_group(ops, gc, xs[(gc["m"], b)], impl)
+
+            def launch_buckets(sel=sel, b=b):
+                for gc in sel:
+                    for c in gc["buckets"]:
+                        run_case(ops, c, xs[(c["m"], b)], ctx["impl"])
             t_k = timer(lambda: launch_all(ctx["impl"])) / n_layers
+            t_b = timer(launch_buckets) / n_layers
             t_p = timer(lambda: launch_all("ref"), reps=3) / n_layers
-            nbytes = sum(case_bytes(c, b)[0] for c in sel) / n_layers
-            flops = sum(case_bytes(c, b)[1] for c in sel) / n_layers
+            bks = [c for gc in sel for c in gc["buckets"]]
+            nbytes = sum(case_bytes(c, b)[0] for c in bks) / n_layers
+            flops = sum(case_bytes(c, b)[1] for c in bks) / n_layers
             t_bytes, t_ops = nbytes / bw * 1e3, flops / PEAKS["fp32"] * 1e3
             # library: dense bf16 matmul of the same pruned (dequantized)
             # matrices, one call per group and layer
             mats = []
             for layer in range(n_layers):
-                for gname in sorted({c["group"] for c in sel}):
+                for gname in sorted({gc["group"] for gc in sel}):
                     g = src["groups"][gname]
                     xb = xs[(g["n_cols"], b)].T.to(torch.bfloat16).contiguous()
                     mats.append((xb, _dense_t(torch, src["pruned"],
@@ -1043,17 +1215,21 @@ def phase_kernels(ctx, sparse8, sparse_fp, launches_main) -> list:
             timed[(key, b)] = {
                 "kernel": key[0], "variant": key[1], "B": b,
                 "launches_per_layer": len(sel) // n_layers,
-                "ms": t_k, "plain_ms": t_p, "library_ms": t_lib,
-                "bound_ms": max(t_bytes, t_ops),
+                "bucket_launches_per_layer": len(bks) // n_layers,
+                "ms": t_k, "per_bucket_ms": t_b, "plain_ms": t_p,
+                "library_ms": t_lib, "bound_ms": max(t_bytes, t_ops),
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                 "bytes": nbytes, "flops": flops,
                 "achieved_GBps": nbytes / (t_k * 1e-3) / 1e9}
             r = timed[(key, b)]
+            stream_us = SPMV_STREAM_US.get((key[0], key[1], b))
             log(f"[kernels] {key[0]:30s} {key[1]:5s} B={b}: "
-                f"{r['launches_per_layer']} launches/layer "
-                f"{t_k * 1e3:8.1f} us (plain {t_p * 1e3:9.1f} us, "
-                f"bf16 matmul {t_lib * 1e3:7.1f} us, bound "
-                f"{r['bound_ms'] * 1e3:6.1f} us by {r['bound_by']}; "
+                f"{r['launches_per_layer']} grouped launches/layer "
+                f"{t_k * 1e3:8.1f} us (its {r['bucket_launches_per_layer']} "
+                f"buckets one launch each {t_b * 1e3:8.1f} us; the "
+                f"streaming body {stream_us or '-'} us; plain "
+                f"{t_p * 1e3:9.1f} us, bf16 matmul {t_lib * 1e3:7.1f} us, "
+                f"bound {r['bound_ms'] * 1e3:6.1f} us by {r['bound_by']}; "
                 f"{nbytes / 1e6:.1f} MB, {r['achieved_GBps']:.0f} GB/s)")
     # the line's entry per kernel: its main-path variant at B = 4
     main_variant = {"espim_spmv_batched": "fp32",
@@ -1699,23 +1875,27 @@ def robust_replay(ctx, cfg, params, sparse8, prompts, eng8) -> dict:
 
 
 def batch_invariance(ctx, sparse8, sparse_fp) -> dict:
-    """Whether kernels 1-4 give a column the same bits at B = 1 as inside
-    B = 4 (the drills' parity assumes greedy decode is batching-
-    independent): every engine-pack case, each of the 4 columns alone."""
+    """Kernels 1-4 give a column the same bits at B = 1 as inside B = 4
+    (the drills' parity assumes greedy decode is batching-independent):
+    every engine-pack case, per bucket and grouped, each of the 4 columns
+    alone."""
     from repro_torch.kernels import ops
     torch, dev = ctx["torch"], ctx["device"]
     gen = torch.Generator(device=dev).manual_seed(ctx["seed"] + 8)
     out = {}
-    for c in kernel_cases(ctx, sparse8, sparse_fp):
-        if c["kernel"] not in FP_KERNELS + INT8_KERNELS or \
-                c["variant"] not in ("fp32", "int8"):
-            continue
+    runs = [(c, run_case) for c in kernel_cases(ctx, sparse8, sparse_fp)
+            if c["kernel"] in FP_KERNELS + INT8_KERNELS
+            and c["variant"] in ("fp32", "int8")]
+    runs += [(gc, run_group) for gc in group_cases(ctx, sparse8, sparse_fp)
+             if gc["variant"] in ("fp32", "int8")]
+    for c, run in runs:
         x = torch.randn((c["m"], 4), generator=gen, device=dev)
-        y4 = run_case(ops, c, x, ctx["impl"])
-        rec = out.setdefault(c["kernel"], {"columns": 0, "identical": 0,
-                                           "max_abs_diff": 0.0})
+        y4 = run(ops, c, x, ctx["impl"])
+        key = c["kernel"] + (" grouped" if run is run_group else "")
+        rec = out.setdefault(key, {"columns": 0, "identical": 0,
+                                   "max_abs_diff": 0.0})
         for j in range(4):
-            y1 = run_case(ops, c, x[:, j:j + 1].contiguous(), ctx["impl"])
+            y1 = run(ops, c, x[:, j:j + 1].contiguous(), ctx["impl"])
             rec["columns"] += 1
             rec["identical"] += bool(torch.equal(y1[:, 0], y4[:, j]))
             rec["max_abs_diff"] = max(rec["max_abs_diff"], float(
@@ -1724,7 +1904,36 @@ def batch_invariance(ctx, sparse8, sparse_fp) -> dict:
         + "; ".join(f"{k} {r['identical']}/{r['columns']} bit-identical, "
                     f"max|diff| {r['max_abs_diff']:.3e}"
                     for k, r in out.items()))
+    for k, r in out.items():
+        need(r["identical"] == r["columns"],
+             f"[robust:batch] {k}: {r['columns'] - r['identical']} of "
+             f"{r['columns']} columns differ alone from inside B = 4")
     return out
+
+
+def fused_vs_unfused(ctx, label, cfg, params, sparse, b=4) -> dict:
+    """One decode step with the GLU epilogue in the gate+up launch against
+    the step with it applied by separate ops (the grouped launch over the
+    gate+up planes, then act(gate) * up): logits and caches in bits."""
+    from repro_torch.core.sparse_model import decode_step_sparse
+    from repro_torch.models.transformer import init_cache
+    torch, dev = ctx["torch"], ctx["device"]
+    gen = torch.Generator().manual_seed(ctx["seed"] + 11)
+    toks = torch.randint(0, cfg.vocab_size, (b, 1), generator=gen,
+                         dtype=torch.int32).to(dev)
+    c0 = init_cache(cfg, b, 8, device=dev)
+    outs = [decode_step_sparse(cfg, params, sparse, c0, {"tokens": toks},
+                               impl=ctx["impl"], epilogue=ep, device=dev)
+            for ep in (True, False)]
+    same = {"logits": torch.equal(outs[0][0], outs[1][0]),
+            "k": torch.equal(outs[0][1]["k"], outs[1][1]["k"]),
+            "v": torch.equal(outs[0][1]["v"], outs[1][1]["v"])}
+    diff = float((outs[0][0].float() - outs[1][0].float()).abs().max())
+    log(f"[parity:{label}] fused against unfused GLU epilogue, B={b}: "
+        f"{same}, max|logits diff| {diff:.3e}")
+    need(all(same.values()), f"[parity:{label}] the fused GLU epilogue "
+         f"changed the step's bits: {same}")
+    return {"bit_identical": same, "max_abs_logit_diff": diff}
 
 
 def robust_launcher(ctx) -> dict:
@@ -2724,15 +2933,15 @@ def autotune_search(ctx, pack, chunked) -> dict:
 
 def autotune_buckets(ctx, sparse8, sparse_fp) -> dict:
     """(d) each bucket of layer 0 of the int8 engine packs at B = 4 over
-    its legal schedules (chunked packs: warps a row and U move; the
-    gate+up buckets run the GLU kernel, U = 2 only), timed by
+    its legal schedules (chunked packs: warps a row and u, the ring's
+    stages in flight, move; the gate+up buckets run the GLU kernel, u = 2
+    only), timed by
     ``time_launch``: default against best µs a bucket, and their sums."""
     from repro_torch.core.sdds import (KernelSchedule, enumerate_schedules,
                                        fill_warps_per_row)
     from repro_torch.kernels import ops
     from repro_torch.telemetry.profile import time_launch
     torch, dev = ctx["torch"], ctx["device"]
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     cases = [c for c in kernel_cases(ctx, sparse8, sparse_fp)
              if c["layer"] == 0 and c["variant"] == "int8"]
     gen = torch.Generator(device=dev).manual_seed(ctx["seed"] + 10)
@@ -2742,13 +2951,12 @@ def autotune_buckets(ctx, sparse8, sparse_fp) -> dict:
     for c in cases:
         glu = "glu" in c["kernel"]
         cc = c["cc"]
-        launch_rows = c["cols"].shape[0] // (2 if glu else 1)
         scheds = [s for s in enumerate_schedules(
             n_cols=c["m"], epilogue="glu" if glu else None,
             chunk_cols_options=(cc,)) if s.chunk_cols == cc]
         default = KernelSchedule(cc, 0, 2)
-        fill = fill_warps_per_row(launch_rows, sms)
-        # an explicit warps a row equal to the fill rule's launches what 0
+        fill = fill_warps_per_row(c["cols"].shape[1] * c["cols"].shape[2])
+        # an explicit warps a row equal to the default's launches what 0
         # does: time each launch once
         scheds = [default] + [s for s in scheds if s != default
                               and s.warps_per_row != fill]
@@ -3867,10 +4075,18 @@ def run(ctx) -> list:
 
     report["parity"] = {
         "int8": decode_parity(ctx, "int8", cfg, params, sparse8),
-        "fp32": decode_parity(ctx, "fp32", cfg_fp, params_fp, sparse_fp)}
-    report["decode_step"] = decode_step_profile(
+        "fp32": decode_parity(ctx, "fp32", cfg_fp, params_fp, sparse_fp),
+        "int8_fused_vs_unfused": fused_vs_unfused(ctx, "int8", cfg, params,
+                                                  sparse8),
+        "fp32_fused_vs_unfused": fused_vs_unfused(ctx, "fp32", cfg_fp,
+                                                  params_fp, sparse_fp)}
+    report["decode_step"] = st = decode_step_profile(
         ctx, "decode_step_sparse int8", cfg,
         sparse_step(ctx, cfg, params, sparse8))
+    want = sum(group_launches(cfg, sparse8).values())
+    need(st.get("spmv_kernels_per_step") in (None, want),
+         f"[step] {st.get('spmv_kernels_per_step')} SpMV kernels a step in "
+         f"the profile, not {want} (one a group a layer)")
     entries = phase_kernels(ctx, sparse8, sparse_fp, launches_main)
     proj = phase_projection(ctx, params)
     phase_dense(ctx, cfg, params, cfg_fp, params_fp, sparse8, prompts, eng8)

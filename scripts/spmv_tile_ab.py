@@ -1,40 +1,41 @@
 #!/usr/bin/env python3
-"""A/B of the batched SpMV bodies on one NVIDIA GPU, in one process.
+"""A/B of the batched SpMV ring body on one NVIDIA GPU, in one process.
 
     python3 scripts/spmv_tile_ab.py [--seed N] [--out DIR] [--baseline CU]
 
 Builds, from ``src/repro_torch/kernels/csrc/espim_spmv.cu``, a throwaway
-library that instantiates variants the port itself does not launch:
-
-* the warp-per-row body (``espim_spmv_kernel``, kernel 5, and kernels
-  1-2 and 6 before the streaming body) at batch tiles 1, 4 and 8;
-* the streaming body (``espim_spmv_stream_kernel``, kernels 1-2) at
-  several (U groups in flight a lane, warps a row), beside the port's own
-  entry points (``espim_spmv_batched_fp``, ``espim_spmv_batched_quant``)
-  at their default schedule (the fill rule's warps a row, U = 2);
-* its GLU variant (``espim_spmv_stream_glu_kernel``, kernels 3-4) in
-  design a (a team walks the gate row, then the up row) and design b
-  (half the team's warps on each row) at several (U, warps a pair),
-  beside the port's own entry points (``espim_spmv_batched_glu_fp``,
-  ``espim_spmv_batched_quant_glu``) at their default schedule.
+library that instantiates the ring body (``espim_spmv_stream_kernel`` for
+kernels 1-2, ``espim_spmv_stream_glu_kernel`` for kernels 3-4) at shapes
+of the ring the port itself does not launch: consumer warps a block,
+the most stages and stage bytes, and whether x is staged in shared
+memory where it fits or gathered through L1
+(``RING_VARIANTS``; the grid is as many blocks as fit, fewer when the
+rows are fewer), at the default warps a row (``WPRS``) and the port's
+u = 2, in planes f32 and int8, at B = 1 and 4.  Each variant runs
+one layer's groups of ``llama7b-espim`` at full width (random weights
+from ``--seed``): the fp32 and int8 engines' QKV, O and down groups
+(kernels 1-2) and their gate+up groups (kernels 3-4), one grouped launch
+a group; the port's own entry points run beside them, grouped
+(``espim_spmv_group``) and one launch a bucket (``espim_spmv_batched_fp``
+and its siblings, at their default schedule).  Staging the x slabs of a
+chunk in shared memory (one 512-column slab shared by a block's rows) is
+not built: the variants stage the whole of x or none of it.
 
 With ``--baseline`` it also builds another copy of ``espim_spmv.cu``
 (say, the parent commit's) as it stands and times its four batched entry
-points as the variant "baseline", in the same process and rounds (a
-source whose entry points predate the schedule's ``wpr`` and ``u``
-arguments is called without them).
+points, one launch a bucket, as the variant "baseline", in the same
+process and rounds (a source whose entry points predate the schedule's
+``wpr`` and ``u`` arguments is called without them).
 
-Then times each on one layer's launches of kernels 1-4 (the fp32
-engine's QKV / O / down and gate+up buckets, and the int8 engine's) of
-``llama7b-espim`` at full width (random weights from ``--seed``, one
-layer), at B = 1 and B = 4, each variant checked against the plain
-version first.  Timing is ``chip_smoke.Timer`` (CUDA events around
-replays of a captured CUDA graph); the variants are timed in turns, in
-order and then in reverse, and both rounds are reported.  At B = 4 each
-variant's launches are also timed one by one, as ``chip_smoke`` times
-its buckets (``bucket_times``: a graph of an L2-evicting read and the
-launch, less the read).  Prints a table, the card's name and power
-limit; details go to ``<out>/spmv_tile_ab.json``.
+Each variant is checked against the plain version first (grouped: the
+grouped plain version; per bucket: the bucket's).  Timing is
+``chip_smoke.Timer`` (CUDA events around replays of a captured CUDA
+graph); the variants are timed in turns, in order and then in reverse,
+and both rounds are reported.  At B = 4 each variant's launches are also
+timed one by one, as ``chip_smoke`` times its buckets (``bucket_times``:
+a graph of an L2-evicting read and the launch, less the read).  Prints a
+table, the card's name and power limit; details go to
+``<out>/spmv_tile_ab.json``.
 """
 from __future__ import annotations
 
@@ -51,13 +52,12 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 sys.path.insert(0, str(ROOT / "src"))
 
-OLD_TILES = (1, 4, 8)
-# (U groups in flight a lane, warps a row) of the streaming body
-STREAM_VARIANTS = tuple((u, w) for u in (1, 2, 4, 8) for w in (1, 2, 4))
-# (design, U, warps a pair) of its GLU variant; design b needs 2 warps
-GLU_VARIANTS = tuple(("a", u, w) for u in (1, 2, 4) for w in (1, 2, 4)) + \
-    tuple(("b", u, w) for u in (1, 2, 4) for w in (2, 4))
-PLANES = {"f32": "kF32", "int8": "kI8"}
+# (consumer warps, most stages, most stage bytes, x staged in shared
+# memory where it fits) of the ring
+RING_VARIANTS = ((16, 5, 49152, 1), (16, 6, 32768, 1), (8, 5, 49152, 1),
+                 (16, 5, 49152, 0))
+WPRS = (0,)
+PLANES = {"f32": 0, "int8": 1}           # enum Plane codes
 # family -> {plane: the chip_smoke kernel whose cases it times}
 FAMILIES = {"spmv": {"f32": "espim_spmv_batched",
                      "int8": "espim_spmv_batched_quant"},
@@ -68,55 +68,37 @@ ENTRY_POINTS = ("espim_spmv_batched_fp", "espim_spmv_batched_quant",
 
 
 def shim_source() -> str:
-    """extern "C" entry points over the variants, one switch each."""
+    """An extern "C" entry point over the ring variants: ab_group takes
+    espim_spmv_group's arguments (f32 or int8 planes, B 1 or 4, at most
+    kMaxBuckets buckets, U 2) and the variant's index first."""
     cu = ROOT / "src/repro_torch/kernels/csrc/espim_spmv.cu"
-    lines = [f'#include "{cu}"', 'extern "C" {',
-             "int ab_old(int p, int bt, const void* v, const void* c, "
-             "const void* x, void* out, int rows, int k, int lc, int cc, "
-             "int m, int b, void* s) {"]
-    for pi, (_, pc) in enumerate(PLANES.items()):
-        for bt in OLD_TILES:
-            lines.append(
-                f"  if (p == {pi} && bt == {bt}) return launch<{pc}, "
-                f"float, {bt}>(v, static_cast<const int*>(c), "
-                "static_cast<const float*>(x), "
-                "static_cast<float*>(out), rows, k, lc, lc, cc, m, b, s);")
-    lines += ["  return -1;", "}",
-              "int ab_stream(int p, int var, const void* v, const void* c, "
-              "const void* x, void* out, int rows, int k, int lc, int cc, "
-              "int m, int b, void* s) {",
-              "  const int* ci = static_cast<const int*>(c);",
-              "  const float* xf = static_cast<const float*>(x);",
-              "  float* o = static_cast<float*>(out);"]
-    for pi, (_, pc) in enumerate(PLANES.items()):
-        lines.append(f"  const int mode{pi} = stream_mode<{pc}>(v, ci, xf, "
-                     "lc, lc, b);")
-        for vi, (u, wpr) in enumerate(STREAM_VARIANTS):
-            for bt in (1, 4):
-                lines.append(
-                    f"  if (p == {pi} && var == {vi} && b == {bt}) return "
-                    f"launch_stream_tile<{pc}, {bt}, {u}>(v, ci, xf, nullptr, "
-                    f"nullptr, o, rows, k, lc, lc, cc, m, b, 1, mode{pi}, "
-                    f"{wpr}, s);")
-    lines += ["  return -1;", "}",
-              "int ab_glu(int p, int var, const void* v, const void* c, "
-              "const void* srow, const void* x, void* out, int rows_g, "
-              "int k, int lc, int cc, int m, int b, int act, void* s) {",
-              "  const int* ci = static_cast<const int*>(c);",
-              "  const float* xf = static_cast<const float*>(x);",
-              "  const float* sr = static_cast<const float*>(srow);",
-              "  float* o = static_cast<float*>(out);"]
-    for pi, (_, pc) in enumerate(PLANES.items()):
-        lines.append(f"  const int gmode{pi} = stream_mode<{pc}>(v, ci, xf, "
-                     "lc, lc, b);")
-        for vi, (design, u, wpr) in enumerate(GLU_VARIANTS):
-            split = "true" if design == "b" else "false"
-            for bt in (1, 4):
-                lines.append(
-                    f"  if (p == {pi} && var == {vi} && b == {bt}) return "
-                    f"launch_glu_tile<{pc}, {bt}, {u}, {split}>(v, ci, xf, "
-                    f"sr, o, rows_g, k, lc, lc, cc, m, b, gmode{pi}, {wpr}, "
-                    "act, s);")
+    lines = [f'#include "{cu}"', "namespace {",
+             "template <class Cfg, int H>",
+             "int ab_launch(int plane, GroupArgs& a, int wpr, void* s) {",
+             "  const int rc = prepare<H, Cfg>(a, wpr);",
+             "  if (rc != 0 || a.work == 0) return rc;",
+             "  if (plane == 0 && a.b == 1) "
+             "return launch_ring<kF32, 1, Cfg, H>(a, 2, s);",
+             "  if (plane == 0 && a.b == 4) "
+             "return launch_ring<kF32, 4, Cfg, H>(a, 2, s);",
+             "  if (plane == 1 && a.b == 1) "
+             "return launch_ring<kI8, 1, Cfg, H>(a, 2, s);",
+             "  if (plane == 1 && a.b == 4) "
+             "return launch_ring<kI8, 4, Cfg, H>(a, 2, s);",
+             "  return -1;", "}", "}  // namespace", 'extern "C" {',
+             "int ab_group(int var, int plane, int glu, int n, "
+             "const void* values, const void* cols, const void* scales, "
+             "const void* shapes, const void* x, const void* perm, "
+             "void* out, int cc, int m, int b, int act, int wpr, "
+             "void* s) {",
+             "  if (n > kMaxBuckets) return -1;",
+             "  GroupArgs a = group_args(0, n, values, cols, scales, shapes, "
+             "x, perm, out, cc, m, b, act);"]
+    for vi, (nc, st, sb, xs) in enumerate(RING_VARIANTS):
+        cfg = f"Ring<{nc}, {st}, {sb}, {'true' if xs else 'false'}>"
+        lines.append(f"  if (var == {vi}) return glu ? "
+                     f"ab_launch<{cfg}, 2>(plane, a, wpr, s) : "
+                     f"ab_launch<{cfg}, 1>(plane, a, wpr, s);")
     lines += ["  return -1;", "}", '}  // extern "C"', ""]
     return "\n".join(lines)
 
@@ -157,17 +139,16 @@ def build_libs(out_dir: Path, baseline: Path | None):
     for k, (cu, path) in jobs.items():
         lib = libs[k] = ctypes.CDLL(str(path))
         sched = k == "shim" or takes_schedule(cu)
-        for fn in ENTRY_POINTS:
+        fns = ENTRY_POINTS + (("espim_spmv_group",) if k == "shim" else ())
+        for fn in fns:
             argtypes = _SIGNATURES["espim_spmv"][fn]
             # without the schedule: the same less (wpr, u) before stream
             getattr(lib, fn).argtypes = (argtypes if sched else
                                          argtypes[:-3] + argtypes[-1:])
             getattr(lib, fn).restype = I
     shim = libs["shim"]
-    shim.ab_old.argtypes = [I, I, P, P, P, P, I, I, I, I, I, I, P]
-    shim.ab_stream.argtypes = [I, I, P, P, P, P, I, I, I, I, I, I, P]
-    shim.ab_glu.argtypes = [I, I, P, P, P, P, P, I, I, I, I, I, I, I, P]
-    shim.ab_old.restype = shim.ab_stream.restype = shim.ab_glu.restype = I
+    shim.ab_group.argtypes = [I, I, I, I] + [P] * 7 + [I] * 5 + [P]
+    shim.ab_group.restype = I
     return shim, libs.get("baseline"), build_s, ptxas_summary(logs["shim"])
 
 
@@ -195,12 +176,29 @@ def launch_us(torch, timer, run, n) -> list:
             for i in range(n)]
 
 
-def entry_call(lib, family, plane, c, v, x, out, b, stream,
-               sched=DEFAULT_SCHED) -> int:
-    """One launch through a library's own entry point (its tile and
-    design) at the schedule ``sched`` — (wpr, u), or () for a source that
-    predates the schedule's arguments."""
+def group_arrays(gc):
+    """ctypes arrays of a group case: values, cols, srow pointers and the
+    (rows, K, Lc, lv) shapes, as espim_spmv_group takes them."""
+    n = len(gc["cols"])
+    ptrs = ctypes.c_void_p * n
+    glu = gc["act"] is not None
+    shapes = []
+    for v, c in zip(gc["values"], gc["cols"]):
+        r, k, lc = c.shape
+        shapes += [r // 2 if glu else r, k, lc, v.shape[-1]]
+    return (ptrs(*[v.data_ptr() for v in gc["values"]]),
+            ptrs(*[c.data_ptr() for c in gc["cols"]]),
+            ptrs(*[t.data_ptr() for t in gc["srow"]]) if gc["srow"] else None,
+            (ctypes.c_int * (4 * n))(*shapes))
+
+
+def bucket_call(lib, family, plane, c, x, out, b, stream,
+                sched=DEFAULT_SCHED) -> int:
+    """One bucket's launch through a library's own entry point at the
+    schedule ``sched`` — (wpr, u), or () for a source that predates the
+    schedule's arguments."""
     r, k, lc = c["cols"].shape
+    v = (c["values"] if plane == "f32" else c["q"]).data_ptr()
     cp, xp, op = c["cols"].data_ptr(), x.data_ptr(), out.data_ptr()
     if family == "spmv" and plane == "f32":
         return lib.espim_spmv_batched_fp(v, 0, cp, xp, op, r, k, lc, c["cc"],
@@ -255,128 +253,148 @@ def main(argv=None) -> int:
                                         device=dev)
              for q in (None, "int8")}
     ctx = {"torch": torch}
-    cases = S.kernel_cases(ctx, packs["int8"], packs["f32"])
-    sel = {(fam, plane): [c for c in cases if c["kernel"] == kern
-                          and c["variant"] in ("fp32", "int8")]
+    gcases = [gc for gc in S.group_cases(ctx, packs["int8"], packs["f32"])
+              if gc["variant"] in ("fp32", "int8")]
+    sel = {(fam, plane): [gc for gc in gcases if gc["kernel"] == kern]
            for fam, kerns in FAMILIES.items()
            for plane, kern in kerns.items()}
     timer = S.Timer(torch)
     xgen = torch.Generator(device=dev).manual_seed(args.seed + 2)
     xs = {(m, b): torch.randn((m, b), generator=xgen, device=dev)
-          for m in {c["m"] for c in cases} for b in (1, 4)}
+          for m in {gc["m"] for gc in gcases} for b in (1, 4)}
     outs = {}
 
-    def launcher(family, plane, kind, var, b):
-        pi = list(PLANES).index(plane)
+    def launcher(family, plane, kind, var, wpr, b):
+        """run(check, only) -> outputs: one launch a group (grouped kinds)
+        or a bucket (per-bucket kinds) of the family's groups."""
+        glu = int(family == "glu")
+        arrays = {}
 
         def run(check=False, only=None):
             stream = torch.cuda.current_stream().cuda_stream
-            res = []
-            for i, c in enumerate(sel[(family, plane)]):
-                if only is not None and i != only:
+            res, i = [], -1
+            for gi, gc in enumerate(sel[(family, plane)]):
+                x = xs[(gc["m"], b)]
+                if kind in ("ring", "port"):
+                    i += 1
+                    if only is not None and i != only:
+                        continue
+                    key = (family, plane, gi, b)
+                    if key not in outs:
+                        outs[key] = torch.empty(
+                            (gc["n_out"] or sum(c.shape[0] // (1 + glu)
+                                                for c in gc["cols"]), b),
+                            device=dev)
+                    if gi not in arrays:
+                        arrays[gi] = group_arrays(gc)
+                    vp, cp, sp, sh = arrays[gi]
+                    a = (PLANES[plane], glu, len(gc["cols"]),
+                         ctypes.addressof(vp), ctypes.addressof(cp),
+                         ctypes.addressof(sp) if sp else None,
+                         ctypes.addressof(sh), x.data_ptr(),
+                         gc["perm"].data_ptr() if gc["perm"] is not None
+                         else None, outs[key].data_ptr(), gc["cc"], gc["m"],
+                         b, 0)
+                    rc = (lib.ab_group(var, *a, wpr, stream) if kind == "ring"
+                          else lib.espim_spmv_group(*a, 0, 2, stream))
+                    if rc != 0:
+                        raise RuntimeError(f"{family} {plane} {kind} {var} "
+                                           f"B={b}: rc {rc}")
+                    if check:
+                        res.append(outs[key].clone())
                     continue
-                v = (c["values"] if plane == "f32" else c["q"]).data_ptr()
-                r, k, lc = c["cols"].shape
-                rows_out = r // 2 if family == "glu" else r
-                key = (family, plane, i, b)
-                if key not in outs:
-                    outs[key] = torch.empty((rows_out, b), device=dev)
-                x, o = xs[(c["m"], b)], outs[key]
-                if kind == "port":
-                    rc = entry_call(lib, family, plane, c, v, x, o, b,
-                                    stream)
-                elif kind == "baseline":
-                    rc = entry_call(base, family, plane, c, v, x, o, b,
-                                    stream, base_sched)
-                elif kind == "old":
-                    rc = lib.ab_old(pi, var, v, c["cols"].data_ptr(),
-                                    x.data_ptr(), o.data_ptr(), r, k, lc,
-                                    c["cc"], c["m"], b, stream)
-                elif kind == "stream":
-                    rc = lib.ab_stream(pi, var, v, c["cols"].data_ptr(),
-                                       x.data_ptr(), o.data_ptr(), r, k, lc,
-                                       c["cc"], c["m"], b, stream)
-                else:
-                    rc = lib.ab_glu(pi, var, v, c["cols"].data_ptr(),
-                                    c["srow"].data_ptr() if plane == "int8"
-                                    else None, x.data_ptr(), o.data_ptr(),
-                                    rows_out, k, lc, c["cc"], c["m"], b, 0,
-                                    stream)
-                if rc != 0:
-                    raise RuntimeError(f"{family} {plane} {kind} {var} "
-                                       f"B={b}: rc {rc}")
-                if check:
-                    res.append(o.clone())
+                for bi, c in enumerate(gc["buckets"]):
+                    i += 1
+                    if only is not None and i != only:
+                        continue
+                    key = (family, plane, gi, bi, b)
+                    if key not in outs:
+                        outs[key] = torch.empty(
+                            (c["cols"].shape[0] // (1 + glu), b), device=dev)
+                    rc = (bucket_call(lib, family, plane, c, x, outs[key], b,
+                                      stream) if kind == "port-bucket"
+                          else bucket_call(base, family, plane, c, x,
+                                           outs[key], b, stream, base_sched))
+                    if rc != 0:
+                        raise RuntimeError(f"{family} {plane} {kind} B={b}: "
+                                           f"rc {rc}")
+                    if check:
+                        res.append(outs[key].clone())
             return res
         return run
 
-    variants = {
-        "spmv": ([("old", bt, f"warp-per-row BT={bt}") for bt in OLD_TILES]
-                 + [("stream", vi, f"stream U={u} warps/row={w}")
-                    for vi, (u, w) in enumerate(STREAM_VARIANTS)]),
-        "glu": [("glu", vi, f"glu {d} U={u} warps/pair={w}")
-                for vi, (d, u, w) in enumerate(GLU_VARIANTS)]}
-    for fam in variants:
-        variants[fam].append(("port", 0, "port (its design, U, warps)"))
-        if base is not None:
-            variants[fam].append(("baseline", 0, "baseline (--baseline)"))
+    variants = [("ring", vi, w, f"ring NC={nc} S={st} {sb // 1024}KB "
+                 f"x{'smem' if xs else 'L1'} wpr={w}")
+                for vi, (nc, st, sb, xs) in enumerate(RING_VARIANTS)
+                for w in WPRS]
+    variants += [("port", 0, 0, "port grouped (espim_spmv_group)"),
+                 ("port-bucket", 0, 0, "port per bucket")]
+    if base is not None:
+        variants.append(("baseline", 0, 0, "baseline per bucket"))
     rows = []
-    for (family, plane), sel_fp in sel.items():
+    for (family, plane), groups in sel.items():
         for b in (1, 4):
-            nbytes = sum(S.case_bytes(c, b)[0] for c in sel_fp)
-            want = [S.run_case(ops, c, xs[(c["m"], b)], "ref")
-                    for c in sel_fp]
+            xb = {gc["m"]: xs[(gc["m"], b)] for gc in groups}
+            want_g = [S.run_group(ops, gc, xb[gc["m"]], "ref")
+                      for gc in groups]
+            want_b = [S.run_case(ops, c, xb[gc["m"]], "ref")
+                      for gc in groups for c in gc["buckets"]]
+            bks = [c for gc in groups for c in gc["buckets"]]
+            nbytes = sum(S.case_bytes(c, b)[0] for c in bks)
             runs = {}
-            for kind, var, label in variants[family]:
-                run = launcher(family, plane, kind, var, b)
+            for kind, var, wpr, label in variants:
+                run = launcher(family, plane, kind, var, wpr, b)
                 got = run(check=True)
                 torch.cuda.synchronize()
+                want = want_g if kind in ("ring", "port") else want_b
                 err = max(float((g - w).abs().max()) for g, w in
                           zip(got, want))
-                tol = max(S.KERNEL_REL_TOL * float(w.abs().max())
+                tol = min(S.KERNEL_REL_TOL * float(w.abs().max())
                           + S.KERNEL_ABS_TOL for w in want)
-                if not err <= tol:
+                if not (len(got) == len(want) and err <= tol):
                     raise RuntimeError(f"{family} {plane} B={b} {label}: max "
                                        f"err {err:.3e} > {tol:.3e}")
-                runs[label] = (run, err)
+                runs[label] = (run, err, len(got))
             times = {label: [] for label in runs}
             for order in (list(runs), list(runs)[::-1]):
                 for label in order:
                     times[label].append(timer(runs[label][0]))
-            per_launch = ({label: launch_us(torch, timer, run, len(sel_fp))
-                           for label, (run, _) in runs.items()}
+            per_launch = ({label: launch_us(torch, timer, run, n)
+                           for label, (run, _, n) in runs.items()}
                           if b == 4 else {})
             for label, ts in times.items():
                 rec = {"family": family, "plane": plane, "B": b,
                        "variant": label,
                        "per_launch_us": per_launch.get(label),
-                       "launches": len(sel_fp), "bytes": nbytes,
+                       "launches": runs[label][2], "bytes": nbytes,
                        "us_rounds": [t * 1e3 for t in ts],
                        "us": min(ts) * 1e3,
                        "GBps": nbytes / (min(ts) * 1e-3) / 1e9,
                        "bound_us": nbytes / bw * 1e6,
                        "max_abs_err": runs[label][1]}
                 rows.append(rec)
-                print(f"[ab] {family:4s} {plane:4s} B={b} {label:30s} "
+                print(f"[ab] {family:4s} {plane:4s} B={b} {label:36s} "
                       + " / ".join(f"{t:7.1f}" for t in rec["us_rounds"])
                       + f" us ({rec['GBps']:5.0f} GB/s, bound "
-                      f"{rec['bound_us']:.1f} us, {len(sel_fp)} launches)",
-                      flush=True)
+                      f"{rec['bound_us']:.1f} us, {rec['launches']} "
+                      "launches)", flush=True)
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
     (out / "spmv_tile_ab.json").write_text(json.dumps(
         {"card": card, "device": name, "build_seconds": build_s,
          "baseline": args.baseline, "ptxas": regs,
-         "shapes": {f"{f}/{p}": [list(c["cols"].shape) for c in s]
+         "ring_variants": RING_VARIANTS,
+         "shapes": {f"{f}/{p}": [[list(c.shape) for c in gc["cols"]]
+                                 for gc in s]
                     for (f, p), s in sel.items()},
          "rows": rows}, indent=1))
-    for (family, plane), sel_fp in sel.items():
-        print(f"[ab] {family} {plane} B=4 per launch (us), shapes "
-              + ", ".join(str(tuple(c["cols"].shape)) for c in sel_fp))
+    for (family, plane), groups in sel.items():
+        print(f"[ab] {family} {plane} B=4 per launch (us), groups "
+              + ", ".join(gc["group"] for gc in groups))
         for rec in rows:
             if (rec["family"], rec["plane"]) == (family, plane) \
                     and rec["per_launch_us"]:
-                print(f"[ab]   {rec['variant']:30s} "
+                print(f"[ab]   {rec['variant']:36s} "
                       + " ".join(f"{t:6.1f}" for t in rec["per_launch_us"]))
     print(card)
     return 0

@@ -5,8 +5,8 @@ The pipeline: enumerate the legal schedule space for the pack's shape
 (``core.sdds.enumerate_schedules``: chunk width x warps a row x U),
 deduplicate candidates that launch identically for the chosen impl
 (``ref`` reads only the chunk width; on the card a ``warps_per_row`` of
-0 is the fill rule's own value), rank all of them with the cost model
-below, time only the ``max_candidates`` cheapest with
+0 is the default's own value for a chunked pack), rank all of them with
+the cost model below, time only the ``max_candidates`` cheapest with
 ``telemetry.profile.time_launch`` on the real uploaded planes (on the
 device clock for CUDA planes), and keep the measured winner.
 
@@ -111,7 +111,8 @@ def schedule_cost(s: KernelSchedule, *, rows: int, nnz: int, n_cols: int,
     nonzeros, ``pad_frac`` the chunked layout's pad share of its slots."""
     plane = nnz * (_value_bytes(quant) + 4.0) / max(1.0 - pad_frac, 1e-9)
     traffic = plane + n_cols * b * 4.0 + rows * b * 4.0
-    wpr = s.warps_per_row or fill_warps_per_row(rows, sms)
+    slots = nnz / max(rows, 1) / max(1.0 - pad_frac, 1e-9)
+    wpr = s.warps_per_row or fill_warps_per_row(int(slots))
     fill = min(1.0, rows * wpr / (sms * RESIDENT_WARPS))
     return traffic / HBM_BYTES_PER_S * 1e6 / max(fill, 1e-9) + LAUNCH_US
 
@@ -220,13 +221,17 @@ def autotune_pack(pack, *, b: int = 8, quant=None, impl: str | None = None,
             if s.chunk_cols == pack.chunk_cols and s != pinned]
     sms = (torch.cuda.get_device_properties(dev).multi_processor_count
            if dev.type == "cuda" else SMS)
+    # a chunked pack's padded slots a row set the launcher's default warps
+    # a row; a plain pack's depend on each candidate's chunk width
+    slots = (int(np.prod(np.shape(pack.cols)[1:]))
+             if not isinstance(pack, ELLPack) else None)
     seen: set = set()
     deduped = []
     for s in cands:
         eff = s
-        if impl == "cuda" and s.warps_per_row == 0:
+        if impl == "cuda" and s.warps_per_row == 0 and slots is not None:
             eff = dataclasses.replace(
-                s, warps_per_row=fill_warps_per_row(rows, sms))
+                s, warps_per_row=fill_warps_per_row(slots))
         ek = eff.effective_key(impl)
         if ek not in seen:
             seen.add(ek)

@@ -63,7 +63,8 @@ __all__ = [
     "WARPS_PER_ROW",
     "STREAM_U",
     "EPILOGUE_U",
-    "FILL_WARPS",
+    "WIDE_ROW_SLOTS",
+    "WIDE_ROW_WARPS",
     "fill_warps_per_row",
     "schedule_us",
     "schedule_legal",
@@ -583,23 +584,26 @@ def decoder_layer_groups(gated: bool = True, attn: bool = True,
 # because the sparsity is static.  On Hopper the streaming SpMV kernels
 # (kernels 1-4 and 6, ``kernels/csrc/espim_spmv.cu``) leave three such
 # decisions: the column-chunk width (the offline chunk pass), the warps
-# that walk one row (or, for the GLU kernels, one gate+up pair) and U,
-# the groups of 4 slots a lane keeps in flight.  ``KernelSchedule`` names
-# one point in that space; ``enumerate_schedules`` + ``schedule_legal``
-# produce the candidate set the autotuner ranks and benchmarks.
+# that walk one row (or, for the GLU kernels, one gate+up pair) and u,
+# the ring's stages (up to u + 2, as shared memory allows).
+# ``KernelSchedule`` names one point in that space; ``enumerate_schedules``
+# + ``schedule_legal`` produce the candidate set the autotuner ranks and
+# benchmarks.
 # --------------------------------------------------------------------------
-WARPS_PER_ROW = (0, 1, 2, 4)    # 0 = the launcher's fill rule (stream_wpr)
-STREAM_U = (1, 2, 4)            # U built for kernels 1 and 2
-EPILOGUE_U = (2,)               # U built for kernels 3, 4 (GLU) and 6 (res)
-FILL_WARPS = 32                 # warps an SM the fill rule aims at (kFillWarps)
+WARPS_PER_ROW = (0, 1, 2, 4)    # 0 = the launcher's default (by row slots)
+STREAM_U = (1, 2, 4)            # u taken by kernels 1 and 2
+EPILOGUE_U = (2,)               # u taken by kernels 3, 4 (GLU) and 6 (res)
+WIDE_ROW_SLOTS = 1024           # kWideRowSlots of the launcher
+WIDE_ROW_WARPS = 4              # kWideRowWarps
 
 
-def fill_warps_per_row(rows: int, sms: int) -> int:
-    """The launcher's fill rule (``stream_wpr`` in ``espim_spmv.cu``):
-    4, 2 or 1 warps a row, the most that keep ``rows`` x warps within
-    ``FILL_WARPS`` warps an SM over ``sms`` SMs."""
-    fill = sms * FILL_WARPS
-    return 4 if 4 * rows <= fill else 2 if 2 * rows <= fill else 1
+def fill_warps_per_row(slots: int) -> int:
+    """The warps a row the launcher takes for ``warps_per_row`` 0
+    (``resolve_wpr`` in ``espim_spmv.cu``), from a row's padded slots
+    (K x Lc): one warp, or ``WIDE_ROW_WARPS`` above ``WIDE_ROW_SLOTS``.
+    The row's own shape sets it, never the launch's rows, so a bucket
+    walks its rows the same way alone and in a grouped launch."""
+    return WIDE_ROW_WARPS if slots > WIDE_ROW_SLOTS else 1
 
 
 def schedule_us(epilogue: str | None = None) -> tuple:
@@ -618,10 +622,10 @@ class KernelSchedule:
     ``chunk_cols`` is the offline chunk pass's slab width (re-chunking the
     pack is part of applying the schedule, never a launch knob);
     ``warps_per_row`` is the warps that walk one row (one gate+up pair for
-    the GLU kernels): 1, 2 or 4, or 0 for the launcher's fill rule
-    (``fill_warps_per_row``); ``u`` is the groups of 4 slots a lane keeps
-    in flight.  The default is exactly the launch the kernels make with no
-    schedule.  On the ``ref`` lowering, and on the unbatched kernel 5 (the
+    the GLU kernels): 1, 2 or 4, or 0 for the launcher's default
+    (``fill_warps_per_row``: by the row's slots); ``u`` sets the ring's
+    stages (up to u + 2, as shared memory allows).  The default is
+    exactly the launch the kernels make with no schedule.  On the ``ref`` lowering, and on the unbatched kernel 5 (the
     warp-per-row body), only ``chunk_cols`` is live.
     """
 

@@ -394,8 +394,10 @@ def pruned_param_tree(params: dict, sparse: dict) -> dict:
 # --------------------------------------------------------------------------
 def _layer_bufs(sparse: dict, i: int) -> dict:
     """Layer ``i``'s slice of every group's planes: (codes, cols, srow)
-    triples for quantized packs, (values, cols) pairs otherwise, plus the
-    ``inv_perm`` of ``take``-output groups."""
+    triples for quantized packs, (values, cols) pairs otherwise; the same
+    as the lists the grouped op takes (``values``, ``cols``, ``srow``);
+    and the ``perm`` (packed -> logical) and ``inv_perm`` of
+    ``take``-output groups."""
 
     def bufs(g):
         if g["quant"] is not None:
@@ -403,8 +405,11 @@ def _layer_bufs(sparse: dict, i: int) -> dict:
                  for b in g["buckets"]]
         else:
             b = [(b["values"][i], b["cols"][i]) for b in g["buckets"]]
-        entry = {"bufs": b}
+        entry = {"bufs": b, "values": [t[0] for t in b],
+                 "cols": [t[1] for t in b],
+                 "srow": [t[2] for t in b] if g["quant"] else None}
         if g["output"] == "take":
+            entry["perm"] = g["perm"][i]
             entry["inv"] = g["inv_perm"][i]
         return entry
 
@@ -447,17 +452,20 @@ def _col_major(h: torch.Tensor) -> torch.Tensor:
     return xt.copy_(h.T)
 
 
-def _group_apply(pack: dict, gb: dict, xt: torch.Tensor, impl) -> list:
-    """All of one group's bucket launches -> per-bucket packed outputs."""
-    return [_bucket_spmv(pack, buf, g, xt, impl)
-            for g, buf in enumerate(gb["bufs"])]
-
-
-def _group_take(gb: dict, parts: list) -> torch.Tensor:
-    """Concatenate bucket outputs and restore logical row order with the
-    group's one static ``take``."""
-    yp = parts[0] if len(parts) == 1 else torch.cat(parts, dim=0)
-    return torch.index_select(yp, 0, gb["inv"])
+def _group_apply(pack: dict, gb: dict, xt: torch.Tensor, impl,
+                 act: str | None = None) -> torch.Tensor:
+    """One group's buckets in one grouped op (one launch on the card): the
+    reference's per-bucket launches, each quantized bucket's ``srow``
+    multiply, the concatenation and, for a ``take`` group, its one static
+    take to logical row order (``_group_apply`` then ``_group_take`` of
+    ``src/repro/core/sparse_model.py``); ``act`` fuses act(gate) * up
+    into a half-major gate+up group."""
+    perm = gb.get("perm")
+    return ops.espim_spmv_group(gb["values"], gb["cols"], xt,
+                                chunk_cols=pack["chunk_cols"],
+                                srow=gb["srow"], act=act, perm=perm,
+                                n_out=None if perm is None else pack["n_rows"],
+                                impl=impl)
 
 
 def _fused_qkv(cfg: ModelConfig, sparse: dict, bufs: dict, attn_p: dict,
@@ -469,7 +477,7 @@ def _fused_qkv(cfg: ModelConfig, sparse: dict, bufs: dict, attn_p: dict,
     gb = bufs["qkv"]
     b, t = hn.shape[0], hn.shape[1]
     xt = _col_major(hn.reshape(-1, hn.shape[-1]))            # (D, B*T)
-    y = _group_take(gb, _group_apply(g, gb, xt, impl))        # (rows, B*T)
+    y = _group_apply(g, gb, xt, impl)                         # (rows, B*T)
 
     def cut(name: str, n_heads: int) -> torch.Tensor:
         _, r0, r1 = g["row_offsets"][name]
@@ -490,7 +498,7 @@ def _fused_o(cfg: ModelConfig, sparse: dict, bufs: dict,
     gb = bufs["attn_out"]
     b, t = out_h.shape[0], out_h.shape[1]
     xt = _col_major(out_h.reshape(b * t, -1))                # (H*hd, B*T)
-    y = _group_take(gb, _group_apply(g, gb, xt, impl))        # (D, B*T)
+    y = _group_apply(g, gb, xt, impl)                         # (D, B*T)
     return y.T.reshape(b, t, -1).to(out_h.dtype)
 
 
@@ -517,23 +525,21 @@ def _fused_mlp(cfg: ModelConfig, sparse: dict, bufs: dict, hn: torch.Tensor,
     b, t = hn.shape[0], hn.shape[1]
     xt = _col_major(hn.reshape(-1, hn.shape[-1]))            # (in, B*T)
 
-    parts = []
     if sparse["gated"] and epilogue:
-        for g, buf in enumerate(bufs["gateup"]["bufs"]):
-            parts.append(_bucket_spmv(gu, buf, g, xt, impl,
-                                      epilogue="glu", act=cfg.activation))
+        inter = _group_apply(gu, bufs["gateup"], xt, impl,
+                             act=cfg.activation)
+    elif sparse["gated"]:
+        # each bucket's gate and up rows share packed order: its 2 * rg
+        # rows of the group's output, gate first
+        yp, parts, r0 = _group_apply(gu, bufs["gateup"], xt, impl), [], 0
+        for rg in gu["bucket_rows"]:
+            parts.append(act(yp[r0:r0 + rg]) * yp[r0 + rg:r0 + 2 * rg])
+            r0 += 2 * rg
+        inter = parts[0] if len(parts) == 1 else torch.cat(parts, dim=0)
     else:
-        for yp, rg in zip(_group_apply(gu, bufs["gateup"], xt, impl),
-                          gu["bucket_rows"]):
-            if sparse["gated"]:
-                # gate and up rows of the bucket share packed order
-                parts.append(act(yp[:rg]) * yp[rg:])
-            else:
-                parts.append(act(yp))
-    inter = parts[0] if len(parts) == 1 else torch.cat(parts, dim=0)
+        inter = act(_group_apply(gu, bufs["gateup"], xt, impl))
 
-    y = _group_take(bufs["down"],
-                    _group_apply(dn, bufs["down"], inter, impl))
+    y = _group_apply(dn, bufs["down"], inter, impl)
     return y.T.reshape(b, t, -1).to(hn.dtype)                 # (B, T, D)
 
 

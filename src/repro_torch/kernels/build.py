@@ -51,6 +51,8 @@ _SIGNATURES = {
                                       _I, _I, _I, _I, _I, _P],
         "espim_spmv_batched_quant_glu": [_P, _I, _I, _P, _P, _P, _P, _I, _I,
                                          _I, _I, _I, _I, _I, _I, _I, _P],
+        "espim_spmv_group": [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                             _I, _I, _I, _I, _P],
     },
     "dense_mv": {
         "dense_mv": [_P, _I, _P, _I, _P, _I, _I, _I, _P],

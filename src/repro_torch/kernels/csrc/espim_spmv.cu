@@ -10,112 +10,111 @@
 //                                   (_spmv_batched_quant_kernel, _spmv_batched_q4_kernel)
 //   espim_spmv_batched_glu_fp    <- espim_spmv_batched_glu_pallas (_glu_kernel)
 //   espim_spmv_batched_quant_glu <- espim_spmv_batched_quant_glu_pallas (_glu_quant_kernel)
+//   espim_spmv_group             <- one packed group's buckets of the four
+//                                   batched kernels above in one launch
+//                                   (the decode step's _group_apply and
+//                                   _group_take: scale, concatenate, take)
 //
 // What they compute, with planes (R, K, Lc) and chunk-local column ids:
 //   y[r, b] = sum_k sum_l v[r, k, l] * x[k * chunk_cols + cols[r, k, l], b]
-// where v is fp32, bf16 (the unbatched kernel and the three _fp kernels,
-// which take a values_bf16 flag; a bf16 value widens to fp32 exactly, as
-// the reference's in-kernel cast does), int8 codes, or int4 codes packed
-// two to a byte (slot 2j in the low nibble of byte j, Lv = ceil(Lc / 2)
-// bytes per chunk row). The unbatched kernel takes x (M,) in fp32 or bf16;
-// the batched kernels take x (M, B) in fp32 (the wrapper widens a bf16 x). The residual kernel adds residual[r, b] (packed row
-// order) to the reduced sum before the one store, the reference's order
-// (_spmv_batched_res_kernel: sum, then residual). The quant kernel
-// multiplies by scale[r / group_rows] after the reduce unless scale is null
-// (the serving path owns its scales). The GLU kernels read a half-major
-// (2 * Rg, K, Lc) gate+up pack and write act(gate) * up (Rg, B); the quant
-// GLU multiplies BOTH halves by their per-row scale srow before the
-// activation, the op order of _glu_quant_kernel.
+// where v is fp32, bf16 (widened to fp32 exactly, as the reference's
+// in-kernel cast does), int8 codes, or int4 codes packed two to a byte
+// (slot 2j in the low nibble of byte j, Lv = ceil(Lc / 2) bytes per chunk
+// row). The unbatched kernel takes x (M,) in fp32 or bf16; the batched
+// kernels take x (M, B) in fp32 (the wrapper widens a bf16 x). After a
+// row's sum, in the reference's op order: times scale[r / group_rows]
+// when there is a scale (the serving path's per-row srow is group_rows 1:
+// the single multiply of sparse_model's unfused `yp * srow`), plus
+// residual[r, b] (kernel 6), stored at row out_row0 + r of the packed
+// output or, for a take group, at perm[out_row0 + r] (pad rows, perm -1,
+// are not stored). The GLU kernels read a half-major (2 * Rg, K, Lc)
+// gate+up plane and write act(gate) * up (Rg, B); with scales, both halves
+// are multiplied by their srow before the activation (_glu_quant_kernel's
+// order).
 //
 // Bound: bytes. Each slot is read once (4 B col + 4 / 2 / 1 / 0.5 B
 // value) for 2 * B flops, so at decode batch B <= 16 the kernels are far
 // below the card's operations-per-byte ridge (no tensor cores); the value
-// and index planes are ~all of the traffic (x is K * chunk_cols * B
-// elements and stays in L1 / L2). The GLU launches read both halves of
-// their pair, 8 B per fp32 slot, 5 B per int8 slot, 4.5 B per int4 slot,
-// plus 4 B of srow per packed row (quant), and write Rg * B floats. No
-// atomics: every sum has a fixed order, so repeated runs give identical
-// bits.
+// and index planes are ~all of the traffic (x is K * chunk_cols * B floats
+// and stays in L1 / L2). No atomics: every sum has a fixed order.
 //
 // Two bodies.
 //
-// The streaming body serves kernels 1-4 and 6: espim_spmv_stream_kernel
-// runs espim_spmv_batched_fp and espim_spmv_batched_quant (the decode
-// path's QKV / O / down buckets) and, with its RES flag,
-// espim_spmv_batched_res_fp; espim_spmv_stream_glu_kernel runs
-// espim_spmv_batched_glu_fp and espim_spmv_batched_quant_glu (its
-// gate+up buckets). Those launches are short (32 to ~12k rows of 8-22
-// chunks x Lc 80-88 slots) and the warp-per-row body below was
-// latency-bound on them, not byte-bound (3.3-3.5x slower on kernels 1-2's
-// buckets, 4.6x the addmm on kernel 6's; PERF.md): a lane had one 4-byte
-// index load and one value load in flight before the gather that needed
-// them, and its 8-wide batch tile carried 8 accumulators at any B. The
-// streaming body keeps plane bytes in flight and its chains short:
-//   - a lane owns groups of 4 consecutive slots; it loads a group's 4
-//     column ids as one 16-byte load and its 4 values as one load (16 B
-//     fp32, 8 B bf16, 4 B int8, 2 B int4), and issues U groups' loads
-//     before the first gather that needs them. The planes are loaded with
-//     L1::no_allocate, so L1 keeps the x rows the gathers hit.
-//     U is the schedule's (core/sdds.KernelSchedule.u): 1, 2 or 4 for
-//     kernels 1-2, 2 for kernels 3, 4 and 6; the wrappers' default is 2.
-//   - the batch tile BT equals B (instantiated for 1, 2, 4, 8; larger B
-//     loops over tiles of 8): BT accumulators a lane, BT * log2(32)
-//     shuffles a warp, and one x row of BT floats is one 4/8/16-byte load
-//     (two at BT = 8) when the x row pitch allows it.
-//   - a row's K * Lc slots are walked in order, lanes interleaved over
-//     groups (coalesced plane reads, each plane byte read once). Lc / 4 =
-//     20-22 groups a chunk do not fill a warp, so the walk is flat and
-//     each lane carries its (chunk base, offset) forward by a compare and
-//     subtract: no per-slot division.
-//   - a warp a row, or 2 or 4 warps of one block, as the schedule says
-//     (KernelSchedule.warps_per_row); its default 0 asks for the fill
-//     rule, 2 or 4 warps when the launch has few rows (stream_wpr): a small bucket of long rows (down: 22 chunks) was
-//     a few long dependent chains on an idle card, while a large bucket
-//     already fills the card and only pays the extra reduce. The warps'
-//     partial sums meet in shared memory and are added in warp order (no
-//     atomics; a row never spans blocks).
-//   - x stays in global memory, gathered through L1: staging it in shared
-//     memory gained little on the QKV / O buckets and lost on down, where
-//     a block copies 176 KB of x before its first gather (the A/B in
-//     PERF.md), so the gathers do not set the pace.
-//   - widths or pointers that do not meet the vector alignment (Lc not a
-//     multiple of 4, a plane not aligned) take a scalar slot walk inside
-//     the same kernel; the host picks the walk from the shapes and
-//     pointers (stream_mode) and the tile from B; the warps a row and U
-//     come from the entry point's wpr and u arguments (0 and 2 launch
-//     what the kernels launched before they took a schedule).
-// The GLU variant's output row r needs gate row r and up row r + Rg of the
-// same half-major plane. A team of 1, 2 or 4 warps owns a pair, and the
-// warps a pair come from the schedule, its fill rule running stream_wpr
-// over the pairs, the pairs counting as rows (the engines' gate+up buckets hold 384-6944 pairs; on 132 SMs
-// those over 2112 take one warp a pair). It walks the gate row, reduces
-// it and parks the sum in shared memory, then walks the up row with the
-// same BT accumulator registers (design "a"; only BT accumulators are
-// live, where 2 * BT spilled at BT = 8). Design "b" (SPLIT) splits the
-// team's warps between the two rows at once and meets their sums in
-// shared memory in warp order; only scripts/spmv_tile_ab.py instantiates
-// it. Design a at U = 2 was the best
-// or within 2% of the best of 15 (design, U, warps a pair) variants on
-// one full-width layer, fp32 and int8, B = 1 and 4 (the A/B in PERF.md).
-// The team's first lane writes the epilogue in the reference's op order:
-// act(gate) * up (fp32), or act(gate * srow[r]) * (up * srow[r + Rg])
-// (int8 / int4), with apply_act below.
-//
-// The residual kernel (6) is kernel 1's launch with RES set: the row's
-// lead lane writes acc[j] + residual[r * B + b0 + j], so kernels 1-2's
-// instantiations (RES false) keep their code. On the fp32 attn_out + down
-// buckets at B = 4 it went from 248.4 us on the warp-per-row body to
-// 62.3 us (bound 24.0, addmm 54.5; NVIDIA H100 80GB HBM3, 700 W, PERF.md).
+// The ring body serves kernels 1-4 and 6 and the grouped entry point:
+// espim_spmv_stream_kernel (plain, scale, residual and take epilogues)
+// and espim_spmv_stream_glu_kernel (the GLU epilogue). What held their
+// first (streaming, register-level) design back on the decode step's
+// buckets was launch count and bytes in flight: one launch a bucket (7 of
+// kernel 2 a layer, 384-1800 rows each taking 7-12 us whatever its bytes,
+// a small bucket paying its own ramp and tail on 132 SMs), plus a scale
+// multiply, a concatenation and a take on the host around them; and a
+// lane kept U <= 4 groups of 4 slots (~40 B at U = 2) in flight, each
+// gather waiting on an index that came from HBM through a register. The
+// ring body:
+//   - one persistent launch a group: its buckets (<= kMaxBuckets) travel
+//     by value in the launch's parameters (no device-side pointer table
+//     that a swapped plane could leave stale); the grid is as many blocks
+//     as fit the SMs (fewer for few rows), and a static split, from the
+//     bucket shapes alone (the sparsity is known before inference, SDDS's
+//     premise), gives each block a contiguous range of the group's output
+//     rows holding about the same number of padded slots;
+//   - a block's rows of one bucket are one contiguous byte range of the
+//     index plane and one of the value plane (two each for GLU); its
+//     producer warp streams them, a tile of whole rows at a time (a piece
+//     of a row when one row outgrows a stage), into a ring of stages by
+//     bulk copies (cp.async.bulk ... mbarrier::complete_tx), the index
+//     spans completing on the stage's index barrier ahead of the value
+//     spans on its value barrier. Bulk copies need 16-byte aligned
+//     addresses and sizes and rows are not 16-byte multiples (int8 rows
+//     are K * Lc bytes), so each span's 16-byte interior is copied in bulk
+//     and its head and tail bytes by the producer's lanes: no byte outside
+//     a plane is read. The ring (up to u + 2 stages, the schedule's u, of
+//     up to 48 KB each, as shared memory beside x allows, sized for the
+//     most rows in flight), not a lane's registers, sets the bytes in
+//     flight on an SM;
+//   - x is the other limit: a gather of x rows at random columns. Through
+//     L1 it ran ~1 slot a clock an SM; so the producer first copies the
+//     whole of x into shared memory when it fits beside 2 stages (every
+//     case of the decode step at B <= 4: 64 KB for QKV, O and gate+up,
+//     176 KB for down at B = 4, which leaves 2 stages), and the ring takes
+//     the room left. Else x is gathered through L1, and on a tile's index
+//     barrier each lane prefetches into L1 the x rows of its first group
+//     (the paper's index-ahead-of-value prefetch);
+//   - 16 consumer warps a block (one block an SM: the shared memory) take
+//     the tiles in order, walk their rows from shared memory and free each
+//     stage on its empty barrier. A waiting warp polls with one lane and
+//     backs off (32 lanes polling an mbarrier crowd the walkers). The walk
+//     is bound by instructions a slot, not by bytes: its common case
+//     (walk_fast: Lc a multiple of 4, aligned spans, x staged, one x row
+//     a vector load) issues an index load a group, a value load, and a
+//     32-bit-addressed ld.shared and B FMAs a slot;
+//   - a row is walked by a team of 1, 2 or 4 warps (the schedule's wpr;
+//     0: one warp, 4 for a row of more than kWideRowSlots); lane i of the
+//     team's L lanes takes the row's groups of 4 consecutive slots i,
+//     i + L, ... and adds each group's slots in order, then a butterfly
+//     and, across the team's warps, a sum in warp order. That order
+//     depends on the row's own slots and its team alone, not on B, the
+//     stage, the block, the launch or the bucket's neighbours, so a column
+//     gives the same bits alone and inside a batch, a grouped launch gives
+//     the per-bucket launches' bits, and the GLU kernel's gate and up sums
+//     are the plain kernel's sums of those rows;
+//   - the batch tile BT is 1, 4 or 8 (B = 2 or 3 runs tile 4 with its
+//     columns masked, larger B loops over tiles of 8 on the same stage);
+//   - the epilogue (scale, residual, GLU, take, the bucket's row offset in
+//     the group's one output) runs in the team's first lane; the row's
+//     output row and scales are loaded before its walk.
+// The shape of the ring (consumer warps, stages, stage bytes: PortRing)
+// and these choices are the A/Bs' (scripts/spmv_tile_ab.py; PERF.md).
 //
 // The warp-per-row body (espim_spmv_kernel) serves only kernel 5, the
 // unbatched espim_spmv: the warp's lanes stride over the row's slots one
 // at a time, x is gathered through the read-only cache (fp32 or bf16), a
-// warp-shuffle reduce ends each row and lane 0 writes it. It goes once
-// kernel 5 moves to the streaming body. Column ids are bound-checked
-// against M in place of padding x, in both bodies.
+// warp-shuffle reduce ends each row and lane 0 writes it. Column ids are
+// bound-checked against M in place of padding x, in both bodies.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
 #include <type_traits>
 
 namespace {
@@ -257,104 +256,211 @@ int launch_unbatched(const void* values, const int* cols, const void* x,
 
 
 // --------------------------------------------------------------------------
-// The streaming body of kernels 1-4 and 6 (see the note at the head).
+// The ring body of kernels 1-4 and 6 (see the note at the head).
 // --------------------------------------------------------------------------
-constexpr int kStreamThreads = 128;                  // 4 warps a block
-constexpr int kStreamWarps = kStreamThreads / kWarp;
 
-// stream_mode bits: the vector slot walk, and whole-row x loads
-constexpr int kVecPlanes = 1;
-constexpr int kVecX = 2;
+// A stuck mbarrier wait traps after this many clocks (~8.7 s at 1.98 GHz),
+// so a pipeline fault ends the launch with an error instead of a hang
+#ifndef SPMV_WAIT_LIMIT
+#define SPMV_WAIT_LIMIT (1LL << 34)
+#endif
 
-// plane loads that do not allocate in L1, which is left to the x rows
-__device__ __forceinline__ int4 ld_plane16(const void* p) {
-  int4 r;
-  asm("ld.global.nc.L1::no_allocate.v4.s32 {%0, %1, %2, %3}, [%4];"
-      : "=r"(r.x), "=r"(r.y), "=r"(r.z), "=r"(r.w)
-      : "l"(p));
-  return r;
+// dynamic shared memory a block may take (of the 227 KB, the rest is the
+// ring body's static arrays)
+constexpr int kSmemLimit = 232448 - 2048;
+
+// the ring's shape: NC consumer warps and one producer warp a block, up
+// to STAGES stages of up to STAGE_BYTES bytes of plane (index and value
+// spans; smaller when x takes the room); x is staged in shared memory
+// where it fits if STAGE_X
+template <int NC, int STAGES, int STAGE_BYTES, bool STAGE_X = true>
+struct Ring {
+  static constexpr int kConsumers = NC;
+  static constexpr bool kStageX = STAGE_X;
+  static constexpr int kThreads = kWarp * (NC + 1);
+  static constexpr int kStages = STAGES;
+  static constexpr int kStage = STAGE_BYTES;
+  // 3 barriers a stage and x's, 8 bytes each
+  static constexpr int kBarBytes = 256;
+  static constexpr int kSmem = kBarBytes + STAGES * STAGE_BYTES;
+  // a stage's least bytes: a piece of a row too long for a stage is a
+  // multiple of 4 slots x 128 lanes (a 4-warp team), at most 8 plane
+  // bytes a slot
+  static constexpr int kMinStage = 64 + 8 * 512;
+  static_assert(NC == 2 || NC == 4 || NC == 8 || NC == 16, "consumer warps");
+  static_assert(8 * (3 * STAGES + 1) <= kBarBytes, "barrier space");
+  static_assert(STAGE_BYTES % 128 == 0 && STAGE_BYTES >= kMinStage,
+                "stage size");
+  static_assert(kBarBytes + 2 * STAGE_BYTES <= kSmemLimit, "shared memory");
+};
+// the port's ring (the A/B in PERF.md; scripts/spmv_tile_ab.py sweeps it)
+using PortRing = Ring<16, 5, 49152>;
+
+constexpr int kMaxBuckets = 8;
+
+// One bucket of a packed group, passed by value in the launch's
+// parameters (no device-side table: a drill that swaps a plane cannot
+// leave a stale pointer behind).  H = 2 (GLU) buckets are half-major
+// (2 * rows, K, Lc) planes, output row r from plane rows r and rows + r.
+struct Bucket {
+  const void* values;      // plane rows of lv bytes-or-slots a chunk
+  const int* cols;         // plane rows of K * Lc chunk-local ids
+  const float* scale;      // scale[r / group_rows] (GLU: srow[h*rows + r]); null: none
+  const float* residual;   // (rows, B) in packed order, added last; null: none
+  int rows;                // output rows (pairs for GLU)
+  int n_chunks, lc, lv;    // lv: bytes a chunk row of int4 codes, else lc
+  int group_rows;
+  int out_row0;            // the bucket's first row in the packed output
+  int team;                // warps a row: 1, 2 or 4
+};
+
+struct GroupArgs {
+  Bucket bk[kMaxBuckets];
+  const float* x;          // (m, b), fp32
+  float* out;              // (output rows, b)
+  const int* perm;         // take: packed row -> output row, -1 a pad row;
+                           // null: the packed row itself
+  int n_buckets, m, b, chunk_cols, act;
+  int xvec;                // an x row of BT floats is one aligned load
+  int xstage;              // x is copied into shared memory, after the ring
+  int stages;              // the ring's stages (<= the Ring's STAGES)
+  int stage;               // bytes a stage (<= the Ring's STAGE_BYTES)
+  int piece;               // slots a piece of a row too long for a stage
+  long long work;          // padded slots of the launch (the static split)
+};
+
+// -- PTX helpers -------------------------------------------------------------
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
-__device__ __forceinline__ uint2 ld_plane8(const void* p) {
-  uint2 r;
-  asm("ld.global.nc.L1::no_allocate.v2.u32 {%0, %1}, [%2];"
-      : "=r"(r.x), "=r"(r.y)
-      : "l"(p));
-  return r;
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(bar), "r"(count) : "memory");
 }
-__device__ __forceinline__ unsigned ld_plane4(const void* p) {
-  unsigned r;
-  asm("ld.global.nc.L1::no_allocate.u32 %0, [%1];" : "=r"(r) : "l"(p));
-  return r;
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
 }
-__device__ __forceinline__ unsigned ld_plane2(const void* p) {
-  unsigned short r;
-  asm("ld.global.nc.L1::no_allocate.u16 %0, [%1];" : "=h"(r) : "l"(p));
-  return r;
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(bar) : "memory");
+}
+// whether the barrier's phase of parity `parity` has completed (an
+// acquire for this thread when it has)
+__device__ __forceinline__ bool mbar_done(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile("{\n.reg .pred p;\n"
+               "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+               "selp.u32 %0, 1, 0, p;\n}\n"
+               : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  return done;
+}
+// until the phase has completed, for a whole warp: lane 0 polls, backing
+// off between tries, so a warp that waits takes one lane's shared-memory
+// traffic and not 32 (the ring's idle warps would otherwise crowd the
+// walkers' loads and the bulk copies); then every lane takes its acquire,
+// which completes at once
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  if ((threadIdx.x & 31) == 0) {
+    const long long t0 = clock64();
+    while (!mbar_done(bar, parity)) {
+      __nanosleep(32);
+      if (clock64() - t0 > SPMV_WAIT_LIMIT) __trap();
+    }
+  }
+  __syncwarp();
+  while (!mbar_done(bar, parity)) {
+  }
+}
+// `bytes` (a multiple of 16) from 16-byte aligned global `src` to shared
+// `dst`, completing on `bar`
+__device__ __forceinline__ void bulk_g2s(uint32_t dst, const void* src,
+                                         uint32_t bytes, uint32_t bar) {
+  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx"
+               "::bytes [%0], [%1], %2, [%3];\n"
+               :: "r"(dst), "l"(src), "r"(bytes), "r"(bar) : "memory");
+}
+// the warps of one team meet (named barrier `id`, `threads` threads)
+__device__ __forceinline__ void team_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
+}
+__device__ __forceinline__ void prefetch_l1(const void* p) {
+  asm volatile("prefetch.global.L1 [%0];" :: "l"(p));
 }
 
-// the values of one group of 4 consecutive slots starting at slot s0 of a
-// plane (Lc a multiple of 4, so the group lies in one chunk and, for int4,
-// starts at byte s0 / 2), as the bits one load brings, and slot i of them
+// -- planes --------------------------------------------------------------------
 template <int P>
-struct Group;
-template <>
-struct Group<kF32> {
-  using T = int4;
-  __device__ static T load(const void* v, long long s0) {
-    return ld_plane16(static_cast<const float*>(v) + s0);
-  }
-  __device__ static float get(const T& w, int i) {
-    return __int_as_float(i == 0 ? w.x : i == 1 ? w.y : i == 2 ? w.z : w.w);
-  }
-};
-template <>
-struct Group<kBF16> {
-  using T = uint2;
-  __device__ static T load(const void* v, long long s0) {
-    return ld_plane8(static_cast<const unsigned short*>(v) + s0);
-  }
-  __device__ static float get(const T& w, int i) {  // slot 2j: low half
-    const unsigned word = i < 2 ? w.x : w.y;
-    return __uint_as_float((i & 1) ? word & 0xffff0000u : word << 16);
-  }
-};
-template <>
-struct Group<kI8> {
-  using T = unsigned;
-  __device__ static T load(const void* v, long long s0) {
-    return ld_plane4(static_cast<const signed char*>(v) + s0);
-  }
-  __device__ static float get(T w, int i) {  // byte i, sign-extended
-    return static_cast<float>(static_cast<int>(w << (24 - 8 * i)) >> 24);
-  }
-};
-template <>
-struct Group<kNib> {
-  using T = unsigned;
-  __device__ static T load(const void* v, long long s0) {
-    return ld_plane2(static_cast<const unsigned char*>(v) + (s0 >> 1));
-  }
-  __device__ static float get(T w, int i) {  // nibble i, sign-extended
-    return static_cast<float>(static_cast<int>(w << (28 - 4 * i)) >> 28);
-  }
-};
+__host__ __device__ constexpr int slot_bytes() {  // kNib: half a byte
+  return P == kF32 ? 4 : P == kBF16 ? 2 : 1;
+}
+// bytes of one plane row of values
+template <int P>
+__host__ __device__ __forceinline__ long long vrow_bytes(const Bucket& bk) {
+  return P == kNib ? 1LL * bk.n_chunks * bk.lv
+                   : 1LL * bk.n_chunks * bk.lc * slot_bytes<P>();
+}
+// byte of slot s within its plane row of values
+template <int P>
+__device__ __forceinline__ int voff(int s, int lc, int lv) {
+  return P == kNib ? (s / lc) * lv + (s % lc) / 2 : s * slot_bytes<P>();
+}
 
-// acc[j] += v * x[off + j] for the tile's nb columns; XV: the BT floats
-// at x + off are one aligned row (BT == nb), loaded in 4-16 byte pieces
-template <int BT, bool XV>
+// value of slot s = (k, l) of a row whose value bytes start at vs
+template <int P>
+__device__ __forceinline__ float smem_value(const unsigned char* vs, int s,
+                                            int k, int l, int lv) {
+  if (P == kF32) return reinterpret_cast<const float*>(vs)[s];
+  if (P == kBF16)
+    return bf16_bits_to_float(reinterpret_cast<const unsigned short*>(vs)[s]);
+  if (P == kI8) return static_cast<float>(reinterpret_cast<const signed char*>(vs)[s]);
+  const unsigned char byte = vs[k * lv + (l >> 1)];
+  const int code = (l & 1)
+      ? (static_cast<int>(static_cast<signed char>(byte)) >> 4)
+      : (static_cast<int>(static_cast<unsigned>(byte) << 28) >> 28);
+  return static_cast<float>(code);
+}
+// the 4 values of the group at slot s (Lc a multiple of 4, aligned)
+template <int P>
+__device__ __forceinline__ void smem_values4(const unsigned char* vs, int s,
+                                             float (&v)[4]) {
+  if (P == kF32) {
+    const float4 t = *reinterpret_cast<const float4*>(vs + 4 * s);
+    v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+  } else if (P == kBF16) {
+    const uint2 t = *reinterpret_cast<const uint2*>(vs + 2 * s);
+    v[0] = __uint_as_float(t.x << 16);
+    v[1] = __uint_as_float(t.x & 0xffff0000u);
+    v[2] = __uint_as_float(t.y << 16);
+    v[3] = __uint_as_float(t.y & 0xffff0000u);
+  } else if (P == kI8) {
+    const unsigned w = *reinterpret_cast<const unsigned*>(vs + s);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)   // byte i, sign-extended
+      v[i] = static_cast<float>(static_cast<signed char>(w >> (8 * i)));
+  } else {
+    const unsigned w = *reinterpret_cast<const unsigned short*>(vs + s / 2);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      v[i] = static_cast<float>(static_cast<int>(w << (28 - 4 * i)) >> 28);
+  }
+}
+
+// acc[j] += v * x[off + j] for the tile's nb columns; xv: the BT floats
+// at x + off are one aligned row (BT == nb), loaded in 4-16 byte pieces.
+// x is in shared memory (staged) or global memory: generic loads serve both
+template <int BT>
 __device__ __forceinline__ void gather_fma(const float* __restrict__ x,
                                            long long off, float v, int nb,
-                                           float (&acc)[BT]) {
-  if (XV && BT == 1) {
-    acc[0] = fmaf(v, __ldg(x + off), acc[0]);
-  } else if (XV && BT == 2) {
-    const float2 t = __ldg(reinterpret_cast<const float2*>(x + off));
-    acc[0] = fmaf(v, t.x, acc[0]);
-    acc[BT - 1] = fmaf(v, t.y, acc[BT - 1]);
-  } else if (XV) {
+                                           bool xv, float (&acc)[BT]) {
+  if (xv && BT == 1) {
+    acc[0] = fmaf(v, x[off], acc[0]);
+  } else if (xv) {
 #pragma unroll
     for (int h = 0; h < BT / 4; ++h) {
-      const float4 t = __ldg(reinterpret_cast<const float4*>(x + off) + h);
+      const float4 t = reinterpret_cast<const float4*>(x + off)[h];
       acc[4 * h] = fmaf(v, t.x, acc[4 * h]);
       acc[4 * h + 1] = fmaf(v, t.y, acc[4 * h + 1]);
       acc[4 * h + 2] = fmaf(v, t.z, acc[4 * h + 2]);
@@ -363,11 +469,11 @@ __device__ __forceinline__ void gather_fma(const float* __restrict__ x,
   } else {
 #pragma unroll
     for (int j = 0; j < BT; ++j)
-      if (j < nb) acc[j] = fmaf(v, __ldg(x + off + j), acc[j]);
+      if (j < nb) acc[j] = fmaf(v, x[off + j], acc[j]);
   }
 }
 
-// advance a lane's (chunk base, offset in chunk) by `step` slots
+// advance a lane's (offset in chunk, chunk base, chunk) by `step` slots
 __device__ __forceinline__ void advance(int& l, int& base, int& k, int step,
                                         int lc, int chunk_cols) {
   l += step;
@@ -378,92 +484,100 @@ __device__ __forceinline__ void advance(int& l, int& base, int& k, int step,
   }
 }
 
-// one row's slots in groups of 4: lane `lane` of `lanes` takes groups
-// lane, lane + lanes, ...; U groups' index and value loads are issued
-// before the first of their gathers
-template <int P, int BT, int U, bool XV>
-__device__ __forceinline__ void walk_groups(
-    const void* __restrict__ values, const int* __restrict__ cols,
-    const float* __restrict__ x, long long rslot, int slots, int lc,
-    int chunk_cols, int m, int b, int b0, int nb, int lane, int lanes,
+// The slots [s0, s1) of one row, from shared memory: cs[s] is slot s's
+// column id and vs the row's value bytes.  The row's slots go in groups of
+// 4 consecutive slots (the last may be short); lane `lane` of the row's
+// `lanes` takes groups lane, lane + lanes, ... (s0 is a multiple of 4 *
+// lanes) and adds each group's slots in order.  The order depends on the
+// row's slot count and its team alone: not on B, the stage, the block or
+// the launch.  `vec`: Lc is a multiple of 4 and the row's spans are
+// aligned, so a group is one 16-byte index load and one value load.
+template <int P, int BT>
+__device__ __forceinline__ void walk(
+    const int* cs, const unsigned char* vs, int s0, int s1, int lc, int lv,
+    int chunk_cols, int m, const float* __restrict__ x, int b, int b0, int nb,
+    int lane, int lanes, bool vec, bool xv, float (&acc)[BT]) {
+  int s = s0 + 4 * lane;
+  int k = s / lc, l = s - k * lc, base = k * chunk_cols;
+  for (; s < s1; s += 4 * lanes) {
+    int c[4];
+    float v[4];
+    if (vec) {
+      const int4 c4 = *reinterpret_cast<const int4*>(cs + s);
+      c[0] = c4.x; c[1] = c4.y; c[2] = c4.z; c[3] = c4.w;
+      smem_values4<P>(vs, s, v);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      int li = l + i, kb = base, kk = k;
+      while (li >= lc) {
+        li -= lc;
+        kb += chunk_cols;
+        ++kk;
+      }
+      if (!vec) {
+        if (s + i >= s1) break;
+        c[i] = cs[s + i];
+        v[i] = smem_value<P>(vs, s + i, kk, li, lv);
+      }
+      const int gc = kb + c[i];
+      if (static_cast<unsigned>(gc) < static_cast<unsigned>(m))
+        gather_fma<BT>(x, static_cast<long long>(gc) * b + b0, v[i], nb, xv,
+                       acc);
+    }
+    advance(l, base, k, 4 * lanes, lc, chunk_cols);
+  }
+}
+
+// x row `row` (BT floats from column b0) of x staged in shared memory at
+// `xs` (a shared address), into acc with weight v: one 4-, 16- or two
+// 16-byte ld.shared
+template <int BT>
+__device__ __forceinline__ void gather_fma_shared(uint32_t xs, uint32_t off,
+                                                  float v, float (&acc)[BT]) {
+  if (BT == 1) {
+    float t;
+    asm volatile("ld.shared.f32 %0, [%1];" : "=f"(t) : "r"(xs + off));
+    acc[0] = fmaf(v, t, acc[0]);
+  } else {
+#pragma unroll
+    for (int h = 0; h < BT / 4; ++h) {
+      float4 t;
+      asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];"
+                   : "=f"(t.x), "=f"(t.y), "=f"(t.z), "=f"(t.w)
+                   : "r"(xs + off + 16 * h));
+      acc[4 * h] = fmaf(v, t.x, acc[4 * h]);
+      acc[4 * h + 1] = fmaf(v, t.y, acc[4 * h + 1]);
+      acc[4 * h + 2] = fmaf(v, t.z, acc[4 * h + 2]);
+      acc[4 * h + 3] = fmaf(v, t.w, acc[4 * h + 3]);
+    }
+  }
+}
+
+// walk's common case with fewer instructions a slot, in the same order:
+// Lc a multiple of 4 (a group's 4 slots share one chunk), aligned spans,
+// x staged in shared memory at `xs`, one x row a vector load (B % BT 0)
+template <int P, int BT>
+__device__ __forceinline__ void walk_fast(
+    const int* cs, const unsigned char* vs, int s0, int s1, int lc,
+    int chunk_cols, int m, uint32_t xs, int b, int b0, int lane, int lanes,
     float (&acc)[BT]) {
-  using G = Group<P>;
-  const int groups = slots >> 2;
-  const int4* c4 = reinterpret_cast<const int4*>(cols + rslot);
-  int l = 0, base = 0, k = 0;
-  advance(l, base, k, 4 * lane, lc, chunk_cols);
-  for (int g = lane; g < groups; g += U * lanes) {
-    int4 cv[U];
-    typename G::T vv[U];
+  int s = s0 + 4 * lane;
+  int k = s / lc, l = s - k * lc, base = k * chunk_cols;
+  for (; s < s1; s += 4 * lanes) {
+    const int4 c4 = *reinterpret_cast<const int4*>(cs + s);
+    float v[4];
+    smem_values4<P>(vs, s, v);
+    const int c[4] = {c4.x, c4.y, c4.z, c4.w};
 #pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const int gu = g + u * lanes;
-      if (gu < groups) {
-        cv[u] = ld_plane16(c4 + gu);
-        vv[u] = G::load(values, rslot + 4LL * gu);
-      } else {
-        cv[u] = make_int4(0, 0, 0, 0);
-        vv[u] = typename G::T();
-      }
+    for (int i = 0; i < 4; ++i) {
+      const int gc = base + c[i];
+      if (static_cast<unsigned>(gc) < static_cast<unsigned>(m))
+        gather_fma_shared<BT>(xs, static_cast<uint32_t>(gc * b + b0) * 4u,
+                              v[i], acc);
     }
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      if (g + u * lanes < groups) {
-        const int c[4] = {cv[u].x, cv[u].y, cv[u].z, cv[u].w};
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int gc = base + c[i];
-          if (static_cast<unsigned>(gc) < static_cast<unsigned>(m))
-            gather_fma<BT, XV>(x, static_cast<long long>(gc) * b + b0,
-                               G::get(vv[u], i), nb, acc);
-        }
-      }
-      advance(l, base, k, 4 * lanes, lc, chunk_cols);
-    }
+    advance(l, base, k, 4 * lanes, lc, chunk_cols);
   }
-}
-
-// one row's slots one at a time (any Lc, any alignment)
-template <int P, int BT, bool XV>
-__device__ __forceinline__ void walk_slots(
-    const void* __restrict__ values, const int* __restrict__ cols,
-    const float* __restrict__ x, long long rslot, long long vrow, int slots,
-    int lc, int lv, int chunk_cols, int m, int b, int b0, int nb, int lane,
-    int lanes, float (&acc)[BT]) {
-  int l = 0, base = 0, k = 0;
-  advance(l, base, k, lane, lc, chunk_cols);
-  for (int s = lane; s < slots; s += lanes) {
-    const int gc = base + __ldg(cols + rslot + s);
-    const float v = slot_value<P>(values, vrow, s, k, l, lv);
-    if (static_cast<unsigned>(gc) < static_cast<unsigned>(m))
-      gather_fma<BT, XV>(x, static_cast<long long>(gc) * b + b0, v, nb, acc);
-    advance(l, base, k, lanes, lc, chunk_cols);
-  }
-}
-
-// row r's slots into acc[0 : nb) for batch columns b0..b0+nb, by the
-// slot walk `mode` names; lane `lane` of `lanes` walks its share
-template <int P, int BT, int U>
-__device__ __forceinline__ void walk_row(
-    const void* __restrict__ values, const int* __restrict__ cols,
-    const float* __restrict__ x, long long r, int n_chunks, int lc, int lv,
-    int chunk_cols, int m, int b, int b0, int nb, int mode, int lane,
-    int lanes, float (&acc)[BT]) {
-  const int slots = n_chunks * lc;
-  const long long rslot = r * slots;
-  const long long vrow = P == kNib ? r * n_chunks * lv : rslot;
-  if ((mode & kVecPlanes) && (mode & kVecX))
-    walk_groups<P, BT, U, true>(values, cols, x, rslot, slots, lc, chunk_cols,
-                                m, b, b0, nb, lane, lanes, acc);
-  else if (mode & kVecPlanes)
-    walk_groups<P, BT, U, false>(values, cols, x, rslot, slots, lc,
-                                 chunk_cols, m, b, b0, nb, lane, lanes, acc);
-  else if (mode & kVecX)
-    walk_slots<P, BT, true>(values, cols, x, rslot, vrow, slots, lc, lv,
-                            chunk_cols, m, b, b0, nb, lane, lanes, acc);
-  else
-    walk_slots<P, BT, false>(values, cols, x, rslot, vrow, slots, lc, lv,
-                             chunk_cols, m, b, b0, nb, lane, lanes, acc);
 }
 
 // the warp's sum of acc, in every lane (a butterfly: a fixed order)
@@ -476,220 +590,456 @@ __device__ __forceinline__ void warp_sum(float (&acc)[BT]) {
       acc[j] += __shfl_xor_sync(0xffffffffu, acc[j], off);
 }
 
-// each warp's lane 0 posts its warp sum to part[warp]; every thread of the
-// block must call it, and read part only after the barrier
-template <int BT>
-__device__ __forceinline__ void post_warp_sum(float (&part)[kStreamWarps][BT],
-                                              const float (&acc)[BT]) {
+// one contiguous byte range of a plane, and where it sits in a stage: the
+// global byte g lands at shared address smem + (g - gptr) + (gptr & 15)
+struct Span {
+  const unsigned char* gptr;
+  int len;
+  uint32_t smem;   // 16-byte aligned
+};
+
+// what one stage holds: output rows [r0, r0 + n) of bucket `bucket`, whole
+// (half -1: every half, slots [0, slots), every batch tile), or one piece
+// of one row (n 1): slots [s0, s1) of half `half` at batch tile b0
+struct Tile {
+  int bucket, r0, n, half, s0, s1, b0;
+  bool last;       // a piece that ends its half
+};
+
+template <int P, int H>
+__device__ __forceinline__ int whole_rows(const Bucket& bk, int stage) {
+  const long long rowb = H * (4LL * bk.n_chunks * bk.lc + vrow_bytes<P>(bk));
+  return static_cast<int>((stage - 64 * H) / rowb);
+}
+
+// f(tile) for every tile of the block's output rows [r_begin, r_end) of
+// the group, in order; the producer and every consumer walk the same list
+template <int P, class Cfg, int H, int BT, class F>
+__device__ __forceinline__ void for_tiles(const GroupArgs& a,
+                                          long long r_begin, long long r_end,
+                                          F&& f) {
+  long long r_first = 0;
+  for (int i = 0; i < a.n_buckets; ++i) {
+    const Bucket& bk = a.bk[i];
+    const long long lo = max(r_begin, r_first) - r_first;
+    const long long hi = min(r_end, r_first + bk.rows) - r_first;
+    r_first += bk.rows;
+    if (lo >= hi) continue;
+    const int slots = bk.n_chunks * bk.lc;
+    const int n = whole_rows<P, H>(bk, a.stage);
+    if (n > 0) {
+      for (long long r = lo; r < hi; r += n)
+        f(Tile{i, static_cast<int>(r),
+               static_cast<int>(hi - r < n ? hi - r : n), -1, 0, slots, 0,
+               true});
+    } else {
+      for (long long r = lo; r < hi; ++r)
+        for (int b0 = 0; b0 < a.b; b0 += BT)
+          for (int h = 0; h < H; ++h)
+            for (int s0 = 0; s0 < slots; s0 += a.piece) {
+              const int s1 = min(s0 + a.piece, slots);
+              f(Tile{i, static_cast<int>(r), 1, h, s0, s1, b0, s1 == slots});
+            }
+    }
+  }
+}
+
+// the tile's spans: the index span of each half, then the value span of
+// each half, laid out one after another from shared address `stage`;
+// returns their count
+template <int P, int H>
+__device__ __forceinline__ int tile_spans(const Bucket& bk, const Tile& t,
+                                          uint32_t stage, Span (&sp)[4]) {
+  const int slots = bk.n_chunks * bk.lc;
+  const long long vrow = vrow_bytes<P>(bk);
+  const int h0 = t.half < 0 ? 0 : t.half, h1 = t.half < 0 ? H : t.half + 1;
+  int n = 0;
+  for (int h = h0; h < h1; ++h) {
+    const long long p0 = 1LL * h * bk.rows + t.r0;      // first plane row
+    const long long c0 = p0 * slots + t.s0;
+    sp[n++] = {reinterpret_cast<const unsigned char*>(bk.cols + c0),
+               static_cast<int>(4LL * ((t.n - 1) * 1LL * slots + t.s1 - t.s0)),
+               0};
+  }
+  for (int h = h0; h < h1; ++h) {
+    const long long p0 = 1LL * h * bk.rows + t.r0;
+    // the value bytes of slots [s0, s1) of rows [r0, r0 + n)
+    const int a = voff<P>(t.s0, bk.lc, bk.lv);
+    const long long e = t.half < 0 ? vrow
+                        : P == kNib ? voff<P>(t.s1 - 1, bk.lc, bk.lv) + 1
+                                    : 1LL * t.s1 * slot_bytes<P>();
+    sp[n++] = {static_cast<const unsigned char*>(bk.values) + p0 * vrow + a,
+               static_cast<int>((t.n - 1) * vrow + e - a), 0};
+  }
+  uint32_t off = stage;
+  for (int i = 0; i < n; ++i) {
+    sp[i].smem = off;
+    const uint32_t head = reinterpret_cast<uintptr_t>(sp[i].gptr) & 15;
+    off += (head + sp[i].len + 15) & ~15u;
+  }
+  return n;
+}
+
+// a span's 16-byte interior [a16, e16) (what a bulk copy can take)
+struct Interior {
+  uintptr_t a16, e16;
+};
+__device__ __forceinline__ Interior interior(const Span& sp) {
+  const uintptr_t g = reinterpret_cast<uintptr_t>(sp.gptr);
+  const uintptr_t e = g + sp.len;
+  const uintptr_t up = (g + 15) & ~uintptr_t(15), dn = e & ~uintptr_t(15);
+  const uintptr_t a16 = up < e ? up : e;
+  return {a16, dn > a16 ? dn : a16};
+}
+
+// the producer warp's lanes copy a span's head [g, a16) (lanes 0-15) and
+// tail [e16, e) (lanes 16-31) bytes, which bulk copies cannot take;
+// returns the interior's bytes
+__device__ __forceinline__ uint32_t copy_ends(const Span& sp, int lane,
+                                              unsigned char* smem,
+                                              uint32_t bars) {
+  const Interior in = interior(sp);
+  const uintptr_t g = reinterpret_cast<uintptr_t>(sp.gptr);
+  const uintptr_t byte = lane < 16 ? g + lane : in.e16 + (lane - 16);
+  if (lane < 16 ? byte < in.a16 : byte < g + sp.len)
+    smem[sp.smem - bars + (g & 15) + (byte - g)] =
+        __ldg(reinterpret_cast<const unsigned char*>(byte));
+  return static_cast<uint32_t>(in.e16 - in.a16);
+}
+
+// lane 0 of the producer: the span's interior by bulk copies (pieces of at
+// most 64 KB), completing on `bar`
+__device__ __forceinline__ void copy_interior(const Span& sp, uint32_t bar) {
+  const Interior in = interior(sp);
+  const uintptr_t g = reinterpret_cast<uintptr_t>(sp.gptr);
+  for (uintptr_t a = in.a16; a < in.e16; a += 65536) {
+    const uintptr_t e = in.e16 - a < 65536 ? in.e16 : a + 65536;
+    bulk_g2s(sp.smem + static_cast<uint32_t>(a - (g & ~uintptr_t(15))),
+             reinterpret_cast<const void*>(a), static_cast<uint32_t>(e - a),
+             bar);
+  }
+}
+
+// The producer warp: first x, when the launch stages it (its own
+// barrier); then for each tile, wait until the stage is free, copy the
+// head and tail bytes of each span that the 16-byte bulk copies cannot
+// cover (the planes' rows are not 16-byte multiples), and lane 0 posts
+// the index spans' copies on the stage's index barrier and the value
+// spans' on its value barrier: the index part lands first.
+template <int P, class Cfg, int H, int BT>
+__device__ __forceinline__ void produce(const GroupArgs& a, long long r_begin,
+                                        long long r_end, unsigned char* smem,
+                                        uint32_t stages, uint32_t bars,
+                                        const Span& xspan) {
+  const int lane = threadIdx.x % kWarp;
+  const uint32_t xbar = bars + 8 * 3 * Cfg::kStages;
+  if (a.xstage) {
+    const uint32_t tx = copy_ends(xspan, lane, smem, bars);
+    __syncwarp();
+    if (lane == 0) {
+      mbar_expect_tx(xbar, tx);
+      copy_interior(xspan, xbar);
+    }
+  }
+  int it = 0;
+  for_tiles<P, Cfg, H, BT>(a, r_begin, r_end, [&](const Tile& t) {
+    const int st = it % a.stages;
+    const uint32_t ph = (it / a.stages) & 1;
+    const uint32_t full_idx = bars + 8 * st;
+    const uint32_t full_val = bars + 8 * (Cfg::kStages + st);
+    const uint32_t empty = bars + 8 * (2 * Cfg::kStages + st);
+    mbar_wait(empty, ph ^ 1);
+    Span sp[4];
+    const int n = tile_spans<P, H>(a.bk[t.bucket], t, stages + st * a.stage, sp);
+    uint32_t tx[2] = {0, 0};
+    for (int i = 0; i < n; ++i) tx[i >= n / 2] += copy_ends(sp[i], lane, smem, bars);
+    __syncwarp();
+    if (lane == 0) {
+      mbar_expect_tx(full_idx, tx[0]);
+      for (int i = 0; i < n / 2; ++i) copy_interior(sp[i], full_idx);
+      mbar_expect_tx(full_val, tx[1]);
+      for (int i = n / 2; i < n; ++i) copy_interior(sp[i], full_val);
+    }
+    ++it;
+  });
+}
+
+// the row's sum: each warp's butterfly, then, for a team of several warps,
+// their sums added in warp order through part[] (two team barriers)
+template <class Cfg, int BT>
+__device__ __forceinline__ void team_sum(float (&acc)[BT],
+                                         float (&part)[Cfg::kConsumers][BT],
+                                         int warp, int team, int t_id) {
+  warp_sum(acc);
+  if (team == 1) return;
   if (threadIdx.x % kWarp == 0) {
 #pragma unroll
-    for (int j = 0; j < BT; ++j) part[threadIdx.x / kWarp][j] = acc[j];
+    for (int j = 0; j < BT; ++j) part[warp][j] = acc[j];
   }
-  __syncthreads();
-}
-
-// part[w0] + ... + part[w0 + n - 1], added in warp order
-template <int BT>
-__device__ __forceinline__ void sum_warps(const float (&part)[kStreamWarps][BT],
-                                          int w0, int n, float (&acc)[BT]) {
+  // named barriers 1 .. NC / 2 for teams of 2, the next NC / 4 for teams
+  // of 4: buckets of different team sizes never share one (at most 12
+  // with 16 consumer warps)
+  const int id = 1 + t_id + (team == 4 ? Cfg::kConsumers / 2 : 0);
+  team_sync(id, kWarp * team);
+  const int w0 = t_id * team;
 #pragma unroll
   for (int j = 0; j < BT; ++j) {
-    float t = part[w0][j];
-    for (int w = 1; w < n; ++w) t += part[w0 + w][j];
-    acc[j] = t;
+    float s = part[w0][j];
+    for (int w = 1; w < team; ++w) s += part[w0 + w][j];
+    acc[j] = s;
   }
+  team_sync(id, kWarp * team);   // part is free again
 }
 
-// A row per `wpr` warps (1, 2 or 4), kStreamWarps / wpr rows a block. The
-// row's lanes walk its slots; each warp reduces its partial sums by
-// shuffles, and with wpr > 1 the first warp of the row adds the other
-// warps' partials from shared memory in warp order. The row's first lane
-// stores the sum, times scale[r / group_rows] when scale is not null, plus
-// residual[r, b] when RES. Every thread reaches every barrier: a team past
-// the last row walks nothing.
-template <int P, int BT, int U, bool RES>
-__global__ void __launch_bounds__(kStreamThreads)
-espim_spmv_stream_kernel(const void* __restrict__ values,
-                         const int* __restrict__ cols,
-                         const float* __restrict__ x,
-                         const float* __restrict__ scale,
-                         const float* __restrict__ residual,
-                         float* __restrict__ out, int rows, int n_chunks,
-                         int lc, int lv, int chunk_cols, int m, int b,
-                         int group_rows, int mode, int wpr) {
-  __shared__ float part[kStreamWarps][BT];
-  const int warp = threadIdx.x / kWarp;
-  const int lanes = kWarp * wpr;
-  const int lane = threadIdx.x % lanes;  // within the row's team
-  const long long r =
-      static_cast<long long>(blockIdx.x) * (kStreamWarps / wpr) + warp / wpr;
-  const bool live = r < rows;
-  for (int b0 = 0; b0 < b; b0 += BT) {
-    const int nb = min(BT, b - b0);
-    float acc[BT];
+// where a row's result goes and its scales, loaded before its walk so
+// the loads' latency hides behind it
+struct RowOut {
+  long long dst;   // output row, -1 for a pad row of a take
+  float s0, s1;    // the scale (GLU: the gate's and the up row's)
+};
+template <int H>
+__device__ __forceinline__ RowOut row_out(const GroupArgs& a,
+                                          const Bucket& bk, int r) {
+  RowOut o;
+  const long long p = 1LL * bk.out_row0 + r;
+  o.dst = a.perm ? a.perm[p] : p;
+  if (H == 2) {
+    o.s0 = bk.scale ? bk.scale[r] : 1.0f;
+    o.s1 = bk.scale ? bk.scale[bk.rows + r] : 1.0f;
+  } else {
+    o.s0 = bk.scale ? bk.scale[r / bk.group_rows] : 1.0f;
+    o.s1 = 1.0f;
+  }
+  return o;
+}
+
+// the row's result for batch columns b0 .. b0 + nb: GLU (H 2) half 0
+// parks the gate sum, half 1 writes act(gate * sg) * (up * su); else
+// acc * scale, plus the residual, stored at the row's output row
+template <int BT, int H>
+__device__ __forceinline__ void epilogue(const GroupArgs& a, const Bucket& bk,
+                                         int r, int h, int b0, int nb,
+                                         const RowOut& ro,
+                                         const float (&acc)[BT],
+                                         float (&gate)[BT]) {
+  if (H == 2 && h == 0) {
 #pragma unroll
-    for (int j = 0; j < BT; ++j) acc[j] = 0.0f;
-    if (live)
-      walk_row<P, BT, U>(values, cols, x, r, n_chunks, lc, lv, chunk_cols, m,
-                         b, b0, nb, mode, lane, lanes, acc);
-    warp_sum(acc);
-    if (wpr > 1) {
-      post_warp_sum(part, acc);
-      if (lane == 0) sum_warps(part, warp, wpr, acc);
-      __syncthreads();  // the next tile reuses part
-    }
-    if (live && lane == 0) {
-      const float sr = scale ? scale[r / group_rows] : 1.0f;
-      float* o = out + r * b + b0;
+    for (int j = 0; j < BT; ++j) gate[j] = acc[j];
+    return;
+  }
+  if (ro.dst < 0) return;                       // a pad row of a take
+  float* o = a.out + ro.dst * a.b + b0;
+  if (H == 2) {
 #pragma unroll
-      for (int j = 0; j < BT; ++j) {
-        if (j < nb) {
-          const float y = scale ? acc[j] * sr : acc[j];
-          o[j] = RES ? y + residual[r * b + b0 + j] : y;
+    for (int j = 0; j < BT; ++j) {
+      if (j < nb) {
+        float g = gate[j], u = acc[j];
+        if (bk.scale) {
+          g *= ro.s0;
+          u *= ro.s1;
         }
+        o[j] = apply_act(g, a.act) * u;
+      }
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < BT; ++j) {
+      if (j < nb) {
+        const float y = bk.scale ? acc[j] * ro.s0 : acc[j];
+        o[j] = bk.residual ? y + bk.residual[1LL * r * a.b + b0 + j] : y;
       }
     }
   }
 }
 
-// GLU: output row r of rows_g from gate row r and up row r + rows_g of a
-// half-major (2 * rows_g, K, Lc) plane; a pair per team of `wpr` warps,
-// kStreamWarps / wpr pairs a block. SPLIT false (design a): the whole team
-// walks the gate row, then the up row, with one set of BT accumulators;
-// the gate sum waits in shared memory. SPLIT (design b, wpr 2 or 4): the
-// team's first wpr / 2 warps walk the gate row while the others walk the
-// up row. Either way the warps' sums are added in warp order, and the
-// team's first lane writes act(g) * u, g and u times srow first when srow
-// is not null. Every thread reaches every barrier.
-template <int P, int BT, int U, bool SPLIT>
-__global__ void __launch_bounds__(kStreamThreads)
-espim_spmv_stream_glu_kernel(const void* __restrict__ values,
-                             const int* __restrict__ cols,
-                             const float* __restrict__ x,
-                             const float* __restrict__ srow,
-                             float* __restrict__ out, int rows_g,
-                             int n_chunks, int lc, int lv, int chunk_cols,
-                             int m, int b, int mode, int wpr, int act) {
-  __shared__ float part[kStreamWarps][BT];
-  __shared__ float gate[kStreamWarps][BT];
+// The first output row of block j of g: the blocks split the launch's
+// padded slots evenly, at row boundaries (static: from the shapes alone)
+template <int H>
+__device__ __forceinline__ long long block_row(const GroupArgs& a, int j,
+                                               int g) {
+  const long long target = a.work * j / g;
+  long long done = 0, r_first = 0;
+  for (int i = 0; i < a.n_buckets; ++i) {
+    const long long w = max(1LL, 1LL * H * a.bk[i].n_chunks * a.bk[i].lc);
+    const long long total = w * a.bk[i].rows;
+    if (target < done + total) return r_first + (target - done + w - 1) / w;
+    done += total;
+    r_first += a.bk[i].rows;
+  }
+  return r_first;
+}
+
+// One block: the producer warp streams the planes of the block's rows
+// through the ring; each consumer warp takes the tiles in order, waits on
+// a tile's index barrier, prefetches into L1 the x rows of its rows' first
+// groups (index ahead of value), waits on the value barrier, walks its
+// rows, then frees the stage.  Output row q of the block (counted over its
+// tiles) belongs to team q % (NC / team) of the row's bucket.
+template <int P, int BT, class Cfg, int H>
+__device__ __forceinline__ void ring_body(const GroupArgs& a) {
+  extern __shared__ __align__(128) unsigned char ring_smem[];
+  __shared__ float part[Cfg::kConsumers][BT];
+  __shared__ float gate[Cfg::kConsumers][BT];
+  const uint32_t bars = smem_u32(ring_smem);
+  const uint32_t stages = bars + Cfg::kBarBytes;
+  const uint32_t xbar = bars + 8 * 3 * Cfg::kStages;
   const int warp = threadIdx.x / kWarp;
-  const int team = warp / wpr;
-  const int w0 = team * wpr;                 // the team's first warp
-  const int hw = SPLIT ? wpr / 2 : wpr;      // warps walking one row
-  const int lanes = kWarp * hw;
-  const int lane = threadIdx.x % lanes;      // within the row's walkers
-  const bool lead = threadIdx.x % (kWarp * wpr) == 0;
-  const long long r =
-      static_cast<long long>(blockIdx.x) * (kStreamWarps / wpr) + team;
-  const bool live = r < rows_g;
-  for (int b0 = 0; b0 < b; b0 += BT) {
-    const int nb = min(BT, b - b0);
-    float acc[BT];
-#pragma unroll
-    for (int pass = 0; pass < (SPLIT ? 1 : 2); ++pass) {
-      const int half = SPLIT ? (warp - w0) / hw : pass;
-#pragma unroll
-      for (int j = 0; j < BT; ++j) acc[j] = 0.0f;
-      if (live)
-        walk_row<P, BT, U>(values, cols, x, r + half * rows_g, n_chunks, lc,
-                           lv, chunk_cols, m, b, b0, nb, mode, lane, lanes,
-                           acc);
-      warp_sum(acc);
-      if (SPLIT) {
-        post_warp_sum(part, acc);
-        if (lead) {
-          sum_warps(part, w0, hw, acc);
-#pragma unroll
-          for (int j = 0; j < BT; ++j) gate[team][j] = acc[j];
-          sum_warps(part, w0 + hw, hw, acc);
-        }
-        __syncthreads();  // the next tile reuses part
-      } else {
-        if (wpr > 1) {
-          post_warp_sum(part, acc);
-          if (lead) sum_warps(part, w0, wpr, acc);
-          __syncthreads();  // the up pass reuses part
-        }
-        if (pass == 0 && lead) {
-#pragma unroll
-          for (int j = 0; j < BT; ++j) gate[team][j] = acc[j];
-        }
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < Cfg::kStages; ++s) {
+      mbar_init(bars + 8 * s, 1);
+      mbar_init(bars + 8 * (Cfg::kStages + s), 1);
+      mbar_init(bars + 8 * (2 * Cfg::kStages + s), Cfg::kConsumers);
+    }
+    mbar_init(xbar, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  const long long r_begin = block_row<H>(a, blockIdx.x, gridDim.x);
+  const long long r_end = block_row<H>(a, blockIdx.x + 1, gridDim.x);
+  // x, when staged, sits after the ring: global byte x + i at xs + i
+  const Span xspan = {reinterpret_cast<const unsigned char*>(a.x),
+                      static_cast<int>(4LL * a.m * a.b), stages + a.stages * a.stage};
+  if (warp == Cfg::kConsumers) {
+    produce<P, Cfg, H, BT>(a, r_begin, r_end, ring_smem, stages, bars, xspan);
+    return;
+  }
+  const float* xs = a.x;
+  const uint32_t xs_u32 =
+      xspan.smem + static_cast<uint32_t>(reinterpret_cast<uintptr_t>(a.x) & 15);
+  if (a.xstage) {
+    xs = reinterpret_cast<const float*>(ring_smem + (xs_u32 - bars));
+    if (r_begin < r_end) mbar_wait(xbar, 0);
+  }
+  const bool xv = a.xvec;
+  const int lane32 = threadIdx.x % kWarp;
+  float acc[BT];
+  long long q = 0;           // the block's output rows done
+  int it = 0;
+  for_tiles<P, Cfg, H, BT>(a, r_begin, r_end, [&](const Tile& t) {
+    const int st = it % a.stages;
+    const uint32_t ph = (it / a.stages) & 1;
+    const Bucket& bk = a.bk[t.bucket];
+    const int team = bk.team;
+    const int t_id = warp / team, n_teams = Cfg::kConsumers / team;
+    const int lanes = kWarp * team, lane = (warp % team) * kWarp + lane32;
+    const bool lead = lane == 0;
+    const int slots = bk.n_chunks * bk.lc;
+    const long long vrow = vrow_bytes<P>(bk);
+    mbar_wait(bars + 8 * st, ph);
+    Span sp[4];
+    const int n_sp = tile_spans<P, H>(bk, t, stages + st * a.stage, sp);
+    // shared pointers to slot 0 of the tile's first row, each half
+    auto row_cols = [&](int h, int j) {
+      const Span& s = sp[t.half < 0 ? h : 0];
+      return reinterpret_cast<const int*>(
+                 ring_smem + (s.smem - bars) +
+                 (reinterpret_cast<uintptr_t>(s.gptr) & 15)) +
+             1LL * j * slots - t.s0;
+    };
+    auto row_vals = [&](int h, int j) {
+      const Span& s = sp[n_sp / 2 + (t.half < 0 ? h : 0)];
+      return ring_smem + (s.smem - bars) +
+             (reinterpret_cast<uintptr_t>(s.gptr) & 15) + j * vrow -
+             voff<P>(t.s0, bk.lc, bk.lv);
+    };
+    const int j0 = static_cast<int>((t_id - q % n_teams + n_teams) % n_teams);
+    // index ahead of value: the x rows of this lane's first group of each
+    // of its rows in the tile, into L1 before the values land (x in
+    // global memory)
+    for (int j = a.xstage ? t.n : j0; j < t.n; j += n_teams) {
+      const int* cs = row_cols(t.half < 0 ? 0 : t.half, j);
+      const int s = t.s0 + 4 * lane;
+      for (int i = 0; i < 4; ++i) {
+        if (s + i >= t.s1) break;
+        const int kk = (s + i) / bk.lc;
+        const int gc = kk * a.chunk_cols + cs[s + i];
+        if (static_cast<unsigned>(gc) < static_cast<unsigned>(a.m))
+          prefetch_l1(a.x + static_cast<long long>(gc) * a.b + t.b0);
       }
     }
-    if (live && lead) {
-      const float sg = srow ? srow[r] : 1.0f;
-      const float su = srow ? srow[r + rows_g] : 1.0f;
-      float* o = out + r * b + b0;
+    if (j0 < t.n) mbar_wait(bars + 8 * (Cfg::kStages + st), ph);
+    for (int j = j0; j < t.n; j += n_teams) {
+      const int r = t.r0 + j;
+      const RowOut ro = row_out<H>(a, bk, r);
+      const int h0 = t.half < 0 ? 0 : t.half, h1 = t.half < 0 ? H : t.half + 1;
+      for (int b0 = t.half < 0 ? 0 : t.b0; b0 < (t.half < 0 ? a.b : t.b0 + 1);
+           b0 += BT) {
+        const int nb = min(BT, a.b - b0);
+        for (int h = h0; h < h1; ++h) {
+          const int* cs = row_cols(h, j);
+          const unsigned char* vs = row_vals(h, j);
+          const bool vec = bk.lc % 4 == 0 &&
+                           (reinterpret_cast<uintptr_t>(cs + t.s0) & 15) == 0 &&
+                           (reinterpret_cast<uintptr_t>(vs + voff<P>(t.s0, bk.lc, bk.lv)) &
+                            (P == kNib ? 1 : 4 * slot_bytes<P>() - 1)) == 0;
+          if (t.s0 == 0) {
 #pragma unroll
-      for (int j = 0; j < BT; ++j) {
-        if (j < nb) {
-          float g = gate[team][j], u = acc[j];
-          if (srow) {
-            g *= sg;
-            u *= su;
+            for (int jj = 0; jj < BT; ++jj) acc[jj] = 0.0f;
           }
-          o[j] = apply_act(g, act) * u;
+          if (vec && xv && a.xstage)
+            walk_fast<P, BT>(cs, vs, t.s0, t.s1, bk.lc, a.chunk_cols, a.m,
+                             xs_u32, a.b, b0, lane, lanes, acc);
+          else
+            walk<P, BT>(cs, vs, t.s0, t.s1, bk.lc, bk.lv, a.chunk_cols, a.m,
+                        xs, a.b, b0, nb, lane, lanes, vec, xv, acc);
+          if (t.last) {
+            team_sum<Cfg, BT>(acc, part, warp, team, t_id);
+            if (lead)
+              epilogue<BT, H>(a, bk, r, h, b0, nb, ro, acc, gate[t_id]);
+          }
         }
       }
     }
-  }
+    // the row counter moves on after a whole tile, or after a row's last
+    // piece (its last half at its last batch tile)
+    if (t.half < 0) q += t.n;
+    else if (t.last && t.half == H - 1 && t.b0 + BT >= a.b) q += 1;
+    __syncwarp();
+    if (lane32 == 0) mbar_arrive(bars + 8 * (2 * Cfg::kStages + st));
+    ++it;
+  });
 }
 
-// the batch tile for B: 1, 2, 4, or 8 (B > 8 loops over tiles of 8)
-inline int stream_tile(int b) { return b <= 1 ? 1 : b <= 2 ? 2 : b <= 4 ? 4 : 8; }
+template <int P, int BT, class Cfg>
+__global__ void __launch_bounds__(Cfg::kThreads, 1)
+espim_spmv_stream_kernel(const __grid_constant__ GroupArgs a) {
+  ring_body<P, BT, Cfg, 1>(a);
+}
+
+template <int P, int BT, class Cfg>
+__global__ void __launch_bounds__(Cfg::kThreads, 1)
+espim_spmv_stream_glu_kernel(const __grid_constant__ GroupArgs a) {
+  ring_body<P, BT, Cfg, 2>(a);
+}
+
+// the batch tile for B: 1, 4, or 8 (B > 8 loops over tiles of 8)
+inline int stream_tile(int b) { return b <= 1 ? 1 : b <= 4 ? 4 : 8; }
 
 inline bool aligned(const void* p, unsigned bytes) {
   return reinterpret_cast<uintptr_t>(p) % bytes == 0;
 }
 
-// kVecPlanes when every group of 4 slots is one aligned 16-byte index
-// load and one aligned value load; kVecX when every x row of a tile is
-// one aligned load of BT floats
-template <int P>
-int stream_mode(const void* values, const int* cols, const float* x, int lc,
-                int lv, int b) {
-  const int bt = stream_tile(b);
-  const unsigned vbytes = P == kF32 ? 16 : P == kBF16 ? 8 : P == kI8 ? 4 : 2;
-  const bool vec = lc % 4 == 0 && (P != kNib || 2 * lv == lc) &&
-                   aligned(cols, 16) && aligned(values, vbytes);
-  const bool vx = b % bt == 0 && aligned(x, 4 * (bt < 4 ? bt : 4));
-  return (vec ? kVecPlanes : 0) | (vx ? kVecX : 0);
-}
+// warps a row when the schedule leaves it to the launcher (wpr 0), from
+// the row's own padded slots: one warp, or kWideRowWarps (at most the
+// ring's consumer warps) for a row of more than kWideRowSlots (down's 22
+// chunks), whose bucket, with x taking most of shared memory at B = 4,
+// gets 2-4 rows in flight a block. Teams of 8 ran slower (the A/B in
+// PERF.md). The
+// streaming body's fill rule (more warps a row for a launch of few rows)
+// is gone: in a grouped launch a small bucket's rows sit beside the
+// others' in the same blocks, where its 4-warp teams made those blocks the
+// stragglers (the A/B in PERF.md). The team depends on the row's shape and
+// the schedule alone, so a bucket walks its rows the same way alone, in a
+// group, and in the GLU kernel or the plain one (core/sdds.
+// fill_warps_per_row is its Python twin)
+constexpr int kWideRowSlots = 1024;
+constexpr int kWideRowWarps = 4;
 
-template <int P, int BT, int U, bool RES = false>
-int launch_stream_tile(const void* values, const int* cols, const float* x,
-                       const float* scale, const float* residual, float* out,
-                       int rows, int n_chunks, int lc, int lv, int chunk_cols,
-                       int m, int b, int group_rows, int mode, int wpr,
-                       void* stream) {
-  const int per_block = kStreamWarps / wpr;
-  const dim3 grid(static_cast<unsigned>(
-      (static_cast<long long>(rows) + per_block - 1) / per_block));
-  espim_spmv_stream_kernel<P, BT, U, RES>
-      <<<grid, kStreamThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-          values, cols, x, scale, residual, out, rows, n_chunks, lc, lv,
-          chunk_cols, m, b, group_rows, mode, wpr);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// warps a row when the schedule leaves it to the launcher (wpr 0): as
-// many (1, 2 or 4) as keep rows * warps within kFillWarps an SM, so a
-// launch of few rows still fills the card while a large one keeps whole
-// rows per warp (the A/B in PERF.md; core/sdds.fill_warps_per_row is its
-// Python twin)
-constexpr int kFillWarps = 32;
-inline int stream_wpr(int rows) {
-  int dev = 0, sms = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  const long long fill = 1LL * sms * kFillWarps;
-  return 4LL * rows <= fill ? 4 : 2LL * rows <= fill ? 2 : 1;
-}
-
-// the schedule's warps a row (0: the fill rule), or 0 when it is not 1, 2
-// or 4
-inline int resolve_wpr(int wpr, int rows) {
-  if (wpr == 0) return stream_wpr(rows);
+// the schedule's warps a row (0: the default for rows of `slots` on a ring
+// of `consumers` warps), or 0 when it is not 1, 2 or 4
+inline int resolve_wpr(int wpr, int slots, int consumers) {
+  if (wpr == 0)
+    return slots > kWideRowSlots ? std::min(kWideRowWarps, consumers) : 1;
   return wpr == 1 || wpr == 2 || wpr == 4 ? wpr : 0;
 }
 
@@ -699,8 +1049,6 @@ int by_tile(int b, F&& f) {
   switch (stream_tile(b)) {
     case 1:
       return f(std::integral_constant<int, 1>());
-    case 2:
-      return f(std::integral_constant<int, 2>());
     case 4:
       return f(std::integral_constant<int, 4>());
     default:
@@ -708,10 +1056,10 @@ int by_tile(int b, F&& f) {
   }
 }
 
-// f(std::integral_constant<int, U>()) for the schedule's U groups of 4
-// slots in flight a lane: U in {1, 2, 4} when ALL_U (kernels 1 and 2, the
-// ones the autotuner measures), else U = 2 only (kernels 3, 4 and 6, which
-// keep their template count); any other U is refused
+// f(std::integral_constant<int, u>()) for the schedule's u, which caps
+// the ring at u + 2 stages (launch_ring): u in {1, 2, 4} when ALL_U
+// (kernels 1 and 2, the ones the autotuner measures), else u = 2 only
+// (kernels 3, 4 and 6); any other u is refused
 template <bool ALL_U, typename F>
 int by_u(int u, F&& f) {
   if (u == 2) return f(std::integral_constant<int, 2>());
@@ -722,60 +1070,187 @@ int by_u(int u, F&& f) {
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// kernels 1, 2 and (RES) 6: the tile from B, the slot walk from the shapes
-// and pointers, the warps a row and U from the schedule
-template <int P, bool RES = false>
-int launch_stream(const void* values, const int* cols, const float* x,
-                  const float* scale, const float* residual, float* out,
-                  int rows, int n_chunks, int lc, int lv, int chunk_cols,
-                  int m, int b, int group_rows, int wpr, int u,
-                  void* stream) {
-  const int mode = stream_mode<P>(values, cols, x, lc, lv, b);
-  const int w = resolve_wpr(wpr, rows);
-  if (w == 0) return static_cast<int>(cudaErrorInvalidValue);
-  return by_tile(b, [&](auto bt) {
-    return by_u<!RES>(u, [&](auto uu) {
-      return launch_stream_tile<P, decltype(bt)::value, decltype(uu)::value,
-                                RES>(values, cols, x, scale, residual, out,
-                                     rows, n_chunks, lc, lv, chunk_cols, m, b,
-                                     group_rows, mode, w, stream);
-    });
-  });
-}
-
-template <int P, int BT, int U, bool SPLIT>
-int launch_glu_tile(const void* values, const int* cols, const float* x,
-                    const float* srow, float* out, int rows_g, int n_chunks,
-                    int lc, int lv, int chunk_cols, int m, int b, int mode,
-                    int wpr, int act, void* stream) {
-  const int per_block = kStreamWarps / wpr;
-  const dim3 grid(static_cast<unsigned>(
-      (static_cast<long long>(rows_g) + per_block - 1) / per_block));
-  espim_spmv_stream_glu_kernel<P, BT, U, SPLIT>
-      <<<grid, kStreamThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-          values, cols, x, srow, out, rows_g, n_chunks, lc, lv, chunk_cols, m,
-          b, mode, wpr, act);
+// One launch of the ring kernel over a.n_buckets buckets: x goes into
+// shared memory when it fits beside 2 stages, else it is gathered from
+// global memory through L1; the ring takes the stage count (at most u + 2)
+// and size that hold the most rows in flight (16 warps want many: the A/B
+// in PERF.md); the grid fills the SMs (as many blocks as fit, fewer when
+// the rows are fewer than the teams).
+template <int P, int BT, class Cfg, int H>
+int launch_ring(GroupArgs& a, int u, void* stream) {
+  void (*kern)(const GroupArgs) =
+      H == 2 ? espim_spmv_stream_glu_kernel<P, BT, Cfg>
+             : espim_spmv_stream_kernel<P, BT, Cfg>;
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
+  static int sms[64] = {0};   // SMs by device (0: attributes not set yet)
+  // blocks an SM by (device, dynamic shared memory): a few sizes recur
+  static int fit_smem[64][4] = {}, fit_n[64][4] = {};
+  if (sms[dev] == 0) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev);
+  }
+  // x is staged when 2 stages of at least kMinStage fit beside it. The
+  // ring: of at most u + 2 stages (the schedule's u), the count whose
+  // stages (as large as the room allows, up to STAGE_BYTES) hold the most
+  // whole rows in flight, fewer and larger stages on a tie
+  const long long xbytes = (4LL * a.m * a.b + 16 + 127) / 128 * 128;
+  const long long ring_max = 1LL * Cfg::kStages * Cfg::kStage;
+  const long long beside = kSmemLimit - Cfg::kBarBytes - xbytes;
+  a.xstage = Cfg::kStageX && beside >= 2LL * Cfg::kMinStage;
+  const long long room = std::min(
+      a.xstage ? beside : kSmemLimit - Cfg::kBarBytes, ring_max);
+  long long best = -1;
+  for (int n = 2; n <= std::min(u + 2, Cfg::kStages); ++n) {
+    const long long stage = std::min<long long>(Cfg::kStage, room / n) / 128 * 128;
+    if (stage < Cfg::kMinStage) break;
+    long long rows_a_stage = 1LL << 40;
+    for (int i = 0; i < a.n_buckets; ++i) {
+      const Bucket& bk = a.bk[i];
+      const long long rowb = H * (4LL * bk.n_chunks * bk.lc + vrow_bytes<P>(bk));
+      rows_a_stage = std::min(rows_a_stage, (stage - 64 * H) / std::max(rowb, 1LL));
+    }
+    if (n * rows_a_stage > best) {
+      best = n * rows_a_stage;
+      a.stages = n;
+      a.stage = static_cast<int>(stage);
+    }
+  }
+  a.piece = (a.stage - 64) / 8 / 512 * 512;
+  const int smem = static_cast<int>(Cfg::kBarBytes + 1LL * a.stages * a.stage +
+                                    (a.xstage ? xbytes : 0));
+  int fit = 0;
+  for (int i = 0; i < 4; ++i)
+    if (fit_smem[dev][i] == smem) fit = fit_n[dev][i];
+  if (fit == 0) {
+    const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &fit, kern, Cfg::kThreads, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    fit = fit > 0 ? fit : 1;
+    for (int i = 3; i > 0; --i) {
+      fit_smem[dev][i] = fit_smem[dev][i - 1];
+      fit_n[dev][i] = fit_n[dev][i - 1];
+    }
+    fit_smem[dev][0] = smem;
+    fit_n[dev][0] = fit;
+  }
+  long long rows = 0;
+  int teams = Cfg::kConsumers;
+  for (int i = 0; i < a.n_buckets; ++i) {
+    rows += a.bk[i].rows;
+    teams = std::min(teams, Cfg::kConsumers / a.bk[i].team);
+  }
+  const long long want = (rows + teams - 1) / teams;
+  const int grid = static_cast<int>(
+      std::max(1LL, std::min(want, 1LL * sms[dev] * fit)));
+  kern<<<grid, Cfg::kThreads, smem, static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
-// kernels 3 and 4: as kernels 1 and 2, a pair counting as a row, in
-// design a (the A/B in PERF.md)
-template <int P>
-int launch_glu(const void* values, const int* cols, const float* x,
-               const float* srow, float* out, int rows_g, int n_chunks,
-               int lc, int lv, int chunk_cols, int m, int b, int act, int wpr,
-               int u, void* stream) {
-  const int mode = stream_mode<P>(values, cols, x, lc, lv, b);
-  const int w = resolve_wpr(wpr, rows_g);
-  if (w == 0) return static_cast<int>(cudaErrorInvalidValue);
-  return by_tile(b, [&](auto bt) {
-    return by_u<false>(u, [&](auto uu) {
-      return launch_glu_tile<P, decltype(bt)::value, decltype(uu)::value,
-                             false>(values, cols, x, srow, out, rows_g,
-                                    n_chunks, lc, lv, chunk_cols, m, b, mode,
-                                    w, act, stream);
+// Fill in the launch's derived fields: each bucket's team (wpr; 0: the
+// default for its rows' slots) and row offset, the padded slots,
+// whether an x row is one vector load; a cudaError when a team does not
+// fit the ring
+template <int H, class Cfg>
+int prepare(GroupArgs& a, int wpr) {
+  long long row0 = 0, work = 0;
+  for (int i = 0; i < a.n_buckets; ++i) {
+    Bucket& bk = a.bk[i];
+    bk.team = resolve_wpr(wpr, bk.n_chunks * bk.lc, Cfg::kConsumers);
+    if (bk.team == 0 || bk.team > Cfg::kConsumers ||
+        Cfg::kConsumers % bk.team != 0 || bk.group_rows < 1)
+      return static_cast<int>(cudaErrorInvalidValue);
+    bk.out_row0 = static_cast<int>(row0);
+    row0 += bk.rows;
+    work += 1LL * H * bk.rows * bk.n_chunks * bk.lc;
+  }
+  a.work = row0 == 0 ? 0 : work;
+  const int bt = stream_tile(a.b);
+  a.xvec = a.b % bt == 0 && aligned(a.x, 4 * (bt < 4 ? bt : 4));
+  return 0;
+}
+
+// Launch `a` (its buckets, x, out and perm set) on the ring: the batch
+// tile from B, the stages in flight from the schedule's u (prepare: the
+// rest)
+template <int P, int H, bool ALL_U, class Cfg = PortRing>
+int launch_group(GroupArgs& a, int wpr, int u, void* stream) {
+  if (a.b <= 0) return 0;
+  const int rc = prepare<H, Cfg>(a, wpr);
+  if (rc != 0 || a.work == 0) return rc;
+  return by_tile(a.b, [&](auto btc) {
+    return by_u<ALL_U>(u, [&](auto) {
+      return launch_ring<P, decltype(btc)::value, Cfg, H>(a, u, stream);
     });
   });
+}
+
+// the launch arguments of one bucket: out_row0 and team are set by
+// launch_group
+inline GroupArgs one_bucket(const void* values, const void* cols,
+                            const float* scale, int group_rows,
+                            const float* residual, int rows, int n_chunks,
+                            int lc, int lv, const void* x, void* out,
+                            int chunk_cols, int m, int b, int act) {
+  GroupArgs a = {};
+  a.bk[0] = Bucket{values, static_cast<const int*>(cols), scale, residual,
+                   rows, n_chunks, lc, lv, group_rows, 0, 1};
+  a.n_buckets = rows > 0 ? 1 : 0;
+  a.x = static_cast<const float*>(x);
+  a.out = static_cast<float*>(out);
+  a.perm = nullptr;
+  a.m = m;
+  a.b = b;
+  a.chunk_cols = chunk_cols;
+  a.act = act;
+  return a;
+}
+
+// plane P of the `plane` code (enum Plane), H halves, f(P constant)
+template <typename F>
+int by_plane(int plane, F&& f) {
+  switch (plane) {
+    case kF32:
+      return f(std::integral_constant<int, kF32>());
+    case kBF16:
+      return f(std::integral_constant<int, kBF16>());
+    case kI8:
+      return f(std::integral_constant<int, kI8>());
+    case kNib:
+      return f(std::integral_constant<int, kNib>());
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// the launch arguments of buckets [i0, i0 + n) of a grouped call (the
+// arrays of espim_spmv_group); out_row0 and team are set by prepare
+inline GroupArgs group_args(int i0, int n, const void* values,
+                            const void* cols, const void* scales,
+                            const void* shapes, const void* x,
+                            const void* perm, void* out, int chunk_cols,
+                            int m, int b, int act) {
+  const void* const* vp = static_cast<const void* const*>(values);
+  const void* const* cp = static_cast<const void* const*>(cols);
+  const void* const* sp = static_cast<const void* const*>(scales);
+  const int* sh = static_cast<const int*>(shapes);
+  long long row0 = 0;   // the chunk's first output row
+  for (int i = 0; i < i0; ++i) row0 += sh[4 * i];
+  GroupArgs a = one_bucket(nullptr, nullptr, nullptr, 1, nullptr, 0, 0, 0,
+                           0, x, out, chunk_cols, m, b, act);
+  a.n_buckets = n;
+  a.perm = perm ? static_cast<const int*>(perm) + row0 : nullptr;
+  if (!perm) a.out = static_cast<float*>(out) + row0 * b;
+  for (int i = 0; i < n; ++i) {
+    const int* s = sh + 4 * (i0 + i);
+    a.bk[i] = Bucket{vp[i0 + i], static_cast<const int*>(cp[i0 + i]),
+                     sp ? static_cast<const float*>(sp[i0 + i]) : nullptr,
+                     nullptr, s[0], s[1], s[2], s[3], 1, 0, 1};
+  }
+  return a;
 }
 
 }  // namespace
@@ -801,16 +1276,10 @@ int espim_spmv_batched_fp(const void* values, int values_bf16,
                           const void* cols, const void* x, void* out,
                           int rows, int n_chunks, int lc, int chunk_cols,
                           int m, int b, int wpr, int u, void* stream) {
-  const int* c = static_cast<const int*>(cols);
-  const float* xs = static_cast<const float*>(x);
-  float* o = static_cast<float*>(out);
-  if (values_bf16)
-    return launch_stream<kBF16>(values, c, xs, nullptr, nullptr, o, rows,
-                                n_chunks, lc, lc, chunk_cols, m, b, 1, wpr, u,
-                                stream);
-  return launch_stream<kF32>(values, c, xs, nullptr, nullptr, o, rows,
-                             n_chunks, lc, lc, chunk_cols, m, b, 1, wpr, u,
-                             stream);
+  GroupArgs a = one_bucket(values, cols, nullptr, 1, nullptr, rows, n_chunks,
+                           lc, lc, x, out, chunk_cols, m, b, 0);
+  if (values_bf16) return launch_group<kBF16, 1, true>(a, wpr, u, stream);
+  return launch_group<kF32, 1, true>(a, wpr, u, stream);
 }
 
 // values f32 or bf16 (values_bf16 = 1) (R, K, Lc); residual f32 (R, B) in
@@ -820,17 +1289,11 @@ int espim_spmv_batched_res_fp(const void* values, int values_bf16,
                               const void* residual, void* out, int rows,
                               int n_chunks, int lc, int chunk_cols, int m,
                               int b, int wpr, int u, void* stream) {
-  const int* c = static_cast<const int*>(cols);
-  const float* xs = static_cast<const float*>(x);
-  const float* res = static_cast<const float*>(residual);
-  float* o = static_cast<float*>(out);
-  if (values_bf16)
-    return launch_stream<kBF16, true>(values, c, xs, nullptr, res, o, rows,
-                                      n_chunks, lc, lc, chunk_cols, m, b, 1,
-                                      wpr, u, stream);
-  return launch_stream<kF32, true>(values, c, xs, nullptr, res, o, rows,
-                                   n_chunks, lc, lc, chunk_cols, m, b, 1, wpr,
-                                   u, stream);
+  GroupArgs a = one_bucket(values, cols, nullptr, 1,
+                           static_cast<const float*>(residual), rows,
+                           n_chunks, lc, lc, x, out, chunk_cols, m, b, 0);
+  if (values_bf16) return launch_group<kBF16, 1, false>(a, wpr, u, stream);
+  return launch_group<kF32, 1, false>(a, wpr, u, stream);
 }
 
 // codes int8 (R, K, Lc) or nibble-packed uint8 (R, K, lv); scales
@@ -840,16 +1303,11 @@ int espim_spmv_batched_quant(const void* codes, int nibble, int lv,
                              int group_rows, const void* x, void* out,
                              int rows, int n_chunks, int lc, int chunk_cols,
                              int m, int b, int wpr, int u, void* stream) {
-  const int* c = static_cast<const int*>(cols);
-  const float* xs = static_cast<const float*>(x);
-  const float* sc = static_cast<const float*>(scales);
-  float* o = static_cast<float*>(out);
-  if (nibble)
-    return launch_stream<kNib>(codes, c, xs, sc, nullptr, o, rows, n_chunks,
-                               lc, lv, chunk_cols, m, b, group_rows, wpr, u,
-                               stream);
-  return launch_stream<kI8>(codes, c, xs, sc, nullptr, o, rows, n_chunks, lc,
-                            lc, chunk_cols, m, b, group_rows, wpr, u, stream);
+  GroupArgs a = one_bucket(codes, cols, static_cast<const float*>(scales),
+                           group_rows, nullptr, rows, n_chunks, lc,
+                           nibble ? lv : lc, x, out, chunk_cols, m, b, 0);
+  if (nibble) return launch_group<kNib, 1, true>(a, wpr, u, stream);
+  return launch_group<kI8, 1, true>(a, wpr, u, stream);
 }
 
 // values f32 or bf16 (values_bf16 = 1) (2 * Rg, K, Lc) half-major;
@@ -859,14 +1317,10 @@ int espim_spmv_batched_glu_fp(const void* values, int values_bf16,
                               int rows_g, int n_chunks, int lc,
                               int chunk_cols, int m, int b, int act, int wpr,
                               int u, void* stream) {
-  const int* c = static_cast<const int*>(cols);
-  const float* xs = static_cast<const float*>(x);
-  float* o = static_cast<float*>(out);
-  if (values_bf16)
-    return launch_glu<kBF16>(values, c, xs, nullptr, o, rows_g, n_chunks, lc,
-                             lc, chunk_cols, m, b, act, wpr, u, stream);
-  return launch_glu<kF32>(values, c, xs, nullptr, o, rows_g, n_chunks, lc, lc,
-                          chunk_cols, m, b, act, wpr, u, stream);
+  GroupArgs a = one_bucket(values, cols, nullptr, 1, nullptr, rows_g,
+                           n_chunks, lc, lc, x, out, chunk_cols, m, b, act);
+  if (values_bf16) return launch_group<kBF16, 2, false>(a, wpr, u, stream);
+  return launch_group<kF32, 2, false>(a, wpr, u, stream);
 }
 
 // codes int8 / nibble uint8 (2 * Rg, K, Lc | lv); srow (2 * Rg,) f32;
@@ -877,15 +1331,39 @@ int espim_spmv_batched_quant_glu(const void* codes, int nibble, int lv,
                                  int n_chunks, int lc, int chunk_cols, int m,
                                  int b, int act, int wpr, int u,
                                  void* stream) {
-  const int* c = static_cast<const int*>(cols);
-  const float* xs = static_cast<const float*>(x);
-  const float* sr = static_cast<const float*>(srow);
-  float* o = static_cast<float*>(out);
-  if (nibble)
-    return launch_glu<kNib>(codes, c, xs, sr, o, rows_g, n_chunks, lc, lv,
-                            chunk_cols, m, b, act, wpr, u, stream);
-  return launch_glu<kI8>(codes, c, xs, sr, o, rows_g, n_chunks, lc, lc,
-                         chunk_cols, m, b, act, wpr, u, stream);
+  GroupArgs a = one_bucket(codes, cols, static_cast<const float*>(srow), 1,
+                           nullptr, rows_g, n_chunks, lc, nibble ? lv : lc, x,
+                           out, chunk_cols, m, b, act);
+  if (nibble) return launch_group<kNib, 2, false>(a, wpr, u, stream);
+  return launch_group<kI8, 2, false>(a, wpr, u, stream);
+}
+
+// A packed group's buckets in one launch (several when it has more than
+// kMaxBuckets).  plane: 0 f32, 1 int8, 2 nibble int4, 3 bf16 (enum Plane);
+// glu: half-major gate+up buckets, act(gate * sg) * (up * su); values,
+// cols, scales: host arrays of n_buckets device pointers (scales: each
+// bucket's per-row srow, (rows,) or (2 * Rg,) for glu, or a null array);
+// shapes: a host array of n_buckets x (rows, n_chunks, lc, lv), rows the
+// bucket's output rows (pairs for glu); perm: (sum of rows,) packed row ->
+// output row, -1 for a pad row, or null for the packed order; out: the
+// group's output rows x B
+int espim_spmv_group(int plane, int glu, int n_buckets, const void* values,
+                     const void* cols, const void* scales,
+                     const void* shapes, const void* x, const void* perm,
+                     void* out, int chunk_cols, int m, int b, int act,
+                     int wpr, int u, void* stream) {
+  for (int i0 = 0; i0 < n_buckets; i0 += kMaxBuckets) {
+    GroupArgs a = group_args(i0, std::min(kMaxBuckets, n_buckets - i0),
+                             values, cols, scales, shapes, x, perm, out,
+                             chunk_cols, m, b, act);
+    const int rc = by_plane(plane, [&](auto pc) {
+      constexpr int P = decltype(pc)::value;
+      return glu ? launch_group<P, 2, false>(a, wpr, u, stream)
+                 : launch_group<P, 1, true>(a, wpr, u, stream);
+    });
+    if (rc != 0) return rc;
+  }
+  return 0;
 }
 
 }  // extern "C"

@@ -11,7 +11,12 @@
 * ``espim_spmv_batched_glu_cuda`` replaces
   ``espim_spmv_batched_glu_pallas``;
 * ``espim_spmv_batched_quant_glu_cuda`` replaces
-  ``espim_spmv_batched_quant_glu_pallas``.
+  ``espim_spmv_batched_quant_glu_pallas``;
+* ``espim_spmv_group_cuda`` runs one packed group's buckets of kernels
+  1-4 in one launch, with the decode step's per-row scale, concatenation
+  and take in its epilogue; it counts as one launch of the kernel it
+  computes (``LAUNCHES["espim_spmv_batched_quant"]`` for an int8 or int4
+  group, ``..._quant_glu`` for their gate+up group, and so on).
 
 The wrappers take CUDA tensors only: they check device, dtype, shape and
 contiguity, then call their ``torch.ops.repro_torch`` op
@@ -25,18 +30,21 @@ between the two by the tensors' device.  All six are bound by the bytes
 of the value and index planes (see the source's header note).  Kernels
 1-4 (``espim_spmv_batched_cuda``, ``espim_spmv_batched_quant_cuda`` and
 their GLU forms) and kernel 6 (the residual form) run the source's
-streaming body, whose C launcher picks the batch tile from B and the
-vector or scalar slot walk from Lc and the planes' alignment; any width,
+ring body (planes streamed through a shared-memory ring by bulk
+copies), whose C launcher picks the batch tile from B; any width,
 alignment and B >= 1 is taken.  Their wrappers take the schedule's
 ``wpr`` (warps a row, a pair for the GLU kernels; 0 = the launcher's
-fill rule) and ``u`` (groups of 4 slots in flight a lane: 1, 2 or 4 for
-kernels 1-2, 2 for kernels 3, 4 and 6); the defaults 0 and 2 launch what
-the kernels launched before they took a schedule, and any other value
-raises (``core/sdds.schedule_legal``).  Kernels 1, 3 and 6 take float32 or
+default: one, or four for a row of more than 1024 slots) and ``u`` (the
+ring's stages, up to u + 2 as shared memory allows: 1, 2 or 4 for
+kernels 1-2, 2 for kernels 3, 4 and 6); the defaults are 0 and 2, and
+any other value raises
+(``core/sdds.schedule_legal``).  Kernels 1, 3 and 6 take float32 or
 bfloat16 value planes (bf16 widened to f32 in the kernel) and x in f32
 (a bf16 x is widened exactly by the wrapper).
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -47,7 +55,8 @@ from repro_torch.kernels.library import define
 __all__ = ["LAUNCHES", "reset_launches", "ACT_IDS", "espim_spmv_cuda",
            "espim_spmv_batched_cuda", "espim_spmv_batched_res_cuda",
            "espim_spmv_batched_quant_cuda", "espim_spmv_batched_glu_cuda",
-           "espim_spmv_batched_quant_glu_cuda"]
+           "espim_spmv_batched_quant_glu_cuda", "espim_spmv_group_cuda",
+           "MAX_BUCKETS"]
 
 # kernel launches since the last reset, one plain integer per kernel
 LAUNCHES = {"espim_spmv": 0, "espim_spmv_batched": 0,
@@ -55,6 +64,14 @@ LAUNCHES = {"espim_spmv": 0, "espim_spmv_batched": 0,
             "espim_spmv_batched_glu": 0, "espim_spmv_batched_quant_glu": 0}
 
 ACT_IDS = {"silu": 0, "gelu": 1, "relu": 2, "relu2": 3}
+
+# buckets one grouped launch takes (kMaxBuckets); a group of more makes
+# one launch per this many
+MAX_BUCKETS = 8
+
+# the C source's plane codes (enum Plane)
+_PLANES = {torch.float32: 0, torch.int8: 1, torch.uint8: 2,
+           torch.bfloat16: 3}
 
 
 def reset_launches() -> None:
@@ -282,6 +299,56 @@ _quant_glu = define("espim_spmv_batched_quant_glu(Tensor codes, Tensor cols, "
                     2 * cols.numel() * x.shape[1])
 
 
+def _group_kernel(values, act: int) -> str:
+    """The ``LAUNCHES`` key of a grouped launch: the per-bucket kernel it
+    computes."""
+    quant = values[0].dtype in (torch.int8, torch.uint8)
+    return ("espim_spmv_batched_quant" if quant else
+            "espim_spmv_batched") + ("_glu" if act >= 0 else "")
+
+
+def _group_launch(x, values, cols, srow, perm, n_out, chunk_cols, act, wpr,
+                  u):
+    m, b = x.shape
+    out = _out(cols[0], n_out, x)
+    n = len(cols)
+    if n_out == 0 or b == 0:
+        return out
+    glu = act >= 0
+    shapes = []
+    for v, c in zip(values, cols):
+        r, k, lc = c.shape
+        shapes += [r // 2 if glu else r, k, lc, v.shape[-1]]
+    ptrs = ctypes.c_void_p * n
+    vp = ptrs(*[v.data_ptr() for v in values])
+    cp = ptrs(*[c.data_ptr() for c in cols])
+    sp = ptrs(*[s.data_ptr() for s in srow]) if srow else None
+    sh = (ctypes.c_int * (4 * n))(*shapes)
+    rc = load_library().espim_spmv_group(
+        _PLANES[values[0].dtype], int(glu), n, ctypes.addressof(vp),
+        ctypes.addressof(cp), None if sp is None else ctypes.addressof(sp),
+        ctypes.addressof(sh), x.data_ptr(),
+        None if perm is None else perm.data_ptr(), out.data_ptr(),
+        chunk_cols, m, b, max(act, 0), wpr, u, _stream(x))
+    name = _group_kernel(values, act)
+    if rc != 0:
+        raise RuntimeError(f"{name} (grouped) launch failed: cudaError {rc}")
+    LAUNCHES[name] += -(-n // MAX_BUCKETS)
+    return out
+
+
+def _group_flops(x, values, cols, *rest):
+    return 2 * sum(c.numel() for c in cols) * x.shape[1]
+
+
+_group = define("espim_spmv_group(Tensor x, Tensor[] values, Tensor[] cols, "
+                "Tensor[] srow, Tensor? perm, int n_out, int chunk_cols, "
+                "int act, int wpr, int u) -> Tensor", _group_launch,
+                lambda x, values, cols, srow, perm, n_out, *_:
+                _out(cols[0], n_out, x),
+                _group_flops)
+
+
 # -- the wrappers ----------------------------------------------------------
 def espim_spmv_cuda(values: torch.Tensor, cols: torch.Tensor,
                     x: torch.Tensor, *, chunk_cols: int) -> torch.Tensor:
@@ -393,3 +460,61 @@ def espim_spmv_batched_quant_glu_cuda(codes: torch.Tensor,
           f"{srow.dtype}{tuple(srow.shape)}")
     return _quant_glu(codes, cols, srow, xc, int(chunk_cols), _act_id(act),
                       *sched)
+
+
+def espim_spmv_group_cuda(values: list, cols: list, x: torch.Tensor, *,
+                          chunk_cols: int, srow: list | None = None,
+                          perm: torch.Tensor | None = None,
+                          n_out: int | None = None, act: str | None = None,
+                          wpr: int = 0, u: int = 2) -> torch.Tensor:
+    """One packed group's buckets in one launch -> (n_out, B) f32.
+
+    ``values`` / ``cols``: each bucket's (R_i, K, Lc_i) planes, all f32,
+    all bf16, all int8 or all nibble-packed uint8 (int4); ``srow``: each
+    bucket's per-row scales (R_i,) f32, multiplied once after the sum, or
+    None; ``act``: the buckets are half-major gate+up planes and the
+    output is act(gate * sg) * (up * su) (R_i / 2 rows each); ``perm``:
+    (sum of output rows,) int32 packed row -> output row, -1 for a pad
+    row (a ``take`` group; pad rows are not stored), ``n_out`` the output
+    rows (default: the buckets' output rows, concatenated in order)."""
+    glu = act is not None
+    sched = _schedule(wpr, u, "glu" if glu else None)
+    _need(len(values) == len(cols) and len(cols) > 0,
+          f"{len(values)} value planes for {len(cols)} index planes")
+    extra = [(f"values[{i}]", v) for i, v in enumerate(values)]
+    extra += [(f"cols[{i}]", c) for i, c in enumerate(cols)]
+    extra += [(f"srow[{i}]", s) for i, s in enumerate(srow or ())]
+    extra += [("perm", perm)]
+    xc = _common(values[0], cols[0], x, chunk_cols, extra=extra)
+    dt = values[0].dtype
+    _need(dt in _PLANES, f"values must be f32, bf16, int8 or uint8, got {dt}")
+    rows = 0
+    for i, (v, c) in enumerate(zip(values, cols)):
+        _need(v.dtype == dt, f"values[{i}] is {v.dtype}, values[0] {dt}")
+        _need(c.dtype == torch.int32 and c.dim() == 3,
+              f"cols[{i}] must be int32 (R, K, Lc), got "
+              f"{c.dtype}{tuple(c.shape)}")
+        _need(c.numel() < 2 ** 31, "plane too large for 32-bit slot offsets")
+        if dt in (torch.int8, torch.uint8):
+            _codes_layout(v, c)
+        else:
+            _fp_values(v, c)
+        r = _halves(c) if glu else c.shape[0]
+        if srow is not None:
+            s = srow[i]
+            _need(s.dtype == torch.float32
+                  and tuple(s.shape) == (c.shape[0],),
+                  f"srow[{i}] must be float32 ({c.shape[0]},), got "
+                  f"{s.dtype}{tuple(s.shape)}")
+        rows += r
+    _need(srow is None or len(srow) == len(cols),
+          f"{len(srow or ())} srow planes for {len(cols)} buckets")
+    if perm is not None:
+        _need(perm.dtype == torch.int32 and tuple(perm.shape) == (rows,),
+              f"perm must be int32 ({rows},), got "
+              f"{perm.dtype}{tuple(perm.shape)}")
+        _need(n_out is not None, "a take group needs n_out")
+    n_out = rows if n_out is None else int(n_out)
+    return _group(xc, list(values), list(cols), list(srow or ()), perm,
+                  n_out, int(chunk_cols), -1 if act is None else _act_id(act),
+                  *sched)

@@ -39,8 +39,8 @@ from repro_torch.kernels import ref as _ref
 from repro_torch.telemetry.trace import get_tracer
 
 __all__ = ["espim_spmv", "espim_spmv_batched", "espim_spmv_batched_quant",
-           "dense_mv", "espim_matvec", "EspimWeights", "QuantEspimWeights",
-           "pack_to_device", "Provenance", "provenance",
+           "espim_spmv_group", "dense_mv", "espim_matvec", "EspimWeights",
+           "QuantEspimWeights", "pack_to_device", "Provenance", "provenance",
            "DEFAULT_CHUNK_COLS", "IMPLS", "ENV_IMPL", "ENV_PLAN_CACHE"]
 
 DEFAULT_CHUNK_COLS = 512
@@ -263,6 +263,38 @@ def espim_spmv_batched_quant(values, cols, scales, x, *,
             **kw)
     return _ref.espim_spmv_batched_chunked_quant_ref(
         values, cols, scales, x, cc, group_rows)
+
+
+def espim_spmv_group(values, cols, x, *, chunk_cols: int,
+                     srow=None, act: str | None = None, perm=None,
+                     n_out: int | None = None, impl: str | None = None,
+                     schedule: KernelSchedule | None = None) -> torch.Tensor:
+    """One packed group's buckets in one call: x (M, B) -> (n_out, B)
+    float32, what the decode step ran as one launch a bucket followed by
+    a scale multiply, a concatenation and a take.
+
+    ``values`` / ``cols``: the buckets' column-chunked planes (f32, bf16,
+    int8 or nibble-packed int4 codes); ``srow``: each quantized bucket's
+    per-row scales, one multiply after its sum; ``act``: half-major
+    gate+up buckets with the GLU epilogue fused, act(gate) * up;
+    ``perm``: a take group's packed row -> logical row (-1 pad), with
+    ``n_out`` its logical rows; else the buckets' outputs concatenated in
+    packed order.  ``schedule`` applies a tuned schedule's warps a row and
+    U (the per-bucket kernels' rule).  A CUDA x launches the grouped
+    kernel (``kernels/espim_spmv.espim_spmv_group_cuda``); the plain
+    version (``kernels/ref.espim_spmv_group_ref``) runs the per-bucket
+    plain versions and the same scale, concatenation and take."""
+    impl = _resolve(impl)
+    for c in cols:
+        _check_chunk_cols(c, x, chunk_cols)
+    if _use_kernel(impl, x, *values):
+        return _k.espim_spmv_group_cuda(values, cols, x,
+                                        chunk_cols=int(chunk_cols),
+                                        srow=srow, perm=perm, n_out=n_out,
+                                        act=act, **_sched_kw(schedule))
+    return _ref.espim_spmv_group_ref(values, cols, x, int(chunk_cols),
+                                     srow=srow, perm=perm, n_out=n_out,
+                                     act=act)
 
 
 def dense_mv(w, x, *, impl: str | None = None) -> torch.Tensor:

@@ -38,6 +38,7 @@ __all__ = [
     "glu_epilogue_ref",
     "espim_spmv_batched_chunked_glu_ref",
     "espim_spmv_batched_chunked_quant_glu_ref",
+    "espim_spmv_group_ref",
     "MULRED_MAX_BLOCK",
     "dense_mv_ref",
     "flash_attention_ref",
@@ -200,6 +201,46 @@ def espim_spmv_batched_chunked_quant_glu_ref(codes: torch.Tensor,
     acc = espim_spmv_batched_chunked_quant_ref(codes, cols, None, x,
                                                chunk_cols, 1)
     return glu_epilogue_ref(acc * srow.float()[:, None], act)
+
+
+def espim_spmv_group_ref(values: list, cols: list, x: torch.Tensor,
+                         chunk_cols: int, srow: list | None = None,
+                         perm: torch.Tensor | None = None,
+                         n_out: int | None = None, act: str | None = None
+                         ) -> torch.Tensor:
+    """One packed group's buckets -> (n_out, B) float32, in the decode
+    step's ops (the reference's ``_group_apply`` then ``_group_take``):
+    each bucket's batched version — the code-domain accumulator times its
+    per-row ``srow`` for a quantized plane; the fused GLU version with
+    ``act`` — then the buckets' outputs concatenated in order and, for a
+    take group, packed row p copied to output row ``perm[p]`` (pad rows,
+    -1, dropped)."""
+    quant = values[0].dtype in (torch.int8, torch.uint8)
+    parts = []
+    for i, (v, c) in enumerate(zip(values, cols)):
+        s = None if srow is None else srow[i]
+        if act is not None and quant:
+            parts.append(espim_spmv_batched_chunked_quant_glu_ref(
+                v, c, s, x, chunk_cols, act))
+        elif act is not None:
+            parts.append(espim_spmv_batched_chunked_glu_ref(v, c, x,
+                                                            chunk_cols, act))
+        elif quant:
+            yp = espim_spmv_batched_chunked_quant_ref(v, c, None, x,
+                                                      chunk_cols, 1)
+            parts.append(yp if s is None else yp * s[:, None])
+        else:
+            parts.append(espim_spmv_batched_chunked_ref(v, c, x, chunk_cols))
+    yp = parts[0] if len(parts) == 1 else torch.cat(parts, dim=0)
+    if perm is None:
+        return yp
+    # pad rows go to one spare row past the output, dropped after the copy
+    # (no data-dependent shape: a CUDA graph can capture it)
+    n = yp.shape[0] if n_out is None else n_out
+    dst = torch.where(perm >= 0, perm, n).long()
+    out = yp.new_zeros((n + 1, yp.shape[1]))
+    out[dst] = yp
+    return out[:n]
 
 
 def dense_mv_ref(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:

@@ -123,15 +123,21 @@ def test_effective_key_deduplicates():
     assert a.fingerprint() != b.fingerprint()
 
 
-@pytest.mark.parametrize("rows,want", [(32, 4), (1056, 4), (1057, 2),
-                                       (2112, 2), (2113, 1), (11008, 1)])
-def test_fill_rule_matches_the_launcher(rows, want):
-    """``fill_warps_per_row`` is the CUDA launcher's ``stream_wpr`` (132
-    SMs, ``kFillWarps`` warps an SM), read from the source."""
+@pytest.mark.parametrize("slots,want", [(32, 1), (704, 1), (1024, 1),
+                                        (1025, 4), (1936, 4), (11008, 4)])
+def test_fill_rule_matches_the_launcher(slots, want):
+    """``fill_warps_per_row`` is the CUDA launcher's warps a row for wpr
+    0 (``resolve_wpr``: one warp, ``kWideRowWarps`` for a row of more
+    than ``kWideRowSlots`` padded slots), read from the source: set by a
+    row's own slots, never by the launch's rows (a bucket walks its rows
+    the same way alone and in a grouped launch)."""
     src = CU.read_text()
-    fill = int(re.search(r"constexpr int kFillWarps = (\d+);", src).group(1))
-    assert fill == PS.FILL_WARPS
-    assert PS.fill_warps_per_row(rows, 132) == want
+    wide = int(re.search(r"constexpr int kWideRowSlots = (\d+);",
+                         src).group(1))
+    warps = int(re.search(r"constexpr int kWideRowWarps = (\d+);",
+                          src).group(1))
+    assert (wide, warps) == (PS.WIDE_ROW_SLOTS, PS.WIDE_ROW_WARPS)
+    assert PS.fill_warps_per_row(slots) == want
 
 
 def test_cuda_source_builds_the_schedule_space():
@@ -182,9 +188,10 @@ def test_schedule_cost_terms():
     few = dict(kw, rows=512)
     assert PT.schedule_cost(PS.KernelSchedule(512, 1, 2), **few) > \
         PT.schedule_cost(PS.KernelSchedule(512, 4, 2), **few)
-    # the fill rule (0) costs what its resolved value costs
+    # the default (0) costs what its resolved value costs: one warp for
+    # rows of ~780 slots
     assert PT.schedule_cost(PS.KernelSchedule(512, 0, 2), **few) == \
-        PT.schedule_cost(PS.KernelSchedule(512, 4, 2), **few)
+        PT.schedule_cost(PS.KernelSchedule(512, 1, 2), **few)
     # every launch pays the fixed cost; the full card streams at its rate
     full = PT.schedule_cost(s, **kw)
     nbytes = 400_000 * 8 + 4096 * 4 * 4 + 8192 * 4 * 4

@@ -110,31 +110,39 @@ def test_fused_epilogue_bit_identical_to_unfused(quant):
 @pytest.mark.parametrize("quant", [None, "int8"])
 def test_bucket_launches_share_one_contiguous_x_per_group(quant,
                                                           monkeypatch):
-    """Each group casts and transposes its activations once: every bucket
-    launch gets the same contiguous fp32 x, so the kernel wrappers copy
-    nothing."""
+    """Each group's buckets go out as one grouped call a layer (one launch
+    on the card), and each group casts and transposes its activations
+    once: the call gets a contiguous fp32 x, so the kernel wrapper copies
+    nothing; no per-bucket call is left on the decode path."""
     _, pcfg, _, tparams, _, ps = _pair(quant)
-    seen = []
+    seen, per_bucket = [], []
 
-    def spy(fn):
+    def spy(fn, log, xi):
         def wrapped(*args, **kw):
-            x = args[3] if fn.__name__.endswith("quant") else args[2]
-            seen.append((x.dtype, x.is_contiguous(), x.data_ptr()))
+            x = args[xi]
+            log.append((x.dtype, x.is_contiguous(), x.data_ptr(),
+                        len(args[0]) if log is seen else 1))
             return fn(*args, **kw)
-        wrapped.__name__ = fn.__name__
         return wrapped
 
-    for name in ("espim_spmv_batched", "espim_spmv_batched_quant"):
-        monkeypatch.setattr(PSM.ops, name, spy(getattr(PSM.ops, name)))
+    monkeypatch.setattr(PSM.ops, "espim_spmv_group",
+                        spy(PSM.ops.espim_spmv_group, seen, 2))
+    monkeypatch.setattr(PSM.ops, "espim_spmv_batched",
+                        spy(PSM.ops.espim_spmv_batched, per_bucket, 2))
+    monkeypatch.setattr(PSM.ops, "espim_spmv_batched_quant",
+                        spy(PSM.ops.espim_spmv_batched_quant, per_bucket, 3))
     tk = torch.zeros((B, 1), dtype=torch.int32)
     PSM.decode_step_sparse(pcfg, tparams, ps,
                            PT.init_cache(pcfg, B, 4, device="cpu"),
                            {"tokens": tk}, device="cpu")
+    assert not per_bucket
+    # qkv, attn_out, gateup, down: one call a group a layer, each call
+    # over all of its group's buckets
+    assert len(seen) == pcfg.n_layers * len(ps["groups"])
     n_buckets = sum(len(g["buckets"]) for g in ps["groups"].values())
-    assert len(seen) == pcfg.n_layers * n_buckets
-    assert all(d == torch.float32 and c for d, c, _ in seen)
-    # one x per group launch sequence: qkv, attn_out, gateup, down per layer
-    assert len({p for _, _, p in seen}) <= pcfg.n_layers * len(ps["groups"])
+    assert sum(n for *_, n in seen) == pcfg.n_layers * n_buckets
+    assert all(d == torch.float32 and c for d, c, _, _ in seen)
+    assert len({p for _, _, p, _ in seen}) <= len(seen)
 
 
 def test_decode_leaves_input_cache_unchanged():

@@ -60,6 +60,33 @@ def _cases():
            torch.randn((2, 3, 16, 64), generator=gen)]
     gy = torch.randn((2, 40, 3, 64), generator=gen)
 
+    # a take group of two int8 buckets (Lc 5 and 4) with per-row scales,
+    # 12 packed rows onto 10 logical rows; an fp32 gate+up group of two
+    # half-major buckets (4 and 2 pairs)
+    codes2 = torch.randint(-127, 128, (4, 3, 4), generator=gen,
+                           dtype=torch.int8)
+    cols2 = torch.randint(0, CC, (4, 3, 4), generator=gen, dtype=torch.int32)
+    srow2 = torch.rand((4,), generator=gen)
+    perm = torch.tensor([3, -1, 0, 9, 1, 2, 8, 4, -1, 5, 7, 6],
+                        dtype=torch.int32)
+    gvals, gcols = _planes(gen, 4, 3, 6)
+
+    def group_take(impl):
+        def call(q0, c0, s0, q1, c1, s1, p, x):
+            kw = dict(chunk_cols=CC, srow=[s0, s1], perm=p, n_out=10)
+            if impl == "cuda":
+                return SP.espim_spmv_group_cuda([q0, q1], [c0, c1], x, **kw)
+            return ops.espim_spmv_group([q0, q1], [c0, c1], x, **kw)
+        return call
+
+    def group_glu(impl):
+        def call(v0, c0, v1, c1, x):
+            kw = dict(chunk_cols=CC, act="silu")
+            if impl == "cuda":
+                return SP.espim_spmv_group_cuda([v0, v1], [c0, c1], x, **kw)
+            return ops.espim_spmv_group([v0, v1], [c0, c1], x, **kw)
+        return call
+
     def wkv_bwd(r, k, v, w, u, st, gy):
         ckpt = WKV.wkv6_cuda(r, k, v, w, u, st, WKV.CHUNK)[2]
         return WKV.wkv6_bwd_cuda(r, k, v, w, u, ckpt, gy, st)
@@ -99,6 +126,12 @@ def _cases():
                 q, c, None, x, chunk_cols=CC, epilogue="glu", act="silu",
                 srow=s),
             (codes, cols, srow, x)),
+        "espim_spmv_group:take": (
+            group_take("cuda"), group_take(None),
+            (codes, cols, srow, codes2, cols2, srow2, perm, x)),
+        "espim_spmv_group:glu": (
+            group_glu("cuda"), group_glu(None),
+            (vals, cols, gvals, gcols, x)),
         "dense_mv": (DM.dense_mv_cuda, ops.dense_mv, (w, wx)),
         # hd 80: the wrapper zero-pads to 128 and slices back
         "flash_attention": (
@@ -142,7 +175,12 @@ def test_op_traces_on_fake_cuda_tensors(kernel):
     assert [tuple(g.shape) for g in got] == [tuple(w.shape) for w in want]
     assert [g.dtype for g in got] == [w.dtype for w in want]
     assert _launches() == before
-    assert kernel in before          # one counter per op
+    # one counter per op; a grouped launch counts as the kernel it computes
+    assert _COUNTED.get(kernel, kernel) in before
+
+
+_COUNTED = {"espim_spmv_group:take": "espim_spmv_batched_quant",
+            "espim_spmv_group:glu": "espim_spmv_batched_glu"}
 
 
 def _fake_cost(fn, *shapes):
@@ -236,3 +274,46 @@ def test_flash_attention_cost_equals_the_bound_column(causal):
     pairs = s * (s + 1) // 2 if causal else s * s
     assert flops == 4 * bh * hd * pairs
     assert nbytes == 4 * bh * s * hd * 2
+
+
+@pytest.mark.parametrize("glu", [False, True])
+def test_group_cost_is_its_buckets_plus_srow_perm_and_output(glu):
+    """The grouped op (one launch a group) costs what its buckets' launches
+    cost, less the copies of x and the bucket outputs they count apiece:
+    its flops are the sum of theirs, its bytes each bucket's planes once,
+    x once, the scales (srow), the take's perm and its own output."""
+    shapes = [(R, K, LC), (R // 2, K, LC + 8), (R // 4, K, LC - 8)]
+    planes = [(((r, k, lc), torch.int8), ((r, k, lc), torch.int32),
+               ((r,), F32)) for r, k, lc in shapes]
+    xs = ((M, B), F32)
+    rows = sum(r for r, _, _ in shapes)
+    per = []
+    for q, c, s in planes:
+        if glu:
+            def call(q, c, s, x):
+                return SP.espim_spmv_batched_quant_glu_cuda(
+                    q, c, s, x, chunk_cols=512)
+        else:
+            def call(q, c, s, x):
+                return SP.espim_spmv_batched_quant_cuda(
+                    q, c, s, x, chunk_cols=512, group_rows=1)
+        per.append(_fake_cost(call, q, c, s, xs))
+    n = len(planes)
+    n_out = rows // 2 if glu else rows - 100
+    perm = () if glu else (((rows,), torch.int32),)
+
+    def grouped(*ts):
+        qs, cs, ss = ts[0:3 * n:3], ts[1:3 * n:3], ts[2:3 * n:3]
+        x = ts[3 * n]
+        kw = (dict(act="silu") if glu else
+              dict(perm=ts[3 * n + 1], n_out=n_out))
+        return SP.espim_spmv_group_cuda(list(qs), list(cs), x,
+                                        chunk_cols=512, srow=list(ss), **kw)
+
+    flops, nbytes = _fake_cost(grouped, *[p for ps in planes for p in ps],
+                               xs, *perm)
+    out_b = [r // (2 if glu else 1) * B * 4 for r, _, _ in shapes]
+    x_b = M * B * 4
+    assert flops == sum(f for f, _ in per)
+    assert nbytes == (sum(b for _, b in per) - n * x_b - sum(out_b) + x_b
+                      + (0 if glu else rows * 4) + n_out * B * 4)
