@@ -17,7 +17,8 @@ widths and depth) — then checks them:
    flash_attention and wkv), print the build time and ptxas' report, and
    the tensor-core instructions in the flash library's SASS (HGMMA for
    wgmma, HMMA for mma.sync); fails if its bf16 (wgmma) body holds no
-   HGMMA or its fp32 (3xTF32) body no HMMA;
+   HGMMA or its fp32 (3xTF32) body no HMMA, or if any of the WKV
+   kernels' instances spills (ptxas' spill bytes);
 2. engine: 8 requests through the int8 engine (kernels 2 and 4), then 4
    through a 1-layer fp engine (kernels 1 and 3), each trace served 3
    times; every launch counter is zeroed just before each serve and read
@@ -98,9 +99,11 @@ widths and depth) — then checks them:
    B 1 x S 512 (the prefill, bf16 and fp32 r / k / v), B 1 x S 16 (the
    engine's chunk) and B 4 x S 1 (decode; also at a sharded decode's K'
    4) in bf16, the backward at B 8 x S 128 in fp32 and bf16, each
-   launched twice for identical bits, timed beside the plain
-   version, the bound and the serial floor (no library call computes
-   the recurrence);
+   launched twice for identical bits (the prefill and chunk forwards
+   also as two launches over S / 2 carrying the state, in the bits of
+   one), timed (20 launches a graph) beside the plain version, the
+   bound, its share and the serial floor (no library call computes the
+   recurrence);
 10. families: each other family's assigned arch at its published widths
    and vocab, bf16 params from ``init_params`` with the float32 leaves
    kept (phi3.5-moe at 2 of 32 layers, zamba2 at 12 of 54, qwen2-vl-2b,
@@ -319,6 +322,11 @@ WKV_CASES = (("prefill", 1, 512, "bf16", False, WKV_HD),
              ("train", 8, 128, "fp32", True, WKV_HD),
              ("train16", 8, 128, "bf16", True, WKV_HD))
 WKV_MAIN = {"wkv6": "prefill", "wkv6_bwd": "train"}   # the kernels line
+# the forward cases also run as two launches over S/2 carrying the state
+WKV_SPLIT_CASES = ("prefill", "chunk")
+# launches a timed graph holds (``Timer``'s per_graph): a decode step's
+# launch is shorter than a replay's host cost
+WKV_PER_GRAPH = 20
 # the fewest float32 operations a (b, t, h, k, j) the function needs (an
 # fma counts 2; terms of O(K' + V) a (b, t, h) left out).  Forward 5:
 # y_t = S^T r_t + (sum_k r u k) v_t is one fma a (k, j), the state
@@ -327,6 +335,9 @@ WKV_MAIN = {"wkv6": "prefill", "wkv6_bwd": "train"}   # the kernels line
 # dw = sum_j dS S (2), dv = dS^T k + (sum_k u r k) gy (2), and
 # dS = r gy^T + w dS (3)
 WKV_FWD_OPS, WKV_BWD_OPS = 5, 14
+# the forward's instances (bf16, fp32 x 1, 2, 4, 8, 16 k-groups) and the
+# backward's (bf16, fp32): the build phase holds each to no spill
+WKV_INSTANCES = 12
 # a step's serial floor: the state's fma chain, one dependent fma (4
 # cycles) a step at the H100 SXM's 1.98 GHz boost clock (data sheet)
 WKV_STEP_FLOOR_S = 4 / 1.98e9
@@ -495,6 +506,23 @@ def nvidia_smi() -> str:
     return proc.stdout.strip().splitlines()[0]
 
 
+def ptxas_spills(report: str) -> dict:
+    """{function: (spill store bytes, spill load bytes)} from ``nvcc
+    -Xptxas -v``'s report."""
+    out, fn = {}, None
+    for line in report.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            fn = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and fn:
+            out[fn] = (int(m.group(1)), int(m.group(2)))
+            fn = None
+    return out
+
+
 def sass_tensor_ops(path) -> dict:
     """{kernel function: {"HGMMA": n, "HMMA": n}}: the tensor-core
     instructions in ``cuobjdump --dump-sass`` of a built library (HGMMA
@@ -524,12 +552,15 @@ class Timer:
     replayed ``reps`` times between two CUDA events, in ``trials`` rounds:
     replay issues the whole launch sequence at once, so the time is the
     kernels' own and not the Python launch path's (which, for ~50 us
-    kernels, is as slow as the kernels)."""
+    kernels, is as slow as the kernels).  ``per_graph`` > 1 captures
+    ``fn`` that many times into the graph and divides: a replay costs the
+    host ~10 us, so a call shorter than that is timed only this way."""
 
     def __init__(self, torch):
         self.torch = torch
 
-    def __call__(self, fn, reps: int = 10, trials: int = 5) -> float:
+    def __call__(self, fn, reps: int = 10, trials: int = 5,
+                 per_graph: int = 1) -> float:
         torch = self.torch
         out = []
         side = torch.cuda.Stream()
@@ -540,7 +571,8 @@ class Timer:
         torch.cuda.current_stream().wait_stream(side)
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph):
-            fn()
+            for _ in range(per_graph):
+                fn()
         graph.replay()
         for _ in range(trials):
             torch.cuda.synchronize()
@@ -551,7 +583,7 @@ class Timer:
                 graph.replay()
             b.record()
             torch.cuda.synchronize()
-            out.append(a.elapsed_time(b) / reps)
+            out.append(a.elapsed_time(b) / reps / per_graph)
         del graph
         return statistics.median(out)
 
@@ -580,6 +612,18 @@ def phase_build(report: dict) -> None:
         for line in rec["log"].splitlines():
             if "registers" in line or "spill" in line:
                 log(f"[build]   {line.strip()}")
+    spills = ptxas_spills(build.BUILD_LOG["wkv"]["log"])
+    report["build"]["wkv_spills"] = spills
+    wkv_fns = {fn: n for fn, n in spills.items()
+               if "wkv6_fwd_kernel" in fn or "wkv6_bwd_kernel" in fn}
+    log(f"[build] wkv spill bytes (stores, loads) by instance: "
+        f"{sorted(set(wkv_fns.values()))} over {len(wkv_fns)} instances")
+    need(len(wkv_fns) == WKV_INSTANCES,
+         f"[build] ptxas reported {len(wkv_fns)} WKV kernel instances, want "
+         f"{WKV_INSTANCES}")
+    need(all(n == (0, 0) for n in wkv_fns.values()),
+         f"[build] a WKV kernel instance spills: "
+         f"{ {fn: n for fn, n in wkv_fns.items() if n != (0, 0)} }")
     sass = sass_tensor_ops(build.library_path("flash_attention"))
     report["build"]["flash_attention_sass"] = sass
     for fn, n in sass.items():
@@ -2634,7 +2678,13 @@ def phase_wkv(ctx) -> dict:
                  f"{float(w.float().abs().max()):.3e} + {KERNEL_ABS_TOL}")
             need(torch.equal(g, a), f"[wkv] {kernel} {label} {name}: two "
                  "launches on the same inputs gave different bits")
-        t_k, t_p = timer(run), timer(plain, reps=3)
+        split = label in WKV_SPLIT_CASES and wkv_split_bits(WKV, ins, got)
+        need(split or label not in WKV_SPLIT_CASES,
+             f"[wkv] {kernel} {label}: two launches over S/2 that carry the "
+             "state differ in bits from one over S")
+        t_k = timer(run, per_graph=WKV_PER_GRAPH)
+        t_1 = timer(run)
+        t_p = timer(plain, reps=3)
         nbytes = sum(t.numel() * t.element_size() for t in read + list(got))
         flops = ops * b * s * WKV_HEADS * kp * WKV_HD
         t_bytes, t_ops = nbytes / bw * 1e3, flops / PEAKS["fp32"] * 1e3
@@ -2644,18 +2694,38 @@ def phase_wkv(ctx) -> dict:
              "plain_ms": t_p, "library_ms": None,
              "bound_ms": max(t_bytes, t_ops),
              "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+             "share_of_bound": max(t_bytes, t_ops) / t_k,
              "serial_floor_ms": s * WKV_STEP_FLOOR_S * 1e3,
              "bytes": nbytes, "flops": flops,
-             "us_per_step": t_k * 1e3 / s}
+             "us_per_step": t_k * 1e3 / s, "split_bits": split,
+             "ms_one_per_graph": t_1}
         rows[label] = r
         log(f"[wkv] {kernel:8s} {label:9s} B {b} x S {s} x H {WKV_HEADS} x "
             f"K' {kp} x V {WKV_HD} {dname}: max|kernel-plain| "
-            f"{r['max_abs_err']:.2e}, bits repeat; {t_k * 1e3:8.1f} us "
-            f"({r['us_per_step']:.2f} us a step; plain {t_p * 1e3:9.1f} us, "
-            f"bound {r['bound_ms'] * 1e3:6.2f} us by {r['bound_by']}, serial "
-            f"floor {r['serial_floor_ms'] * 1e3:5.2f} us)")
+            f"{r['max_abs_err']:.2e}, bits repeat"
+            f"{', S/2 + S/2 in bits' if split else ''}; {t_k * 1e3:8.1f} us "
+            f"({t_1 * 1e3:.1f} one launch a graph; {r['us_per_step']:.2f} "
+            f"us a step; plain {t_p * 1e3:9.1f} us, "
+            f"bound {r['bound_ms'] * 1e3:6.2f} us by {r['bound_by']}, "
+            f"{100 * r['share_of_bound']:.1f}% of it; serial floor "
+            f"{r['serial_floor_ms'] * 1e3:5.2f} us)")
     ctx["report"]["wkv"] = rows
     return rows
+
+
+def wkv_split_bits(WKV, ins, got) -> bool:
+    """The forward over S/2, then over the rest from the state it left,
+    against one launch over S (``got``): ``y`` and the final state in the
+    same bits (every sum's order is fixed by k and j alone)."""
+    torch = sys.modules["torch"]
+    r, k, v, w, u, st = ins
+    h = r.shape[1] // 2
+    ya, sa = WKV.wkv6_cuda(r[:, :h], k[:, :h], v[:, :h], w[:, :h], u,
+                           st)[:2]
+    yb, sb = WKV.wkv6_cuda(r[:, h:], k[:, h:], v[:, h:], w[:, h:], u,
+                           sa)[:2]
+    return (torch.equal(torch.cat([ya, yb], 1), got[0])
+            and torch.equal(sb, got[1]))
 
 
 def wkv_entries(rows: dict, launches: dict) -> list:

@@ -61,8 +61,8 @@ _SIGNATURES = {
         "flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     },
     "wkv": {
-        "wkv6_fwd": [_P] * 9 + [_I] * 7 + [_P],
-        "wkv6_bwd": [_P] * 16 + [_I] * 7 + [_P],
+        "wkv6_fwd": [_P] * 9 + [_I] * 9 + [_P],
+        "wkv6_bwd": [_P] * 15 + [_I] * 7 + [_P],
     },
 }
 _LIBS: dict = {}
@@ -92,15 +92,19 @@ def build_all(names=None) -> dict:
     """Compile every named source (default: all) whose hashed library does
     not exist yet, one ``nvcc`` per source, all started together; returns
     {name: library path}.  Each writes to a temporary name and renames,
-    so concurrent processes never load a half-written library.  Raises
+    so concurrent processes never load a half-written library; nvcc's
+    report (ptxas' registers and spills) is kept beside it as
+    ``<library>.log`` for a later process that finds it built.  Raises
     with nvcc's output if any build fails."""
     names = list(SOURCES if names is None else names)
     running = {}
     for name in names:
         out = library_path(name)
         if out.exists():
-            BUILD_LOG.setdefault(name, {"path": str(out), "seconds": 0.0,
-                                        "cached": True, "log": ""})
+            report = out.with_suffix(".log")
+            BUILD_LOG.setdefault(name, {
+                "path": str(out), "seconds": 0.0, "cached": True,
+                "log": report.read_text() if report.exists() else ""})
             continue
         out.parent.mkdir(parents=True, exist_ok=True)
         tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
@@ -116,6 +120,7 @@ def build_all(names=None) -> dict:
             failed.append(f"nvcc failed for {SOURCES[name]} "
                           f"(rc {proc.returncode}):\n{log}")
             continue
+        out.with_suffix(".log").write_text(log)
         os.replace(tmp, out)
         BUILD_LOG[name] = {"path": str(out), "cached": False, "log": log,
                            "seconds": time.perf_counter() - t0}

@@ -39,6 +39,8 @@ loop).
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 from torch._subclasses.fake_tensor import FakeTensor
 
@@ -47,7 +49,7 @@ from repro_torch.kernels.build import load_library
 from repro_torch.kernels.library import define
 from repro_torch.kernels.ops import _resolve, _use_kernel
 
-__all__ = ["LAUNCHES", "reset_launches", "CHUNK", "on_device",
+__all__ = ["LAUNCHES", "reset_launches", "CHUNK", "on_device", "Plan",
            "wkv6_cuda", "wkv6_bwd_cuda", "wkv6"]
 
 # kernel launches since the last reset
@@ -55,6 +57,59 @@ LAUNCHES = {"wkv6": 0, "wkv6_bwd": 0}
 
 CHUNK = 32          # steps between checkpoints (WKV_CHUNK in csrc/wkv.cu)
 MAX_WIDTH = 64      # K' and V the kernels take (WKV_MAXK / WKV_MAXV)
+TILE = 16           # steps a forward tile (WKV_TILE); chunk a multiple
+ROWS = 4            # state rows a forward thread owns (WKV_ROWS)
+MAX_THREADS = 256   # most threads a forward CTA (WKV_FWD_THREADS)
+FILL_CTAS = 128     # a grid this large fills the H100's 132 SMs once
+
+
+class Plan(NamedTuple):
+    """The forward's launch: ``kg`` k-groups of ``ROWS`` rows (from K'
+    alone, so the order of ``y``'s sums, and its bits, do not depend on
+    B), ``vs`` columns a CTA, ``n_vs`` CTAs a (b, h), ``threads``
+    compute threads a CTA (the kernel adds one copier warp)."""
+    kg: int
+    vs: int
+    n_vs: int
+    threads: int
+    ctas: int
+
+    def cells(self, cta: int, tid: int, kp: int, vd: int):
+        """(k, j) of the state a thread of CTA ``cta`` owns, as the kernel
+        indexes them (column j = (cta % n_vs) vs + tid / kg, rows
+        ROWS (tid % kg) ..); rows past K' and columns past V are
+        padding."""
+        j = (cta % self.n_vs) * self.vs + tid // self.kg
+        g = tid % self.kg
+        return [(g * ROWS + i, j) for i in range(ROWS)
+                if g * ROWS + i < kp and j < vd]
+
+
+def _plan(b: int, h: int, kp: int, vd: int) -> Plan:
+    """The forward's launch at B ``b`` x H ``h``, K' ``kp`` x V ``vd``:
+    the fewest k-groups (a power of 2) whose ``ROWS`` rows cover K'; then
+    as many columns a CTA as the head has (a power of 2, at most
+    ``MAX_THREADS`` threads and at least a warp), halved while the grid
+    is below ``FILL_CTAS`` and a CTA stays a warp or more.  At rwkv6's
+    B 1 x H 32 x 64 x 64: 16 k-groups x 16 columns, 128 CTAs of 256
+    threads."""
+    if not (1 <= kp <= MAX_WIDTH and 1 <= vd <= MAX_WIDTH):
+        raise ValueError(f"K' {kp} and V {vd} must be in 1..{MAX_WIDTH}")
+    kg = 1
+    while ROWS * kg < kp:
+        kg *= 2
+    vs = 2
+    while vs < vd:
+        vs *= 2
+    vs = max(min(vs, MAX_THREADS // kg), 32 // kg, 2)
+
+    def n_vs(c):
+        return -(-vd // c)
+
+    while (b * h * n_vs(vs) < FILL_CTAS and vs // 2 >= 2
+           and kg * (vs // 2) >= 32):
+        vs //= 2
+    return Plan(kg, vs, n_vs(vs), kg * vs, b * h * n_vs(vs))
 
 
 def reset_launches() -> None:
@@ -101,11 +156,12 @@ def _fwd_kernel(r, k, v, w, u, state, chunk: int):
     n_ck = -(-s // chunk) if chunk else 0
     st = torch.empty((b, h, kp, vd), dtype=f32, device=r.device)
     ckpt = torch.empty((b, h, n_ck, kp, vd), dtype=f32, device=r.device)
+    plan = _plan(b, h, kp, vd)
     rc = load_library("wkv").wkv6_fwd(
         r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
         u.data_ptr(), state.data_ptr(), y.data_ptr(), st.data_ptr(),
         ckpt.data_ptr(), int(r.dtype == torch.bfloat16), b, s, h, kp, vd,
-        chunk, _stream(r))
+        chunk, plan.kg, plan.vs, _stream(r))
     if rc != 0:     # a cudaError_t
         raise RuntimeError(f"wkv6 forward launch failed: rc {rc}")
     LAUNCHES["wkv6"] += 1
@@ -122,26 +178,36 @@ def _fwd_meta(r, k, v, w, u, state, chunk: int):
             r.new_empty((b, h, n_ck, kp, vd), dtype=f32))
 
 
-def _bwd_kernel(r, k, v, w, u, ckpt, gy, g_state, chunk: int):
+def _bwd_buffers(r, v) -> dict:
+    """The backward launch's outputs and its one scratch, ``du_part`` (B,
+    H, K') for the sum over the batch: the chunks' states stay in the
+    kernel's shared memory, so nothing grows with S but the outputs."""
     b, s, h, kp = r.shape
     vd = v.shape[-1]
     f32 = dict(dtype=torch.float32, device=r.device)
-    dr, dk, dw = (torch.empty((b, s, h, kp), **f32) for _ in range(3))
-    dv = torch.empty((b, s, h, vd), **f32)
-    du = torch.empty((h, kp), **f32)
-    ds0 = torch.empty((b, h, kp, vd), **f32)
-    du_part = torch.empty((b, h, kp), **f32)
-    work = torch.empty((b * h, chunk, vd, kp), **f32)
+    return {"dr": torch.empty((b, s, h, kp), **f32),
+            "dk": torch.empty((b, s, h, kp), **f32),
+            "dv": torch.empty((b, s, h, vd), **f32),
+            "dw": torch.empty((b, s, h, kp), **f32),
+            "du": torch.empty((h, kp), **f32),
+            "ds0": torch.empty((b, h, kp, vd), **f32),
+            "du_part": torch.empty((b, h, kp), **f32)}
+
+
+def _bwd_kernel(r, k, v, w, u, ckpt, gy, g_state, chunk: int):
+    b, s, h, kp = r.shape
+    vd = v.shape[-1]
+    o = _bwd_buffers(r, v)
     rc = load_library("wkv").wkv6_bwd(
         r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
         u.data_ptr(), ckpt.data_ptr(), gy.data_ptr(), g_state.data_ptr(),
-        dr.data_ptr(), dk.data_ptr(), dv.data_ptr(), dw.data_ptr(),
-        du.data_ptr(), ds0.data_ptr(), du_part.data_ptr(), work.data_ptr(),
+        *(o[n].data_ptr() for n in ("dr", "dk", "dv", "dw", "du", "ds0",
+                                    "du_part")),
         int(r.dtype == torch.bfloat16), b, s, h, kp, vd, chunk, _stream(r))
     if rc != 0:
         raise RuntimeError(f"wkv6 backward launch failed: rc {rc}")
     LAUNCHES["wkv6_bwd"] += 1
-    return dr, dk, dv, dw, du, ds0
+    return tuple(o[n] for n in ("dr", "dk", "dv", "dw", "du", "ds0"))
 
 
 def _bwd_meta(r, k, v, w, u, ckpt, gy, g_state, chunk: int):
@@ -194,8 +260,8 @@ def _check(r, k, v, w, u, state) -> None:
             raise ValueError(f"{name} is on {t.device}, r on {r.device}")
     if not (1 <= s and 1 <= kp <= MAX_WIDTH and 1 <= vd <= MAX_WIDTH):
         raise ValueError(f"S {s} must be positive, K' {kp} and V {vd} in "
-                         f"1..{MAX_WIDTH}: the kernels keep a state column "
-                         "(row) a thread")
+                         f"1..{MAX_WIDTH}: the kernels' plans cover at most "
+                         f"{MAX_WIDTH} rows and columns a head")
     if r.numel() >= 2 ** 31 or v.numel() >= 2 ** 31:
         raise ValueError("r / v too large for the kernels' launch")
 
@@ -212,6 +278,9 @@ def wkv6_cuda(r, k, v, w, u, state, chunk: int = 0):
     state before every ``chunk``-th step, (B, H, 0, K', V) for ``chunk``
     0)."""
     _check(r, k, v, w, u, state)
+    if chunk < 0 or chunk % TILE:
+        raise ValueError(f"chunk {chunk} must be 0 or a positive multiple "
+                         f"of {TILE}: checkpoints fall at a tile's start")
     _need_device(r, k, v, w, u, state)
     return _fwd(*_operands(r, k, v, w, u, state), int(chunk))
 

@@ -353,3 +353,101 @@ def test_traced_steps_count_the_loops_flops_in_ops_independent_of_s(
     f256, n256 = _count_step(cfg, 256, train, False, monkeypatch)
     assert n64 == n256 == n16
     assert f256 == 4 * f64
+
+
+# the launch plans: rwkv6-1.6b's shapes (``chip_smoke.WKV_CASES``: B, K',
+# 32 heads of 64) and a sweep of widths
+PLAN_SHAPES = ([(1, 32, 64, 64), (4, 32, 64, 64), (4, 32, 4, 64),
+                (8, 32, 64, 64)]
+               + [(b, h, kp, vd) for b, h in ((1, 1), (2, 32))
+                  for kp in (1, 4, 16, 63, 64) for vd in (1, 16, 64)])
+
+
+def _owners(plan, n_threads, kp, vd):
+    """{(k, j): owners} over the CTAs of one (b, h)."""
+    seen = {}
+    for cta in range(plan.n_vs):
+        for tid in range(n_threads):
+            for cell in plan.cells(cta, tid, kp, vd):
+                seen[cell] = seen.get(cell, 0) + 1
+    return seen
+
+
+@pytest.mark.parametrize("b,h,kp,vd", PLAN_SHAPES)
+def test_plan_gives_every_state_element_one_thread(b, h, kp, vd):
+    """``_plan``, the forward's launch: every (k, j) of a head's K' x V
+    state is owned by exactly one thread of its (b, h)'s CTAs, as the
+    kernel indexes them; a CTA is whole warps, at most 256 compute
+    threads, its k-groups (a power of 2 from K' alone) cover K'."""
+    plan = WKV._plan(b, h, kp, vd)
+    want = {(k, j): 1 for k in range(kp) for j in range(vd)}
+    assert _owners(plan, plan.threads, kp, vd) == want
+    assert plan.kg in (1, 2, 4, 8, 16) and WKV.ROWS * plan.kg >= kp
+    assert plan.kg == WKV._plan(1, 1, kp, 1).kg      # from K' alone
+    assert plan.threads % 32 == 0 and 32 <= plan.threads <= 256
+    assert plan.ctas == b * h * plan.n_vs and plan.vs % 2 == 0
+
+
+def test_plan_fills_the_card_at_rwkv6_prefill_and_refuses_wide_heads():
+    """At B 1 x H 32 x 64 x 64 (rwkv6-1.6b's prefill) the forward's grid
+    is at least 128 CTAs (of 256 threads: 16 k-groups of 4 rows x 16
+    columns); widths above 64 (or below 1) raise."""
+    plan = WKV._plan(1, 32, 64, 64)
+    assert plan.ctas >= 128 and (plan.kg, plan.vs, plan.threads) == (
+        16, 16, 256)
+    for kp, vd in ((65, 64), (64, 65), (0, 64), (64, 0)):
+        with pytest.raises(ValueError):
+            WKV._plan(1, 32, kp, vd)
+
+
+def test_wrappers_allocate_outputs_and_pass_the_plan(monkeypatch):
+    """The launch wrappers on fake CUDA tensors at rwkv6's full width
+    (B 8 x H 32 x 64 x 64): the backward allocates its six outputs and
+    one scratch (``du_part``, B x H x K'), no workspace that grows with S
+    (the chunks' states live in shared memory); the forward passes its
+    plan's k-groups and columns to the C entry point, the backward no
+    plan, each with as many arguments as ``build._SIGNATURES`` binds."""
+    from repro_torch.kernels import build
+    b, h, kp, vd = 8, 32, 64, 64
+    with FakeTensorMode(), _indexing():
+        def z(s, last):
+            return torch.empty((b, s, h, last), device="cuda")
+        scratch = {}
+        for s in (128, 4096):
+            bufs = WKV._bwd_buffers(z(s, kp), z(s, vd))
+            assert "work" not in bufs
+            assert {n: tuple(t.shape) for n, t in bufs.items()} == {
+                "dr": (b, s, h, kp), "dk": (b, s, h, kp),
+                "dv": (b, s, h, vd), "dw": (b, s, h, kp), "du": (h, kp),
+                "ds0": (b, h, kp, vd), "du_part": (b, h, kp)}
+            assert all(t.device.type == "cuda" and t.dtype == torch.float32
+                       for t in bufs.values())
+            scratch[s] = bufs["du_part"].numel()
+        assert scratch[128] == scratch[4096] == b * h * kp
+    calls = []
+
+    class Lib:
+        def __getattr__(self, fn):
+            def launch(*args):
+                calls.append((fn, args))
+                return 0
+            return launch
+
+    monkeypatch.setattr(WKV, "load_library", lambda name: Lib())
+    monkeypatch.setattr(WKV, "_stream", lambda t: 0)
+    ins = _inputs(1, 3, h, kp, vd, seed=9, dtype=torch.bfloat16)
+    y, s1, ck = WKV._fwd_kernel(*WKV._operands(*ins), WKV.CHUNK)
+    g = WKV._bwd_kernel(*WKV._operands(*ins)[:5], ck, torch.zeros_like(y),
+                        ins[5], WKV.CHUNK)
+    (f_fn, f_args), (b_fn, b_args) = calls
+    sig = build._SIGNATURES["wkv"]
+    assert (f_fn, len(f_args), b_fn, len(b_args)) == (
+        "wkv6_fwd", len(sig["wkv6_fwd"]), "wkv6_bwd", len(sig["wkv6_bwd"]))
+    plan = WKV._plan(1, h, kp, vd)
+    assert f_args[-3:-1] == (plan.kg, plan.vs)
+    assert f_args[9:16] == (1, 1, 3, h, kp, vd, WKV.CHUNK)
+    assert b_args[-8:-1] == (1, 1, 3, h, kp, vd, WKV.CHUNK)
+    assert [t.data_ptr() for t in g] == list(b_args[8:14])
+    assert WKV.LAUNCHES["wkv6"] >= 1
+    with pytest.raises(ValueError, match="multiple"):
+        WKV.wkv6_cuda(*ins, 24)
