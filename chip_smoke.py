@@ -98,12 +98,14 @@ widths and depth) — then checks them:
    heads of 64) against ``wkv6_ref`` / ``wkv6_bwd_ref``: the forward at
    B 1 x S 512 (the prefill, bf16 and fp32 r / k / v), B 1 x S 16 (the
    engine's chunk) and B 4 x S 1 (decode; also at a sharded decode's K'
-   4) in bf16, the backward at B 8 x S 128 in fp32 and bf16, each
-   launched twice for identical bits (the prefill and chunk forwards
-   also as two launches over S / 2 carrying the state, in the bits of
-   one), timed (20 launches a graph) beside the plain version, the
-   bound, its share and the serial floor (no library call computes the
-   recurrence);
+   4, 8, 16 (bf16) and 32 (fp32)) in bf16, the backward at B 8 x S 128
+   in fp32 and bf16, each launched twice for identical bits (the
+   prefill and chunk forwards also as two launches over S / 2 carrying
+   the state, in the bits of one), timed (20 launches a graph, and one)
+   beside the plain version, the bound, its share and the serial floor
+   (no library call computes the recurrence); then every forward
+   instance (bf16 and fp32 x 1-16 k-groups) at B 2 x S 48 against the
+   plain version, checkpoints included;
 10. families: each other family's assigned arch at its published widths
    and vocab, bf16 params from ``init_params`` with the float32 leaves
    kept (phi3.5-moe at 2 of 32 layers, zamba2 at 12 of 54, qwen2-vl-2b,
@@ -312,13 +314,17 @@ FAMILY_LAUNCHER_ARGS = ("--requests", "4", "--max-new-tokens", "8")
 # engine's chunk's and decode's shapes, and at a sharded decode's K
 # slice (K' 4: hd 64 over 16 model ranks), the backward at the train
 # step's (fp32 as check (e) runs it, bf16 as the dryrun phase's card
-# step does)
+# step does); decode also at the K' 8, 16 and 32 slices (8, 4 and 2 model
+# ranks), the plan's 2, 4 and 8 k-groups
 WKV_HEADS, WKV_HD = 32, 64
 WKV_CASES = (("prefill", 1, 512, "bf16", False, WKV_HD),
              ("prefill32", 1, 512, "fp32", False, WKV_HD),
              ("chunk", 1, FAMILY_CHUNK, "bf16", False, WKV_HD),
              ("decode", 4, 1, "bf16", False, WKV_HD),
              ("decode_k4", 4, 1, "bf16", False, 4),
+             ("decode_k8", 4, 1, "bf16", False, 8),
+             ("decode_k16", 4, 1, "bf16", False, 16),
+             ("decode_k32", 4, 1, "fp32", False, 32),
              ("train", 8, 128, "fp32", True, WKV_HD),
              ("train16", 8, 128, "bf16", True, WKV_HD))
 WKV_MAIN = {"wkv6": "prefill", "wkv6_bwd": "train"}   # the kernels line
@@ -338,6 +344,13 @@ WKV_FWD_OPS, WKV_BWD_OPS = 5, 14
 # the forward's instances (bf16, fp32 x 1, 2, 4, 8, 16 k-groups) and the
 # backward's (bf16, fp32): the build phase holds each to no spill
 WKV_INSTANCES = 12
+# every forward instance against the plain version (``wkv_instances``),
+# at B 2 x S 48 (three tiles, a checkpoint after 32 steps): bf16 at K' 4
+# KG, fp32 at odd K' (rows padded with zeros, the copies not 16-byte
+# aligned)
+WKV_SWEEP = (tuple(("bf16", 4 * g) for g in (1, 2, 4, 8, 16))
+             + tuple(("fp32", kp) for kp in (3, 7, 13, 27, 63)))
+WKV_SWEEP_BS = (2, 48)
 # a step's serial floor: the state's fma chain, one dependent fma (4
 # cycles) a step at the H100 SXM's 1.98 GHz boost clock (data sheet)
 WKV_STEP_FLOOR_S = 4 / 1.98e9
@@ -2709,8 +2722,46 @@ def phase_wkv(ctx) -> dict:
             f"bound {r['bound_ms'] * 1e3:6.2f} us by {r['bound_by']}, "
             f"{100 * r['share_of_bound']:.1f}% of it; serial floor "
             f"{r['serial_floor_ms'] * 1e3:5.2f} us)")
+    ctx["report"]["wkv_instances"] = wkv_instances(ctx, WKV, wkv6_ref)
     ctx["report"]["wkv"] = rows
     return rows
+
+
+def wkv_instances(ctx, WKV, wkv6_ref) -> dict:
+    """Every forward instance on the card (``WKV_SWEEP``): ``y``, the
+    final state and the checkpoint after ``CHUNK`` steps within the fp32
+    rule of ``wkv6_ref`` (over S, and over the first ``CHUNK`` steps),
+    the first checkpoint the initial state in bits -> {case: max error}."""
+    torch, dev = ctx["torch"], ctx["device"]
+    gen = torch.Generator(device=dev).manual_seed(ctx["seed"] + 19)
+    b, s = WKV_SWEEP_BS
+    errs, seen = {}, set()
+    for dname, kp in WKV_SWEEP:
+        dt = torch.bfloat16 if dname == "bf16" else torch.float32
+        ins = _wkv_inputs(torch, gen, dev, b, s, dt, kp)
+        y, st, ck = WKV.wkv6_cuda(*ins, WKV.CHUNK)
+        want_y, want_s = wkv6_ref(*ins)
+        want_c = wkv6_ref(*(t[:, :WKV.CHUNK] for t in ins[:4]), *ins[4:])[1]
+        kg = WKV._plan(b, WKV_HEADS, kp, WKV_HD).kg
+        seen.add((dname, kg))
+        label = f"{dname} K' {kp} (KG {kg})"
+        e = {}
+        for name, g, w in (("y", y, want_y), ("state", st, want_s),
+                           ("ckpt", ck[:, :, 1], want_c)):
+            ok, e[name] = _within("wkv6", "fp32", g, w)
+            need(ok, f"[wkv] instance {label} {name}: max|kernel-plain| "
+                 f"{e[name]:.3e} > {KERNEL_REL_TOL} * "
+                 f"{float(w.abs().max()):.3e} + {KERNEL_ABS_TOL}")
+        need(torch.equal(ck[:, :, 0], ins[5]),
+             f"[wkv] instance {label}: the first checkpoint is not the "
+             "initial state")
+        errs[label] = max(e.values())
+    need(len(seen) == WKV_INSTANCES - 2,
+         f"[wkv] the sweep ran {len(seen)} forward instances, want "
+         f"{WKV_INSTANCES - 2}")
+    log(f"[wkv] every forward instance within the fp32 rule at B {b} x S "
+        f"{s}: " + ", ".join(f"{k} {v:.1e}" for k, v in errs.items()))
+    return errs
 
 
 def wkv_split_bits(WKV, ins, got) -> bool:

@@ -901,8 +901,24 @@ __global__ void wkv6_du_kernel(const float* __restrict__ du_part,
     du[i] = acc;
 }
 
-// above 48 KB of dynamic shared memory needs the opt-in, once an
-// instance (at its widest: vs = WKV_FWD_THREADS / KG columns)
+// Above 48 KB of dynamic shared memory a kernel needs the opt-in, which
+// holds on the current device only: set once a device (`done`, by
+// device, is the kernel instance's own record).
+static int smem_opt_in(const void* kern, int bytes, bool (&done)[64]) {
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e != cudaSuccess) return (int)e;
+    if (dev < 0 || dev >= 64) return (int)cudaErrorInvalidDevice;
+    if (!done[dev]) {
+        e = cudaFuncSetAttribute(
+            kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+        if (e != cudaSuccess) return (int)e;
+        done[dev] = true;
+    }
+    return 0;
+}
+
+// the opt-in at an instance's widest: vs = WKV_FWD_THREADS / KG columns
 template <typename T, int KG>
 static int launch_fwd_kg(const void* r, const void* k, const void* v,
                          const void* w, const void* u, const void* s0,
@@ -911,10 +927,10 @@ static int launch_fwd_kg(const void* r, const void* k, const void* v,
     using L = FwdSmem<T, KG>;
     constexpr int kMaxVs = WKV_FWD_THREADS / KG < WKV_MAXV
         ? WKV_FWD_THREADS / KG : WKV_MAXV;
-    static const cudaError_t attr = cudaFuncSetAttribute(
-        wkv6_fwd_kernel<T, KG>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        L::bytes(kMaxVs));
-    if (attr != cudaSuccess) return (int)attr;
+    static bool opted[64] = {};
+    const int attr = smem_opt_in((const void*)wkv6_fwd_kernel<T, KG>,
+                                 L::bytes(kMaxVs), opted);
+    if (attr != 0) return attr;
     wkv6_fwd_kernel<T, KG><<<B * H * ((V + vs - 1) / vs), KG * vs + 32,
                              L::bytes(vs), st>>>(
         (const T*)r, (const T*)k, (const T*)v, (const float*)w,
@@ -949,11 +965,10 @@ static int launch_bwd(const void* r, const void* k, const void* v,
                       void* dv, void* dw, void* du_part, void* ds0, int B,
                       int S, int H, int KP, int V, cudaStream_t st) {
     using L = BwdSmem<T>;
-    // above 48 KB of dynamic shared memory needs the opt-in, once
-    static const cudaError_t attr = cudaFuncSetAttribute(
-        wkv6_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        L::kBytes);
-    if (attr != cudaSuccess) return (int)attr;
+    static bool opted[64] = {};
+    const int attr = smem_opt_in((const void*)wkv6_bwd_kernel<T>, L::kBytes,
+                                 opted);
+    if (attr != 0) return attr;
     const int nvs = (V + WKV_BVS - 1) / WKV_BVS;
     cudaLaunchConfig_t cfg = {};
     cfg.gridDim = dim3(B * H * nvs);

@@ -66,23 +66,11 @@ FILL_CTAS = 128     # a grid this large fills the H100's 132 SMs once
 class Plan(NamedTuple):
     """The forward's launch: ``kg`` k-groups of ``ROWS`` rows (from K'
     alone, so the order of ``y``'s sums, and its bits, do not depend on
-    B), ``vs`` columns a CTA, ``n_vs`` CTAs a (b, h), ``threads``
-    compute threads a CTA (the kernel adds one copier warp)."""
+    B) and ``vs`` columns a CTA: ceil(V / vs) CTAs a (b, h) of kg * vs
+    compute threads (the kernel adds one copier warp); thread t of a CTA
+    keeps rows ROWS (t % kg) .. of column t / kg of the CTA's vs."""
     kg: int
     vs: int
-    n_vs: int
-    threads: int
-    ctas: int
-
-    def cells(self, cta: int, tid: int, kp: int, vd: int):
-        """(k, j) of the state a thread of CTA ``cta`` owns, as the kernel
-        indexes them (column j = (cta % n_vs) vs + tid / kg, rows
-        ROWS (tid % kg) ..); rows past K' and columns past V are
-        padding."""
-        j = (cta % self.n_vs) * self.vs + tid // self.kg
-        g = tid % self.kg
-        return [(g * ROWS + i, j) for i in range(ROWS)
-                if g * ROWS + i < kp and j < vd]
 
 
 def _plan(b: int, h: int, kp: int, vd: int) -> Plan:
@@ -102,14 +90,10 @@ def _plan(b: int, h: int, kp: int, vd: int) -> Plan:
     while vs < vd:
         vs *= 2
     vs = max(min(vs, MAX_THREADS // kg), 32 // kg, 2)
-
-    def n_vs(c):
-        return -(-vd // c)
-
-    while (b * h * n_vs(vs) < FILL_CTAS and vs // 2 >= 2
+    while (b * h * -(-vd // vs) < FILL_CTAS and vs // 2 >= 2
            and kg * (vs // 2) >= 32):
         vs //= 2
-    return Plan(kg, vs, n_vs(vs), kg * vs, b * h * n_vs(vs))
+    return Plan(kg, vs)
 
 
 def reset_launches() -> None:

@@ -358,43 +358,47 @@ def test_traced_steps_count_the_loops_flops_in_ops_independent_of_s(
 # the launch plans: rwkv6-1.6b's shapes (``chip_smoke.WKV_CASES``: B, K',
 # 32 heads of 64) and a sweep of widths
 PLAN_SHAPES = ([(1, 32, 64, 64), (4, 32, 64, 64), (4, 32, 4, 64),
+                (4, 32, 8, 64), (4, 32, 16, 64), (4, 32, 32, 64),
                 (8, 32, 64, 64)]
                + [(b, h, kp, vd) for b, h in ((1, 1), (2, 32))
                   for kp in (1, 4, 16, 63, 64) for vd in (1, 16, 64)])
 
 
-def _owners(plan, n_threads, kp, vd):
-    """{(k, j): owners} over the CTAs of one (b, h)."""
+def _owners(kg, vs, kp, vd):
+    """{(k, j): owners} over the ceil(V / vs) CTAs of one (b, h), as
+    ``wkv6_fwd_kernel`` indexes its state: thread t of CTA c keeps rows
+    ROWS (t % kg) .. ROWS (t % kg) + ROWS - 1 of column c vs + t / kg;
+    rows past K' and columns past V are padding."""
     seen = {}
-    for cta in range(plan.n_vs):
-        for tid in range(n_threads):
-            for cell in plan.cells(cta, tid, kp, vd):
-                seen[cell] = seen.get(cell, 0) + 1
+    for cta in range(-(-vd // vs)):
+        for tid in range(kg * vs):
+            j, g = cta * vs + tid // kg, tid % kg
+            for k in range(g * WKV.ROWS, (g + 1) * WKV.ROWS):
+                if k < kp and j < vd:
+                    seen[k, j] = seen.get((k, j), 0) + 1
     return seen
 
 
 @pytest.mark.parametrize("b,h,kp,vd", PLAN_SHAPES)
 def test_plan_gives_every_state_element_one_thread(b, h, kp, vd):
     """``_plan``, the forward's launch: every (k, j) of a head's K' x V
-    state is owned by exactly one thread of its (b, h)'s CTAs, as the
-    kernel indexes them; a CTA is whole warps, at most 256 compute
-    threads, its k-groups (a power of 2 from K' alone) cover K'."""
-    plan = WKV._plan(b, h, kp, vd)
+    state is owned by exactly one thread of its (b, h)'s CTAs; a CTA is
+    whole warps, at most 256 compute threads, its k-groups (a power of 2
+    from K' alone) cover K'."""
+    kg, vs = WKV._plan(b, h, kp, vd)
     want = {(k, j): 1 for k in range(kp) for j in range(vd)}
-    assert _owners(plan, plan.threads, kp, vd) == want
-    assert plan.kg in (1, 2, 4, 8, 16) and WKV.ROWS * plan.kg >= kp
-    assert plan.kg == WKV._plan(1, 1, kp, 1).kg      # from K' alone
-    assert plan.threads % 32 == 0 and 32 <= plan.threads <= 256
-    assert plan.ctas == b * h * plan.n_vs and plan.vs % 2 == 0
+    assert _owners(kg, vs, kp, vd) == want
+    assert kg in (1, 2, 4, 8, 16) and WKV.ROWS * kg >= kp
+    assert kg == WKV._plan(1, 1, kp, 1).kg      # from K' alone
+    assert (kg * vs) % 32 == 0 and 32 <= kg * vs <= 256 and vs % 2 == 0
 
 
 def test_plan_fills_the_card_at_rwkv6_prefill_and_refuses_wide_heads():
     """At B 1 x H 32 x 64 x 64 (rwkv6-1.6b's prefill) the forward's grid
     is at least 128 CTAs (of 256 threads: 16 k-groups of 4 rows x 16
     columns); widths above 64 (or below 1) raise."""
-    plan = WKV._plan(1, 32, 64, 64)
-    assert plan.ctas >= 128 and (plan.kg, plan.vs, plan.threads) == (
-        16, 16, 256)
+    kg, vs = WKV._plan(1, 32, 64, 64)
+    assert (kg, vs) == (16, 16) and 1 * 32 * -(-64 // vs) >= 128
     for kp, vd in ((65, 64), (64, 65), (0, 64), (64, 0)):
         with pytest.raises(ValueError):
             WKV._plan(1, 32, kp, vd)
