@@ -17,8 +17,8 @@ widths and depth) — then checks them:
    flash_attention and wkv), print the build time and ptxas' report, and
    the tensor-core instructions in the flash library's SASS (HGMMA for
    wgmma, HMMA for mma.sync); fails if its bf16 (wgmma) body holds no
-   HGMMA or its fp32 (3xTF32) body no HMMA, or if any of the WKV
-   kernels' instances spills (ptxas' spill bytes);
+   HGMMA or its fp32 (3xTF32) body no HMMA, or if any instance of the
+   WKV kernels or of kernel 5's mv body spills (ptxas' spill bytes);
 2. engine: 8 requests through the int8 engine (kernels 2 and 4), then 4
    through a 1-layer fp engine (kernels 1 and 3), each trace served 3
    times; every launch counter is zeroed just before each serve and read
@@ -85,7 +85,10 @@ widths and depth) — then checks them:
    step 9, counters zeroed before and read after;
 9. kernels 5-8 against their plain versions, each launched twice for
    identical bits: the unbatched kernel on the projection packs in fp32
-   and bf16; the residual kernel per call at B in {1, 4} (and on bf16
+   and bf16 (after the timings also ``mv_checks``: both mixed dtypes, an
+   Lc of 13 in every dtype pair, 64 rows, x of 65536 f32 columns, R 0,
+   and rows 1001:1065 launched alone in the whole launch's bits); the
+   residual kernel per call at B in {1, 4} (and on bf16
    planes at B = 4); dense MV at (4096, 4096), (4096, 11008) and
    (11008, 4096) in fp32 and bf16; flash attention at BH = 32, hd = 128,
    S in {77, 512, 2048}, and at hd 32, 64 and 80 (zero-padded to 128)
@@ -239,14 +242,17 @@ STREAM_KERNELS = ("espim_spmv_batched", "espim_spmv_batched_quant",
 CHECK_BATCHES = (1, 2, 3, 4, 8, 13)
 TOP_KERNELS = 8                 # a step profile lists the kernels taking most
 TIME_BATCHES = (1, 4)
-# the SpMV kernels' names in a profiler trace: espim_spmv.cu's
-# warp-per-row body and the streaming body's two kernels
-SPMV_KERNEL_NAMES = ("espim_spmv_kernel", "espim_spmv_stream_kernel",
+# the SpMV kernels' names in a profiler trace: espim_spmv.cu's mv body
+# (kernel 5) and the ring body's two kernels
+SPMV_KERNEL_NAMES = ("espim_spmv_mv_kernel", "espim_spmv_stream_kernel",
                      "espim_spmv_stream_glu_kernel")
 # bf16 inputs and attention: the JAX package's own test tolerances, as
 # |kernel - plain| <= atol + rtol * |plain| elementwise
-# (tests/test_kernels.py:36,84, tests/test_flash_kernel.py:32,43)
-ALLCLOSE_TOL = {"espim_spmv/bf16": 3e-2, "dense_mv/bf16": 5e-2,
+# (tests/test_kernels.py:84, tests/test_flash_kernel.py:32,43).  Kernel 5
+# has no entry: its plain version widens bf16 values and x exactly and
+# sums in fp32, as the kernel does, so every dtype pair is held to the
+# fp32 rule (KERNEL_REL_TOL * max|plain| + KERNEL_ABS_TOL)
+ALLCLOSE_TOL = {"dense_mv/bf16": 5e-2,
                 "flash_attention/fp32": 2e-5, "flash_attention/bf16": 5e-2}
 # bf16 attention is also held as a whole, ||kernel - plain||_2 /
 # ||plain||_2: at S = 2048 softmax averages hundreds of keys, the outputs
@@ -344,6 +350,20 @@ WKV_FWD_OPS, WKV_BWD_OPS = 5, 14
 # the forward's instances (bf16, fp32 x 1, 2, 4, 8, 16 k-groups) and the
 # backward's (bf16, fp32): the build phase holds each to no spill
 WKV_INSTANCES = 12
+# kernel 5's mv body: f32 and bf16 planes x f32 and bf16 x x (the vector
+# walk with x staged, or either walk with x anywhere); the build phase
+# holds each to no spill
+MV_INSTANCES = 8
+# kernel 5's cases beyond the timed ones (``mv_checks``): a pack of fewer
+# rows than the SMs, an x too wide for shared memory (its rows, 128
+# chunks of 48 slots, longer than a stage: they go in pieces), an Lc that
+# is not a multiple of 4 (the down pack's first 13 slots a chunk), and
+# the rows launched alone against the same rows of the whole launch (an
+# odd first row: the odd-Lc pack's spans start off 16 bytes)
+MV_FEW_ROWS = 64
+MV_WIDE = (256, 65536, 48)      # rows, f32 columns, Lc
+MV_ODD_LC = 13
+MV_SLICE = (1001, 1065)
 # every forward instance against the plain version (``wkv_instances``),
 # at B 2 x S 48 (three tiles, a checkpoint after 32 steps): bf16 at K' 4
 # KG, fp32 at odd K' (rows padded with zeros, the copies not 16-byte
@@ -637,6 +657,19 @@ def phase_build(report: dict) -> None:
     need(all(n == (0, 0) for n in wkv_fns.values()),
          f"[build] a WKV kernel instance spills: "
          f"{ {fn: n for fn, n in wkv_fns.items() if n != (0, 0)} }")
+    spills = ptxas_spills(build.BUILD_LOG["espim_spmv"]["log"])
+    mv_fns = {fn: n for fn, n in spills.items()
+              if "espim_spmv_mv_kernel" in fn}
+    report["build"]["mv_spills"] = mv_fns
+    log(f"[build] kernel 5 (mv body) spill bytes (stores, loads) by "
+        f"instance: {sorted(set(mv_fns.values()))} over {len(mv_fns)} "
+        f"instances")
+    need(len(mv_fns) == MV_INSTANCES,
+         f"[build] ptxas reported {len(mv_fns)} kernel-5 instances, want "
+         f"{MV_INSTANCES}")
+    need(all(n == (0, 0) for n in mv_fns.values()),
+         f"[build] a kernel-5 instance spills: "
+         f"{ {fn: n for fn, n in mv_fns.items() if n != (0, 0)} }")
     sass = sass_tensor_ops(build.library_path("flash_attention"))
     report["build"]["flash_attention_sass"] = sass
     for fn, n in sass.items():
@@ -1369,7 +1402,8 @@ def _within(kernel: str, variant: str, got, want) -> tuple[bool, float]:
     if tol is not None:
         ok = bool((diff <= tol + tol * want.abs()).all())
     else:
-        ok = err <= KERNEL_REL_TOL * float(want.abs().max()) + KERNEL_ABS_TOL
+        scale = float(want.abs().max()) if want.numel() else 0.0
+        ok = err <= KERNEL_REL_TOL * scale + KERNEL_ABS_TOL
     if key in REL_L2_TOL:
         ok = ok and rel_l2(got, want) <= REL_L2_TOL[key]
     return (ok and got.shape == want.shape
@@ -2038,6 +2072,93 @@ def phase_robustness(ctx, cfg, params, cfg_fp, params_fp, sparse8,
     rec["seconds"] = time.perf_counter() - t0
     log(f"[robust] phase in {rec['seconds']:.1f} s")
     ctx["report"]["robustness"] = rec
+
+
+def mv_checks(ctx, weights: dict) -> dict:
+    """Kernel 5 beyond its timed cases, on the projection phase's fp32
+    packs (``weights``: {"qkv", "down"}), each case against its plain
+    version under ``_within`` and launched twice for the same bits: both
+    mixed dtypes (f32 values with a bf16 x, bf16 values with an f32 x);
+    an Lc that is not a multiple of 4 in every dtype pair; a pack of
+    ``MV_FEW_ROWS`` rows; x of 65536 f32 columns (``MV_WIDE``); R = 0,
+    which the wrapper answers with zeros and no launch.  Then
+    ``MV_SLICE``'s rows launched alone equal the same rows of the whole
+    launch in bits, on the qkv pack and the odd-Lc pack.  These launches
+    compare; they count toward no phase."""
+    from repro_torch.kernels import espim_spmv as K
+    from repro_torch.kernels import ops
+    torch, dev = ctx["torch"], ctx["device"]
+    gen = torch.Generator(device=dev).manual_seed(ctx["seed"] + 6)
+    f32, bf = torch.float32, torch.bfloat16
+    names = {f32: "fp32", bf: "bf16"}
+    qkv, down = weights["qkv"], weights["down"]
+    # (values, cols, chunk_cols, x's length) of each pack
+    odd = (down.values[:, :, :MV_ODD_LC].contiguous(),
+           down.cols[:, :, :MV_ODD_LC].contiguous(), down.chunk_cols,
+           down.n_cols)
+    r, m, lc = MV_WIDE
+    cc = qkv.chunk_cols
+    wide = (torch.randn((r, m // cc, lc), generator=gen, device=dev),
+            torch.randint(0, cc, (r, m // cc, lc), generator=gen, device=dev,
+                          dtype=torch.int32), cc, m)
+    packs = {"qkv": (qkv.values, qkv.cols, cc, qkv.n_cols),
+             "down": (down.values, down.cols, down.chunk_cols, down.n_cols),
+             f"Lc {MV_ODD_LC}": odd,
+             f"{MV_FEW_ROWS} rows": (qkv.values[:MV_FEW_ROWS].contiguous(),
+                                     qkv.cols[:MV_FEW_ROWS].contiguous(), cc,
+                                     qkv.n_cols),
+             f"{m} columns": wide,
+             "R 0": (qkv.values[:0], qkv.cols[:0], cc, qkv.n_cols)}
+    # (pack, value dtype, x dtype)
+    cases = ([(p, f32, bf) for p in ("qkv", "down")]
+             + [(p, bf, f32) for p in ("qkv", "down")]
+             + [(f"Lc {MV_ODD_LC}", vd, xd) for vd in (f32, bf)
+                for xd in (f32, bf)]
+             + [(f"{MV_FEW_ROWS} rows", f32, f32), (f"{MV_FEW_ROWS} rows", bf, bf),
+                (f"{m} columns", f32, f32), ("R 0", f32, f32)])
+    rows, worst = [], 0.0
+    for pack, vd, xd in cases:
+        vals, cols, ccp, n_x = packs[pack]
+        vals = vals.to(vd)
+        x = torch.randn((n_x,), generator=gen, device=dev).to(xd)
+        run = (lambda impl, v=vals, c=cols, x=x, cc=ccp:
+               ops.espim_spmv(v, c, x, chunk_cols=cc, impl=impl))
+        before = K.LAUNCHES["espim_spmv"]
+        got, again = run(None), run(None)
+        launched = K.LAUNCHES["espim_spmv"] - before
+        need(launched == (0 if pack == "R 0" else 2),
+             f"[kernels] espim_spmv {pack}: {launched} launches for two "
+             f"calls")
+        want = run("ref")
+        variant = f"{names[vd]} values, {names[xd]} x"
+        ok, err = _within("espim_spmv", variant, got, want)
+        need(ok, f"[kernels] espim_spmv {pack} {variant}: max|kernel-plain| "
+             f"{err:.3e} out of tolerance")
+        need(torch.equal(got, again), f"[kernels] espim_spmv {pack} "
+             f"{variant}: two launches gave different bits")
+        worst = max(worst, err)
+        rows.append({"pack": pack, "variant": variant,
+                     "shape": list(cols.shape), "max_abs_err": err})
+    lo, hi = MV_SLICE
+    for pack in ("qkv", f"Lc {MV_ODD_LC}"):
+        vals, cols, ccp, n_x = packs[pack]
+        for vd in (f32, bf):
+            v = vals.to(vd)
+            x = torch.randn((n_x,), generator=gen, device=dev).to(vd)
+            whole = ops.espim_spmv(v, cols, x, chunk_cols=ccp)
+            part = ops.espim_spmv(v[lo:hi], cols[lo:hi], x, chunk_cols=ccp)
+            need(torch.equal(part, whole[lo:hi]),
+                 f"[kernels] espim_spmv {pack} {names[vd]}: rows {lo}:{hi} "
+                 f"launched alone differ from the whole launch's")
+            rows.append({"pack": pack, "variant": f"{names[vd]} rows "
+                         f"{lo}:{hi} alone == whole", "max_abs_err": 0.0})
+    log(f"[kernels] espim_spmv: {len(cases)} more cases (mixed dtypes, Lc "
+        f"{MV_ODD_LC}, {MV_FEW_ROWS} rows, x of {m} f32 columns in pieces; "
+        f"R 0 as zeros with no launch) within the fp32 rule and repeating "
+        f"their bits, worst "
+        f"max|kernel-plain| {worst:.2e}; rows {lo}:{hi} alone == the whole "
+        f"launch's in bits (qkv and Lc {MV_ODD_LC}, fp32 and bf16)")
+    return {"cases": rows, "worst": worst}
 
 
 def new_kernel_cases(ctx, proj, sparse_fp) -> list:
@@ -4219,6 +4340,8 @@ def run(ctx) -> list:
                           if k in ("espim_spmv_batched_res", "dense_mv",
                                    "flash_attention")})
     entries += phase_new_kernels(ctx, groups, launches_main)
+    report["mv_checks"] = mv_checks(
+        ctx, {n: proj["layers"][(n, "fp32")].weights for n in ("qkv", "down")})
     fam = phase_families(ctx)
     wkv_rows = phase_wkv(ctx)
     # the dry run's processes use the host alone: they overlap the phases

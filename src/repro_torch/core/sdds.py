@@ -626,7 +626,8 @@ class KernelSchedule:
     (``fill_warps_per_row``: by the row's slots); ``u`` sets the ring's
     stages (up to u + 2, as shared memory allows).  The default is
     exactly the launch the kernels make with no schedule.  On the ``ref`` lowering, and on the unbatched kernel 5 (the
-    warp-per-row body), only ``chunk_cols`` is live.
+    mv body, launched on ``kernels/espim_spmv._mv_plan``), only
+    ``chunk_cols`` is live.
     """
 
     chunk_cols: int = 512

@@ -40,7 +40,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signatures of the entry points (csrc/<library>.cu)
 _SIGNATURES = {
     "espim_spmv": {
-        "espim_spmv": [_P, _I, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P],
+        "espim_spmv": [_P, _I, _P, _P, _I, _P] + [_I] * 13 + [_P],
         "espim_spmv_batched_res_fp": [_P, _I, _P, _P, _P, _P, _I, _I, _I,
                                       _I, _I, _I, _I, _I, _P],
         "espim_spmv_batched_fp": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I,

@@ -106,11 +106,47 @@
 // The shape of the ring (consumer warps, stages, stage bytes: PortRing)
 // and these choices are the A/Bs' (scripts/spmv_tile_ab.py; PERF.md).
 //
-// The warp-per-row body (espim_spmv_kernel) serves only kernel 5, the
-// unbatched espim_spmv: the warp's lanes stride over the row's slots one
-// at a time, x is gathered through the read-only cache (fp32 or bf16), a
-// warp-shuffle reduce ends each row and lane 0 writes it. Column ids are
-// bound-checked against M in place of padding x, in both bodies.
+// The mv body serves kernel 5, the unbatched espim_spmv (espim_spmv_mv_
+// kernel): B = 1, planes f32 or bf16, x (M,) f32 or bf16.  Its bound is
+// bytes: 8 (f32) or 6 (bf16) plane bytes and one 2-flop FMA a slot, so a
+// launch takes at least (index + value planes + x + y) / 3.35 TB/s.  Its
+// first design (one warp a row, lanes striding over the slots one at a
+// time, x through the read-only cache) ran at half that bound, level with
+// a dense bf16 torch.matmul: each slot cost a division, a 4-byte index
+// load, a value load and a gather waiting on the index, and a warp kept
+// ~256 B in flight.  This body:
+//   - a persistent grid with a static split planned on the host
+//     (kernels/espim_spmv._mv_plan): as many blocks as fit the SMs, fewer
+//     for few rows; block j takes rows [j * rows_a_block, ...), whole
+//     (every row of a chunked pack has K * Lc padded slots: equal rows are
+//     equal work), so no atomics;
+//   - x copied once a block into shared memory, in its own dtype, by a
+//     bulk copy, where it fits beside 2 stages (a bf16 x is widened at the
+//     gather); else x is gathered through L1, the same sums in the same
+//     order;
+//   - one producer warp streams the block's index and value spans, a tile
+//     of whole rows at a time (pieces of a row too long for a stage), into
+//     a ring of stages by bulk copies, the index span posted on its own
+//     barrier ahead of the values: the ring's shape (stages, stage bytes)
+//     is the plan's, sized for the most rows in flight (at llama7b's
+//     projections 4-5 stages of 37-49 KB, ~185-220 KB an SM).
+//     The 16-byte interiors go in bulk, head and tail bytes by the
+//     producer's lanes (the ring body's copy_ends / copy_interior): no
+//     byte outside a plane is read;
+//   - 16 consumer warps walk rows in teams of 1 or 4 warps (the plan's
+//     team, from K * Lc alone: 4 for a row of more than 1024 slots): lane i of the team's L lanes takes the
+//     row's groups of 4 consecutive slots i, i + L, ...; a group is one
+//     16-byte ld.shared of ids, one 16- (f32) or 8-byte (bf16) value load,
+//     4 gathers of x and 4 FMAs into one accumulator in slot order (Lc a
+//     multiple of 4, aligned planes; else the same order slot by slot);
+//     the chunk base moves by compare-and-subtract, the check against M
+//     is one unsigned compare; a butterfly, then a sum in warp order
+//     through shared memory, ends the row.  That order depends on the
+//     row's slots and team alone, not on R, the grid, the block, the
+//     stage or where x lives, so a row gives the same bits in any pack or
+//     slice of rows that holds it at the same K * Lc.
+// Column ids are bound-checked against M in place of padding x, in both
+// bodies.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -120,7 +156,6 @@
 namespace {
 
 constexpr int kWarp = 32;
-constexpr int kWarpsPerBlock = 8;
 
 enum Plane { kF32 = 0, kI8 = 1, kNib = 2, kBF16 = 3 };
 
@@ -129,35 +164,7 @@ __device__ __forceinline__ float bf16_bits_to_float(unsigned short bits) {
   return __uint_as_float(static_cast<unsigned>(bits) << 16);
 }
 
-// element i of x, fp32 or bf16, widened to fp32
-__device__ __forceinline__ float load_x(const float* x, long long i) {
-  return __ldg(x + i);
-}
-__device__ __forceinline__ float load_x(const unsigned short* x, long long i) {
-  return bf16_bits_to_float(__ldg(x + i));
-}
-
 enum Act { kSilu = 0, kGelu = 1, kRelu = 2, kRelu2 = 3 };
-
-// value of slot (k, l) of a row whose plane starts at `base`
-template <int P>
-__device__ __forceinline__ float slot_value(const void* v, long long base,
-                                            int s, int k, int l, int lv) {
-  if (P == kF32) return __ldg(static_cast<const float*>(v) + base + s);
-  if (P == kBF16)
-    return bf16_bits_to_float(
-        __ldg(static_cast<const unsigned short*>(v) + base + s));
-  if (P == kI8)
-    return static_cast<float>(__ldg(static_cast<const signed char*>(v) + base + s));
-  const unsigned char byte =
-      __ldg(static_cast<const unsigned char*>(v) + base +
-            static_cast<long long>(k) * lv + (l >> 1));
-  // sign-extend the nibble from the int8 bit pattern by arithmetic shifts
-  const int code = (l & 1)
-      ? (static_cast<int>(static_cast<signed char>(byte)) >> 4)
-      : (static_cast<int>(static_cast<unsigned>(byte) << 28) >> 28);
-  return static_cast<float>(code);
-}
 
 __device__ __forceinline__ float apply_act(float v, int act) {
   switch (act) {
@@ -175,85 +182,6 @@ __device__ __forceinline__ float apply_act(float v, int act) {
     }
   }
 }
-
-// accumulate one row's slots into acc[0 : nb) for batch columns b0..b0+nb
-template <int P, typename XT, int BT>
-__device__ __forceinline__ void row_accumulate(
-    const void* __restrict__ values, const int* __restrict__ cols,
-    const XT* __restrict__ x, long long vbase, long long cbase, int lane,
-    int slots, int lc, int lv, int chunk_cols, int m, int b, int b0, int nb,
-    float (&acc)[BT]) {
-  for (int s = lane; s < slots; s += kWarp) {
-    const int k = s / lc;
-    const int l = s - k * lc;
-    const int g = k * chunk_cols + __ldg(cols + cbase + s);
-    const float v = slot_value<P>(values, vbase, s, k, l, lv);
-    if (static_cast<unsigned>(g) < static_cast<unsigned>(m)) {
-      const long long xr = static_cast<long long>(g) * b + b0;
-#pragma unroll
-      for (int j = 0; j < BT; ++j)
-        if (j < nb) acc[j] = fmaf(v, load_x(x, xr + j), acc[j]);
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < BT; ++j)
-    for (int off = kWarp / 2; off > 0; off >>= 1)
-      acc[j] += __shfl_down_sync(0xffffffffu, acc[j], off);
-}
-
-// One warp per output row r of an (R, K, Lc) plane.
-template <int P, typename XT, int BT>
-__global__ void __launch_bounds__(kWarp * kWarpsPerBlock)
-espim_spmv_kernel(const void* __restrict__ values, const int* __restrict__ cols,
-                  const XT* __restrict__ x, float* __restrict__ out,
-                  int rows, int n_chunks, int lc, int lv, int chunk_cols,
-                  int m, int b) {
-  const int lane = threadIdx.x & (kWarp - 1);
-  const int row = blockIdx.x * kWarpsPerBlock + (threadIdx.x / kWarp);
-  if (row >= rows) return;  // uniform across the warp
-  const int slots = n_chunks * lc;
-  const int vrow = (P == kNib) ? n_chunks * lv : slots;
-  const long long cg = static_cast<long long>(row) * slots;
-  const long long vg = static_cast<long long>(row) * vrow;
-  for (int b0 = 0; b0 < b; b0 += BT) {
-    const int nb = min(BT, b - b0);
-    float acc[BT];
-#pragma unroll
-    for (int j = 0; j < BT; ++j) acc[j] = 0.0f;
-    row_accumulate<P, XT, BT>(values, cols, x, vg, cg, lane, slots, lc, lv,
-                              chunk_cols, m, b, b0, nb, acc);
-    if (lane == 0) {
-      float* o = out + static_cast<long long>(row) * b + b0;
-      for (int j = 0; j < nb; ++j) o[j] = acc[j];
-    }
-  }
-}
-
-template <int P, typename XT, int BT>
-int launch(const void* values, const int* cols, const XT* x, float* out,
-           int rows, int n_chunks, int lc, int lv, int chunk_cols, int m,
-           int b, void* stream) {
-  const dim3 block(kWarp * kWarpsPerBlock);
-  const dim3 grid((rows + kWarpsPerBlock - 1) / kWarpsPerBlock);
-  espim_spmv_kernel<P, XT, BT>
-      <<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-          values, cols, x, out, rows, n_chunks, lc, lv, chunk_cols, m, b);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <int P>
-int launch_unbatched(const void* values, const int* cols, const void* x,
-                     int x_bf16, float* out, int rows, int n_chunks, int lc,
-                     int chunk_cols, int m, void* stream) {
-  if (x_bf16)
-    return launch<P, unsigned short, 1>(
-        values, cols, static_cast<const unsigned short*>(x), out, rows,
-        n_chunks, lc, lc, chunk_cols, m, 1, stream);
-  return launch<P, float, 1>(values, cols, static_cast<const float*>(x), out,
-                             rows, n_chunks, lc, lc, chunk_cols, m, 1,
-                             stream);
-}
-
 
 // --------------------------------------------------------------------------
 // The ring body of kernels 1-4 and 6 (see the note at the head).
@@ -1253,21 +1181,393 @@ inline GroupArgs group_args(int i0, int n, const void* values,
   return a;
 }
 
+// --------------------------------------------------------------------------
+// The mv body of kernel 5 (see the note at the head).
+// --------------------------------------------------------------------------
+
+// its shape: consumer warps a block (and one producer warp), the most
+// ring stages (3 barriers each, then x's), the barriers' bytes at the
+// head of shared memory (the plan's MV_CONSUMERS, MV_MAX_STAGES and
+// MV_BAR_BYTES)
+constexpr int kMvConsumers = 16;
+constexpr int kMvMaxStages = 6;
+constexpr int kMvBarBytes = 256;
+constexpr int kMvThreads = kWarp * (kMvConsumers + 1);
+static_assert(8 * (3 * kMvMaxStages + 1) <= kMvBarBytes, "barrier space");
+static_assert(kMvConsumers % 4 == 0, "teams of 1 or 4 warps");
+
+// the launch: operands and the host's plan (kernels/espim_spmv._mv_plan)
+struct MvArgs {
+  const void* values;   // (rows, K, Lc) f32 or bf16
+  const int* cols;      // (rows, K, Lc) chunk-local column ids
+  const void* x;        // (m,) f32 or bf16
+  float* out;           // (rows,)
+  int rows, n_chunks, lc, chunk_cols, m;
+  int rows_a_block;     // block j walks rows [j * rows_a_block, ...)
+  int team;             // warps a row: 1 or 4
+  int stages, stage;    // the ring: `stages` stages of `stage` bytes
+  int tile_rows;        // whole rows a stage holds; 0: rows go in pieces
+  int piece;            // slots a piece, a multiple of 4 x the team's lanes
+  int xstage;           // x is copied into shared memory, after the ring
+  int vec;              // Lc % 4 == 0 and aligned planes: vector loads
+};
+
+// bytes of shared memory x takes when staged: its head offset (< 16) and
+// its bytes, in 128-byte units (_mv_plan's _x_region)
+constexpr int mv_x_region(int m, int xb) {
+  return (m * xb + 15 + 127) / 128 * 128;
+}
+
+// rows [r0, r0 + n), slots [s0, s1) of each; n is 1 for a piece of a row
+struct MvTile {
+  int r0, n, s0, s1;
+};
+
+// f(tile) for every tile of the block's rows [r_begin, r_end), in order;
+// the producer and every consumer warp walk the same list
+template <class F>
+__device__ __forceinline__ void for_mv_tiles(const MvArgs& a, int r_begin,
+                                             int r_end, F&& f) {
+  const int slots = a.n_chunks * a.lc;
+  if (a.tile_rows > 0) {
+    for (int r = r_begin; r < r_end; r += a.tile_rows)
+      f(MvTile{r, min(a.tile_rows, r_end - r), 0, slots});
+    return;
+  }
+  for (int r = r_begin; r < r_end; ++r)
+    for (int s0 = 0; s0 < slots; s0 += a.piece)
+      f(MvTile{r, 1, s0, min(s0 + a.piece, slots)});
+}
+
+// the tile's index span, then its value span, laid out from shared
+// address `stage`
+template <int P>
+__device__ __forceinline__ void mv_spans(const MvArgs& a, const MvTile& t,
+                                         uint32_t stage, Span (&sp)[2]) {
+  const long long slots = 1LL * a.n_chunks * a.lc;
+  const long long s = t.r0 * slots + t.s0;
+  const int n = static_cast<int>((t.n - 1) * slots + t.s1 - t.s0);
+  sp[0] = {reinterpret_cast<const unsigned char*>(a.cols + s), 4 * n, stage};
+  sp[1] = {static_cast<const unsigned char*>(a.values) + s * slot_bytes<P>(),
+           n * slot_bytes<P>(), 0};
+  const uint32_t head = reinterpret_cast<uintptr_t>(sp[0].gptr) & 15;
+  sp[1].smem = stage + ((head + sp[0].len + 15) & ~15u);
+}
+
+// the producer warp: x first, when staged (its own barrier); then each
+// tile: wait until its stage is free, copy the spans' head and tail bytes
+// with the lanes, and lane 0 posts the index span's bulk copies on the
+// stage's index barrier, then the value span's on its value barrier
+template <int P>
+__device__ __forceinline__ void mv_produce(const MvArgs& a, int r_begin,
+                                           int r_end, unsigned char* smem,
+                                           uint32_t bars, uint32_t stages,
+                                           const Span& xspan) {
+  const int lane = threadIdx.x % kWarp;
+  if (r_begin >= r_end) return;
+  if (a.xstage) {
+    const uint32_t xbar = bars + 8 * 3 * kMvMaxStages;
+    const uint32_t tx = copy_ends(xspan, lane, smem, bars);
+    __syncwarp();
+    if (lane == 0) {
+      mbar_expect_tx(xbar, tx);
+      copy_interior(xspan, xbar);
+    }
+  }
+  int it = 0;
+  for_mv_tiles(a, r_begin, r_end, [&](const MvTile& t) {
+    const int st = it % a.stages;
+    const uint32_t ph = (it / a.stages) & 1;
+    const uint32_t full_idx = bars + 8 * st;
+    const uint32_t full_val = bars + 8 * (kMvMaxStages + st);
+    mbar_wait(bars + 8 * (2 * kMvMaxStages + st), ph ^ 1);
+    Span sp[2];
+    mv_spans<P>(a, t, stages + st * a.stage, sp);
+    const uint32_t tx0 = copy_ends(sp[0], lane, smem, bars);
+    const uint32_t tx1 = copy_ends(sp[1], lane, smem, bars);
+    __syncwarp();
+    if (lane == 0) {
+      mbar_expect_tx(full_idx, tx0);
+      copy_interior(sp[0], full_idx);
+      mbar_expect_tx(full_val, tx1);
+      copy_interior(sp[1], full_val);
+    }
+    ++it;
+  });
+}
+
+__device__ __forceinline__ float x_at(const float* x, int i) { return x[i]; }
+__device__ __forceinline__ float x_at(const unsigned short* x, int i) {
+  return bf16_bits_to_float(x[i]);
+}
+
+// acc += v[i] * x[base + c[i]] for the group's 4 slots, in order; a
+// column at or past m adds nothing
+template <typename XT>
+__device__ __forceinline__ float gather4(const XT* x, int base, const int4& c,
+                                         const float (&v)[4], int m,
+                                         float acc) {
+  const int cs[4] = {c.x, c.y, c.z, c.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int gc = base + cs[i];
+    if (static_cast<unsigned>(gc) < static_cast<unsigned>(m))
+      acc = fmaf(v[i], x_at(x, gc), acc);
+  }
+  return acc;
+}
+
+// a lane's (offset in its chunk, chunk base) one step on: `rk` slots and
+// `qb` columns (the step is qk chunks and rk slots, qb = qk * chunk_cols)
+__device__ __forceinline__ void mv_advance(int& l, int& base, int rk, int qb,
+                                           int lc, int cc) {
+  l += rk;
+  base += qb;
+  if (l >= lc) {
+    l -= lc;
+    base += cc;
+  }
+}
+
+// The slots [s0, s1) of one row into acc: cs[s] is slot s's column id and
+// vs the row's value bytes, both in shared memory; x in shared or global
+// memory.  Lane `lane` of the team's `lanes` takes the groups of 4
+// consecutive slots at s0 + 4 * lane, then every 4 * lanes slots (s0 is a
+// multiple of 4 * lanes), and adds each group's slots in order.  VEC: Lc
+// is a multiple of 4 (a group's slots share a chunk) and the spans are
+// aligned, so a group is one 16-byte index load and one value load, two
+// groups a turn; else slot by slot, in the same order.
+template <int P, typename XT, bool VEC>
+__device__ __forceinline__ float mv_walk(const int* cs,
+                                         const unsigned char* vs, int s0,
+                                         int s1, int lc, int cc, int m,
+                                         const XT* x, int lane, int lanes,
+                                         float acc) {
+  int s = s0 + 4 * lane;
+  if (s >= s1) return acc;
+  const int step = 4 * lanes, qk = step / lc, rk = step - qk * lc;
+  const int qb = qk * cc;
+  int l = s % lc, base = s / lc * cc;
+  if (VEC) {
+    for (; s + step < s1; s += 2 * step) {
+      const int4 ca = *reinterpret_cast<const int4*>(cs + s);
+      const int4 cb = *reinterpret_cast<const int4*>(cs + s + step);
+      float va[4], vb[4];
+      smem_values4<P>(vs, s, va);
+      smem_values4<P>(vs, s + step, vb);
+      const int base_a = base;
+      mv_advance(l, base, rk, qb, lc, cc);
+      const int base_b = base;
+      mv_advance(l, base, rk, qb, lc, cc);
+      acc = gather4(x, base_a, ca, va, m, acc);
+      acc = gather4(x, base_b, cb, vb, m, acc);
+    }
+    if (s < s1) {
+      float va[4];
+      smem_values4<P>(vs, s, va);
+      acc = gather4(x, base, *reinterpret_cast<const int4*>(cs + s), va, m,
+                    acc);
+    }
+    return acc;
+  }
+  for (; s < s1; s += step) {
+    int li = l, kb = base;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if (i > 0 && ++li == lc) {
+        li = 0;
+        kb += cc;
+      }
+      if (s + i >= s1) break;
+      const int gc = kb + cs[s + i];
+      const float v = smem_value<P>(vs, s + i, 0, 0, 0);
+      if (static_cast<unsigned>(gc) < static_cast<unsigned>(m))
+        acc = fmaf(v, x_at(x, gc), acc);
+    }
+    mv_advance(l, base, rk, qb, lc, cc);
+  }
+  return acc;
+}
+
+// The consumer warps: each takes every tile in order, waits on its index
+// barrier, and, where its team has rows in the tile, on its value barrier;
+// walks them, ends each row (a butterfly, then for a team of several warps
+// their sums in warp order through part[], between two team barriers) and
+// its first lane stores it; then frees the stage.  Row q of the block
+// (counted over its tiles) belongs to team q % (kMvConsumers / team).
+template <int P, typename XT, bool FAST>
+__device__ __forceinline__ void mv_consume(const MvArgs& a, int r_begin,
+                                           int r_end, unsigned char* smem,
+                                           uint32_t bars, uint32_t stages,
+                                           const XT* x, float* part) {
+  const int warp = threadIdx.x / kWarp, lane32 = threadIdx.x % kWarp;
+  const int team = a.team, t_id = warp / team, n_teams = kMvConsumers / team;
+  const int lanes = kWarp * team, lane = (warp % team) * kWarp + lane32;
+  const int slots = a.n_chunks * a.lc;
+  float acc = 0.0f;
+  int q = 0, it = 0;
+  for_mv_tiles(a, r_begin, r_end, [&](const MvTile& t) {
+    const int st = it % a.stages;
+    const uint32_t ph = (it / a.stages) & 1;
+    mbar_wait(bars + 8 * st, ph);
+    const int j0 = (t_id - q % n_teams + n_teams) % n_teams;
+    if (j0 < t.n) {
+      Span sp[2];
+      mv_spans<P>(a, t, stages + st * a.stage, sp);
+      // slot 0 of the tile's first row (slot s0 sits at the span's head)
+      const int* cs =
+          reinterpret_cast<const int*>(
+              smem + (sp[0].smem - bars) +
+              (reinterpret_cast<uintptr_t>(sp[0].gptr) & 15)) - t.s0;
+      const unsigned char* vs =
+          smem + (sp[1].smem - bars) +
+          (reinterpret_cast<uintptr_t>(sp[1].gptr) & 15) -
+          t.s0 * slot_bytes<P>();
+      mbar_wait(bars + 8 * (kMvMaxStages + st), ph);
+      for (int j = j0; j < t.n; j += n_teams) {
+        if (t.s0 == 0) acc = 0.0f;
+        const int* rc = cs + j * slots;
+        const unsigned char* rv = vs + j * slots * slot_bytes<P>();
+        if (FAST || a.vec)
+          acc = mv_walk<P, XT, true>(rc, rv, t.s0, t.s1, a.lc, a.chunk_cols,
+                                     a.m, x, lane, lanes, acc);
+        else
+          acc = mv_walk<P, XT, false>(rc, rv, t.s0, t.s1, a.lc,
+                                      a.chunk_cols, a.m, x, lane, lanes,
+                                      acc);
+        if (t.s1 < slots) continue;     // a piece that does not end its row
+#pragma unroll
+        for (int off = kWarp / 2; off > 0; off >>= 1)
+          acc += __shfl_xor_sync(0xffffffffu, acc, off);
+        if (team > 1) {
+          if (lane32 == 0) part[warp] = acc;
+          team_sync(1 + t_id, lanes);
+          acc = part[t_id * team];
+          for (int w = 1; w < team; ++w) acc += part[t_id * team + w];
+          team_sync(1 + t_id, lanes);   // part is free again
+        }
+        if (lane == 0) a.out[t.r0 + j] = acc;
+      }
+    }
+    if (t.s1 == slots) q += t.n;
+    __syncwarp();
+    if (lane32 == 0) mbar_arrive(bars + 8 * (2 * kMvMaxStages + st));
+    ++it;
+  });
+}
+
+// FAST: vector loads and x staged, the common case in an instance of its
+// own; else either walk by a.vec and x where a.xstage puts it
+template <int P, typename XT, bool FAST>
+__global__ void __launch_bounds__(kMvThreads, 1)
+espim_spmv_mv_kernel(const __grid_constant__ MvArgs a) {
+  extern __shared__ __align__(128) unsigned char ring_smem[];
+  __shared__ float part[kMvConsumers];
+  const uint32_t bars = smem_u32(ring_smem);
+  const uint32_t stages = bars + kMvBarBytes;
+  const uint32_t xbar = bars + 8 * 3 * kMvMaxStages;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < a.stages; ++s) {
+      mbar_init(bars + 8 * s, 1);
+      mbar_init(bars + 8 * (kMvMaxStages + s), 1);
+      mbar_init(bars + 8 * (2 * kMvMaxStages + s), kMvConsumers);
+    }
+    mbar_init(xbar, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  const int r_begin = blockIdx.x * a.rows_a_block;
+  const int r_end = min(a.rows, r_begin + a.rows_a_block);
+  // x, when staged, sits after the ring: global byte x + i at xs + i
+  const Span xspan = {static_cast<const unsigned char*>(a.x),
+                      a.m * static_cast<int>(sizeof(XT)),
+                      stages + a.stages * a.stage};
+  if (static_cast<int>(threadIdx.x / kWarp) == kMvConsumers) {
+    mv_produce<P>(a, r_begin, r_end, ring_smem, bars, stages, xspan);
+    return;
+  }
+  const XT* x = static_cast<const XT*>(a.x);
+  if (FAST || a.xstage) {
+    x = reinterpret_cast<const XT*>(
+        ring_smem + (xspan.smem - bars) +
+        (reinterpret_cast<uintptr_t>(a.x) & 15));
+    if (r_begin < r_end) mbar_wait(xbar, 0);
+  }
+  mv_consume<P, XT, FAST>(a, r_begin, r_end, ring_smem, bars, stages, x,
+                          part);
+}
+
+// whether the plan fits the operands and the ring (a plan that would
+// overrun a stage or shared memory is refused)
+inline bool mv_plan_ok(const MvArgs& a, int blocks, int vb, int xb) {
+  const long long slots = 1LL * a.n_chunks * a.lc;
+  const long long rowb = slots * (4 + vb);
+  const long long smem = kMvBarBytes + 1LL * a.stages * a.stage +
+                         (a.xstage ? mv_x_region(a.m, xb) : 0);
+  const bool tiles = a.tile_rows > 0
+      ? a.tile_rows * rowb + 64 <= a.stage
+      : a.piece > 0 && a.piece % (4 * kWarp * a.team) == 0 &&
+            1LL * a.piece * (4 + vb) + 64 <= a.stage;
+  return a.rows > 0 && slots > 0 && a.m > 0 && a.chunk_cols > 0 &&
+         blocks >= 1 && a.rows_a_block >= 1 &&
+         1LL * blocks * a.rows_a_block >= a.rows &&
+         1LL * (blocks - 1) * a.rows_a_block < a.rows &&
+         (a.team == 1 || a.team == 4) && a.stages >= 2 &&
+         a.stages <= kMvMaxStages && a.stage % 128 == 0 && smem <= kSmemLimit &&
+         tiles;
+}
+
+template <int P, typename XT, bool FAST>
+int launch_mv(const MvArgs& a, int blocks, void* stream) {
+  void (*kern)(const MvArgs) = espim_spmv_mv_kernel<P, XT, FAST>;
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
+  static bool opted[64] = {};   // the shared-memory opt-in, by device
+  if (!opted[dev]) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    opted[dev] = true;
+  }
+  const int smem = kMvBarBytes + a.stages * a.stage +
+                   (a.xstage ? mv_x_region(a.m, sizeof(XT)) : 0);
+  kern<<<blocks, kMvThreads, smem,
+         static_cast<cudaStream_t>(stream)>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int P, typename XT>
+int launch_mv_x(const MvArgs& a, int blocks, void* stream) {
+  return a.vec && a.xstage ? launch_mv<P, XT, true>(a, blocks, stream)
+                           : launch_mv<P, XT, false>(a, blocks, stream);
+}
+
 }  // namespace
 
 extern "C" {
 
-// values f32 or bf16 (R, K, Lc); x f32 or bf16 (M,); out f32 (R,)
+// values f32 or bf16 (R, K, Lc); x f32 or bf16 (M,); out f32 (R,); the
+// launch plan of kernels/espim_spmv._mv_plan (blocks .. xstage), refused
+// (cudaErrorInvalidValue) where it does not fit
 int espim_spmv(const void* values, int values_bf16, const void* cols,
                const void* x, int x_bf16, void* out, int rows, int n_chunks,
-               int lc, int chunk_cols, int m, void* stream) {
-  const int* c = static_cast<const int*>(cols);
-  float* o = static_cast<float*>(out);
+               int lc, int chunk_cols, int m, int blocks, int rows_a_block,
+               int team, int stages, int stage_bytes,
+               int tile_rows, int piece, int xstage, void* stream) {
+  const int vb = values_bf16 ? 2 : 4, xb = x_bf16 ? 2 : 4;
+  MvArgs a = {values, static_cast<const int*>(cols), x,
+              static_cast<float*>(out), rows, n_chunks, lc, chunk_cols, m,
+              rows_a_block, team, stages, stage_bytes, tile_rows,
+              piece, xstage != 0, 0};
+  a.vec = lc % 4 == 0 && aligned(cols, 16) && aligned(values, 4 * vb);
+  if (!mv_plan_ok(a, blocks, vb, xb))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (values_bf16)
-    return launch_unbatched<kBF16>(values, c, x, x_bf16, o, rows, n_chunks,
-                                   lc, chunk_cols, m, stream);
-  return launch_unbatched<kF32>(values, c, x, x_bf16, o, rows, n_chunks, lc,
-                                chunk_cols, m, stream);
+    return x_bf16 ? launch_mv_x<kBF16, unsigned short>(a, blocks, stream)
+                  : launch_mv_x<kBF16, float>(a, blocks, stream);
+  return x_bf16 ? launch_mv_x<kF32, unsigned short>(a, blocks, stream)
+                : launch_mv_x<kF32, float>(a, blocks, stream);
 }
 
 // values f32 or bf16 (values_bf16 = 1) (R, K, Lc); x f32 (M, B);

@@ -27,7 +27,11 @@ run) the op's Meta implementation gives the output's shape and dtype and
 launches nothing.  Their
 plain versions live in ``kernels/ref.py``; ``kernels/ops.py`` picks
 between the two by the tensors' device.  All six are bound by the bytes
-of the value and index planes (see the source's header note).  Kernels
+of the value and index planes (see the source's header note).  Kernel 5
+(``espim_spmv_cuda``) runs the source's mv body, built for B = 1, on the
+launch plan ``_mv_plan`` computes here on the host (blocks, rows a
+block, warps a row, the ring's stages and bytes, whether x is staged in
+shared memory).  Kernels
 1-4 (``espim_spmv_batched_cuda``, ``espim_spmv_batched_quant_cuda`` and
 their GLU forms) and kernel 6 (the residual form) run the source's
 ring body (planes streamed through a shared-memory ring by bulk
@@ -45,6 +49,8 @@ bfloat16 value planes (bf16 widened to f32 in the kernel) and x in f32
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -163,16 +169,126 @@ def _out(cols: torch.Tensor, rows: int, x: torch.Tensor | None = None):
     return torch.empty(shape, dtype=torch.float32, device=cols.device)
 
 
+# -- kernel 5's launch plan (csrc/espim_spmv.cu: espim_spmv_mv_kernel) -----
+SM_COUNT = 132                  # an H100 SXM's SMs: the plan's default
+SMEM_BLOCK = 232448             # shared memory a block may take (H100)
+MV_SMEM = SMEM_BLOCK - 2048     # the dynamic part a plan gives (kSmemLimit)
+MV_BAR_BYTES = 256              # the ring's barriers (kMvBarBytes)
+MV_CONSUMERS = 16               # consumer warps a block (kMvConsumers)
+MV_MAX_STAGES = 6               # kMvMaxStages
+MV_STAGE_BYTES = 48 * 1024      # most bytes a stage
+# a stage's least bytes: a piece of 4 slots x 128 lanes (a 4-warp team) at
+# 8 plane bytes a slot, and the two spans' alignment slack
+MV_MIN_STAGE = 4224
+MV_WIDE_ROW_SLOTS = 1024        # a row of more slots: a team of 4 warps
+
+
+class MvPlan(NamedTuple):
+    """Kernel 5's launch: ``blocks`` blocks of ``MV_CONSUMERS`` + 1 warps;
+    block j walks rows [j * rows_a_block, ...) (whole rows: no row spans
+    blocks); a row is walked by ``team`` warps; the ring holds ``stages``
+    stages of ``stage_bytes``, each ``tile_rows`` whole rows (0: a row
+    goes through in pieces of ``piece`` slots); ``xstage``: x is copied
+    into shared memory; ``smem_bytes``: the block's dynamic shared
+    memory."""
+    blocks: int
+    rows_a_block: int
+    team: int
+    stages: int
+    stage_bytes: int
+    tile_rows: int
+    piece: int
+    xstage: bool
+    smem_bytes: int
+
+
+def _x_region(m: int, x_bytes: int) -> int:
+    """Shared bytes x takes when staged: a head offset below 16 and its
+    bytes, in 128-byte units (``mv_x_region``)."""
+    return (m * x_bytes + 15 + 127) // 128 * 128
+
+
+def mv_team(slots: int) -> int:
+    """Warps that walk a row of ``slots`` padded slots (K * Lc): one, or
+    four for a row of more than ``MV_WIDE_ROW_SLOTS``.  It reads the row's
+    slots alone, so a row's sum order, and its bits, never depend on R,
+    the grid or the card."""
+    return 1 if slots <= MV_WIDE_ROW_SLOTS else 4
+
+
+def _mv_stage(stage: int, slots: int, value_bytes: int,
+              team: int) -> tuple[int, int]:
+    """(tile_rows, piece) of a stage of ``stage`` bytes: the whole rows of
+    ``slots`` slots it holds beside the two spans' 64 bytes of alignment
+    slack, or, where none fits, the slots of a piece (0 otherwise): a
+    multiple of 4 slots x the team's lanes."""
+    row_bytes = slots * (4 + value_bytes)
+    tile_rows = (stage - 64) // row_bytes if row_bytes else 0
+    unit = 4 * 32 * team
+    piece = 0 if tile_rows else \
+        (stage - 64) // (4 + value_bytes) // unit * unit
+    return tile_rows, piece
+
+
+@functools.lru_cache(maxsize=256)
+def _mv_plan(rows: int, n_chunks: int, lc: int, m: int,
+             value_bytes: int = 4, x_bytes: int = 4,
+             sms: int = SM_COUNT) -> MvPlan:
+    """The plan of one kernel-5 launch over an (R, K, Lc) pack and an x of
+    ``m`` elements (``value_bytes`` / ``x_bytes``: 4 f32, 2 bf16) on a card
+    of ``sms`` SMs.  Rows a block fill the card (one block an SM at most,
+    fewer for few rows); x is staged when it fits beside two least
+    stages; of 2 .. ``MV_MAX_STAGES`` stages (each at most
+    ``MV_STAGE_BYTES``, as the room allows) the count that holds the most
+    whole rows in flight, fewer stages on a tie (rows longer than any
+    stage: the most bytes in flight, in pieces)."""
+    slots = n_chunks * lc
+    team = mv_team(slots)
+    xreg = _x_region(m, x_bytes)
+    xstage = xreg + MV_BAR_BYTES + 2 * MV_MIN_STAGE <= MV_SMEM
+    room = MV_SMEM - MV_BAR_BYTES - (xreg if xstage else 0)
+    best = None
+    for n in range(2, MV_MAX_STAGES + 1):
+        stage = min(MV_STAGE_BYTES, room // n) // 128 * 128
+        if stage < MV_MIN_STAGE:
+            break
+        tile_rows, _ = _mv_stage(stage, slots, value_bytes, team)
+        key = (n * tile_rows, 0 if tile_rows else n * stage)
+        if best is None or key > best[0]:
+            best = (key, n, stage)
+    _, stages, stage = best
+    tile_rows, piece = _mv_stage(stage, slots, value_bytes, team)
+    rows_a_block = -(-rows // sms) if rows else 0
+    blocks = -(-rows // rows_a_block) if rows else 0
+    return MvPlan(blocks, rows_a_block, team, stages, stage, tile_rows, piece,
+                  xstage,
+                  MV_BAR_BYTES + stages * stage + (xreg if xstage else 0))
+
+
+_SMS: dict = {}
+
+
+def _sm_count(device: torch.device) -> int:
+    i = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    if i not in _SMS:
+        _SMS[i] = torch.cuda.get_device_properties(i).multi_processor_count
+    return _SMS[i]
+
+
 # -- the ops: the CUDA launch and the Meta shape of each kernel ------------
 def _spmv_launch(values, cols, x, chunk_cols):
     r, k, lc = cols.shape
     out = _out(cols, r)
-    if r == 0:
-        return out
+    if r == 0 or k * lc == 0 or x.shape[0] == 0:
+        return out.zero_()          # no slot reaches x: every row sums to 0
+    plan = _mv_plan(r, k, lc, x.shape[0], values.element_size(),
+                    x.element_size(), _sm_count(cols.device))
     rc = load_library().espim_spmv(
         values.data_ptr(), int(values.dtype == torch.bfloat16),
         cols.data_ptr(), x.data_ptr(), int(x.dtype == torch.bfloat16),
-        out.data_ptr(), r, k, lc, chunk_cols, x.shape[0], _stream(cols))
+        out.data_ptr(), r, k, lc, chunk_cols, x.shape[0],
+        *plan[:-1], _stream(cols))
     _check_rc(rc, "espim_spmv")
     return out
 

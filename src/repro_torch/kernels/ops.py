@@ -140,9 +140,11 @@ def espim_spmv(values, cols, x, *, chunk_cols: int | None = None,
     Chunked layout: values (float32 or bfloat16) / cols (R_pad, K, Lc) +
     ``chunk_cols``.  Plain layout: values/cols (R_pad, L), plain version
     only.  ``schedule`` is taken for the reference's signature: the
-    unbatched kernel (5, the warp-per-row body) launches the same under
-    every schedule, whose only live knob here is ``chunk_cols`` — the
-    pack's own.
+    unbatched kernel (5, the mv body: a persistent grid over whole rows,
+    x staged in shared memory, the planes streamed through a ring of
+    bulk copies) launches on the plan ``kernels/espim_spmv._mv_plan``
+    derives from the pack's shape, the same under every schedule, whose
+    only live knob here is ``chunk_cols`` — the pack's own.
     """
     return _dispatch_spmv(values, cols, x, chunk_cols, impl,
                           _ref.espim_spmv_ref, _ref.espim_spmv_chunked_ref,
