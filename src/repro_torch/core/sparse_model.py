@@ -34,6 +34,7 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
+from repro_torch.telemetry.trace import get_tracer
 
 __all__ = ["sparsify_model", "sparsify_mlps", "pruned_param_tree",
            "decode_step_sparse", "prefill_chunk_sparse", "sparse_stats",
@@ -268,100 +269,111 @@ def sparsify_model(cfg: ModelConfig, params: dict, sparsity: float, *,
     ``"pruned"`` (+ ``"<name>_pruned"``), the compiled ``"specs"`` and the
     model ``"fingerprint"``.
     """
-    dev = resolve_device(device)
-    quant = None if quant in (None, "none") else quant
-    by_name = _resolve_specs(cfg, projections)
-    n_layers = cfg.n_layers
+    tr = get_tracer()
+    with tr.span("pack.build", cat="pack"):
+        dev = resolve_device(device)
+        quant = None if quant in (None, "none") else quant
+        by_name = _resolve_specs(cfg, projections)
+        n_layers = cfg.n_layers
 
-    qspec = None
-    if quant is not None or quant_spec is not None:
-        from repro_torch.quant import QuantSpec, default_spec
-        qspec = (quant_spec if isinstance(quant_spec, QuantSpec)
-                 else default_spec(quant))
-        quant = quant or f"int{qspec.bits}"
+        qspec = None
+        if quant is not None or quant_spec is not None:
+            from repro_torch.quant import QuantSpec, default_spec
+            qspec = (quant_spec if isinstance(quant_spec, QuantSpec)
+                     else default_spec(quant))
+            quant = quant or f"int{qspec.bits}"
 
-    # ---- prune every covered projection ---------------------------------
-    pruned: dict = {}
-    dtypes: dict = {}
-    for spec in by_name.values():
-        sub = params["layers"].get(spec.module, {})
-        missing = [n for n in spec.projections if n not in sub]
-        if missing:
-            raise ValueError(
-                f"params missing {spec.module} projection(s) {missing} "
-                f"for group {spec.name!r} (gated_mlp={cfg.gated_mlp})")
-        for name in spec.projections:
-            w = _np(sub[name].float())                   # (L, in, out)
-            pruned[name] = np.stack([magnitude_prune(w[l], sparsity)
-                                     for l in range(n_layers)])
-            dtypes[name] = sub[name].dtype
+        # ---- prune every covered projection -----------------------------
+        pruned: dict = {}
+        dtypes: dict = {}
+        with tr.span("pack.prune", cat="pack"):
+            for spec in by_name.values():
+                sub = params["layers"].get(spec.module, {})
+                missing = [n for n in spec.projections if n not in sub]
+                if missing:
+                    raise ValueError(
+                        f"params missing {spec.module} projection(s) "
+                        f"{missing} for group {spec.name!r} "
+                        f"(gated_mlp={cfg.gated_mlp})")
+                for name in spec.projections:
+                    w = _np(sub[name].float())               # (L, in, out)
+                    pruned[name] = np.stack([magnitude_prune(w[l], sparsity)
+                                             for l in range(n_layers)])
+                    dtypes[name] = sub[name].dtype
 
-    # ---- compile the groups in spec order -------------------------------
-    host_packs: dict = {}
-    groups: dict = {}
-    for spec in by_name.values():
-        # rows of the packed matrix are W^T's rows (the output dim)
-        mats = {n: [pruned[n][l].T for l in range(n_layers)]
-                for n in spec.projections}
-        proj_nnz = {n: np.asarray([(pruned[n][l] != 0).sum()
-                                   for l in range(n_layers)], np.int64)
-                    for n in spec.projections}
-        upstream = host_packs.get(spec.compose_with)
-        if upstream is not None:
-            mats = {n: compose_cols_with_pack(ms, upstream)
-                    for n, ms in mats.items()}
-        pack, offsets = pack_group(mats, fuse=spec.fuse, row_tile=row_tile,
-                                   chunk_cols=chunk_cols,
-                                   n_buckets=n_buckets)
+        # ---- compile the groups in spec order ---------------------------
+        host_packs: dict = {}
+        groups: dict = {}
+        for spec in by_name.values():
+            upstream = host_packs.get(spec.compose_with)
+            with tr.span("pack.group", cat="pack", args={"group": spec.name}):
+                # rows of the packed matrix are W^T's rows (the output dim)
+                mats = {n: [pruned[n][l].T for l in range(n_layers)]
+                        for n in spec.projections}
+                proj_nnz = {n: np.asarray([(pruned[n][l] != 0).sum()
+                                           for l in range(n_layers)],
+                                          np.int64)
+                            for n in spec.projections}
+                if upstream is not None:
+                    mats = {n: compose_cols_with_pack(ms, upstream)
+                            for n, ms in mats.items()}
+                pack, offsets = pack_group(mats, fuse=spec.fuse,
+                                           row_tile=row_tile,
+                                           chunk_cols=chunk_cols,
+                                           n_buckets=n_buckets)
+            if qspec is not None:
+                from repro_torch.quant import quantize_bucketed_stack
+                with tr.span("pack.quantize", cat="pack"):
+                    quantize_bucketed_stack(pack, qspec)
+                    for name, arr in _dequantized_projs(pack, offsets,
+                                                        upstream).items():
+                        pruned[name] = arr
+            host_packs[spec.name] = pack
+            with tr.span("pack.upload", cat="pack"):
+                g = _to_device(pack, dev)
+            g.update({
+                "name": spec.name,
+                "module": spec.module,
+                "projections": tuple(spec.projections),
+                "fuse": spec.fuse,
+                "output": spec.output,
+                "compose_with": spec.compose_with,
+                "row_offsets": offsets,
+                "proj_nnz": proj_nnz,
+                "proj_padded": projection_padded_slots(pack, offsets),
+            })
+            groups[spec.name] = g
+
+        covered = {(s.module, n) for s in by_name.values()
+                   for n in s.projections}
+        out: dict = {
+            "format": "espim-packgroups/v3",
+            "sparsity": sparsity,
+            "gated": bool(cfg.gated_mlp),
+            "quant": quant or "none",
+            "attn_sparse": "qkv" in groups,
+            "mlp_sparse": "gateup" in groups,
+            "specs": tuple(by_name.values()),
+            "groups": groups,
+            "dense_proj_bytes": _uncovered_dense_bytes(params, covered),
+        }
+        with tr.span("pack.upload", cat="pack"):
+            out["pruned"] = {
+                n: torch.from_numpy(np.ascontiguousarray(w)).to(
+                    device=dev, dtype=dtypes[n])
+                for n, w in pruned.items()}
         if qspec is not None:
-            from repro_torch.quant import quantize_bucketed_stack
-            quantize_bucketed_stack(pack, qspec)
-            for name, arr in _dequantized_projs(pack, offsets,
-                                                upstream).items():
-                pruned[name] = arr
-        host_packs[spec.name] = pack
-        g = _to_device(pack, dev)
-        g.update({
-            "name": spec.name,
-            "module": spec.module,
-            "projections": tuple(spec.projections),
-            "fuse": spec.fuse,
-            "output": spec.output,
-            "compose_with": spec.compose_with,
-            "row_offsets": offsets,
-            "proj_nnz": proj_nnz,
-            "proj_padded": projection_padded_slots(pack, offsets),
-        })
-        groups[spec.name] = g
-
-    covered = {(s.module, n) for s in by_name.values()
-               for n in s.projections}
-    out: dict = {
-        "format": "espim-packgroups/v3",
-        "sparsity": sparsity,
-        "gated": bool(cfg.gated_mlp),
-        "quant": quant or "none",
-        "attn_sparse": "qkv" in groups,
-        "mlp_sparse": "gateup" in groups,
-        "specs": tuple(by_name.values()),
-        "groups": groups,
-        "dense_proj_bytes": _uncovered_dense_bytes(params, covered),
-        "pruned": {n: torch.from_numpy(np.ascontiguousarray(w)).to(
-                       device=dev, dtype=dtypes[n])
-                   for n, w in pruned.items()},
-    }
-    if qspec is not None:
-        out["quant_spec"] = qspec
-    # one model-level digest binding every group's device fingerprint
-    out["fingerprint"] = integrity.bind_fingerprint(
-        {n: g["fingerprint"] for n, g in groups.items()},
-        meta={"format": out["format"], "sparsity": sparsity,
-              "quant": out["quant"]})
-    for name, g in groups.items():             # top-level aliases
-        out[name] = g
-    for name, w in out["pruned"].items():
-        out[f"{name}_pruned"] = w
-    return out
+            out["quant_spec"] = qspec
+        # one model-level digest binding every group's device fingerprint
+        out["fingerprint"] = integrity.bind_fingerprint(
+            {n: g["fingerprint"] for n, g in groups.items()},
+            meta={"format": out["format"], "sparsity": sparsity,
+                  "quant": out["quant"]})
+        for name, g in groups.items():             # top-level aliases
+            out[name] = g
+        for name, w in out["pruned"].items():
+            out[f"{name}_pruned"] = w
+        return out
 
 
 def sparsify_mlps(cfg: ModelConfig, params: dict, sparsity: float,
@@ -560,42 +572,55 @@ def _layer_stack(cfg: ModelConfig, params: dict, sparse: dict, cache: dict,
     ``attn_step`` is the whole dense attention used when the sparse dict
     does not cover attention; ``attn_core`` is the projection-free middle
     (RoPE + cache + attention) wrapped by the packed QKV / O groups when
-    it does.  An uncovered MLP runs dense from the layer params."""
+    it does.  An uncovered MLP runs dense from the layer params.  Traced
+    by layer group as the dense loop is (``transformer._layer_loop``):
+    ``layer.slice``, ``attn`` (its ``attn.qkv`` / ``attn.core`` /
+    ``attn.out``), ``mlp``, then ``cache.stack``."""
     if proj_path not in ("kernel", "dense"):
         raise ValueError(f"unknown proj_path {proj_path!r}")
     attn_sparse = sparse.get("attn_sparse", False)
     mlp_sparse = sparse.get("mlp_sparse", "gateup" in sparse["groups"])
+    tr = get_tracer()
     k_new, v_new = [], []
     for i in range(cfg.n_layers):
-        lp = T.layer_slice(params["layers"], i)
-        kc, vc = cache["k"][i], cache["v"][i]
-        px = (_layer_bufs(sparse, i) if proj_path == "kernel"
-              else {n: w[i] for n, w in sparse["pruned"].items()})
-        hn = T._norm(cfg, lp["ln1"], h)
-        if attn_sparse:
-            if proj_path == "kernel":
-                q, k, v = _fused_qkv(cfg, sparse, px, lp["attn"], hn, impl)
+        with tr.span("layer.slice", cat="forward"):
+            lp = T.layer_slice(params["layers"], i)
+            kc, vc = cache["k"][i], cache["v"][i]
+            px = (_layer_bufs(sparse, i) if proj_path == "kernel"
+                  else {n: w[i] for n, w in sparse["pruned"].items()})
+        with tr.span("attn", cat="forward"):
+            hn = T._norm(cfg, lp["ln1"], h)
+            if attn_sparse:
+                with tr.span("attn.qkv", cat="forward"):
+                    if proj_path == "kernel":
+                        q, k, v = _fused_qkv(cfg, sparse, px, lp["attn"],
+                                             hn, impl)
+                    else:
+                        q, k, v = _pruned_qkv(cfg, px, lp["attn"], hn)
+                with tr.span("attn.core", cat="forward"):
+                    a_h, kc, vc = attn_core(q, k, v, kc, vc)
+                with tr.span("attn.out", cat="forward"):
+                    if proj_path == "kernel":
+                        a = _fused_o(cfg, sparse, px, a_h, impl)
+                    else:
+                        b, t = hn.shape[0], hn.shape[1]
+                        a = L.dense(a_h.reshape(b, t, -1), px["wo"])
             else:
-                q, k, v = _pruned_qkv(cfg, px, lp["attn"], hn)
-            a_h, kc, vc = attn_core(q, k, v, kc, vc)
-            if proj_path == "kernel":
-                a = _fused_o(cfg, sparse, px, a_h, impl)
+                a, kc, vc = attn_step(lp, hn, kc, vc)
+            h = h + a
+        with tr.span("mlp", cat="forward"):
+            hn = T._norm(cfg, lp["ln2"], h)
+            if not mlp_sparse:
+                h = h + T.mlp_apply(cfg, lp["mlp"], hn)
+            elif proj_path == "kernel":
+                h = h + _fused_mlp(cfg, sparse, px, hn, impl,
+                                   epilogue=epilogue)
             else:
-                b, t = hn.shape[0], hn.shape[1]
-                a = L.dense(a_h.reshape(b, t, -1), px["wo"])
-        else:
-            a, kc, vc = attn_step(lp, hn, kc, vc)
-        h = h + a
-        hn = T._norm(cfg, lp["ln2"], h)
-        if not mlp_sparse:
-            h = h + T.mlp_apply(cfg, lp["mlp"], hn)
-        elif proj_path == "kernel":
-            h = h + _fused_mlp(cfg, sparse, px, hn, impl, epilogue=epilogue)
-        else:
-            h = h + _pruned_mlp(cfg, sparse, px, hn)
+                h = h + _pruned_mlp(cfg, sparse, px, hn)
         k_new.append(kc)
         v_new.append(vc)
-    return h, torch.stack(k_new), torch.stack(v_new)
+    with tr.span("cache.stack", cat="forward"):
+        return h, torch.stack(k_new), torch.stack(v_new)
 
 
 def _check_device(params: dict, device) -> torch.device:
@@ -617,8 +642,10 @@ def decode_step_sparse(cfg: ModelConfig, params: dict, sparse: dict,
     SpMV datapath (None: the CUDA kernels on the card, the plain
     versions on the CPU; "ref": the plain versions)."""
     dev = _check_device(params, device)
-    tokens = batch["tokens"].to(dev)
-    h = T.embed_tokens(cfg, params, tokens)
+    tr = get_tracer()
+    with tr.span("embed", cat="forward"):
+        tokens = batch["tokens"].to(dev)
+        h = T.embed_tokens(cfg, params, tokens)
 
     def attn_step(lp, hn, kc, vc):
         return T.attn_decode_apply(cfg, lp["attn"], hn, kc, vc,
@@ -629,7 +656,8 @@ def decode_step_sparse(cfg: ModelConfig, params: dict, sparse: dict,
 
     h, k_new, v_new = _layer_stack(cfg, params, sparse, cache, h, attn_step,
                                    attn_core, impl, epilogue=epilogue)
-    logits = T.logits_from_hidden(cfg, params, h)
+    with tr.span("lm_head", cat="forward"):
+        logits = T.logits_from_hidden(cfg, params, h)
     return logits, {"k": k_new, "v": v_new, "len": cache["len"] + 1}
 
 
@@ -643,12 +671,14 @@ def prefill_chunk_sparse(cfg: ModelConfig, params: dict, sparse: dict,
     projections as GEMMs over the pruned copies; ``"kernel"`` feeds the
     packs with B*C columns."""
     dev = _check_device(params, device)
-    tokens = batch["tokens"].to(dev)
+    tr = get_tracer()
     start = cache["len"]
-    n_valid = batch.get("n_valid")
-    if n_valid is None:
-        n_valid = torch.full_like(start, tokens.shape[1])
-    h = T.embed_tokens(cfg, params, tokens)
+    with tr.span("embed", cat="forward"):
+        tokens = batch["tokens"].to(dev)
+        n_valid = batch.get("n_valid")
+        if n_valid is None:
+            n_valid = torch.full_like(start, tokens.shape[1])
+        h = T.embed_tokens(cfg, params, tokens)
 
     def attn_step(lp, hn, kc, vc):
         return T.attn_prefill_apply(cfg, lp["attn"], hn, kc, vc, start)[:3]
@@ -659,7 +689,8 @@ def prefill_chunk_sparse(cfg: ModelConfig, params: dict, sparse: dict,
     h, k_new, v_new = _layer_stack(cfg, params, sparse, cache, h, attn_step,
                                    attn_core, impl, proj_path=proj_path,
                                    epilogue=epilogue)
-    logits = T.logits_from_hidden(cfg, params, h)
+    with tr.span("lm_head", cat="forward"):
+        logits = T.logits_from_hidden(cfg, params, h)
     return logits, {"k": k_new, "v": v_new,
                     "len": start + n_valid.to(start.device)}
 

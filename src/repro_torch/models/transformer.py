@@ -29,6 +29,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.sharding import partition as P
+from repro_torch.telemetry.trace import get_tracer
 from repro_torch.tree import flatten, tree_map
 
 __all__ = ["init_params", "forward", "init_cache", "decode_step",
@@ -261,12 +262,16 @@ def attn_decode_apply(cfg: ModelConfig, p, x, k_cache, v_cache, cache_len,
                       k_scale=None, v_scale=None, *, positions3=None):
     """One-token decode through the dense attention weights ``p``.
     Returns (out (B, 1, D), k_cache, v_cache, k_scale, v_scale)."""
+    tr = get_tracer()
     b = x.shape[0]
-    q, k, v = _qkv(cfg, p, x)
-    out, k_cache, v_cache, k_scale, v_scale = attn_decode_core(
-        cfg, q, k, v, k_cache, v_cache, cache_len, k_scale, v_scale,
-        positions3=positions3)
-    out = L.dense(out.reshape(b, 1, cfg.n_heads * cfg.hd), p["wo"])
+    with tr.span("attn.qkv", cat="forward"):
+        q, k, v = _qkv(cfg, p, x)
+    with tr.span("attn.core", cat="forward"):
+        out, k_cache, v_cache, k_scale, v_scale = attn_decode_core(
+            cfg, q, k, v, k_cache, v_cache, cache_len, k_scale, v_scale,
+            positions3=positions3)
+    with tr.span("attn.out", cat="forward"):
+        out = L.dense(out.reshape(b, 1, cfg.n_heads * cfg.hd), p["wo"])
     return out, k_cache, v_cache, k_scale, v_scale
 
 
@@ -318,12 +323,16 @@ def attn_prefill_apply(cfg: ModelConfig, p, x, k_cache, v_cache, start,
                        k_scale=None, v_scale=None, *, positions3=None):
     """Chunked prefill through the dense attention weights ``p``.
     Returns (out (B, C, D), k_cache, v_cache, k_scale, v_scale)."""
+    tr = get_tracer()
     b, c, _ = x.shape
-    q, k, v = _qkv(cfg, p, x)
-    out, k_cache, v_cache, k_scale, v_scale = attn_prefill_core(
-        cfg, q, k, v, k_cache, v_cache, start, k_scale, v_scale,
-        positions3=positions3)
-    out = L.dense(out.reshape(b, c, cfg.n_heads * cfg.hd), p["wo"])
+    with tr.span("attn.qkv", cat="forward"):
+        q, k, v = _qkv(cfg, p, x)
+    with tr.span("attn.core", cat="forward"):
+        out, k_cache, v_cache, k_scale, v_scale = attn_prefill_core(
+            cfg, q, k, v, k_cache, v_cache, start, k_scale, v_scale,
+            positions3=positions3)
+    with tr.span("attn.out", cat="forward"):
+        out = L.dense(out.reshape(b, c, cfg.n_heads * cfg.hd), p["wo"])
     return out, k_cache, v_cache, k_scale, v_scale
 
 
@@ -433,29 +442,39 @@ def _layer_loop(cfg: ModelConfig, params: dict, cache: dict, h, attn,
     ``attn(p, hn, kc, vc, ks, vs)`` is the attention apply with the
     cache's positions bound; ``mlp(lp, hn)`` the feed-forward block (the
     dense MLP unless given: the MoE family passes its own); returns (h,
-    {leaf: stacked new cache})."""
+    {leaf: stacked new cache}).  Traced by layer group: ``layer.slice``,
+    ``attn`` (norm, the attention's ``attn.qkv`` / ``attn.core`` /
+    ``attn.out``, residual), ``mlp`` (norm, MLP, residual), then
+    ``cache.stack``."""
     if mlp is None:
         def mlp(lp, hn):
             return mlp_apply(cfg, lp["mlp"], hn)
+    tr = get_tracer()
     names = [n for n in ("k", "v", "k_scale", "v_scale") if n in cache]
     new = {n: [] for n in names}
     for i in range(cfg.n_layers):
-        lp = layer_slice(params["layers"], i)
-        kv = [cache[n][i] for n in names] + [None] * (4 - len(names))
-        a, *kv = attn(lp["attn"], _norm(cfg, lp["ln1"], h), *kv)
-        h = h + a
-        h = h + mlp(lp, _norm(cfg, lp["ln2"], h))
+        with tr.span("layer.slice", cat="forward"):
+            lp = layer_slice(params["layers"], i)
+            kv = [cache[n][i] for n in names] + [None] * (4 - len(names))
+        with tr.span("attn", cat="forward"):
+            a, *kv = attn(lp["attn"], _norm(cfg, lp["ln1"], h), *kv)
+            h = h + a
+        with tr.span("mlp", cat="forward"):
+            h = h + mlp(lp, _norm(cfg, lp["ln2"], h))
         for n, t in zip(names, kv):
             new[n].append(t)
-    return h, {n: torch.stack(ts) for n, ts in new.items()}
+    with tr.span("cache.stack", cat="forward"):
+        return h, {n: torch.stack(ts) for n, ts in new.items()}
 
 
 def decode_step(cfg: ModelConfig, params: dict, cache: dict, batch: dict):
     """One dense decode step: tokens (B, 1) -> logits (B, 1, V) and a new
     cache (the input cache is not modified; ``len`` advances by one).
     Runs where ``params`` live."""
-    tokens = batch["tokens"].to(params["embed"].device)
-    h = embed_tokens(cfg, params, tokens)
+    tr = get_tracer()
+    with tr.span("embed", cat="forward"):
+        tokens = batch["tokens"].to(params["embed"].device)
+        h = embed_tokens(cfg, params, tokens)
     positions3 = batch.get("positions3")
 
     def attn(p, hn, kc, vc, ks, vs):
@@ -464,7 +483,8 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict, batch: dict):
 
     h, new = _layer_loop(cfg, params, cache, h, attn)
     new["len"] = cache["len"] + 1
-    return logits_from_hidden(cfg, params, h), new
+    with tr.span("lm_head", cat="forward"):
+        return logits_from_hidden(cfg, params, h), new
 
 
 def prefill_chunk(cfg: ModelConfig, params: dict, cache: dict, batch: dict):
@@ -472,12 +492,14 @@ def prefill_chunk(cfg: ModelConfig, params: dict, cache: dict, batch: dict):
     cache["len"]..cache["len"]+C-1; ``batch["n_valid"]`` (B,) marks the
     real tokens of a padded final chunk and ``len`` advances by it only.
     Returns full-chunk logits (B, C, V) and the new cache."""
-    tokens = batch["tokens"].to(params["embed"].device)
+    tr = get_tracer()
     start = cache["len"]
-    n_valid = batch.get("n_valid")
-    if n_valid is None:
-        n_valid = torch.full_like(start, tokens.shape[1])
-    h = embed_tokens(cfg, params, tokens)
+    with tr.span("embed", cat="forward"):
+        tokens = batch["tokens"].to(params["embed"].device)
+        n_valid = batch.get("n_valid")
+        if n_valid is None:
+            n_valid = torch.full_like(start, tokens.shape[1])
+        h = embed_tokens(cfg, params, tokens)
     positions3 = batch.get("positions3")
 
     def attn(p, hn, kc, vc, ks, vs):
@@ -486,7 +508,8 @@ def prefill_chunk(cfg: ModelConfig, params: dict, cache: dict, batch: dict):
 
     h, new = _layer_loop(cfg, params, cache, h, attn)
     new["len"] = start + n_valid.to(start.device)
-    return logits_from_hidden(cfg, params, h), new
+    with tr.span("lm_head", cat="forward"):
+        return logits_from_hidden(cfg, params, h), new
 
 
 # --------------------------------------------------------------------------

@@ -18,10 +18,15 @@ GEMMs.  With ``sparse=None`` the engine serves the dense model
 baseline the format is judged against.
 
 Telemetry: every tick is traced (``engine.step`` spans with scheduler /
-prefill / decode / host_sync / bookkeeping children, device work fenced
-at span boundaries while tracing) and mirrored into a metrics registry
-(TTFT/TPOT/queue histograms, terminal-state and fault counters, arena
-occupancy gauges, per-plane bytes/token and pad_frac gauges of the
+prefill / decode / host_sync / bookkeeping children; inside
+``decode.launch`` and ``prefill.launch`` the forward's own spans, one a
+layer group, which go to the process tracer, ``trace.get_tracer()``, as
+``tracer`` does by default).  Spans bill the host's time in the device
+trace's time base and never synchronise, so a device trace of the same
+process says what the host was doing while the card idled.  The tick is
+mirrored into a metrics registry (TTFT/TPOT/queue histograms,
+terminal-state and fault counters, the paged cache's view rebuilds,
+arena occupancy gauges, per-plane bytes/token and pad_frac gauges of the
 packs).
 
 Overload.  Admission reserves each request's worst-case block count
@@ -90,10 +95,12 @@ class TransientStepError(RuntimeError):
 def _finite_step(step):
     """Wrap a serve-step fn so it returns per-slot finite flags in place of
     the logits: (next tokens (B, 1), ok (B,) bool, new cache), both on the
-    device — the guard costs the host one (B,) read per tick."""
+    device — the guard costs the host one (B,) read per tick.  The guard
+    is traced as ``finite_check``."""
     def fn(p, c, b):
         nxt, logits, cache = step(p, c, b)
-        ok = torch.isfinite(logits.float()).all(dim=2).all(dim=1)
+        with tt.get_tracer().span("finite_check", cat="forward"):
+            ok = torch.isfinite(logits.float()).all(dim=2).all(dim=1)
         return nxt, ok, cache
     return fn
 
@@ -326,6 +333,10 @@ class ServeEngine:
             "serve_shed_total", "requests dropped by overload admission")
         self._c_restores = reg.counter(
             "serve_restores_total", "requests re-admitted from a snapshot")
+        self._c_view_rebuilds = reg.counter(
+            "serve_cache_view_rebuilds_total",
+            "decode views rebuilt from the paged arena (block tables or "
+            "pages changed since the last decode tick)")
         self._g_queue_depth = reg.gauge(
             "serve_queue_depth", "requests waiting for admission")
         self._g_headroom = reg.gauge(
@@ -712,7 +723,6 @@ class ServeEngine:
             sp.set("slot", i).set("pos", st.pos)
             logits, st.pf_cache, n_valid = self._prefiller.run_chunk(
                 self.params, st.pf_cache, st.feed, st.pos)
-            self.tracer.fence(logits)
         with self.tracer.span("cache.scatter", cat="prefill"):
             self.cache.ensure(i, st.pos + n_valid)
             self.cache.scatter_chunk(
@@ -757,7 +767,6 @@ class ServeEngine:
         cache); one device-to-host read."""
         with self.tracer.span(span, cat="decode"):
             nxt, ok, new_cache = self._retry(fn, params, view, batch)
-            self.tracer.fence(ok)
         with self.tracer.span("host.sync", cat="host_sync"):
             both = torch.cat([nxt[:, 0].to(torch.int32),
                               ok.to(torch.int32)]).cpu().numpy()
@@ -778,7 +787,9 @@ class ServeEngine:
             healthy = [i for i in decoding if not self.slots[i].degraded]
             degraded = [i for i in decoding if self.slots[i].degraded]
         with self.tracer.span("cache.gather", cat="decode"):
+            rebuilds = self.cache.view_rebuilds
             view = self.cache.gather_view(lens)
+            self._c_view_rebuilds.inc(self.cache.view_rebuilds - rebuilds)
             batch = {"tokens": torch.as_tensor(cur, device=self.device)}
         # both closures sample from the tick's one generator state, as the
         # reference's closures share the tick's batch["rng"]
@@ -899,8 +910,10 @@ class ServeEngine:
                 t0 = time.monotonic()
                 # work spans carry their request(s), so
                 # ``build_timelines`` can attribute every tick to a rid
-                pf_args = {"rid": self.slots[target].req.rid,
-                           "slot": target}
+                st = self.slots[target]
+                pf_args = {"rid": st.req.rid, "slot": target,
+                           "tokens": self._prefiller.n_valid(st.feed,
+                                                             st.pos)}
                 self.flight.record("step", "prefill.chunk", pf_args)
                 with self.tracer.span("prefill.chunk", cat="prefill",
                                       args=pf_args):

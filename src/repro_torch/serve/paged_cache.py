@@ -11,11 +11,11 @@ reserves its worst-case block count before taking a slot, so a mid-flight
 
 The decode step keeps the contiguous cache contract: ``gather_view``
 materializes a (L, B, S_view, ...) view from the pages (cached between
-decode ticks, rebuilt when block tables change), ``apply_decode`` writes
-each committed slot's new row into its page, and ``scatter_chunk``
-splices a prefill chunk's rows.  The arena is updated in place (the
-reference returns new arrays); the view is a separate tensor, so the two
-never alias.
+decode ticks, rebuilt when block tables or pages change: counted in
+``view_rebuilds``), ``apply_decode`` writes each committed slot's new
+row into its page, and ``scatter_chunk`` splices a prefill chunk's
+rows.  The arena is updated in place (the reference returns new arrays);
+the view is a separate tensor, so the two never alias.
 
 Recurrent per-slot states (ssm / conv / wkv / tm_x / cm_x, whisper's
 cross caches) are O(1) per slot and stay slot-dense (``classify_cache``):
@@ -79,6 +79,8 @@ class _KVCacheBase:
         self.state = {n: torch.zeros(proto[n].shape, dtype=proto[n].dtype,
                                      device=self.device)
                       for n in self.state_names}
+        # decode views copied whole from the arena (``gather_view``)
+        self.view_rebuilds = 0
 
     def _lens(self, lens) -> torch.Tensor:
         return torch.as_tensor(np.asarray(lens, np.int32), device=self.device)
@@ -236,9 +238,11 @@ class PagedKVCache(_KVCacheBase):
     # --------------------------------------------------------------- views
     def gather_view(self, lens) -> dict:
         """Contiguous (L, B, view_len, ...) cache view for the decode step.
-        Rebuilt only when block tables changed; rows past a slot's ``len``
-        may hold stale pool data — masked by attention."""
+        Rebuilt, and counted in ``view_rebuilds``, only when block tables
+        or pages changed; rows past a slot's ``len`` may hold stale pool
+        data — masked by attention."""
         if self._view_dirty or self._view is None:
+            self.view_rebuilds += 1
             bt = torch.as_tensor(self.block_tables.reshape(-1),
                                  device=self.device)
             self._view = {}

@@ -40,11 +40,15 @@ class ChunkedPrefiller:
         self.sparse = sparse
         self.impl = impl
 
+    def n_valid(self, prompt, pos: int) -> int:
+        """The prompt tokens of the chunk starting at ``pos``."""
+        return min(self.chunk, len(prompt) - pos)
+
     def run_chunk(self, params, pf_cache, prompt, pos: int):
         """Prefill one chunk starting at ``pos``.  Returns (full-chunk
         logits (1, C, V), new scratch cache, n_valid)."""
         c = self.chunk
-        n_valid = min(c, len(prompt) - pos)
+        n_valid = self.n_valid(prompt, pos)
         tokens = torch.zeros((1, c), dtype=torch.int32)
         tokens[0, :n_valid] = torch.as_tensor(prompt[pos:pos + n_valid])
         batch = {"tokens": tokens.to(self.device),

@@ -10,6 +10,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import sparse_model
 from repro_torch.models import factory
 from repro_torch.sharding import partition
+from repro_torch.telemetry.trace import get_tracer
 from repro_torch.tree import tree_map
 
 __all__ = ["sample_tokens", "serve_step_fn", "serve_step_sparse_fn",
@@ -22,17 +23,18 @@ def sample_tokens(cfg: ModelConfig, last: torch.Tensor, temperature: float,
     vocab padding masked.  Returns (B,) int32.  Temperature sampling
     draws from the caller's ``generator`` (on the logits' device); torch
     cannot replay jax.random, so only greedy tokens compare across the
-    two packages."""
-    last = last.float()
-    if cfg.padded_vocab != cfg.vocab_size:
-        last = last.clone()
-        last[:, cfg.vocab_size:] = -1e30
-    if temperature > 0.0:
-        probs = torch.softmax(last / temperature, dim=-1)
-        nxt = torch.multinomial(probs, 1, generator=generator)[:, 0]
-    else:
-        nxt = torch.argmax(last, dim=-1)
-    return nxt.to(torch.int32)
+    two packages.  Traced as ``sample``."""
+    with get_tracer().span("sample", cat="forward"):
+        last = last.float()
+        if cfg.padded_vocab != cfg.vocab_size:
+            last = last.clone()
+            last[:, cfg.vocab_size:] = -1e30
+        if temperature > 0.0:
+            probs = torch.softmax(last / temperature, dim=-1)
+            nxt = torch.multinomial(probs, 1, generator=generator)[:, 0]
+        else:
+            nxt = torch.argmax(last, dim=-1)
+        return nxt.to(torch.int32)
 
 
 def serve_step_fn(cfg: ModelConfig, params: dict, cache: dict, batch: dict,

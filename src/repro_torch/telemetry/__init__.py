@@ -1,9 +1,10 @@
 """Observability for the port's serving stack, the same modules as the
 JAX package's ``telemetry``:
 
-* ``trace``   — nested span tracer (device fence on
-  ``torch.cuda.synchronize``) with Perfetto/Chrome and JSONL exporters,
-  span coverage and the per-phase breakdown schema;
+* ``trace``   — nested span tracer in the device trace's time base
+  (Unix-epoch ns, as ``torch.profiler`` stamps its events; host time
+  only, no synchronise) with Perfetto/Chrome and JSONL exporters, span
+  coverage and the per-phase breakdown schema;
 * ``metrics`` — counters / gauges / log-bucket histograms, snapshots and
   the Prometheus text format;
 * ``profile`` — kernel launch profiling (warm-up discard, best/p50/p95

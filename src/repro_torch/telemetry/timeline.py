@@ -27,11 +27,12 @@ Segment kinds (a partition of ``t_queued .. t_terminal``):
 * ``wait``    — resident in a slot but not inside its own work span
   (other slots' prefill ticks, scheduler/bookkeeping time).
 
-Clock caveat: timeline timestamps are the tracer's ``perf_counter_ns``;
-the engine's ``RequestMetrics`` use ``time.monotonic()``.  Durations
-(TTFT, TPOT, segment sums) are comparable across the two on mainstream
-platforms (both are CLOCK_MONOTONIC on Linux); absolute values are not.
-``check_timelines`` asserts the cross-clock agreement within tolerance.
+Clock caveat: timeline timestamps are the tracer's ``time.time_ns()``
+(Unix epoch, the device trace's time base); the engine's
+``RequestMetrics`` use ``time.monotonic()``.  Durations (TTFT, TPOT,
+segment sums) are comparable across the two while the wall clock is not
+stepped; absolute values are not.  ``check_timelines`` asserts the
+cross-clock agreement within tolerance.
 """
 from __future__ import annotations
 

@@ -3,33 +3,39 @@
 ESPIM's argument is an accounting argument — bytes, cycles, bank
 utilization — and the serving reproduction needs the software analogue:
 where do a token's microseconds go?  The tracer records *nested spans*
-(SpMV launch vs epilogue vs scheduler vs host sync) with monotonic
-nanosecond timestamps so per-phase attribution is exact, and exports
-both Perfetto/Chrome ``trace_event`` JSON (open in https://ui.perfetto.dev)
-and a plain JSONL event log whose header carries the kernels'
-``Provenance`` block.
+(the engine's tick phases, the forward's layer groups, the pack build's
+phases) and exports both Perfetto/Chrome ``trace_event`` JSON (open in
+https://ui.perfetto.dev) and a plain JSONL event log whose header
+carries the kernels' ``Provenance`` block.
 
 Design constraints:
 
 * **~no-op when disabled.**  ``Tracer(enabled=False).span(...)`` returns
   one shared ``_NullSpan`` singleton — no object allocation, no clock
   read, no lock — so the serving hot path can stay permanently
-  instrumented (asserted by a counting shim in ``tests/test_telemetry.py``).
+  instrumented (asserted by a counting shim in ``tests/test_telemetry.py``
+  and ``tests/test_torch_trace.py``).
   The call signature takes an *explicit* ``args`` dict instead of
   ``**kwargs`` for the same reason: a disabled call must not even build
   an empty dict.
 * **thread-safe.**  Span stacks are per-thread (``threading.local``);
   the finished-event list is guarded by one lock.  Span ids are globally
   unique so parent/child links survive interleaved threads.
-* **explicit device fencing.**  CUDA launches are async: without a
-  fence, device work queued inside a span is billed to whichever *later*
-  span happens to block.  ``tracer.fence(x)`` calls
-  ``torch.cuda.synchronize`` for a CUDA tensor at a span boundary **only
-  while tracing** — with tracing disabled it is a no-op, so
-  instrumentation never changes the untraced pipeline's overlap behavior.
+* **the device trace's time base, no fence.**  Spans and instants are
+  stamped with ``time.time_ns()``, Unix-epoch nanoseconds, the base
+  ``torch.profiler`` stamps its host and device events in, so a span
+  can be laid over a device trace of the same process and each idle gap
+  of the card matched to what the host was doing.  The device events
+  carry CUPTI's conversion of the card's clock, which drifts and steps
+  against every host clock by up to milliseconds within a profile; a
+  reader that needs microseconds moves the spans onto the device
+  trace's clock through marks read on both (the benchmark's tick
+  markers).  A span bills only the host's time: CUDA launches are
+  asynchronous, and device work is read from the device trace, never
+  by a synchronise at a span boundary, so tracing does not change the
+  host/device overlap it observes.  Durations are end minus start.
 
-This module is dependency-free (stdlib only; torch is imported lazily and
-only inside ``fence``).
+This module is dependency-free (stdlib only).
 """
 from __future__ import annotations
 
@@ -38,7 +44,8 @@ import json
 import threading
 import time
 
-__all__ = ["Span", "Tracer", "NULL_TRACER", "get_tracer", "set_tracer",
+__all__ = ["Span", "Tracer", "NULL_TRACER", "CLOCK", "CLOCK_NAME",
+           "get_tracer", "set_tracer",
            "validate_chrome_trace", "span_coverage", "phase_breakdown",
            "BREAKDOWN_SCHEMA_KEYS"]
 
@@ -59,12 +66,15 @@ class _NullSpan:
 
 _NULL_SPAN = _NullSpan()
 _ids = itertools.count(1)
+# Unix-epoch nanoseconds, the base torch.profiler's events are stamped in
+CLOCK = time.time_ns
+CLOCK_NAME = "unix_epoch_ns"
 
 
 class Span:
-    """One closed interval on one thread.  Durations are exact
-    (perf_counter_ns at enter/exit); ``parent_id`` links the enclosing
-    span on the same thread at enter time."""
+    """One closed interval on one thread, stamped by ``CLOCK`` at enter
+    and exit; ``parent_id`` links the enclosing span on the same thread
+    at enter time."""
     __slots__ = ("name", "cat", "t0_ns", "t1_ns", "tid", "sid",
                  "parent_id", "depth", "args", "_tracer")
 
@@ -93,11 +103,11 @@ class Span:
 
     def __enter__(self):
         self._tracer._push(self)
-        self.t0_ns = time.perf_counter_ns()
+        self.t0_ns = CLOCK()
         return self
 
     def __exit__(self, *exc):
-        self.t1_ns = time.perf_counter_ns()
+        self.t1_ns = CLOCK()
         self._tracer._pop(self)
         return False
 
@@ -109,7 +119,7 @@ class Tracer:
         self.instants: list[tuple] = []  # (name, cat, t_ns, tid, args)
         self._lock = threading.Lock()
         self._tls = threading.local()
-        self._t_origin_ns = time.perf_counter_ns()
+        self._t_origin_ns = CLOCK()
 
     # ------------------------------------------------------------ recording
     def span(self, name: str, cat: str | None = None, args: dict | None = None):
@@ -130,37 +140,14 @@ class Tracer:
         if not self.enabled:
             return
         with self._lock:
-            self.instants.append((name, cat, time.perf_counter_ns(),
+            self.instants.append((name, cat, CLOCK(),
                                   threading.get_ident(), args))
-
-    def wrap(self, name: str, cat: str | None = None):
-        """Decorator form of ``span``."""
-        def deco(fn):
-            def inner(*a, **kw):
-                with self.span(name, cat):
-                    return fn(*a, **kw)
-            inner.__name__ = getattr(fn, "__name__", name)
-            return inner
-        return deco
-
-    def fence(self, x):
-        """Block on device work at a span boundary so async dispatch is
-        billed to the span that launched it.  No-op (and no sync!) when
-        tracing is disabled — instrumentation must not change the
-        untraced pipeline's host/device overlap."""
-        if self.enabled and x is not None:
-            import torch
-            leaves = x.values() if isinstance(x, dict) else (x,)
-            if any(isinstance(t, torch.Tensor) and t.is_cuda
-                   for t in leaves):
-                torch.cuda.synchronize()
-        return x
 
     def clear(self) -> None:
         with self._lock:
             self.events.clear()
             self.instants.clear()
-        self._t_origin_ns = time.perf_counter_ns()
+        self._t_origin_ns = CLOCK()
 
     # ------------------------------------------------------------- internal
     def _stack(self):
@@ -238,7 +225,7 @@ class Tracer:
             instants = list(self.instants)
         n = 0
         with open(path, "w") as f:
-            f.write(json.dumps({"type": "header", "clock": "perf_counter_ns",
+            f.write(json.dumps({"type": "header", "clock": CLOCK_NAME,
                                 "origin_ns": self._t_origin_ns,
                                 "provenance": provenance}) + "\n")
             for s in sorted(spans, key=lambda s: s.t0_ns):
