@@ -13,8 +13,8 @@ drills, the ops of the other kernels, the other model families at their
 own published widths, and training (granite-3-2b at its published
 widths and depth) — then checks them:
 
-1. build: nvcc the kernels (four libraries: espim_spmv, dense_mv,
-   flash_attention and wkv), print the build time and ptxas' report, and
+1. build: nvcc the kernels (five libraries: espim_spmv, dense_mv,
+   flash_attention, wkv and decode_attention), print the build time and ptxas' report, and
    the tensor-core instructions in the flash library's SASS (HGMMA for
    wgmma, HMMA for mma.sync); fails if its bf16 (wgmma) body holds no
    HGMMA or its fp32 (3xTF32) body no HMMA, or if any instance of the
@@ -83,7 +83,16 @@ widths and depth) — then checks them:
 8. ops: the residual epilogue over the fp32 engine's attn_out and down
    buckets, ``ops.dense_mv`` and ``flash_attention`` at the shapes of
    step 9, counters zeroed before and read after;
-9. kernels 5-8 against their plain versions, each launched twice for
+9. decode attention (``kernels/decode_attention``: RoPE, the cache
+   write and the attention in one launch a layer, which the int8 engine
+   of step 2 must have launched once a layer a decode step) against its
+   plain version at B 32 x S 1536, bf16, GQA 32/8 and 8/8, hd 64 and
+   128, every row live, a chat mix of lengths and the edges, and at B 1:
+   the caches in the plain version's bits, the output within 2^-7 of
+   each element + 2^-10 of the largest, the same bits twice; timed
+   beside the plain version, ``scaled_dot_product_attention`` (a
+   yardstick) and the bound; then kernels 5-8 against their plain
+   versions, each launched twice for
    identical bits: the unbatched kernel on the projection packs in fp32
    and bf16 (after the timings also ``mv_checks``: both mixed dtypes, an
    Lc of 13 in every dtype pair, 64 rows, x of 65536 f32 columns, R 0,
@@ -210,6 +219,16 @@ ENGINE_RUNS = 3                         # measured serves of the trace
 PROJ_SPARSITY = 0.9                     # the projection phase's pruning
 FLASH_BH, FLASH_HD = 32, 128            # llama7b's heads at B = 1
 FLASH_SEQS = (77, 512, 2048)
+# decode attention: (label, B, H, KV, hd, lengths) at S DECODE_ATTN_S; the
+# first two are the served cells' shapes (granite-3-2b, 32 slots)
+DECODE_ATTN_CASES = (("full", 32, 32, 8, 64, "full"),
+                     ("chat", 32, 32, 8, 64, "chat"),
+                     ("mix", 32, 32, 8, 64, "mix"),
+                     ("mha", 32, 8, 8, 64, "mix"),
+                     ("hd128", 32, 32, 8, 128, "full"),
+                     ("b1", 1, 32, 8, 64, "full"))
+DECODE_ATTN_S = 1536
+DECODE_ATTN_REL, DECODE_ATTN_ABS = 2.0 ** -7, 2.0 ** -10
 # the other head widths the kernel is built for, at a ragged S: every
 # instantiation, and both swizzle widths of the bf16 body, run on the card;
 # hd 80 (zamba2-2.7b's) runs zero-padded to 128
@@ -503,6 +522,10 @@ _KERNELS = {
     "flash_attention": ("src/repro/kernels/flash_attention.py:99",
                         "flash_attention_pallas",
                         "src/repro_torch/kernels/csrc/flash_attention.cu"),
+    # jnp of the reference, not a pallas_call
+    "decode_attention": ("src/repro/models/transformer.py",
+                         "attn_decode_core",
+                         "src/repro_torch/kernels/csrc/decode_attention.cu"),
     # a compiled loop of the reference, not a pallas_call
     "wkv6": ("src/repro/models/rwkv.py:116", "jax.lax.scan",
              "src/repro_torch/kernels/csrc/wkv.cu"),
@@ -743,6 +766,7 @@ def drive_engine(ctx, label, cfg, params, sparse, prompts, kernels,
     layer a decode step (``group_launches``; prefill runs the dense
     copies).  Reports each run's tok/s, TTFT and TPOT p50, their
     medians, and the last run's launch counts and outputs."""
+    from repro_torch.kernels import decode_attention as DA
     from repro_torch.serve import engine as E
     from repro_torch.serve.scheduler import latency_summary
     torch = ctx["torch"]
@@ -754,8 +778,15 @@ def drive_engine(ctx, label, cfg, params, sparse, prompts, kernels,
     for _ in range(n_runs):
         eng.reset_stats()
         reset_launches()
+        DA.reset_launches()
         reqs, stats, wall = serve(E, eng, prompts, MAX_NEW)
         launches = read_launches()
+        attn = DA.LAUNCHES["decode_attention"]
+        need(attn in (0, DA.KERNELS_A_CALL * cfg.n_layers
+                      * stats.decode_steps),
+             f"[{label}] decode attention: {attn} kernel launches in "
+             f"{stats.decode_steps} decode steps, neither none nor one call "
+             f"({DA.KERNELS_A_CALL} kernels) a layer a step")
         for r in reqs:
             need(len(r.output) == MAX_NEW,
                  f"[{label}] request {r.rid} produced {len(r.output)} tokens")
@@ -796,6 +827,11 @@ def drive_engine(ctx, label, cfg, params, sparse, prompts, kernels,
            "decode_steps": stats.decode_steps,
            "prefill_chunks": stats.prefill_chunks,
            "launches": launches,
+           "decode_attention_launches": attn,
+           # kernel launches a layer a decode step: KERNELS_A_CALL where
+           # the step takes the decode attention kernel, else 0
+           "decode_attention_per_layer_step":
+               attn / max(1, cfg.n_layers * stats.decode_steps),
            "launches_per_decode_step": {
                k: v / max(1, stats.decode_steps) for k, v in launches.items()},
            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
@@ -811,7 +847,9 @@ def drive_engine(ctx, label, cfg, params, sparse, prompts, kernels,
         f"steps, {stats.prefill_chunks} prefill chunks")
     log(f"[engine:{label}] launches {launches}; per decode step "
         + ", ".join(f"{k} {v:g}" for k, v in
-                    rec["launches_per_decode_step"].items() if v))
+                    rec["launches_per_decode_step"].items() if v)
+        + f"; decode attention {attn} kernel launches, "
+        f"{rec['decode_attention_per_layer_step']:g} a layer a step")
     return rec
 
 
@@ -1652,7 +1690,7 @@ def degrade_at_load(ctx, cfg, params, sparse8, prompts) -> dict:
     _need_clean_finish("degrade", eng, reqs)
     log(f"[degrade] flipped code bit: PackIntegrityError by default; with "
         f"on_verify_failure='degrade' {len(reqs)} requests served dense in "
-        f"{wall:.2f} s, no kernel launched, arena clean")
+        f"{wall:.2f} s, no ESPIM kernel launched, arena clean")
     return {"requests": len(reqs), "wall_s": wall}
 
 
@@ -2350,6 +2388,137 @@ def phase_new_kernels(ctx, groups, launches_main) -> list:
     ctx["report"]["kernel_timing"] += timed
     return [_entry(k, launches_main[k], worst[k], by_key[(k, v)])
             for k, v in main_variant.items()]
+
+
+# --------------------------------------------------------------------------
+# decode attention: RoPE, the cache write and the attention in one launch
+# --------------------------------------------------------------------------
+def _decode_attn_lens(torch, b: int, kind: str, gen):
+    """(B,) int32 rows of the new tokens: every row live ("full"), one
+    sequence a length of the chat mix ("chat": log-normal, median 400,
+    32 to the last row), or the test's edges and random rows ("mix")."""
+    s = DECODE_ATTN_S
+    if kind == "full":
+        return torch.full((b,), s - 1, dtype=torch.int32)
+    if kind == "chat":
+        ln = torch.exp(math.log(400) + 0.6 * torch.randn(b, generator=gen))
+        return ln.clamp(32, s - 1).to(torch.int32)
+    edges = [0, 1, 7, 8, 9, 191, 192, 193, s - 2, s - 1]
+    rest = torch.randint(0, s, (b,), generator=gen).tolist()
+    return torch.tensor((edges + rest)[:b], dtype=torch.int32)
+
+
+def _event_ms(torch, fn, reps: int = 20, trials: int = 5) -> float:
+    """Median ms of device time per call of ``fn`` between two CUDA
+    events around ``reps`` calls, for work no graph can capture; the
+    host's launch gaps count where the device outruns it."""
+    fn()
+    out = []
+    for _ in range(trials):
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
+        torch.cuda.synchronize()
+        out.append(a.elapsed_time(b) / reps)
+    return statistics.median(out)
+
+
+def phase_decode_attention(ctx) -> dict:
+    """The decode attention kernel against its plain version at
+    ``DECODE_ATTN_CASES`` (bf16, S ``DECODE_ATTN_S``): the caches after a
+    launch in the plain version's bits, the output within the test's
+    rule (``tests/test_torch_decode_attention.py``: 2^-7 of each element
+    + 2^-10 of the largest) and in the same bits on a second launch, one
+    count a launch; then timed (each launch after a read that evicts the
+    50 MB L2, less the read) beside the plain version,
+    ``scaled_dot_product_attention`` over the same rows (a yardstick the
+    port never calls; the plain version by events around 20 calls, as no
+    graph captures its copy of theta) and the bound: the live rows' K / V, q, the new
+    rows and the output once each at 3.35 TB/s, or 4 H hd operations a
+    live row at 67 TFLOP/s float32."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention as DA
+    torch, timer, bw, dev = (ctx["torch"], ctx["timer"], ctx["bandwidth"],
+                             ctx["device"])
+    gen = torch.Generator().manual_seed(ctx["seed"] + 34)
+    flush = torch.ones(32 << 20, device=dev)
+    t_flush = timer(flush.sum)
+    rows, worst = [], 0.0
+    for label, b, h, kvh, hd, kind in DECODE_ATTN_CASES:
+        s = DECODE_ATTN_S
+        lens = _decode_attn_lens(torch, b, kind, gen).to(dev)
+
+        def r(*shape):
+            return torch.randn(shape, generator=gen).to(
+                torch.bfloat16).to(dev)
+
+        q, k, v = r(b, 1, h, hd), r(b, 1, kvh, hd), r(b, 1, kvh, hd)
+        kc, vc = r(b, s, kvh, hd), r(b, s, kvh, hd)
+        want, wk, wv = DA.decode_attention_ref(q, k, v, kc, vc, lens, 1e4,
+                                               True)
+        DA.reset_launches()
+        got = []
+        for _ in range(2):
+            gk, gv = kc.clone(), vc.clone()
+            got.append(DA.decode_attention_cuda(q, k, v, gk, gv, lens, 1e4))
+            torch.cuda.synchronize()
+            need(torch.equal(gk, wk) and torch.equal(gv, wv),
+                 f"[decode_attn] {label}: the caches after the launch are "
+                 "not the plain version's bits")
+        need(DA.LAUNCHES["decode_attention"] == 2 * DA.KERNELS_A_CALL,
+             f"[decode_attn] {label}: {DA.LAUNCHES} kernel launches for 2 "
+             "calls")
+        need(torch.equal(got[0], got[1]), f"[decode_attn] {label}: two "
+             "launches on the same inputs gave different bits")
+        diff = (got[0].float() - want.float()).abs()
+        scale = float(want.float().abs().max())
+        err = float(diff.max())
+        need(bool((diff <= DECODE_ATTN_REL * want.float().abs()
+                   + DECODE_ATTN_ABS * scale).all()),
+             f"[decode_attn] {label}: max|kernel-plain| {err:.3e} out of "
+             f"the rule (max|plain| {scale:.3e})")
+        worst = max(worst, err / scale)
+        live = int(torch.clamp(lens.long() + 1, max=s).sum())
+        esz = 2
+        nbytes = esz * (2 * live * kvh * hd + 2 * b * h * hd
+                        + 2 * b * kvh * hd + 2 * b * kvh * hd) + 4 * b
+        flops = 4 * h * hd * live
+        mask = (torch.arange(s, device=dev)[None] <= lens[:, None].long())
+        mask = mask[:, None, None, :]                       # (B, 1, 1, S)
+
+        def lib():
+            return F.scaled_dot_product_attention(
+                q.transpose(1, 2), kc.transpose(1, 2), vc.transpose(1, 2),
+                attn_mask=mask, enable_gqa=True)
+
+        t_k = timer(lambda: (flush.sum(), DA.decode_attention_cuda(
+            q, k, v, kc, vc, lens, 1e4))) - t_flush
+        # the plain version copies theta to the card: no graph captures it
+        t_p = _event_ms(torch, lambda: (flush.sum(), DA.decode_attention_ref(
+            q, k, v, kc, vc, lens, 1e4, True))) - _event_ms(torch, flush.sum)
+        t_l = timer(lambda: (flush.sum(), lib())) - t_flush
+        t_bytes, t_ops = nbytes / bw * 1e3, flops / PEAKS["fp32"] * 1e3
+        row = {"case": label, "B": b, "H": h, "KV": kvh, "hd": hd,
+               "S": s, "lens": kind, "live_rows": live, "ms": t_k,
+               "plain_ms": t_p, "library_ms": t_l,
+               "bound_ms": max(t_bytes, t_ops),
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+               "bytes": nbytes, "flops": flops,
+               "achieved_GBps": nbytes / (t_k * 1e-3) / 1e9,
+               "max_abs_err": err, "max_abs_plain": scale}
+        rows.append(row)
+        log(f"[decode_attn] {label:10s} B {b} H {h}/{kvh} hd {hd} S {s} "
+            f"{kind} ({live} live rows): {t_k * 1e3:7.1f} us (plain "
+            f"{t_p * 1e3:8.1f}, SDPA {t_l * 1e3:7.1f}, bound "
+            f"{row['bound_ms'] * 1e3:6.1f} us by {row['bound_by']}; "
+            f"{row['achieved_GBps']:.0f} GB/s); max|kernel-plain| "
+            f"{err:.2e} of max|plain| {scale:.2e}; caches in bits")
+    ctx["report"]["decode_attention"] = rows
+    return {"rows": rows, "worst_rel": worst}
 
 
 # --------------------------------------------------------------------------
@@ -4340,6 +4509,14 @@ def run(ctx) -> list:
                           if k in ("espim_spmv_batched_res", "dense_mv",
                                    "flash_attention")})
     entries += phase_new_kernels(ctx, groups, launches_main)
+    from repro_torch.kernels.decode_attention import KERNELS_A_CALL
+    need(eng8["decode_attention_per_layer_step"] == KERNELS_A_CALL,
+         "[engine:int8] the decode attention kernels did not launch once a "
+         "layer a decode step")
+    da = phase_decode_attention(ctx)
+    entries.append(_entry("decode_attention",
+                          eng8["decode_attention_launches"],
+                          da["rows"][0]["max_abs_err"], da["rows"][0]))
     report["mv_checks"] = mv_checks(
         ctx, {n: proj["layers"][(n, "fp32")].weights for n in ("qkv", "down")})
     fam = phase_families(ctx)

@@ -575,7 +575,8 @@ def _layer_stack(cfg: ModelConfig, params: dict, sparse: dict, cache: dict,
     it does.  An uncovered MLP runs dense from the layer params.  Traced
     by layer group as the dense loop is (``transformer._layer_loop``):
     ``layer.slice``, ``attn`` (its ``attn.qkv`` / ``attn.core`` /
-    ``attn.out``), ``mlp``, then ``cache.stack``."""
+    ``attn.out``), ``mlp``, then ``cache.stack``, which returns a leaf
+    that every layer wrote in place as it is (``transformer.restacked``)."""
     if proj_path not in ("kernel", "dense"):
         raise ValueError(f"unknown proj_path {proj_path!r}")
     attn_sparse = sparse.get("attn_sparse", False)
@@ -585,7 +586,7 @@ def _layer_stack(cfg: ModelConfig, params: dict, sparse: dict, cache: dict,
     for i in range(cfg.n_layers):
         with tr.span("layer.slice", cat="forward"):
             lp = T.layer_slice(params["layers"], i)
-            kc, vc = cache["k"][i], cache["v"][i]
+            kc_in, vc_in = kc, vc = cache["k"][i], cache["v"][i]
             px = (_layer_bufs(sparse, i) if proj_path == "kernel"
                   else {n: w[i] for n, w in sparse["pruned"].items()})
         with tr.span("attn", cat="forward"):
@@ -617,10 +618,11 @@ def _layer_stack(cfg: ModelConfig, params: dict, sparse: dict, cache: dict,
                                    epilogue=epilogue)
             else:
                 h = h + _pruned_mlp(cfg, sparse, px, hn)
-        k_new.append(kc)
-        v_new.append(vc)
+        k_new.append((kc, kc_in))
+        v_new.append((vc, vc_in))
     with tr.span("cache.stack", cat="forward"):
-        return h, torch.stack(k_new), torch.stack(v_new)
+        return (h, T.restacked(cache["k"], k_new),
+                T.restacked(cache["v"], v_new))
 
 
 def _check_device(params: dict, device) -> torch.device:
@@ -634,9 +636,13 @@ def _check_device(params: dict, device) -> torch.device:
 
 def decode_step_sparse(cfg: ModelConfig, params: dict, sparse: dict,
                        cache: dict, batch: dict, impl: str | None = None,
-                       epilogue: bool = True, device=None):
+                       epilogue: bool = True, device=None,
+                       donate: bool = False):
     """One decode step with ESPIM-format projections: tokens (B, 1) ->
-    logits (B, 1, V) and a new cache (the input cache is not modified).
+    logits (B, 1, V) and a new cache (without ``donate`` the input cache
+    is not modified; with it, as ``transformer.decode_step``: the decode
+    attention's kernel writes each layer's new rows into the cache's own
+    K / V leaves, which are returned as they are).
 
     Runs on ``cuda`` unless ``device`` names another; ``impl`` picks the
     SpMV datapath (None: the CUDA kernels on the card, the plain
@@ -649,10 +655,11 @@ def decode_step_sparse(cfg: ModelConfig, params: dict, sparse: dict,
 
     def attn_step(lp, hn, kc, vc):
         return T.attn_decode_apply(cfg, lp["attn"], hn, kc, vc,
-                                   cache["len"])[:3]
+                                   cache["len"], donate=donate)[:3]
 
     def attn_core(q, k, v, kc, vc):
-        return T.attn_decode_core(cfg, q, k, v, kc, vc, cache["len"])[:3]
+        return T.attn_decode_core(cfg, q, k, v, kc, vc, cache["len"],
+                                  donate=donate)[:3]
 
     h, k_new, v_new = _layer_stack(cfg, params, sparse, cache, h, attn_step,
                                    attn_core, impl, epilogue=epilogue)

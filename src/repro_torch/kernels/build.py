@@ -29,7 +29,8 @@ _CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = {"espim_spmv": _CSRC / "espim_spmv.cu",
            "dense_mv": _CSRC / "dense_mv.cu",
            "flash_attention": _CSRC / "flash_attention.cu",
-           "wkv": _CSRC / "wkv.cu"}
+           "wkv": _CSRC / "wkv.cu",
+           "decode_attention": _CSRC / "decode_attention.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -63,6 +64,9 @@ _SIGNATURES = {
     "wkv": {
         "wkv6_fwd": [_P] * 9 + [_I] * 9 + [_P],
         "wkv6_bwd": [_P] * 15 + [_I] * 7 + [_P],
+    },
+    "decode_attention": {
+        "decode_attention": [_P] * 7 + [_I] * 7 + [_F, _I, _F, _P],
     },
 }
 _LIBS: dict = {}

@@ -1,7 +1,7 @@
 """The hand-written kernels as ``torch.library`` ops in the ``repro_torch``
 namespace (``torch.ops.repro_torch.<kernel>``), one op per launch
-wrapper of ``espim_spmv.py``, ``dense_mv.py``, ``flash_attention.py``
-and ``wkv.py``.
+wrapper of ``espim_spmv.py``, ``dense_mv.py``, ``flash_attention.py``,
+``wkv.py`` and ``decode_attention.py``.
 
 Each op has two implementations:
 
@@ -29,8 +29,9 @@ every call.
 ``launch/cost_analysis.py``: every tensor input read once and every
 output written once, and the kernel's operations as ``chip_smoke.py``'s
 bound column counts them (2 x ELL slots x B for the SpMV family, 2 R C
-for dense MV, 4 BH hd x the (query, key) pairs for attention; the WKV
-ops the products ``CostMode`` counts in the plain loop they replace).
+for dense MV, 4 BH hd x the (query, key) pairs for attention, every
+cache row a pair for decode attention; the WKV ops the products
+``CostMode`` counts in the plain loop they replace).
 The same count is registered with ``torch.utils.flop_counter``, so a
 ``FlopCounterMode`` on the card sees each op's products.
 """

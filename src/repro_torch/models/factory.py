@@ -30,6 +30,9 @@ __all__ = ["get_family", "init_params", "apply_train", "init_cache",
            "loss_fn", "cross_entropy", "MOE_AUX_WEIGHT", "shards",
            "apply_train_sharded", "decode_step_sharded"]
 
+# the families whose decode step takes ``donate``
+_DONATING = ("dense", "moe", "vlm")
+
 _FAMILIES = {
     "dense": transformer,
     "moe": moe,
@@ -110,7 +113,15 @@ def init_cache(cfg: ModelConfig, batch_size: int, max_len: int,
     return get_family(cfg).init_cache(cfg, batch_size, max_len, device)
 
 
-def decode_step(cfg: ModelConfig, params: dict, cache: dict, batch: dict):
+def decode_step(cfg: ModelConfig, params: dict, cache: dict, batch: dict,
+                donate: bool = False):
+    """One decode step -> (logits (B, 1, V), the new cache).  ``donate``
+    gives the cache up to the step: the decoder families' steps
+    (``_DONATING``) may then write its K / V leaves in place
+    (``transformer.decode_step``); the others return new leaves either
+    way."""
+    if donate and cfg.family in _DONATING:
+        return get_family(cfg).decode_step(cfg, params, cache, batch, True)
     return get_family(cfg).decode_step(cfg, params, cache, batch)
 
 

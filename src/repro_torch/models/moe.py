@@ -300,13 +300,16 @@ def forward(cfg: ModelConfig, params: dict, batch: dict,
 init_cache = T.init_cache
 
 
-def decode_step(cfg: ModelConfig, params: dict, cache: dict, batch: dict):
-    """One decode step: tokens (B, 1) -> logits (B, 1, V), new cache."""
+def decode_step(cfg: ModelConfig, params: dict, cache: dict, batch: dict,
+                donate: bool = False):
+    """One decode step: tokens (B, 1) -> logits (B, 1, V), new cache
+    (``donate`` as ``transformer.decode_step``)."""
     tokens = batch["tokens"].to(params["embed"].device)
     h = T.embed_tokens(cfg, params, tokens)
 
     def attn(p, hn, kc, vc, ks, vs):
-        return T.attn_decode_apply(cfg, p, hn, kc, vc, cache["len"], ks, vs)
+        return T.attn_decode_apply(cfg, p, hn, kc, vc, cache["len"], ks, vs,
+                                   donate=donate)
 
     def mlp(lp, hn):
         return moe_block(cfg, lp["moe"], hn)[0]

@@ -27,6 +27,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.kernels import decode_attention as DA
 from repro_torch.models import layers as L
 from repro_torch.sharding import partition as P
 from repro_torch.telemetry.trace import get_tracer
@@ -40,7 +41,8 @@ __all__ = ["init_params", "forward", "init_cache", "decode_step",
            "layer_list", "remat_wrap", "tp_widths",
            "forward_sharded", "decode_step_sharded", "gather_rows",
            "decode_embed", "decode_attn", "decode_logits", "keep_row",
-           "stacked_rows", "proj_tp", "heads_tp", "out_tp", "fsdp_tree"]
+           "stacked_rows", "restacked", "proj_tp", "heads_tp", "out_tp",
+           "fsdp_tree"]
 
 
 def normal(gen, shape, scale, dtype, device):
@@ -223,19 +225,31 @@ def _quantize_kv(x: torch.Tensor):
 
 def attn_decode_core(cfg: ModelConfig, q, k, v, k_cache, v_cache,
                      cache_len, k_scale=None, v_scale=None, *,
-                     positions3=None, seq=None):
+                     positions3=None, seq=None, donate: bool = False):
     """RoPE + cache write + attention for one decode token on precomputed
     heads.  q (B, 1, H, hd); k/v (B, 1, KV, hd); caches (B, S_max, KV, hd),
     int8 with (B, S_max, KV) ``k_scale`` / ``v_scale`` for an int8 cache;
     ``positions3`` (3, B, 1) for M-RoPE.  Returns (out (B, 1, H, hd) — pre-O-projection, k_cache, v_cache,
     k_scale, v_scale).
 
-    The write is the reference's masked ``where`` into new cache tensors:
-    the caller's cache is never modified, so two paths can decode from
-    one cache.  ``seq`` = (s_lo, reduce_max, reduce_sum) when the caches
-    hold positions s_lo.. of a sequence split over ranks: the new token
-    lands only on the rank that holds its position, and the attention
-    combines the ranks' partial softmax (``layers.attention_decode``)."""
+    A compute-dtype cache over the whole sequence (no scales, no ``seq``,
+    no M-RoPE positions) goes through ``kernels.decode_attention``: on
+    the card one kernel launch a layer, which writes the new row into
+    the caches themselves and returns them with ``donate`` (the caller
+    gives them up), else into a copy of each.  Every other case, and the
+    CPU, takes the plain path: the write is the reference's masked
+    ``where`` into new cache tensors, so the caller's cache is never
+    modified and two paths can decode from one cache.  ``seq`` = (s_lo,
+    reduce_max, reduce_sum) when the caches hold positions s_lo.. of a
+    sequence split over ranks: the new token lands only on the rank that
+    holds its position, and the attention combines the ranks' partial
+    softmax (``layers.attention_decode``)."""
+    if (k_scale is None and seq is None
+            and not (cfg.mrope and positions3 is not None)):
+        out, k_cache, v_cache = DA.decode_attention(
+            q, k, v, k_cache, v_cache, cache_len, cfg.rope_theta,
+            rope=not cfg.learned_pos, donate=donate)
+        return out, k_cache, v_cache, None, None
     pos = cache_len.to(torch.int32)
     q, k = _rope(cfg, q, k, pos[:, None], positions3)
     s_max = k_cache.shape[1]
@@ -259,8 +273,10 @@ def attn_decode_core(cfg: ModelConfig, q, k, v, k_cache, v_cache,
 
 
 def attn_decode_apply(cfg: ModelConfig, p, x, k_cache, v_cache, cache_len,
-                      k_scale=None, v_scale=None, *, positions3=None):
-    """One-token decode through the dense attention weights ``p``.
+                      k_scale=None, v_scale=None, *, positions3=None,
+                      donate: bool = False):
+    """One-token decode through the dense attention weights ``p``
+    (``donate`` as ``attn_decode_core``).
     Returns (out (B, 1, D), k_cache, v_cache, k_scale, v_scale)."""
     tr = get_tracer()
     b = x.shape[0]
@@ -269,7 +285,7 @@ def attn_decode_apply(cfg: ModelConfig, p, x, k_cache, v_cache, cache_len,
     with tr.span("attn.core", cat="forward"):
         out, k_cache, v_cache, k_scale, v_scale = attn_decode_core(
             cfg, q, k, v, k_cache, v_cache, cache_len, k_scale, v_scale,
-            positions3=positions3)
+            positions3=positions3, donate=donate)
     with tr.span("attn.out", cat="forward"):
         out = L.dense(out.reshape(b, 1, cfg.n_heads * cfg.hd), p["wo"])
     return out, k_cache, v_cache, k_scale, v_scale
@@ -445,7 +461,9 @@ def _layer_loop(cfg: ModelConfig, params: dict, cache: dict, h, attn,
     {leaf: stacked new cache}).  Traced by layer group: ``layer.slice``,
     ``attn`` (norm, the attention's ``attn.qkv`` / ``attn.core`` /
     ``attn.out``, residual), ``mlp`` (norm, MLP, residual), then
-    ``cache.stack``."""
+    ``cache.stack``.  A leaf whose every layer ``attn`` wrote in place
+    (a donated decode step's kernel path) is returned as it is, with no
+    stack."""
     if mlp is None:
         def mlp(lp, hn):
             return mlp_apply(cfg, lp["mlp"], hn)
@@ -457,20 +475,35 @@ def _layer_loop(cfg: ModelConfig, params: dict, cache: dict, h, attn,
             lp = layer_slice(params["layers"], i)
             kv = [cache[n][i] for n in names] + [None] * (4 - len(names))
         with tr.span("attn", cat="forward"):
-            a, *kv = attn(lp["attn"], _norm(cfg, lp["ln1"], h), *kv)
+            a, *out = attn(lp["attn"], _norm(cfg, lp["ln1"], h), *kv)
             h = h + a
         with tr.span("mlp", cat="forward"):
             h = h + mlp(lp, _norm(cfg, lp["ln2"], h))
-        for n, t in zip(names, kv):
-            new[n].append(t)
+        for n, t, t_in in zip(names, out, kv):
+            new[n].append((t, t_in))
     with tr.span("cache.stack", cat="forward"):
-        return h, {n: torch.stack(ts) for n, ts in new.items()}
+        return h, {n: restacked(cache[n], ts) for n, ts in new.items()}
 
 
-def decode_step(cfg: ModelConfig, params: dict, cache: dict, batch: dict):
+def restacked(stacked: torch.Tensor, layers: list) -> torch.Tensor:
+    """A stacked cache leaf after a step, from each layer's (new leaf, the
+    layer's view it was given): ``stacked`` itself where every layer's
+    new leaf is that view (written in place), else the new leaves
+    stacked."""
+    if all(t is t_in for t, t_in in layers):
+        return stacked
+    return torch.stack([t for t, _ in layers])
+
+
+def decode_step(cfg: ModelConfig, params: dict, cache: dict, batch: dict,
+                donate: bool = False):
     """One dense decode step: tokens (B, 1) -> logits (B, 1, V) and a new
-    cache (the input cache is not modified; ``len`` advances by one).
-    Runs where ``params`` live."""
+    cache; ``len`` is always a new tensor, advanced by one.  Without
+    ``donate`` the input cache is not modified.  With it the caller gives
+    the cache up: where the decode attention runs its kernel, each
+    layer's new K / V row is written into the cache's own leaves, which
+    are returned as they are (``cache.stack`` skipped); the plain path
+    returns new leaves as before.  Runs where ``params`` live."""
     tr = get_tracer()
     with tr.span("embed", cat="forward"):
         tokens = batch["tokens"].to(params["embed"].device)
@@ -479,7 +512,7 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict, batch: dict):
 
     def attn(p, hn, kc, vc, ks, vs):
         return attn_decode_apply(cfg, p, hn, kc, vc, cache["len"], ks, vs,
-                                 positions3=positions3)
+                                 positions3=positions3, donate=donate)
 
     h, new = _layer_loop(cfg, params, cache, h, attn)
     new["len"] = cache["len"] + 1
@@ -762,7 +795,8 @@ def _columns_of(spec_entry, mesh, width: int) -> tuple:
 
 
 def _attn_decode_tp(cfg: ModelConfig, p: dict, sp: dict, hn, kc, vc, ks,
-                    vs, lens, mesh, kv_heads: tuple, seq, positions3):
+                    vs, lens, mesh, kv_heads: tuple, seq, positions3,
+                    donate: bool = False):
     """One decode token's attention on this rank's weight shards and its
     cache shard: the KV heads ``kv_heads`` = [lo, hi) (this rank's where
     the cache splits the heads on ``model``, else all of them over a
@@ -794,7 +828,8 @@ def _attn_decode_tp(cfg: ModelConfig, p: dict, sp: dict, hn, kc, vc, ks,
     k = heads_tp(cfg, p, sp, yk, "wk", kv_w, kv_lo, kv_hi, mesh)
     v = heads_tp(cfg, p, sp, yv, "wv", kv_w, kv_lo, kv_hi, mesh)
     out, kc, vc, ks, vs = attn_decode_core(
-        cfg, q, k, v, kc, vc, lens, ks, vs, positions3=positions3, seq=seq)
+        cfg, q, k, v, kc, vc, lens, ks, vs, positions3=positions3, seq=seq,
+        donate=donate)
     return out_tp(cfg, p, sp, out, (q_lo, q_hi), mesh), kc, vc, ks, vs
 
 
@@ -890,7 +925,7 @@ def decode_step_sharded(cfg: ModelConfig, params: dict, cache: dict,
     lens = P.local_slice(cache["len"], (b_ax,), mesh)
     lsp = tree_map(lambda sp: sp[1:], ps["layers"])
     attn = decode_attn(cfg, mesh, lsp["attn"], cs["k"], cache["k"].shape,
-                       lens, positions3)
+                       lens, positions3, donate)
     names = [n for n in ("k", "v", "k_scale", "v_scale") if n in cache]
     new = {n: [] for n in names}
     for i in range(cfg.n_layers):
@@ -939,13 +974,14 @@ def decode_embed(cfg: ModelConfig, table, e_ax, ids, mesh, b_ax):
 
 
 def decode_attn(cfg: ModelConfig, mesh, asp: dict, k_spec, k_shape, lens,
-                positions3=None):
+                positions3=None, donate: bool = False):
     """``attn(p, hn, kc, vc, ks, vs)`` -> (out, kc, vc, ks, vs): one decode
     token's self-attention on a layer's local weights ``p`` (specs
     ``asp``) and its cache shards, the stacked K cache placed by
     ``k_spec`` (layers, batch, sequence, KV heads, hd) with local shape
     ``k_shape``: ``_attn_decode_tp`` on the rank's KV heads or sequence
-    shard, ``attn_decode_apply`` where nothing is split."""
+    shard, ``attn_decode_apply`` where nothing is split (``donate`` as
+    ``attn_decode_core``)."""
     _, _, s_ax, kv_ax = k_spec[:4]
     seq = None
     if P.mesh_axis_size(mesh, s_ax) > 1:
@@ -960,9 +996,9 @@ def decode_attn(cfg: ModelConfig, mesh, asp: dict, k_spec, k_shape, lens,
     def attn(p, hn, kc, vc, ks=None, vs=None):
         if whole:
             return attn_decode_apply(cfg, p, hn, kc, vc, lens, ks, vs,
-                                     positions3=positions3)
+                                     positions3=positions3, donate=donate)
         return _attn_decode_tp(cfg, p, asp, hn, kc, vc, ks, vs, lens, mesh,
-                               (kv_lo, kv_lo + n_kv), seq, positions3)
+                               (kv_lo, kv_lo + n_kv), seq, positions3, donate)
 
     return attn
 

@@ -52,14 +52,16 @@ def forward_sharded(cfg: ModelConfig, params: dict, batch: dict,
                              layout)
 
 
-def decode_step(cfg: ModelConfig, params: dict, cache: dict, batch: dict):
+def decode_step(cfg: ModelConfig, params: dict, cache: dict, batch: dict,
+                donate: bool = False):
     """Decode with the positions derived from ``cache["len"]`` unless the
-    batch carries ``positions3`` (3, B, 1)."""
+    batch carries ``positions3`` (3, B, 1) (``donate`` as
+    ``transformer.decode_step``)."""
     if "positions3" not in batch:
         b = batch["tokens"].shape[0]
         pos = cache["len"].to(torch.int32)[None, :, None]      # (1, B, 1)
         batch = dict(batch, positions3=pos.expand(3, b, 1))
-    return T.decode_step(cfg, params, cache, batch)
+    return T.decode_step(cfg, params, cache, batch, donate)
 
 
 def decode_step_sharded(cfg: ModelConfig, params: dict, cache: dict,

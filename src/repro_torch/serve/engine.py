@@ -288,16 +288,22 @@ class ServeEngine:
                 cfg, prefill_chunk, max_len, self.cache.seq_names,
                 self.cache.state_names, sparse=sparse, impl=impl,
                 device=self.device)
+        # a decode step may write its new K / V rows into the view it is
+        # given only where that view is the cache's own copy (paged), never
+        # the store itself (contiguous), which prefilling slots share
+        self._donate = self.cache.view_is_private
         if sparse is None:
             self._decode = _finite_step(
                 lambda p, c, b: serve_step_fn(cfg, p, c, b,
                                               temperature=temperature,
-                                              generator=self._gen))
+                                              generator=self._gen,
+                                              donate=self._donate))
         else:
             self._decode = _finite_step(
                 lambda p, c, b: serve_step_sparse_fn(
                     cfg, p, sparse, c, b, temperature=temperature,
-                    impl=impl, generator=self._gen, device=self.device))
+                    impl=impl, generator=self._gen, device=self.device,
+                    donate=self._donate))
         # the dense fallback of quarantined slots, built on first use over
         # the pruned dense copy of the same weights, so its greedy tokens
         # match the sparse path's: degraded is slower, never different
@@ -662,7 +668,8 @@ class ServeEngine:
             self._dense_decode = _finite_step(
                 lambda p, c, b: serve_step_fn(cfg, p, c, b,
                                               temperature=temperature,
-                                              generator=self._gen))
+                                              generator=self._gen,
+                                              donate=self._donate))
         return self._dense_decode, self._dense_params
 
     def _retry(self, fn, *args):

@@ -146,13 +146,15 @@ def inject_poisoned_decode(eng: ServeEngine, sparse_bad: dict) -> None:
     sparse dict — runtime corruption *after* the load-time verification
     passed (the engine's own ``sparse`` stays clean, so its dense
     fallback reconstructs uncontaminated weights).  The new closure
-    samples from the engine's generator on the engine's device."""
+    samples from the engine's generator on the engine's device and
+    donates the view where the engine's own closure does."""
     cfg, temperature, impl = eng.cfg, eng.temperature, eng.impl
     eng._decode = _finite_step(
         lambda p, c, b: serve_step_sparse_fn(cfg, p, sparse_bad, c, b,
                                              temperature=temperature,
                                              impl=impl, generator=eng._gen,
-                                             device=eng.device))
+                                             device=eng.device,
+                                             donate=eng._donate))
 
 
 def force_nonfinite_flag(eng: ServeEngine, slots, n_calls: int = 1):

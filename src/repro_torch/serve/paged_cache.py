@@ -15,7 +15,10 @@ decode ticks, rebuilt when block tables or pages change: counted in
 ``view_rebuilds``), ``apply_decode`` writes each committed slot's new
 row into its page, and ``scatter_chunk`` splices a prefill chunk's
 rows.  The arena is updated in place (the reference returns new arrays);
-the view is a separate tensor, so the two never alias.
+the view is a separate tensor, so the two never alias, and the decode
+step may write its new rows into the view itself (``view_is_private``:
+the engine donates it, as the reference's serve step donates its
+cache).
 
 Recurrent per-slot states (ssm / conv / wkv / tm_x / cm_x, whisper's
 cross caches) are O(1) per slot and stay slot-dense (``classify_cache``):
@@ -114,6 +117,10 @@ class _KVCacheBase:
 
 
 class PagedKVCache(_KVCacheBase):
+    # gather_view's K / V leaves are this cache's own copy of the pages:
+    # a decode step may write into them
+    view_is_private = True
+
     def __init__(self, cfg: ModelConfig, batch_slots: int, max_len: int,
                  block_size: int = 16, num_blocks: int | None = None,
                  device="cuda"):
@@ -298,6 +305,10 @@ class PagedKVCache(_KVCacheBase):
 
 class ContiguousKVCache(_KVCacheBase):
     """The classic one-arena-per-slot cache behind the paged interface."""
+
+    # gather_view hands out the store itself, whose rows prefilling slots
+    # share: a decode step must not write into it
+    view_is_private = False
 
     def __init__(self, cfg: ModelConfig, batch_slots: int, max_len: int,
                  device="cuda", **_):

@@ -39,10 +39,12 @@ def sample_tokens(cfg: ModelConfig, last: torch.Tensor, temperature: float,
 
 def serve_step_fn(cfg: ModelConfig, params: dict, cache: dict, batch: dict,
                   temperature: float = 0.0,
-                  generator: torch.Generator | None = None):
+                  generator: torch.Generator | None = None,
+                  donate: bool = False):
     """Dense decode step -> (next_tokens (B, 1), logits (B, 1, V),
-    new_cache); runs where ``params`` live."""
-    logits, cache = factory.decode_step(cfg, params, cache, batch)
+    new_cache); runs where ``params`` live (``donate`` as
+    ``factory.decode_step``)."""
+    logits, cache = factory.decode_step(cfg, params, cache, batch, donate)
     nxt = sample_tokens(cfg, logits[:, -1, :], temperature, generator)
     return nxt[:, None], logits, cache
 
@@ -51,12 +53,13 @@ def serve_step_sparse_fn(cfg: ModelConfig, params: dict, sparse: dict,
                          cache: dict, batch: dict, temperature: float = 0.0,
                          impl: str | None = None,
                          generator: torch.Generator | None = None,
-                         device=None):
+                         device=None, donate: bool = False):
     """ESPIM-format decode step -> (next_tokens (B, 1), logits (B, 1, V),
     new_cache); every covered projection runs through the packed
-    kernels."""
+    kernels (``donate`` as ``sparse_model.decode_step_sparse``)."""
     logits, cache = sparse_model.decode_step_sparse(
-        cfg, params, sparse, cache, batch, impl=impl, device=device)
+        cfg, params, sparse, cache, batch, impl=impl, device=device,
+        donate=donate)
     nxt = sample_tokens(cfg, logits[:, -1, :], temperature, generator)
     return nxt[:, None], logits, cache
 

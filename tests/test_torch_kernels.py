@@ -622,7 +622,8 @@ def test_new_wrappers_reject_cpu_tensors_and_dispatch():
 
 
 @pytest.mark.parametrize("name", ["espim_spmv", "dense_mv",
-                                  "flash_attention", "wkv"])
+                                  "flash_attention", "wkv",
+                                  "decode_attention"])
 def test_every_source_has_a_hashed_library(name):
     """One library per CUDA source, each named by a hash of its own
     source and the flags, under build/repro_torch."""
@@ -637,7 +638,8 @@ def test_every_source_has_a_hashed_library(name):
 # __global__ functions of the port's sources that are not SpMV kernels
 NOT_SPMV_KERNELS = ("dense_mv_kernel", "flash_attention_tf32_kernel",
                     "flash_attention_wgmma_kernel", "wkv6_fwd_kernel",
-                    "wkv6_bwd_kernel", "wkv6_du_kernel")
+                    "wkv6_bwd_kernel", "wkv6_du_kernel",
+                    "decode_attention_kernel")
 
 
 def _chip_smoke():
@@ -699,7 +701,8 @@ def _extern_c_signatures(source):
 
 
 @pytest.mark.parametrize("name", ["espim_spmv", "dense_mv",
-                                  "flash_attention", "wkv"])
+                                  "flash_attention", "wkv",
+                                  "decode_attention"])
 def test_ctypes_signatures_match_the_sources(name):
     """Every ``extern "C"`` entry point of a CUDA source is bound by
     ``build._SIGNATURES`` with the same parameter count and kinds (a
